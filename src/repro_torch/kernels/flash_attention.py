@@ -1,0 +1,92 @@
+"""Causal GQA flash attention on the card: wrapper around
+``csrc/flash_attention.cu``.
+
+The port of the JAX package's Pallas kernel ``kernels/flash_attention.py``
+(query head h reads kv head h // G, online softmax over key tiles, tiles
+above the diagonal skipped), extended with the arguments the port's
+prefill needs: ``q_offset`` (absolute position of query 0), ``kv_len``
+(keys j >= kv_len are invisible) and a sliding ``window``.  This wrapper
+checks its arguments, launches the CUDA kernel on the current stream and
+counts the launch; it never computes on the CPU (``ops.flash_attention``
+sends CPU tensors to ``ref.mha_reference``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from . import build
+
+MAX_HEAD_DIM = 128
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+@functools.cache
+def _entry():
+    fn = build.load("flash_attention").flash_attention_launch
+    fn.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _P]
+    fn.restype = _I
+    return fn
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, q_offset: int = 0,
+                    kv_len: Optional[int] = None,
+                    window: int = 0) -> torch.Tensor:
+    """q: (B, H, S, hd); k, v: (B, K, Skv, hd) with H % K == 0; any
+    strides with a unit stride over hd.  Query i is at absolute position
+    ``q_offset + i`` and sees key j iff j < kv_len (default Skv) and, when
+    causal, j <= q_offset + i and (window > 0) j > q_offset + i - window.
+    Returns (B, H, S, hd) in q's dtype, laid out like q.  float32 or
+    bfloat16 in, fp32 arithmetic."""
+    if not q.is_cuda:
+        raise ValueError("flash_attention launches a CUDA kernel; got a "
+                         f"tensor on {q.device}")
+    b, h, s, hd = q.shape
+    if k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"k/v must be (B, K, Skv, hd) and alike; got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    kb, kh, skv, khd = k.shape
+    if kb != b or khd != hd or kh <= 0 or h % kh:
+        raise ValueError(f"shapes q {tuple(q.shape)} / kv {tuple(k.shape)}: "
+                         "need matching B and hd and H % K == 0")
+    if not 0 < hd <= MAX_HEAD_DIM or s <= 0 or skv <= 0:
+        raise ValueError(f"head_dim {hd} must be in 1..{MAX_HEAD_DIM} and "
+                         "S, Skv positive")
+    kv_len = skv if kv_len is None else int(kv_len)
+    if not 0 <= kv_len <= skv or q_offset < 0 or window < 0:
+        raise ValueError(f"need 0 <= kv_len ({kv_len}) <= Skv ({skv}), "
+                         f"q_offset ({q_offset}) >= 0, window ({window}) >= 0")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: need one "
+                         "of float32, bfloat16 for all three")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("q, k and v need a unit stride over hd")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"all tensors must be on {q.device}")
+
+    out = torch.empty_like(q)   # keeps q's layout (dense strides)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _entry()(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), out.data_ptr(), b, h, kh, s, hd,
+                      int(q_offset), kv_len, int(window), int(causal),
+                      q.stride(0), q.stride(1), q.stride(2),
+                      k.stride(0), k.stride(1), k.stride(2),
+                      v.stride(0), v.stride(1), v.stride(2),
+                      out.stride(0), out.stride(1), out.stride(2), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

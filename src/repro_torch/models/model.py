@@ -1,0 +1,181 @@
+"""Model assembly for the dense family.
+
+Functions over a params dict, as in the JAX package: parameters are
+nested dicts of tensors stacked over layers (``params["layers"]["attn"]
+["wq"]`` is (L, d, H, hd)), and the layers run as a Python loop over
+that stacked dimension.  Other families raise ``NotImplementedError``.
+
+Public surface:
+  Model.init         -- random parameters from a seed, on a device
+  Model.forward      -- full-sequence causal forward -> logits (B, S, V)
+  Model.prefill      -- chunked prefill / extend from state.pos
+                        -> (logits (B, S, V), new state)
+  Model.decode_step  -- one-token decode -> (logits (B, V), new state)
+  Model.init_state   -- an empty KV cache
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+from .. import device as devices
+from . import attention as attn
+from .config import ModelConfig
+from .kvcache import DecodeState, make_decode_state
+from .layers import (ParamSpec, apply_mlp, apply_norm, embed_spec,
+                     init_params, mlp_spec, norm_spec, sinusoidal_positions,
+                     unembed_spec)
+
+Params = Dict[str, object]
+
+
+def flatten(tree: Dict, prefix: str = "") -> Dict[str, object]:
+    """Nested dict -> flat dict with '/'-joined keys (the checkpoint keys)."""
+    flat = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            flat.update(flatten(v, key + "/"))
+        else:
+            flat[key] = v
+    return flat
+
+
+def unflatten(flat: Dict[str, object]) -> Dict:
+    tree: Dict = {}
+    for key, v in flat.items():
+        node = tree
+        *path, leaf = key.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def _layer(stacked: Dict, i: int) -> Dict:
+    """Layer i's parameters as views into the stacked tensors."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg.validate()
+        if cfg.family != "dense":
+            raise NotImplementedError(f"family {cfg.family!r} is not ported "
+                                      "yet; the port runs the dense family")
+
+    # ------------------------------------------------------------- params --
+    def spec(self) -> Dict[str, ParamSpec]:
+        """Flat '/'-keyed parameter specs, the JAX package's keys and
+        layouts."""
+        cfg = self.cfg
+        d, nt = cfg.d_model, cfg.norm_type
+        layer = {"ln1": norm_spec(d, nt), "attn": attn.attn_spec(cfg),
+                 "ln2": norm_spec(d, nt),
+                 "mlp": mlp_spec(d, cfg.d_ff, cfg.act)}
+        tree = {"tok_embed": embed_spec(cfg.vocab_size, d),
+                "final_norm": norm_spec(d, nt),
+                "layers": {k: s.stacked(cfg.n_layers)
+                           for k, s in flatten(layer).items()}}
+        if not cfg.tie_embeddings:
+            tree["unembed"] = unembed_spec(d, cfg.vocab_size)
+        return flatten(tree)
+
+    def init(self, seed: int = 0, device="cuda",
+             dtype=torch.float32) -> Params:
+        """Random parameters drawn on the CPU from ``seed`` (the same on
+        every device), moved to ``device``."""
+        dev = devices.resolve(device)
+        gen = torch.Generator().manual_seed(seed)
+        return unflatten(init_params(self.spec(), gen, dev, dtype))
+
+    def init_state(self, batch: int, capacity: int, device="cuda",
+                   dtype=torch.float32, ring: bool = False) -> DecodeState:
+        return make_decode_state(self.cfg, batch, capacity,
+                                 devices.resolve(device), dtype, ring)
+
+    # ---------------------------------------------------------- embeddings --
+    def _embed(self, params, tokens: torch.Tensor, start: int
+               ) -> torch.Tensor:
+        cfg = self.cfg
+        x = params["tok_embed"][tokens]
+        if not cfg.use_rope:
+            pos = start + torch.arange(tokens.shape[1], device=x.device)
+            x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
+        return x
+
+    def _unembed(self, params, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.tie_embeddings:
+            return x @ params["tok_embed"].T
+        return x @ params["unembed"]
+
+    def _mlp_block(self, x, lp) -> torch.Tensor:
+        cfg = self.cfg
+        h = apply_norm(x, lp["ln2"], cfg.norm_type, cfg.rmsnorm_eps)
+        return x + apply_mlp(h, lp["mlp"], cfg.act)
+
+    # -------------------------------------------------------------- forward --
+    def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        """Full-sequence causal forward from position 0.  tokens: (B, S)
+        int; returns logits (B, S, V)."""
+        cfg = self.cfg
+        x = self._embed(params, tokens, 0)
+        positions = torch.arange(tokens.shape[1], device=x.device)
+        for i in range(cfg.n_layers):
+            lp = _layer(params["layers"], i)
+            h = apply_norm(x, lp["ln1"], cfg.norm_type, cfg.rmsnorm_eps)
+            x = x + attn.self_attention(h, lp["attn"], cfg, positions,
+                                        window=cfg.sliding_window)
+            x = self._mlp_block(x, lp)
+        x = apply_norm(x, params["final_norm"], cfg.norm_type,
+                       cfg.rmsnorm_eps)
+        return self._unembed(params, x)
+
+    # ----------------------------------------------------- prefill / extend --
+    def prefill(self, params, tokens: torch.Tensor, state: DecodeState
+                ) -> Tuple[torch.Tensor, DecodeState]:
+        """Process S tokens starting at ``state.pos``: writes their keys and
+        values into the state's caches in place and returns (logits
+        (B, S, V), the state advanced by S).  Prompts, step extends and
+        SpecReason verification passes all come through here."""
+        cfg = self.cfg
+        start = state.pos
+        x = self._embed(params, tokens, start)
+        for i in range(cfg.n_layers):
+            lp = _layer(params["layers"], i)
+            h = apply_norm(x, lp["ln1"], cfg.norm_type, cfg.rmsnorm_eps)
+            x = x + attn.prefill_self_attention(
+                h, lp["attn"], cfg, state.k[i], state.v[i], start,
+                cfg.sliding_window)
+            x = self._mlp_block(x, lp)
+        x = apply_norm(x, params["final_norm"], cfg.norm_type,
+                       cfg.rmsnorm_eps)
+        new_state = dataclasses.replace(state, pos=start + tokens.shape[1])
+        return self._unembed(params, x), new_state
+
+    # --------------------------------------------------------------- decode --
+    def decode_step(self, params, state: DecodeState, tokens: torch.Tensor
+                    ) -> Tuple[torch.Tensor, DecodeState]:
+        """One-token decode.  tokens: (B, 1).  Returns (logits (B, V), the
+        state advanced by one)."""
+        cfg = self.cfg
+        pos = state.pos
+        x = self._embed(params, tokens, pos)
+        lengths = torch.full((tokens.shape[0],),
+                             min(pos + 1, state.capacity),
+                             dtype=torch.int32, device=x.device)
+        for i in range(cfg.n_layers):
+            lp = _layer(params["layers"], i)
+            h = apply_norm(x, lp["ln1"], cfg.norm_type, cfg.rmsnorm_eps)
+            x = x + attn.decode_self_attention(
+                h, lp["attn"], cfg, state.k[i], state.v[i], pos, lengths,
+                ring=state.ring)
+            x = self._mlp_block(x, lp)
+        x = apply_norm(x, params["final_norm"], cfg.norm_type,
+                       cfg.rmsnorm_eps)
+        logits = self._unembed(params, x)[:, 0, :]
+        return logits, dataclasses.replace(state, pos=pos + 1)

@@ -54,3 +54,8 @@ def forced_xla_env():
     env["PYTHONPATH"] = "src" + (os.pathsep + env["PYTHONPATH"]
                                  if env.get("PYTHONPATH") else "")
     return env
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where CUDA is absent")
