@@ -6,22 +6,42 @@
 from the root of a checkout.  Phases, each printing its lines:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: ``nvcc`` for every kernel source, in parallel;
+2. build: ``nvcc`` for every kernel source, in parallel, with each
+   variant's registers and spills;
 3. kernels: each CUDA kernel against its plain PyTorch version on the
-   card, in fp32 and bf16, at the serving path's shapes (BASE and SMALL
-   heads, prefill buckets 4..256 at offsets in a 1024-slot cache, decode
-   at ragged lengths up to 1024) and at minitron-4b's attention shape
-   (24 query heads over 8 kv heads, hd 128: prefill S=2048, decode B=8
-   over 4096), with the kernel's, the plain version's and SDPA's times
-   and the card's bound;
-4. main path: random-init BASE/SMALL checkpoints written by the port,
-   served by ``repro_torch.launch.serve --scheme specreason`` on the card,
-   3 requests, greedy and at temperature 0.6, each run between a reset
-   and a read of the kernels' launch counters, which must equal
-   n_layers x the engines' metered decode and prefill calls; the greedy
-   run must see the verifier both accept and reject a drafted step;
+   card, in fp32 and bf16, with the kernel's, the plain version's and a
+   PyTorch yardstick's times and the card's bound:
+   * flash-decode and causal prefill (the sequential path) at the serving
+     path's shapes (BASE and SMALL heads, prefill buckets 4..256 at
+     offsets in a 1024-slot cache, decode at ragged lengths up to 1024)
+     and at minitron-4b's attention shape (24 query heads over 8 kv
+     heads, hd 128: prefill S=2048, decode B=8 over 4096);
+   * paged flash-decode and paged span attention (the continuous path)
+     over shuffled 16-token pages with ragged lengths (0 and 1 among
+     them) and two rows aliasing one page, spans T of 5, 16, 64 and 256
+     with span_len < T, and minitron-4b's shape: B=8 over 4096 tokens
+     (256 pages a row), T = 5 (gamma + 1) and a 64-query chunk; the
+     yardstick is SDPA over the pre-gathered dense K/V (gather excluded);
+4. main path, sequential: random-init BASE/SMALL checkpoints written by
+   the port, served by ``repro_torch.launch.serve --scheme specreason``
+   on the card, 3 requests, greedy and at temperature 0.6; launches of
+   the dense kernels must equal n_layers x the engines' metered decode
+   and prefill calls, and the greedy run must see the verifier both
+   accept and reject a drafted step;
 5. check: BASE and SMALL logits on the card against the same checkpoint
-   on the CPU, over a prefill and decode steps;
+   on the CPU, over a prefill and decode steps, and over the batched
+   path (one ``prefill_rows`` and one ``decode_rows`` on 3 ragged rows);
+6. main path, continuous: ``serve --scheduler continuous
+   --no-prefix-cache``, 8 requests over 4 rows, greedy and at 0.6, then
+   with ``--spec-decode --gamma 4``, then greedy under a KV budget that
+   preempts; per request latency, TTFT and TPOT, and tokens/s, ticks,
+   preemptions and acceptance per run.  Paged-decode launches must equal
+   n_layers x the batched engines' decode steps, paged-append launches
+   n_layers x their extend calls, the dense kernels must not launch, and
+   the pressured greedy run must give the unpressured greedy tokens.
+   For information, how many requests' continuous greedy tokens equal
+   the sequential path's on the card (batch-size-dependent GEMMs may
+   move a logit by an ulp);
 then the card again, one JSON line of per-kernel numbers, and
 ``{"ok": true, "device": {...}}`` as the last line.  Any failure exits
 non-zero before that line; without CUDA, or outside a checkout, it exits
@@ -44,6 +64,9 @@ CACHE = 1024           # the serving engines' max_len
 # threshold makes the verifier both accept and reject drafted steps
 THRESHOLD = 4.5
 BUCKETS = (4, 8, 16, 32, 64, 128, 256)
+# a KV budget (MB, accounted at 2 bytes an element) under which 8 requests
+# over 4 rows of the testbed pair preempt
+PRESSURE_MB = 1
 
 
 def nvidia_smi() -> str:
@@ -177,6 +200,158 @@ def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron):
     return records
 
 
+def paged_kernel_phase(torch, F, ref, paged_decode, paged_append,
+                       minitron):
+    """The paged kernels against their plain versions at the continuous
+    path's shapes and minitron-4b's.  Returns per-kernel records."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    heads = {"base": (8, 4, 28), "small": (4, 2, 32),
+             "minitron": (minitron.n_heads, minitron.n_kv_heads,
+                          minitron.resolved_head_dim)}
+    bs = 16
+    records = {"paged_decode_attention": [], "paged_append_attention": []}
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def pool_and_tables(lens, kh, hd, dtype):
+        """Pages of a 2-layer store (layer 1 is passed, as the model
+        does), each row on shuffled pages, rows 0 and 1 sharing their
+        first page."""
+        nb = max(1, max(-(-n // bs) for n in lens))
+        n_pages = len(lens) * nb + 7
+        kp = randn(2, n_pages, kh, bs, hd, dtype=dtype)[1]
+        vp = randn(2, n_pages, kh, bs, hd, dtype=dtype)[1]
+        perm = torch.randperm(n_pages, generator=gen, device=dev)
+        tables = perm[:len(lens) * nb].reshape(len(lens), nb).to(torch.int32)
+        if len(lens) > 1:
+            tables[1, 0] = tables[0, 0]
+        return kp, vp, tables.contiguous()
+
+    def gathered(pages, tables):
+        """(B, K, nb*bs, hd) dense K/V: the yardstick's input."""
+        b, nb = tables.shape
+        _, kh, _, hd = pages.shape
+        return pages[tables.long()].transpose(1, 2).reshape(b, kh, nb * bs,
+                                                            hd)
+
+    def check(name, out, exp, dtype, label):
+        err = (out.float() - exp.float()).abs().max().item() \
+            if out.numel() else 0.0
+        if not torch.allclose(out.float(), exp.float(), atol=TOL[dtype],
+                              rtol=TOL[dtype]):
+            raise AssertionError(f"{name} {label}: max |err| {err} beyond "
+                                 f"atol = rtol = {TOL[dtype]}")
+        return err
+
+    decode_cases = [("base", [0, 1, 77, 640]), ("base", [130]),
+                    ("small", [1, 300, 777, 1024]),
+                    ("minitron", [4096] * 8)]
+    append_cases = [("base", 5, [0, 1, 90, 300], [5, 3, 5, 4]),
+                    ("base", 16, [1, 100], [16, 11]),
+                    ("base", 64, [0, 200, 37], [64, 40, 64]),
+                    ("base", 256, [0, 500], [256, 199]),
+                    ("small", 5, [0, 1, 700], [5, 2, 5]),
+                    ("small", 16, [17, 1000], [16, 9]),
+                    ("small", 64, [64, 3], [50, 64]),
+                    ("small", 256, [0, 300], [256, 100]),
+                    ("minitron", 5, [4096] * 8, [5] * 8),
+                    ("minitron", 64, [4096] * 8, [64] * 8)]
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        esize = torch.tensor([], dtype=dt).element_size()
+        for model, lens in decode_cases:
+            h, kh, hd = heads[model]
+            b = len(lens)
+            kp, vp, tables = pool_and_tables(lens, kh, hd, dt)
+            q = randn(b, h, hd, dtype=dt)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            label = f"{model} {dname} B={b} lengths={lens[:4]}" + (
+                "..." if b > 4 else "")
+            live = lengths > 0     # the plain version averages an empty row
+            out = paged_decode(q, kp, vp, tables, lengths)
+            err = check("paged_decode_attention", out[live],
+                        ref.paged_decode_reference(q, kp, vp, tables,
+                                                   lengths)[live],
+                        dname, label)
+            if not torch.all(out[~live] == 0):
+                raise AssertionError(f"paged_decode_attention {label}: an "
+                                     "empty row is not 0")
+            kd, vd = gathered(kp, tables), gathered(vp, tables)
+            mask = (torch.arange(kd.shape[2], device=dev)[None, :]
+                    < lengths[:, None])[:, None, None, :]
+            ms = time_ms(torch, lambda: paged_decode(q, kp, vp, tables,
+                                                     lengths))
+            plain_ms = time_ms(torch, lambda: ref.paged_decode_reference(
+                q, kp, vp, tables, lengths))
+            q4 = q[:, :, None, :]
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, kd, vd, attn_mask=mask, enable_gqa=True))
+            keys = sum(lens)
+            nbytes = (2 * q.numel() + 2 * keys * kh * hd) * esize \
+                + 4 * (b + sum(-(-n // bs) for n in lens))
+            bound_ms, by = bound(nbytes, 4 * hd * h * keys, dname)
+            records["paged_decode_attention"].append(dict(
+                shape=label, dtype=dname, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=by))
+            print(f"[kernels] paged_decode_attention {label}: err {err:.3g} "
+                  f"| kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                  f"over gathered K/V (gather excluded) {lib_ms:.4f} ms, "
+                  f"bound {bound_ms:.5f} ms ({by})", flush=True)
+
+        for model, t, ctx, span in append_cases:
+            h, kh, hd = heads[model]
+            b = len(ctx)
+            kp, vp, tables = pool_and_tables([c + t for c in ctx], kh, hd, dt)
+            q = randn(b, t, h, hd, dtype=dt)
+            kn = randn(b, t, kh, hd, dtype=dt)
+            vn = randn(b, t, kh, hd, dtype=dt)
+            cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+            sl = torch.tensor(span, dtype=torch.int32, device=dev)
+            args = (q, kn, vn, kp, vp, tables, cl, sl)
+            label = (f"{model} {dname} T={t} B={b} ctx={ctx[:4]} "
+                     f"span={span[:4]}" + ("..." if b > 4 else ""))
+            out = paged_append(*args)
+            exp = ref.paged_append_reference(*args)
+            err = max(check("paged_append_attention", out[i, :n], exp[i, :n],
+                            dname, label)        # rows past span_len: unset
+                      for i, n in enumerate(span))
+            # the yardstick: SDPA over the pre-gathered context with the
+            # span appended, under the same mask (gather excluded)
+            kd = torch.cat([gathered(kp, tables), kn.transpose(1, 2)], 2)
+            vd = torch.cat([gathered(vp, tables), vn.transpose(1, 2)], 2)
+            s_ctx = kd.shape[2] - t
+            kj = torch.arange(s_ctx + t, device=dev)[None, None, :]
+            qi = torch.arange(t, device=dev)[None, :, None]
+            mask = ((kj < cl[:, None, None]) & (kj < s_ctx)) | (
+                (kj >= s_ctx) & (kj - s_ctx <= qi)
+                & (kj - s_ctx < sl[:, None, None]))
+            qh = q.transpose(1, 2)
+            ms = time_ms(torch, lambda: paged_append(*args))
+            plain_ms = time_ms(torch, lambda: ref.paged_append_reference(
+                *args), reps=5 if model == "minitron" else 30)
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kd, vd, attn_mask=mask[:, None], enable_gqa=True))
+            pairs = sum(n * c + n * (n + 1) // 2 for c, n in zip(ctx, span))
+            real = sum(span)
+            nbytes = (2 * real * h * hd + 2 * real * kh * hd
+                      + 2 * sum(ctx) * kh * hd) * esize \
+                + 4 * (2 * b + sum(-(-(c + n) // bs)
+                                   for c, n in zip(ctx, span)))
+            bound_ms, by = bound(nbytes, 4 * hd * h * pairs, dname)
+            records["paged_append_attention"].append(dict(
+                shape=label, dtype=dname, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=by))
+            print(f"[kernels] paged_append_attention {label}: err {err:.3g} "
+                  f"| kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                  f"over gathered K/V (gather excluded) {lib_ms:.4f} ms, "
+                  f"bound {bound_ms:.5f} ms ({by})", flush=True)
+    return records
+
+
 def main_path_phase(torch, serve, decode_kernel, flash_kernel, ckpt):
     """Serve 3 specreason requests on the card, greedy and sampled; the
     kernels' launch counts must equal n_layers x the metered calls."""
@@ -262,6 +437,157 @@ def check_phase(torch, Model, load_checkpoint, testbed, serve, tasks,
           f"thinking tokens agree of {len(a)} / {len(b)}", flush=True)
 
 
+def rows_check_phase(torch, Model, BatchEngine, testbed, load_checkpoint,
+                     loader, ckpt):
+    """The batched paged path's logits, card against CPU: one
+    ``prefill_rows`` and one ``decode_rows`` step on 3 ragged rows."""
+    prompts = [list(range(10, 15)), list(range(20, 39)),
+               list(range(5, 38))]
+    for cfg in (testbed.BASE, testbed.SMALL):
+        m = Model(cfg)
+        logits = {}
+        for dev in ("cuda", "cpu"):
+            params = load_checkpoint(loader.checkpoint_path(ckpt, cfg), dev)
+            be = BatchEngine(m, params, batch=4, capacity=CACHE)
+            rows = [be.alloc_row() for _ in prompts]
+            ext = be.extend_rows(rows, prompts, want_logits=True)
+            be.feed_rows(rows, [7, 8, 9])
+            logits[dev] = torch.cat(ext + [be.last_logits[rows]]).cpu()
+        err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        if not torch.allclose(logits["cuda"], logits["cpu"], atol=LOGIT_TOL,
+                              rtol=LOGIT_TOL):
+            raise AssertionError(f"{cfg.name} batched rows: card vs CPU "
+                                 f"logits differ by {err} (> {LOGIT_TOL})")
+        print(f"[check] {cfg.name} batched rows (prefill_rows + decode_rows,"
+              f" 3 ragged rows): card vs CPU logits max |diff| {err:.3g} "
+              f"(tolerance {LOGIT_TOL})", flush=True)
+
+
+def continuous_phase(torch, serve, kernels, ckpt):
+    """Serve the continuous path on the card; check the launch counters,
+    and that a pressured greedy run gives the unpressured greedy
+    tokens.  Returns (paged launches per kernel, greedy report)."""
+    argv = ["--scheduler", "continuous", "--no-prefix-cache", "-n", "8",
+            "--batch", "4", "--budget", "128", "--threshold", str(THRESHOLD),
+            "--ckpt-dir", ckpt, "--device", "cuda"]
+    runs = [("greedy", ["--temperature", "0"]),
+            ("sampled", ["--temperature", "0.6"]),
+            ("spec greedy", ["--temperature", "0", "--spec-decode",
+                             "--gamma", "4"]),
+            ("spec sampled", ["--temperature", "0.6", "--spec-decode",
+                              "--gamma", "4"]),
+            ("pressured greedy", ["--temperature", "0", "--kv-budget-mb",
+                                  str(PRESSURE_MB)])]
+    launches = {"paged_decode_attention": 0, "paged_append_attention": 0}
+    reports = {}
+    for label, extra in runs:
+        for k in kernels.values():
+            k.launches = 0
+        report = serve.main(argv + extra)
+        got = {n: k.launches for n, k in kernels.items()}
+        sched, st = report.sched, report.stats
+        want_decode = want_append = 0
+        for be in (sched.base_be, sched.small_be):
+            n = be.model.cfg.n_layers
+            want_decode += n * be.meter.decode_steps
+            want_append += n * be.meter.prefill_calls
+        if (got["paged_decode_attention"], got["paged_append_attention"]) \
+                != (want_decode, want_append) or not want_decode \
+                or got["decode_attention"] or got["flash_attention"]:
+            raise AssertionError(
+                f"continuous {label}: launches {got} != paged decode "
+                f"{want_decode}, paged append {want_append}, dense 0")
+        for i, h in enumerate(report.handles):
+            res = h.result
+            n_out = res.n_thinking_tokens + len(res.answer_ids)
+            tpot = h.tpot(n_out)
+            acc = [s.accepted for s in res.steps if s.source == "small"]
+            print(f"[main] continuous {label} req{i}: latency "
+                  f"{h.e2e_latency * 1e3:.1f} ms, TTFT {h.ttft * 1e3:.1f} ms,"
+                  f" TPOT {tpot * 1e3:.2f} ms, {n_out} tokens, "
+                  f"{sum(acc)} / {len(acc)} drafted steps accepted"
+                  + (f", spec {res.spec_stats.accepted}/"
+                     f"{res.spec_stats.proposed} over "
+                     f"{res.spec_stats.rounds} rounds"
+                     if res.spec_stats.rounds else ""), flush=True)
+        steps = [s for *_, res in report.runs for s in res.steps
+                 if s.source == "small"]
+        print(f"[main] continuous {label}: {st['tok_s']} tok/s, "
+              f"{st['req_s']} req/s, wall {st['wall_s']} s, ticks "
+              f"{st['ticks']}, preemptions {st['preemptions']}, accepted "
+              f"steps {sum(s.accepted for s in steps)} / {len(steps)}, "
+              f"TTFT p50 {st.get('p50_ttft_s')} s p95 {st.get('p95_ttft_s')}"
+              f" s, TPOT p50 {st.get('p50_tpot_s')} s p95 "
+              f"{st.get('p95_tpot_s')} s"
+              + (f", spec mean accepted length "
+                 f"{st['spec_mean_accepted_len']} (acceptance "
+                 f"{st['spec_acceptance_rate']})" if 'spec_requests' in st
+                 else "") + f"; launches paged decode "
+              f"{got['paged_decode_attention']}, paged append "
+              f"{got['paged_append_attention']} == n_layers x metered "
+              f"steps/extends; dense 0; KV store bytes "
+              f"{st['kv_store_bytes']} (accounted "
+              f"{st['kv_accounted_bytes']})", flush=True)
+        launches["paged_decode_attention"] += got["paged_decode_attention"]
+        launches["paged_append_attention"] += got["paged_append_attention"]
+        reports[label] = report
+
+    def tokens(report):
+        return [r.thinking_ids + r.answer_ids for *_, r in report.runs]
+    press = reports["pressured greedy"]
+    if press.sched.preemptions < 1:
+        raise AssertionError(f"--kv-budget-mb {PRESSURE_MB} preempted no "
+                             "request")
+    if tokens(press) != tokens(reports["greedy"]):
+        raise AssertionError("pressured greedy tokens differ from the "
+                             "unpressured run's")
+    print(f"[main] continuous: the pressured run ({press.sched.preemptions} "
+          "preemptions) gives the unpressured greedy tokens", flush=True)
+    spec, plain = tokens(reports["spec greedy"]), tokens(reports["greedy"])
+    same = sum(a == b for a, b in zip(spec, plain))
+    print(f"[main] continuous (information): spec-decode greedy tokens equal"
+          f" plain greedy for {same} of {len(spec)} requests", flush=True)
+    return launches, reports["greedy"]
+
+
+def batch_invariance_phase(torch, serve, tasks, Model, load_checkpoint,
+                           testbed, loader, ckpt, greedy):
+    """Information, not a check: continuous greedy tokens against the
+    sequential path's on the card, with the first differing token and
+    the logit gap there."""
+    seq = serve.main(["--scheme", "specreason", "-n", "8", "--budget", "128",
+                      "--temperature", "0", "--threshold", str(THRESHOLD),
+                      "--ckpt-dir", ckpt, "--device", "cuda"])
+    models = {}
+    for cfg in (testbed.BASE, testbed.SMALL):
+        models[cfg.name] = (Model(cfg), load_checkpoint(
+            loader.checkpoint_path(ckpt, cfg), "cuda"))
+    same = 0
+    for (_, i, task, a), (_, _, _, b) in zip(greedy.runs, seq.runs):
+        ta, tb = a.thinking_ids + a.answer_ids, b.thinking_ids + b.answer_ids
+        if ta == tb:
+            same += 1
+            continue
+        k = next((j for j, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                 min(len(ta), len(tb)))
+        prefix = tasks.question_tokens(task) + ta[:k]
+        gaps = []
+        if k < min(len(ta), len(tb)):
+            for name, (m, p) in models.items():
+                with torch.no_grad():
+                    lg = m.forward(p, torch.tensor([prefix], device="cuda"))
+                gap = lg[0, -1, ta[k]] - lg[0, -1, tb[k]]
+                gaps.append(f"{name} {gap:.3g}")
+        print(f"[main] batch invariance req{i}: first difference at output "
+              f"token {k} (continuous {ta[k] if k < len(ta) else None}, "
+              f"sequential {tb[k] if k < len(tb) else None}); logit gap "
+              f"there (continuous - sequential token): {', '.join(gaps)}",
+              flush=True)
+    print(f"[main] batch invariance (information): {same} of "
+          f"{len(greedy.runs)} requests' continuous greedy tokens equal the "
+          "sequential path's on the card", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -276,9 +602,14 @@ def main() -> int:
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_append_attention import \
+        paged_append_attention
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
     from repro_torch.serving import loader
+    from repro_torch.serving.batch_engine import BatchEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -302,25 +633,50 @@ def main() -> int:
 
     records = kernel_phase(torch, F, ref, decode_attention, flash_attention,
                            minitron_4b.CONFIG)
+    records.update(paged_kernel_phase(torch, F, ref, paged_decode_attention,
+                                      paged_append_attention,
+                                      minitron_4b.CONFIG))
 
     ckpt = os.path.join(ROOT, "build", "smoke_ckpt")
     loader.save_random_testbed(ckpt, seed=0)
+    paged_decode_attention.launches = paged_append_attention.launches = 0
     launches, greedy = main_path_phase(torch, serve, decode_attention,
                                        flash_attention, ckpt)
+    if paged_decode_attention.launches or paged_append_attention.launches:
+        raise AssertionError("the sequential path launched a paged kernel")
     check_phase(torch, Model, load_checkpoint, testbed, serve, tasks, loader,
                 greedy, ckpt)
+    rows_check_phase(torch, Model, BatchEngine, testbed, load_checkpoint,
+                     loader, ckpt)
+    kernels = {"decode_attention": decode_attention,
+               "flash_attention": flash_attention,
+               "paged_decode_attention": paged_decode_attention,
+               "paged_append_attention": paged_append_attention}
+    paged, cont_greedy = continuous_phase(torch, serve, kernels, ckpt)
+    launches.update(paged)
+    batch_invariance_phase(torch, serve, tasks, Model, load_checkpoint,
+                           testbed, loader, ckpt, cont_greedy)
 
     # one record per kernel at a representative serving-path shape (BASE
-    # heads, fp32): decode at 128 cached tokens, a 16-token extend at 100
+    # heads, fp32): decode at 128 cached tokens, a 16-token extend at 100;
+    # a paged decode step of 4 ragged rows, a 16-token paged extend
     rep = {"decode_attention": "base float32 B=1 cache=1024 lengths=[128]",
            "flash_attention": "base float32 S=16 q_offset=100 kv=1024 "
-                              "causal=True window=0"}
+                              "causal=True window=0",
+           "paged_decode_attention": "base float32 B=4 "
+                                     "lengths=[0, 1, 77, 640]",
+           "paged_append_attention": "base float32 T=16 B=2 ctx=[1, 100] "
+                                     "span=[16, 11]"}
     sources = {"decode_attention": "src/repro/kernels/decode_attention.py:83",
-               "flash_attention": "src/repro/kernels/flash_attention.py:90"}
-    kernels = []
+               "flash_attention": "src/repro/kernels/flash_attention.py:90",
+               "paged_decode_attention":
+                   "src/repro/kernels/paged_decode_attention.py:89",
+               "paged_append_attention":
+                   "src/repro/kernels/paged_append_attention.py:118"}
+    kernels_json = []
     for name, recs in records.items():
         r = next(x for x in recs if x["shape"] == rep[name])
-        kernels.append(dict(
+        kernels_json.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",
             replaces=sources[name], launches=launches[name],
@@ -333,7 +689,7 @@ def main() -> int:
             shape=r["shape"], shapes=recs))
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(nvidia_smi(), flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels_json}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

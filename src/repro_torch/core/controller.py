@@ -14,8 +14,11 @@ in the JAX package.  Random draws come from one ``torch.Generator`` per
 request, in place of the JAX package's key splits, so sampled runs are
 not token-identical to the JAX package's; greedy runs are.
 
-Token-level speculative decoding inside regeneration
-(``use_spec_decode``, SpecReason+Decode) is not ported yet and raises.
+With ``use_spec_decode`` (SpecReason+Decode, §4.2) every base-model
+regeneration and the final answer run token-level speculative decoding
+(``core.spec_decode``).  The continuous-batching scheduler
+(``serving.scheduler``) drives the same state machine and reuses the
+decision helpers here.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..tokenizer import toy as tk
 from .policies import AcceptancePolicy, LogprobMargin, StaticThreshold, \
     Verdict
 from .segmenter import SegmenterConfig, StepSegmenter
+from .spec_decode import SpecDecodeStats, spec_decode
 from .verifier import Verifier
 
 
@@ -45,8 +49,10 @@ class SpecReasonConfig:
     # thinking-token budget
     token_budget: int = 256
     max_steps: int = 24
-    # token-level spec decode inside base regeneration (not ported yet)
+    # hierarchical speculation: token-level spec decode inside base
+    # regeneration and the final answer (SpecReason+Decode, §4.2)
     use_spec_decode: bool = False
+    spec_gamma: int = 4
     # draft step k+1 while step k is verified (the paper's pipelining
     # future work); the sequential runtime measures the overlap-eligible
     # seconds in SpecReasonResult.overlapped_s
@@ -74,6 +80,8 @@ class SpecReasonResult:
     wall_time: float
     meters: Dict[str, Dict[str, float]]
     overlapped_s: float = 0.0
+    spec_stats: SpecDecodeStats = dataclasses.field(
+        default_factory=SpecDecodeStats)
 
     @property
     def critical_path_s(self) -> float:
@@ -100,7 +108,9 @@ class SpecReasonResult:
 
 @dataclasses.dataclass
 class SpecReasonStepState:
-    """One request's resumable control state."""
+    """One request's resumable control state.  The sequential path
+    keeps the engine context in ``base_sess``/``small_sess``; the
+    continuous scheduler leaves them None and keeps row handles."""
     generator: torch.Generator
     phase: str = "speculate"   # speculate|verify|fallback|close|answer|done
     base_sess: Optional[Session] = None
@@ -111,6 +121,8 @@ class SpecReasonStepState:
     done_thinking: bool = False
     answer_ids: List[int] = dataclasses.field(default_factory=list)
     overlapped_s: float = 0.0
+    spec_stats: SpecDecodeStats = dataclasses.field(
+        default_factory=SpecDecodeStats)
     started_at: float = dataclasses.field(default_factory=time.perf_counter)
     # transient, valid between speculate and verify:
     draft_ids: Optional[List[int]] = None
@@ -127,10 +139,6 @@ class SpecReason:
         self.base = base
         self.small = small
         self.cfg = cfg or SpecReasonConfig()
-        if self.cfg.use_spec_decode:
-            raise NotImplementedError(
-                "use_spec_decode (SpecReason+Decode) needs the token-level "
-                "spec_decode, which is not ported yet")
         self.segmenter = StepSegmenter(self.cfg.segmenter)
         self.verifier = Verifier(base)
 
@@ -165,14 +173,20 @@ class SpecReason:
         step(st)
         return st
 
-    def result(self, st: SpecReasonStepState) -> SpecReasonResult:
+    def result(self, st: SpecReasonStepState,
+               meters: Optional[Dict[str, Dict[str, float]]] = None
+               ) -> SpecReasonResult:
+        """Package a finished state.  ``meters`` overrides the sequential
+        engines' meters (the continuous scheduler passes its batched
+        engines' aggregate meters)."""
         assert st.phase == "done"
         return SpecReasonResult(
             thinking_ids=st.thinking, answer_ids=st.answer_ids,
             steps=st.steps, wall_time=time.perf_counter() - st.started_at,
-            meters={"base": self.base.meter.as_dict(),
-                    "small": self.small.meter.as_dict()},
-            overlapped_s=st.overlapped_s)
+            meters=meters if meters is not None else
+            {"base": self.base.meter.as_dict(),
+             "small": self.small.meter.as_dict()},
+            overlapped_s=st.overlapped_s, spec_stats=st.spec_stats)
 
     # ----------------------------------------------------- decision helpers
     def think_phase(self, st: SpecReasonStepState) -> str:
@@ -292,11 +306,18 @@ class SpecReason:
 
     def step_fallback(self, st: SpecReasonStepState) -> None:
         cfg = self.cfg
-        ids, st.base_sess, _ = self.base.generate(
-            st.base_sess, self.max_step_tokens(st), self.segmenter.stop_ids,
-            cfg.sampling, st.generator)
-        # keep the small model's context in sync
-        st.small_sess = self.small.extend(st.small_sess, ids)
+        max_step = self.max_step_tokens(st)
+        if cfg.use_spec_decode:
+            ids, st.base_sess, st.small_sess = spec_decode(
+                self.base, self.small, st.base_sess, st.small_sess,
+                max_step, self.segmenter.stop_ids, cfg.sampling,
+                st.generator, gamma=cfg.spec_gamma, stats=st.spec_stats)
+        else:
+            ids, st.base_sess, _ = self.base.generate(
+                st.base_sess, max_step, self.segmenter.stop_ids,
+                cfg.sampling, st.generator)
+            # keep the small model's context in sync
+            st.small_sess = self.small.extend(st.small_sess, ids)
         self.note_base_step(st, ids)
 
     def step_close(self, st: SpecReasonStepState) -> None:
@@ -312,7 +333,13 @@ class SpecReason:
     def step_answer(self, st: SpecReasonStepState) -> None:
         # the final answer always comes from the base model
         cfg = self.cfg
-        st.answer_ids, st.base_sess, _ = self.base.generate(
-            st.base_sess, cfg.answer_max_tokens, [tk.EOS], cfg.sampling,
-            st.generator)
+        if cfg.use_spec_decode:
+            st.answer_ids, st.base_sess, st.small_sess = spec_decode(
+                self.base, self.small, st.base_sess, st.small_sess,
+                cfg.answer_max_tokens, [tk.EOS], cfg.sampling, st.generator,
+                gamma=cfg.spec_gamma, stats=st.spec_stats)
+        else:
+            st.answer_ids, st.base_sess, _ = self.base.generate(
+                st.base_sess, cfg.answer_max_tokens, [tk.EOS], cfg.sampling,
+                st.generator)
         st.phase = "done"

@@ -5,8 +5,14 @@ decode_attention  flash-decode: one token per row over a dense KV cache
 flash_attention   causal GQA prefill / verification attention with a
                   query offset, a kv length and a window (port of the
                   Pallas ``flash_attention``)
+paged_decode_attention  flash-decode over a page pool through per-row block
+                  tables (port of the Pallas ``paged_decode_attention``)
+paged_append_attention  span attention: T queries per row over its pages
+                  plus the span's own K/V (port of the Pallas
+                  ``paged_append_attention``)
 
-``csrc/`` holds the CUDA sources, ``build`` compiles them with nvcc at
+``csrc/`` holds the CUDA sources (``decode_core.cuh`` is the flash-decode
+body both decode kernels share), ``build`` compiles them with nvcc at
 first use, ``ref`` holds the plain PyTorch versions, and ``ops``
 dispatches: CPU tensors to ``ref``, CUDA tensors to the kernels.
 """

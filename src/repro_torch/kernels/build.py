@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers),
 so ``nvcc`` builds it in seconds into ``build/kernels/`` at the root of
 the checkout (listed in ``.gitignore``), and ``ctypes`` loads it.  A
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded.  ``build`` starts
-one ``nvcc`` per missing library, all at once; ``load`` builds on first
-use.  Nothing is built or loaded when this module is imported.
+library's file name carries a hash of its source, the shared headers and
+the flags, so an edited source is rebuilt and a stale library is never
+loaded.  ``build`` starts one ``nvcc`` per missing library, all at once;
+``load`` builds on first use.  Nothing is built or loaded when this
+module is imported.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("decode_attention", "flash_attention")
+SOURCES = ("decode_attention", "flash_attention", "paged_decode_attention",
+           "paged_append_attention")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600
@@ -41,8 +43,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    """The library's path; its name hashes the source, every shared
+    header in ``csrc/`` and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = hashlib.sha256(h.digest()
                             + " ".join(FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

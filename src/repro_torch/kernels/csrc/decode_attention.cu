@@ -33,41 +33,30 @@
 //    the partial (max, sum, acc) triples.  Splits past a row's length exit
 //    at once, so the cache's capacity costs no reads.
 //
+// The block body and the merge kernel live in decode_core.cuh, shared with
+// the paged flash-decode kernel (paged_decode_attention.cu).
+//
 // Plain C interface for ctypes; the launch returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cmath>
+#include "decode_core.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kChunk = 32;      // keys per shared-memory chunk (= warp size)
-constexpr int kMaxGroup = 8;    // query heads per kv head
-constexpr float kNeg = -1e30f;  // the TPU kernel's NEG_INF
+using namespace repro;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffff, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffff, x, o);
-  return x;
-}
+// keys of one (row, kv head) of a dense (B, KH, S, hd) cache
+template <typename T>
+struct DenseKeys {
+  const T* kb;
+  const T* vb;
+  long long k_ss, v_ss;
+  __device__ __forceinline__ const T* k(int j) const { return kb + j * k_ss; }
+  __device__ __forceinline__ const T* v(int j) const { return vb + j * v_ss; }
+};
 
 // grid (n_split, K, B); one block per (split, kv head, row).
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDecodeThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ lengths,
               T* __restrict__ out, float* __restrict__ part, int H, int KH,
@@ -75,124 +64,14 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               long long k_sb, long long k_sh, long long k_ss, long long v_sb,
               long long v_sh, long long v_ss, long long o_sb, long long o_sh,
               float scale) {
-  constexpr int kPer = kMaxGroup * HD / kThreads;  // (g, d) slots per thread
-  __shared__ float qs[kMaxGroup][HD];
-  __shared__ float ks[kChunk][HD + 1];
-  __shared__ float vs[kChunk][HD + 1];
-  __shared__ float ps[kMaxGroup][kChunk];
-  __shared__ float m_s[kMaxGroup], l_s[kMaxGroup], a_s[kMaxGroup];
-
   const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
-  const int n_split = gridDim.x;
-  const int G = H / KH;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
   const int len = min(max(lengths[b], 0), S);
   const int lo = split * split_keys;
   const int hi = min(lo + split_keys, len);
-
-  for (int i = tid; i < G * hd; i += kThreads) {
-    const int g = i / hd, d = i % hd;
-    qs[g][d] = to_f32(q[b * q_sb + (long long)(kh * G + g) * q_sh + d]) * scale;
-  }
-  if (tid < G) {
-    m_s[tid] = kNeg;
-    l_s[tid] = 0.f;
-  }
-  float acc[kPer];
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) acc[r] = 0.f;
-  __syncthreads();
-
-  const T* kb = k + b * k_sb + kh * k_sh;
-  const T* vb = v + b * v_sb + kh * v_sh;
-  for (int c0 = lo; c0 < hi; c0 += kChunk) {
-    const int n = min(kChunk, hi - c0);
-    for (int i = tid; i < n * hd; i += kThreads) {
-      const int j = i / hd, d = i % hd;
-      ks[j][d] = to_f32(kb[(long long)(c0 + j) * k_ss + d]);
-      vs[j][d] = to_f32(vb[(long long)(c0 + j) * v_ss + d]);
-    }
-    __syncthreads();
-    for (int i = tid; i < G * kChunk; i += kThreads) {
-      const int g = i / kChunk, j = i % kChunk;
-      float s = kNeg;
-      if (j < n) {
-        s = 0.f;
-        for (int d = 0; d < hd; ++d) s += qs[g][d] * ks[j][d];
-      }
-      ps[g][j] = s;
-    }
-    __syncthreads();
-    // online softmax: one warp per query head, one lane per key
-    for (int g = warp; g < G; g += kThreads / 32) {
-      const float s = ps[g][lane];
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, warp_max(lane < n ? s : kNeg));
-      const float p = lane < n ? expf(s - m_new) : 0.f;
-      const float sum = warp_sum(p);
-      ps[g][lane] = p;
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kPer; ++r) {
-      const int i = tid + r * kThreads;
-      if (i < G * hd) {
-        const int g = i / hd, d = i % hd;
-        float o = acc[r] * a_s[g];
-        for (int j = 0; j < n; ++j) o += ps[g][j] * vs[j][d];
-        acc[r] = o;
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) {
-    const int i = tid + r * kThreads;
-    if (i < G * hd) {
-      const int g = i / hd, d = i % hd, h = kh * G + g;
-      if (n_split == 1) {
-        const float l = l_s[g] == 0.f ? 1.f : l_s[g];
-        store(out + b * o_sb + h * o_sh + d, acc[r] / l);
-      } else {
-        // partial triple of this split: (acc[0:hd], m, l)
-        float* pb = part + (((long long)b * H + h) * n_split + split) * (hd + 2);
-        pb[d] = acc[r];
-        if (d == 0) {
-          pb[hd] = m_s[g];
-          pb[hd + 1] = l_s[g];
-        }
-      }
-    }
-  }
-}
-
-// grid (B * H); merges the n_split partial triples of one (row, head).
-template <typename T>
-__global__ void combine_kernel(const float* __restrict__ part,
-                               T* __restrict__ out, int H, int n_split,
-                               int hd, long long o_sb, long long o_sh) {
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const float* pb = part + (long long)bh * n_split * (hd + 2);
-  float m = kNeg;
-  for (int s = 0; s < n_split; ++s) m = fmaxf(m, pb[s * (hd + 2) + hd]);
-  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-    float l = 0.f, o = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const float* ps = pb + s * (hd + 2);
-      const float w = expf(ps[hd] - m);
-      l += ps[hd + 1] * w;
-      o += ps[d] * w;
-    }
-    store(out + b * o_sb + h * o_sh + d, o / (l == 0.f ? 1.f : l));
-  }
+  const DenseKeys<T> keys{k + b * k_sb + kh * k_sh, v + b * v_sb + kh * v_sh,
+                          k_ss, v_ss};
+  decode_block<T, HD>(q, q_sb, q_sh, keys, lo, hi, out, o_sb, o_sh, part, b,
+                      kh, H, H / KH, hd, split, gridDim.x, scale);
 }
 
 template <typename T, int HD>
@@ -204,13 +83,13 @@ void launch(const void* q, const void* k, const void* v, const int* lengths,
             cudaStream_t stream) {
   const int n_split = (S + split_keys - 1) / split_keys;
   const float scale = 1.f / sqrtf((float)hd);
-  decode_kernel<T, HD><<<dim3(n_split, KH, B), kThreads, 0, stream>>>(
+  decode_kernel<T, HD><<<dim3(n_split, KH, B), kDecodeThreads, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, lengths, (T*)out, part, H, KH, S,
       hd, split_keys, q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb,
       o_sh, scale);
   if (n_split > 1)
-    combine_kernel<T><<<B * H, 128, 0, stream>>>(part, (T*)out, H, n_split,
-                                                 hd, o_sb, o_sh);
+    combine_kernel<T><<<B * H, 128, 0, stream>>>(part, (T*)out, 1, H, n_split,
+                                                 hd, o_sb, 0, o_sh);
 }
 
 template <typename T>
@@ -248,8 +127,8 @@ extern "C" int decode_attention_launch(
     int hd, int split_keys, long long q_sb, long long q_sh, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long o_sb, long long o_sh, void* stream) {
-  if (KH <= 0 || H % KH != 0 || H / KH > kMaxGroup || split_keys <= 0 ||
-      split_keys % kChunk != 0)
+  if (KH <= 0 || H % KH != 0 || H / KH > repro::kMaxGroup || split_keys <= 0 ||
+      split_keys % repro::kChunk != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)

@@ -17,6 +17,8 @@ import torch
 from . import ref
 from .decode_attention import decode_attention as decode_kernel
 from .flash_attention import flash_attention as flash_kernel
+from .paged_append_attention import paged_append_attention as append_kernel
+from .paged_decode_attention import paged_decode_attention as paged_kernel
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -45,3 +47,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _on_cpu(q):
         return ref.mha_reference(q, k, v, causal, q_offset, kv_len, window)
     return flash_kernel(q, k, v, causal, q_offset, kv_len, window)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """(B,H,hd) over (P,K,bs,hd)^2 pages through (B,nb) tables + lengths
+    (B,) -> (B,H,hd)."""
+    if _on_cpu(q):
+        return ref.paged_decode_reference(q, k_pages, v_pages, block_tables,
+                                          lengths)
+    return paged_kernel(q, k_pages, v_pages, block_tables, lengths)
+
+
+def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
+                           v_new: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           ctx_lens: torch.Tensor,
+                           span_lens: torch.Tensor) -> torch.Tensor:
+    """(B,T,H,hd) span queries over the committed pages plus the span's
+    (B,T,K,hd) K/V -> (B,T,H,hd); rows past span_len unspecified."""
+    if _on_cpu(q):
+        return ref.paged_append_reference(q, k_new, v_new, k_pages, v_pages,
+                                          block_tables, ctx_lens, span_lens)
+    return append_kernel(q, k_new, v_new, k_pages, v_pages, block_tables,
+                         ctx_lens, span_lens)

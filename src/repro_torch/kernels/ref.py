@@ -2,7 +2,8 @@
 
 Counterparts of the JAX package's ``kernels/ref.py`` oracles, written in
 the most direct way: repeat the kv heads, form the whole score matrix in
-fp32, mask, softmax.  The CPU path of the port runs them, the tests hold
+fp32, mask, softmax; the paged versions first gather each row's pages
+into a dense cache.  The CPU path of the port runs them, the tests hold
 them to the JAX oracles, and ``chip_smoke.py`` holds the CUDA kernels to
 them on the card.
 """
@@ -76,3 +77,60 @@ def decode_reference(q: torch.Tensor, k_cache: torch.Tensor,
     scores = scores.masked_fill(~valid, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhk,bhkd->bhd", probs, v.float()).to(q.dtype)
+
+
+def _gather_pages(pages: torch.Tensor,
+                  block_tables: torch.Tensor) -> torch.Tensor:
+    """(P, K, bs, hd) pages through (B, nb) tables -> (B, K, nb*bs, hd)."""
+    b, nb = block_tables.shape
+    _, kh, bs, hd = pages.shape
+    return pages[block_tables.long()].transpose(1, 2).reshape(
+        b, kh, nb * bs, hd)
+
+
+def paged_decode_reference(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """Paged flash-decode: gather each row's pages into a dense cache,
+    then ``decode_reference``.  q: (B, H, hd); k_pages/v_pages: (P, K,
+    bs, hd); block_tables: (B, nb) page ids (padding entries are masked
+    by ``lengths``); lengths: (B,)."""
+    return decode_reference(q, _gather_pages(k_pages, block_tables),
+                            _gather_pages(v_pages, block_tables), lengths)
+
+
+def paged_append_reference(q: torch.Tensor, k_new: torch.Tensor,
+                           v_new: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           ctx_lens: torch.Tensor,
+                           span_lens: torch.Tensor) -> torch.Tensor:
+    """Span attention: gather each row's pages into a dense cache, append
+    the span's fresh K/V, masked softmax.  q: (B, T, H, hd); k_new/v_new:
+    (B, T, K, hd); k_pages/v_pages: (P, K, bs, hd); block_tables: (B, nb);
+    ctx_lens/span_lens: (B,).  Query i of a row sees context slots below
+    ctx_len plus span slots j <= i with j < span_len.  Outputs past a
+    row's span_len are zero (the kernel leaves them unspecified)."""
+    bsz, t, h, hd = q.shape
+    kh = k_pages.shape[1]
+    kc = _gather_pages(k_pages, block_tables)
+    vc = _gather_pages(v_pages, block_tables)
+    s_ctx = kc.shape[2]
+    k = _repeat_kv_heads(torch.cat([kc, k_new.transpose(1, 2)], dim=2),
+                         h // kh)
+    v = _repeat_kv_heads(torch.cat([vc, v_new.transpose(1, 2)], dim=2),
+                         h // kh)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.transpose(1, 2).float(),
+                          k.float()) / math.sqrt(hd)
+    dev = q.device
+    kj = torch.arange(s_ctx + t, device=dev)[None, None, None, :]
+    qi = torch.arange(t, device=dev)[None, None, :, None]
+    ctx = ctx_lens.to(dev)[:, None, None, None]
+    span = span_lens.to(dev)[:, None, None, None]
+    in_ctx = (kj < s_ctx) & (kj < ctx)
+    in_span = (kj >= s_ctx) & (kj - s_ctx <= qi) & (kj - s_ctx < span)
+    scores = scores.masked_fill(~(in_ctx | in_span), NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+    out = out.transpose(1, 2)                          # (B, T, H, hd)
+    valid = torch.arange(t, device=dev)[None, :, None, None] < span
+    return out.masked_fill(~valid, 0.0)

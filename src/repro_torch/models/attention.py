@@ -1,9 +1,12 @@
 """GQA self-attention of the dense family: full-sequence, chunked prefill
-into a KV cache, and one-token decode.
+into a KV cache, one-token decode, and their batched forms over a paged
+KV store (``extend_rows_attention``, ``decode_rows_attention``).
 
 The attention itself goes through ``kernels.ops``: on a CUDA tensor the
 hand-written kernels (``flash_attention`` for full-sequence and prefill,
-``decode_attention`` for decode), on a CPU tensor their plain versions.
+``decode_attention`` for decode, ``paged_append_attention`` and
+``paged_decode_attention`` for the batched rows), on a CPU tensor their
+plain versions.
 Caches are (B, C, K, hd) per layer, as in the JAX package, and are
 written in place (see ``kvcache.py`` for why that is safe); the kernels
 read them through permuted views, so no cache is copied per call.
@@ -18,6 +21,7 @@ import torch
 
 from ..kernels import ops
 from .config import ModelConfig
+from .kvcache import PagedRows
 from .layers import ParamSpec, apply_rope
 
 NEG_INF = -1e30
@@ -149,3 +153,60 @@ def _masked_decode(q: torch.Tensor, k_cache: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs, v_cache.float())
     return out.reshape(b, h, hd).to(q.dtype)
+
+
+def _paged_only(cfg: ModelConfig) -> None:
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            "sliding-window attention over paged rows has no kernel and no "
+            "plain version yet; the batched path serves full attention")
+
+
+def _write_rows(rows: PagedRows, layer: int, k: torch.Tensor,
+                v: torch.Tensor) -> None:
+    """Write the call's real tokens' K/V of one layer into the pages, one
+    indexed write per array: (B, T, K, hd) -> the (page, slot) of each
+    real token.  Pads and uninvolved slots are never written."""
+    sel = (rows.write_rows, rows.write_cols)
+    rows.k_pages[layer, rows.write_pages, :, rows.write_slots] = \
+        k[sel].to(rows.k_pages.dtype)
+    rows.v_pages[layer, rows.write_pages, :, rows.write_slots] = \
+        v[sel].to(rows.v_pages.dtype)
+
+
+def extend_rows_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
+                          cfg: ModelConfig, layer: int,
+                          rows: PagedRows) -> torch.Tensor:
+    """Batched extend over a paged store: T new tokens per row (the first
+    ``span_lens[b]`` real, the rest bucket pads) at positions
+    ``ctx_lens[b] + i``.  Attention is ``ops.paged_append_attention``
+    over the row's committed pages plus the span's fresh K/V as the side
+    buffer; then the real tokens' K/V are written into the pages."""
+    _paged_only(cfg)
+    q, k, v = qkv(x, p)
+    if cfg.use_rope:
+        q = apply_rope(q, rows.positions, cfg.rope_theta)
+        k = apply_rope(k, rows.positions, cfg.rope_theta)
+    o = ops.paged_append_attention(q, k, v, rows.k_pages[layer],
+                                   rows.v_pages[layer], rows.tables,
+                                   rows.ctx_lens, rows.span_lens)
+    _write_rows(rows, layer, k, v)
+    return out_proj(o, p)
+
+
+def decode_rows_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
+                          cfg: ModelConfig, layer: int, rows: PagedRows,
+                          lengths: torch.Tensor) -> torch.Tensor:
+    """Batched one-token decode over a paged store: row b's token at
+    position ``ctx_lens[b]`` is written into its page first, then attends
+    over the row's ``lengths[b] = ctx_lens[b] + 1`` keys through
+    ``ops.paged_decode_attention``."""
+    _paged_only(cfg)
+    q, k, v = qkv(x, p)
+    if cfg.use_rope:
+        q = apply_rope(q, rows.positions, cfg.rope_theta)
+        k = apply_rope(k, rows.positions, cfg.rope_theta)
+    _write_rows(rows, layer, k, v)
+    o = ops.paged_decode_attention(q[:, 0], rows.k_pages[layer],
+                                   rows.v_pages[layer], rows.tables, lengths)
+    return out_proj(o[:, None], p)

@@ -1,4 +1,5 @@
-"""Decode state of the dense family and its rollback rules.
+"""Decode state of the dense family and its rollback rules, and the
+per-call view of batched rows over a paged KV store (``PagedRows``).
 
 A :class:`DecodeState` holds the attention KV caches, stacked over layers
 as (L, B, C, K, hd) like the JAX package's, and the absolute position
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -72,3 +74,55 @@ def make_decode_state(cfg, batch: int, capacity: int, device,
              cfg.resolved_head_dim)
     k = torch.zeros(shape, dtype=dtype, device=device)
     return DecodeState(k=k, v=torch.zeros_like(k), pos=0, ring=ring)
+
+
+@dataclasses.dataclass
+class PagedRows:
+    """One batched call's view of B rows over a paged KV store (the
+    continuous-batching path; ``serving.paged_kv.PagedKVStore`` holds the
+    pages).  Row b holds ``ctx_lens[b]`` committed tokens and takes
+    ``span_lens[b]`` real new tokens of the call's T; its new token i
+    sits at absolute position ``ctx_lens[b] + i``.  Only real tokens are
+    written: token (``write_rows[n]``, ``write_cols[n]``) of the call goes
+    to page ``write_pages[n]``, slot ``write_slots[n]``."""
+    k_pages: torch.Tensor       # (L, P, K, bs, hd)
+    v_pages: torch.Tensor
+    tables: torch.Tensor        # (B, nb) int32, padded with page 0
+    ctx_lens: torch.Tensor      # (B,) int32
+    span_lens: torch.Tensor     # (B,) int32
+    positions: torch.Tensor     # (B, T) int64, ctx_lens[:, None] + i
+    write_rows: torch.Tensor    # (n,) int64
+    write_cols: torch.Tensor
+    write_pages: torch.Tensor
+    write_slots: torch.Tensor
+
+
+def paged_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
+               tables, ctx_lens, span_lens, width: int) -> PagedRows:
+    """Build the index tensors of one batched call on the pages' device:
+    ``tables`` lists each row's block ids (covering its context and its
+    new tokens), ``ctx_lens`` / ``span_lens`` its committed and new token
+    counts, ``width`` the call's padded T."""
+    bs = k_pages.shape[3]
+    b = len(tables)
+    nb = max(1, max(len(t) for t in tables))
+    tab = np.zeros((b, nb), np.int32)
+    for i, t in enumerate(tables):
+        tab[i, :len(t)] = t
+    ctx = np.asarray(ctx_lens, np.int64)
+    span = np.asarray(span_lens, np.int64)
+    rows = np.repeat(np.arange(b), span)
+    cols = np.concatenate([np.arange(n) for n in span]) if b else rows
+    tok = ctx[rows] + cols
+    pages = tab[rows, tok // bs].astype(np.int64)
+    dev = k_pages.device
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    ctx_t = put(ctx, torch.int32)
+    return PagedRows(
+        k_pages, v_pages, put(tab, torch.int32), ctx_t, put(span, torch.int32),
+        ctx_t.long()[:, None] + torch.arange(width, device=dev)[None, :],
+        put(rows, torch.long), put(cols, torch.long), put(pages, torch.long),
+        put(tok % bs, torch.long))

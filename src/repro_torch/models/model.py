@@ -12,6 +12,10 @@ Public surface:
                         -> (logits (B, S, V), new state)
   Model.decode_step  -- one-token decode -> (logits (B, V), new state)
   Model.init_state   -- an empty KV cache
+  Model.prefill_rows -- batched extend of B rows over a paged KV store,
+                        each row at its own position -> logits (B, T, V)
+  Model.decode_rows  -- batched one-token decode over a paged KV store
+                        -> logits (B, V)
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 from .. import device as devices
 from . import attention as attn
 from .config import ModelConfig
-from .kvcache import DecodeState, make_decode_state
+from .kvcache import DecodeState, PagedRows, make_decode_state
 from .layers import (ParamSpec, apply_mlp, apply_norm, embed_spec,
                      init_params, mlp_spec, norm_spec, sinusoidal_positions,
                      unembed_spec)
@@ -99,12 +103,15 @@ class Model:
                                  devices.resolve(device), dtype, ring)
 
     # ---------------------------------------------------------- embeddings --
-    def _embed(self, params, tokens: torch.Tensor, start: int
+    def _embed(self, params, tokens: torch.Tensor, start
                ) -> torch.Tensor:
+        """``start``: the first token's position, or a (B, S) tensor of
+        every token's position."""
         cfg = self.cfg
         x = params["tok_embed"][tokens]
         if not cfg.use_rope:
-            pos = start + torch.arange(tokens.shape[1], device=x.device)
+            pos = start if isinstance(start, torch.Tensor) else \
+                start + torch.arange(tokens.shape[1], device=x.device)
             x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
         return x
 
@@ -112,6 +119,12 @@ class Model:
         if self.cfg.tie_embeddings:
             return x @ params["tok_embed"].T
         return x @ params["unembed"]
+
+    def _final(self, params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = apply_norm(x, params["final_norm"], cfg.norm_type,
+                       cfg.rmsnorm_eps)
+        return self._unembed(params, x)
 
     def _mlp_block(self, x, lp) -> torch.Tensor:
         cfg = self.cfg
@@ -131,9 +144,7 @@ class Model:
             x = x + attn.self_attention(h, lp["attn"], cfg, positions,
                                         window=cfg.sliding_window)
             x = self._mlp_block(x, lp)
-        x = apply_norm(x, params["final_norm"], cfg.norm_type,
-                       cfg.rmsnorm_eps)
-        return self._unembed(params, x)
+        return self._final(params, x)
 
     # ----------------------------------------------------- prefill / extend --
     def prefill(self, params, tokens: torch.Tensor, state: DecodeState
@@ -152,10 +163,8 @@ class Model:
                 h, lp["attn"], cfg, state.k[i], state.v[i], start,
                 cfg.sliding_window)
             x = self._mlp_block(x, lp)
-        x = apply_norm(x, params["final_norm"], cfg.norm_type,
-                       cfg.rmsnorm_eps)
         new_state = dataclasses.replace(state, pos=start + tokens.shape[1])
-        return self._unembed(params, x), new_state
+        return self._final(params, x), new_state
 
     # --------------------------------------------------------------- decode --
     def decode_step(self, params, state: DecodeState, tokens: torch.Tensor
@@ -175,7 +184,35 @@ class Model:
                 h, lp["attn"], cfg, state.k[i], state.v[i], pos, lengths,
                 ring=state.ring)
             x = self._mlp_block(x, lp)
-        x = apply_norm(x, params["final_norm"], cfg.norm_type,
-                       cfg.rmsnorm_eps)
-        logits = self._unembed(params, x)[:, 0, :]
+        logits = self._final(params, x)[:, 0, :]
         return logits, dataclasses.replace(state, pos=pos + 1)
+
+    # ------------------------------------------------------- paged rows --
+    def prefill_rows(self, params, tokens: torch.Tensor,
+                     rows: PagedRows) -> torch.Tensor:
+        """Batched extend over a paged store: tokens (B, T), row b's first
+        ``rows.span_lens[b]`` real; their K/V land in the row's pages.
+        Returns logits (B, T, V) (pads' logits unspecified)."""
+        cfg = self.cfg
+        x = self._embed(params, tokens, rows.positions)
+        for i in range(cfg.n_layers):
+            lp = _layer(params["layers"], i)
+            h = apply_norm(x, lp["ln1"], cfg.norm_type, cfg.rmsnorm_eps)
+            x = x + attn.extend_rows_attention(h, lp["attn"], cfg, i, rows)
+            x = self._mlp_block(x, lp)
+        return self._final(params, x)
+
+    def decode_rows(self, params, tokens: torch.Tensor,
+                    rows: PagedRows) -> torch.Tensor:
+        """Batched one-token decode over a paged store: tokens (B, 1) at
+        positions ``rows.ctx_lens``.  Returns logits (B, V)."""
+        cfg = self.cfg
+        x = self._embed(params, tokens, rows.positions)
+        lengths = rows.ctx_lens + 1
+        for i in range(cfg.n_layers):
+            lp = _layer(params["layers"], i)
+            h = apply_norm(x, lp["ln1"], cfg.norm_type, cfg.rmsnorm_eps)
+            x = x + attn.decode_rows_attention(h, lp["attn"], cfg, i, rows,
+                                               lengths)
+            x = self._mlp_block(x, lp)
+        return self._final(params, x)[:, 0, :]

@@ -12,6 +12,7 @@ same noise (``categorical``).
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import torch
 
@@ -73,3 +74,16 @@ def sample(logits: torch.Tensor, params: SamplingParams,
         return torch.argmax(logits, dim=-1)
     return categorical(adjust_logits(logits, params),
                        gumbel(logits.shape, generator, logits.device))
+
+
+def sample_rows(logits: torch.Tensor, params: SamplingParams,
+                generators: Sequence[torch.Generator]) -> torch.Tensor:
+    """Batched ``sample``: logits (R, V) -> token ids (R,), row r drawing
+    its Gumbel noise from ``generators[r]`` (its own request's), exactly
+    the draw ``sample`` makes for that row alone, so a batched row takes
+    the tokens the sequential path takes from the same generator."""
+    if params.temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    v = logits.shape[-1]
+    noise = torch.stack([gumbel((v,), g, logits.device) for g in generators])
+    return categorical(adjust_logits(logits, params), noise)

@@ -59,6 +59,16 @@ class Meter:
     decode_tokens: int = 0
     decode_calls: int = 0
     decode_time: float = 0.0
+    # one-token forward passes (a batched generate call runs one per
+    # token; a sequential decode call is one): each launches the decode
+    # attention kernel once per layer
+    decode_steps: int = 0
+    # token-level speculation (core.spec_decode / serving.spec_engine):
+    # verification rounds run on THIS engine as the verifier, draft tokens
+    # proposed to it and how many it accepted
+    spec_rounds: int = 0
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
     def as_dict(self) -> Dict[str, float]:
         return dataclasses.asdict(self)
@@ -147,6 +157,7 @@ class Engine:
         self.meter.decode_time += time.perf_counter() - t0
         self.meter.decode_tokens += 1
         self.meter.decode_calls += 1
+        self.meter.decode_steps += 1
         return Session(new_state, logits, session.pos + 1)
 
     # ------------------------------------------------------------ generate

@@ -38,8 +38,10 @@ from repro_torch.launch import serve
 from repro_torch.models.model import Model
 from repro_torch.sampling.sample import SamplingParams
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.kv_manager import KVBudget, KVManager
 from repro_torch.serving.loader import load_testbed_engines, \
     save_random_testbed
+from repro_torch.serving.scheduler import ContinuousScheduler
 
 UTILITY_TOL = 1e-4
 THRESHOLD = 4.5
@@ -142,10 +144,20 @@ def test_vanilla_reason_matches_jax(pairs, which):
 
 
 def test_spec_decode_raises(pairs):
+    """SpecReason+Decode is ported (tests/test_torch_spec.py holds it to
+    the JAX package): the sequential controller runs it.  What still
+    raises is its continuous form over the prefix cache, the continuous
+    scheduler's default, which is not ported yet."""
     _, (tb, ts) = pairs
-    with pytest.raises(NotImplementedError, match="spec_decode"):
-        controller.SpecReason(tb, ts, controller.SpecReasonConfig(
-            use_spec_decode=True))
+    cfg = controller.SpecReasonConfig(use_spec_decode=True, token_budget=8,
+                                      sampling=SamplingParams(0.0))
+    res = controller.SpecReason(tb, ts, cfg).run(
+        tasks.question_tokens(_tasks()[0]), torch.Generator())
+    assert res.spec_stats.rounds > 0
+    kv = KVManager(tb.model.cfg, ts.model.cfg, KVBudget(1 << 20))
+    with pytest.raises(NotImplementedError, match="prefix cache"):
+        ContinuousScheduler(controller.SpecReason(tb, ts, cfg), kv,
+                            spec_decode=True)
 
 
 def test_serve_cli_on_cpu_matches_jax_cli(tmp_path, capsys):

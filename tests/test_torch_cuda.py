@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain version,
-the wrappers' refusals, and the model and engine on CUDA against the CPU.
+the wrappers' refusals, and the model and engine on CUDA against the CPU
+(the sequential engine and the batched paged path).
 
 Needs an NVIDIA GPU and nvcc (the kernels build on first use); every test
 skips where CUDA is absent.  Imports no JAX, so it runs on a machine
@@ -23,8 +24,13 @@ from repro_torch.configs import testbed
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.paged_append_attention import \
+    paged_append_attention
+from repro_torch.kernels.paged_decode_attention import \
+    paged_decode_attention
 from repro_torch.models.model import Model
 from repro_torch.sampling.sample import SamplingParams
+from repro_torch.serving.batch_engine import BatchEngine
 from repro_torch.serving.engine import Engine
 
 pytestmark = pytest.mark.cuda
@@ -101,6 +107,110 @@ def test_flash_kernel_matches_plain(dev, dtype, h, kh, hd, s, cap, off,
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
+def _pool(gen, n_pages, kh, bs, hd, dtype, layers=2):
+    """A (L, P, K, bs, hd) store's layer 1, as the model passes it."""
+    return _randn(gen, layers, n_pages, kh, bs, hd, dtype=dtype)[1]
+
+
+def _tables(gen, lens, bs, n_pages, alias=False):
+    """Shuffled page ids per row (distinct across rows unless ``alias``:
+    then rows 0 and 1 share their first page)."""
+    nb = max(1, max(-(-n // bs) for n in lens))
+    perm = torch.randperm(n_pages, generator=gen, device="cuda")
+    t = perm[:len(lens) * nb].reshape(len(lens), nb).to(torch.int32)
+    if alias and len(lens) > 1:
+        t[1, 0] = t[0, 0]
+    return t.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kh,hd,bs,lens", [
+    (8, 4, 28, 16, [1, 17, 300, 0]),       # BASE heads, an empty row
+    (4, 2, 32, 16, [129, 5, 1000]),        # SMALL heads, split-K
+    (24, 8, 128, 16, [4096, 333]),         # minitron-4b heads
+    (4, 4, 16, 8, [40, 40]),               # aliased first page
+])
+def test_paged_decode_kernel_matches_plain(dev, dtype, h, kh, hd, bs, lens):
+    gen = torch.Generator(device=dev).manual_seed(hd + bs)
+    n_pages = 4 * sum(-(-n // bs) + 1 for n in lens)
+    kp = _pool(gen, n_pages, kh, bs, hd, dtype)
+    vp = _pool(gen, n_pages, kh, bs, hd, dtype)
+    tables = _tables(gen, lens, bs, n_pages, alias=True)
+    q = _randn(gen, len(lens), h, hd, dtype=dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = paged_decode_attention.launches
+    out = paged_decode_attention(q, kp, vp, tables, lengths)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    exp = ref.paged_decode_reference(q, kp, vp, tables, lengths)
+    live = lengths > 0          # the plain version averages an empty row
+    torch.testing.assert_close(out[live].float(), exp[live].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.all(out[~live] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kh,hd,bs,t,ctx,span", [
+    (8, 4, 28, 16, 5, [0, 17, 300], [5, 3, 1]),
+    (4, 2, 32, 16, 16, [100, 1, 64, 33], [16, 0, 9, 16]),
+    (8, 4, 28, 16, 64, [700, 2], [64, 40]),
+    (4, 2, 32, 16, 256, [0, 500], [200, 256]),
+    (24, 8, 128, 16, 5, [4096], [5]),        # verification, split-K
+    (24, 8, 128, 16, 64, [4096, 1000], [64, 30]),
+    (4, 4, 16, 8, 8, [24, 24], [8, 7]),      # aliased first page
+])
+def test_paged_append_kernel_matches_plain(dev, dtype, h, kh, hd, bs, t, ctx,
+                                           span):
+    gen = torch.Generator(device=dev).manual_seed(hd + t)
+    b = len(ctx)
+    lens = [c + t for c in ctx]
+    n_pages = 4 * sum(-(-n // bs) + 1 for n in lens)
+    kp = _pool(gen, n_pages, kh, bs, hd, dtype)
+    vp = _pool(gen, n_pages, kh, bs, hd, dtype)
+    tables = _tables(gen, lens, bs, n_pages, alias=True)
+    q = _randn(gen, b, t, h, hd, dtype=dtype)
+    kn = _randn(gen, b, t, kh, hd, dtype=dtype)
+    vn = _randn(gen, b, t, kh, hd, dtype=dtype)
+    cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    sl = torch.tensor(span, dtype=torch.int32, device=dev)
+    before = paged_append_attention.launches
+    out = paged_append_attention(q, kn, vn, kp, vp, tables, cl, sl)
+    torch.cuda.synchronize()
+    assert paged_append_attention.launches == before + 1
+    exp = ref.paged_append_reference(q, kn, vn, kp, vp, tables, cl, sl)
+    for i, n in enumerate(span):        # rows past span_len are unspecified
+        if ctx[i] + n == 0:
+            continue
+        torch.testing.assert_close(out[i, :n].float(), exp[i, :n].float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_paged_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q = torch.zeros(2, 4, 32, device=dev)
+    pages = torch.zeros(8, 2, 16, 32, device=dev)
+    tables = torch.zeros(2, 3, dtype=torch.int32, device=dev)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    before = (paged_decode_attention.launches,
+              paged_append_attention.launches)
+    with pytest.raises(ValueError, match="int32"):
+        paged_decode_attention(q, pages, pages, tables.long(), lens)
+    with pytest.raises(ValueError, match="lengths"):
+        paged_decode_attention(q, pages, pages, tables, lens[:1])
+    with pytest.raises(ValueError, match="H / K"):
+        paged_decode_attention(torch.zeros(2, 18, 32, device=dev), pages,
+                               pages, tables, lens)
+    qs = torch.zeros(2, 5, 4, 32, device=dev)
+    kn = torch.zeros(2, 5, 2, 32, device=dev)
+    with pytest.raises(ValueError, match="k_new"):
+        paged_append_attention(qs, kn[:, :4], kn[:, :4], pages, pages,
+                               tables, lens, lens)
+    with pytest.raises(ValueError, match="span_lens"):
+        paged_append_attention(qs, kn, kn, pages, pages, tables, lens,
+                               lens.long())
+    assert (paged_decode_attention.launches,
+            paged_append_attention.launches) == before
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.zeros(1, 4, 32, device=dev)
     k = torch.zeros(1, 2, 64, 32, device=dev)
@@ -163,6 +273,39 @@ def test_engine_on_card_launches_per_metered_call(dev):
         else:
             assert decode_attention.launches == flash_attention.launches == 0
     assert tokens["cuda"] == tokens["cpu"]
+
+
+@pytest.mark.parametrize("name", ["SMALL", "BASE"])
+def test_batch_engine_on_card_matches_cpu_and_counts_launches(dev, name):
+    """The batched paged path on the card: logits against the CPU's plain
+    versions, greedy tokens, and paged launches == n_layers x the metered
+    decode steps and extends (the dense kernels stay at 0)."""
+    m = Model(getattr(testbed, name))
+    params = m.init(1, device="cpu")
+    prompts = [list(range(10, 15)), list(range(20, 59)), [7]]
+    out = {}
+    for d in ("cpu", "cuda"):
+        p = params_from_numpy(params_to_numpy(params), d)
+        be = BatchEngine(m, p, batch=4, capacity=256)
+        for k in (decode_attention, flash_attention, paged_decode_attention,
+                  paged_append_attention):
+            k.launches = 0
+        rows = [be.alloc_row() for _ in prompts]
+        logits = be.extend_rows(rows, prompts, want_logits=True)
+        ids = be.generate_rows(rows, [9, 4, 12], [], SamplingParams(),
+                               [torch.Generator(device=d) for _ in rows])
+        be.feed_rows(rows[:2], [3, 4])
+        out[d] = (torch.cat(logits + [be.last_logits[rows]]).cpu(), ids)
+        n = m.cfg.n_layers
+        if d == "cuda":
+            assert paged_decode_attention.launches == \
+                n * be.meter.decode_steps == n * (12 + 1)
+            assert paged_append_attention.launches == \
+                n * be.meter.prefill_calls
+        assert decode_attention.launches == flash_attention.launches == 0
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0],
+                               atol=LOGIT_TOL, rtol=LOGIT_TOL)
+    assert out["cuda"][1] == out["cpu"][1]
 
 
 def test_sliding_window_decode_on_card_raises(dev):

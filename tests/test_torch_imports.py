@@ -25,6 +25,12 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.launch.serve" in mods and len(mods) > 25
+    assert {"repro_torch.serving." + m for m in (
+        "kv_manager", "paged_kv", "batch_engine", "spec_engine",
+        "resilience", "telemetry", "scheduler", "workload")} \
+        | {"repro_torch.core.spec_decode",
+           "repro_torch.kernels.paged_decode_attention",
+           "repro_torch.kernels.paged_append_attention"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
