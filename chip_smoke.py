@@ -16,6 +16,12 @@ from the root of a checkout.  Phases, each printing its lines:
      offsets in a 1024-slot cache, decode at ragged lengths up to 1024)
      and at minitron-4b's attention shape (24 query heads over 8 kv
      heads, hd 128: prefill S=2048, decode B=8 over 4096);
+   * the SSD scan (the ssm path) at mamba2-1.3b's heads (H 64, P 64,
+     N 128, one group) over one ragged chunk (L 7 and 37), one full chunk,
+     300 tokens padded to 384 and 2048 tokens, against its plain version
+     and the sequential oracle, with a state-resume case and the reduced
+     G > 1 shapes of tests/test_kernels.py; no single PyTorch call
+     computes the scan, so it has no yardstick;
    * paged flash-decode and paged span attention (the continuous path)
      over shuffled 16-token pages with ragged lengths (0 and 1 among
      them) and two rows aliasing one page, spans T of 5, 16, 64 and 256
@@ -42,6 +48,18 @@ from the root of a checkout.  Phases, each printing its lines:
    For information, how many requests' continuous greedy tokens equal
    the sequential path's on the card (batch-size-dependent GEMMs may
    move a logit by an ulp);
+7. main path, ssm: SpecReason with a mamba2-1.3b base at its published
+   widths (48 layers, d_model 2048, 64 SSD heads of 64, state 128; random
+   init from a seed, vocabulary cut to the toy tokenizer's 64) and the
+   testbed SMALL drafter, through ``serve.run_scheme``: 3 requests greedy
+   and at temperature 0.6, then one greedy request with hierarchical
+   spec decode (gamma 4, the base rolls back by snapshot and replay).
+   SSD scan launches must equal 48 x the base's metered extends, the
+   dense kernels' SMALL's layers x its metered calls, and the greedy run
+   must see the verifier both accept and reject;
+8. check, ssm: the base's logits on the card against the same weights on
+   the CPU over a 300-token prompt (three chunks, the last padded), a
+   resumed 40-token extend and 3 decode steps;
 then the card again, one JSON line of per-kernel numbers, and
 ``{"ok": true, "device": {...}}`` as the last line.  Any failure exits
 non-zero before that line; without CUDA, or outside a checkout, it exits
@@ -50,6 +68,7 @@ non-zero at once.
 
 import json
 import os
+import random
 import subprocess
 import sys
 import time
@@ -67,6 +86,12 @@ BUCKETS = (4, 8, 16, 32, 64, 128, 256)
 # a KV budget (MB, accounted at 2 bytes an element) under which 8 requests
 # over 4 rows of the testbed pair preempt
 PRESSURE_MB = 1
+SSM_ARCH = "mamba2-1.3b"
+# the SSD scan's tolerances, tests/test_kernels.py's: y atol = rtol 1e-4 in
+# fp32 and 3e-2 in bf16; the final state (fp32 in both) 1e-4
+SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+SSD_STATE_TOL = 1e-4
+SSM_THRESHOLD = 4.5
 
 
 def nvidia_smi() -> str:
@@ -88,6 +113,16 @@ def time_ms(torch, fn, reps=30):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def leaves(tree):
+    for v in tree.values():
+        yield from leaves(v) if isinstance(v, dict) else (v,)
+
+
+def tree_map(fn, tree):
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
 
 
 def bound(nbytes, flops, dtype):
@@ -198,6 +233,105 @@ def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron):
                   f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({by})",
                   flush=True)
     return records
+
+
+def ssd_kernel_phase(torch, ref, mamba2, ssd_scan, mamba):
+    """The SSD scan kernel against its plain version (``ssd_chunked``) and
+    the sequential oracle (``ssd_reference``) at mamba2-1.3b's heads and
+    the reduced G > 1 shapes.  Returns its records for the JSON line."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    h, p, n = mamba.ssm_n_heads, mamba.ssm_head_dim, mamba.ssm_state
+    g = mamba.ssm_n_groups
+    # (label, B, L, H, P, G, N, chunk, real positions before the pad)
+    cases = [("mamba2", 1, 7, h, p, g, n, 7, 7),
+             ("mamba2", 1, 37, h, p, g, n, 37, 37),
+             ("mamba2", 1, 128, h, p, g, n, 128, 128),
+             ("mamba2", 1, 384, h, p, g, n, 128, 300),
+             ("mamba2", 1, 2048, h, p, g, n, 128, 2048),
+             ("sweep", 1, 128, 2, 16, 1, 16, 32, 128),
+             ("sweep", 2, 256, 4, 16, 2, 32, 64, 256),
+             ("sweep", 1, 256, 4, 32, 1, 64, 128, 256)]
+    records = []
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def close(name, got, want, tol, label):
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+            raise AssertionError(f"ssd_scan {label}: {name} max |err| {err} "
+                                 f"beyond atol = rtol = {tol}")
+        return err
+
+    for dt_ in (torch.float32, torch.bfloat16):
+        dname = str(dt_).split(".")[1]
+        esize = torch.tensor([], dtype=dt_).element_size()
+        for kind, b, l, hh, pp, gg, nn, chunk, real in cases:
+            x = randn(b, l, hh, pp)
+            dt = torch.nn.functional.softplus(randn(b, l, hh))
+            a = -torch.exp(randn(hh) * 0.5)
+            bb, cc = randn(b, l, gg, nn) * 0.3, randn(b, l, gg, nn) * 0.3
+            init = randn(b, hh, pp, nn) * 0.5
+            for t in (x, dt, bb, cc):       # the caller's pads: dt = 0
+                t[:, real:] = 0
+            x, bb, cc = x.to(dt_), bb.to(dt_), cc.to(dt_)
+            label = (f"{kind} {dname} B={b} L={l} H={hh} P={pp} G={gg} "
+                     f"N={nn} chunk={chunk}"
+                     + (f" ({real} real)" if real < l else ""))
+            y, fin = ssd_scan(x, dt, a, bb, cc, chunk, init)
+            ye, fe = ref.ssd_reference(x, dt, a, bb, cc, init)
+            yp, fp = mamba2.ssd_chunked(x, dt, a, bb, cc, chunk, init)
+            tol = SSD_TOL[dname]
+            err = max(close("y vs oracle", y[:, :real], ye[:, :real], tol,
+                            label),
+                      close("y vs plain", y[:, :real], yp[:, :real], tol,
+                            label))
+            # the plain version returns its final state in x's dtype
+            state_err = max(close("state vs oracle", fin, fe, SSD_STATE_TOL,
+                                  label),
+                            close("state vs plain", fin, fp, tol, label))
+            ms = time_ms(torch, lambda: ssd_scan(x, dt, a, bb, cc, chunk,
+                                                 init))
+            plain_ms = time_ms(torch, lambda: mamba2.ssd_chunked(
+                x, dt, a, bb, cc, chunk, init), reps=10)
+            # least work: real positions only, the causal half of each
+            # chunk's Q x Q terms; C.B^T once per (batch, group, chunk), as
+            # every head of a group shares it, the rest per head
+            qs = [min(chunk, real - s0) for s0 in range(0, real, chunk)]
+            macs = b * sum(gg * q * (q + 1) // 2 * nn
+                           + hh * (q * (q + 1) // 2 * pp + 2 * q * pp * nn)
+                           for q in qs)
+            nbytes = (2 * b * real * hh * pp + 2 * b * real * gg * nn) \
+                * esize + 4 * (b * real * hh + hh + 2 * b * hh * pp * nn)
+            bound_ms, by = bound(nbytes, 2 * macs, dname)
+            records.append(dict(shape=label, dtype=dname, max_abs_err=err,
+                                state_err=state_err, ms=ms, plain_ms=plain_ms,
+                                library_ms=None, bound_ms=bound_ms,
+                                bound_by=by))
+            print(f"[kernels] ssd_scan {label}: y err {err:.3g}, state err "
+                  f"{state_err:.3g} | kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+                  f" ms, library none, bound {bound_ms:.5f} ms ({by})",
+                  flush=True)
+        # state resume: two calls carrying the state equal one call
+        l, half = 256, 128
+        x, bb, cc = randn(1, l, h, p), randn(1, l, g, n) * 0.3, \
+            randn(1, l, g, n) * 0.3
+        x, bb, cc = x.to(dt_), bb.to(dt_), cc.to(dt_)
+        dt = torch.nn.functional.softplus(randn(1, l, h))
+        a = -torch.exp(randn(h) * 0.5)
+        y, fin = ssd_scan(x, dt, a, bb, cc, 128)
+        y1, f1 = ssd_scan(x[:, :half], dt[:, :half], a, bb[:, :half],
+                          cc[:, :half], 128)
+        y2, f2 = ssd_scan(x[:, half:], dt[:, half:], a, bb[:, half:],
+                          cc[:, half:], 128, f1)
+        label = f"mamba2 {dname} resume 128 + 128"
+        err = close("y", torch.cat([y1, y2], 1), y, SSD_TOL[dname], label)
+        err_s = close("state", f2, fin, SSD_STATE_TOL, label)
+        print(f"[kernels] ssd_scan {label}: two calls with the state "
+              f"carried equal one call (y err {err:.3g}, state err "
+              f"{err_s:.3g})", flush=True)
+    return {"ssd_scan": records}
 
 
 def paged_kernel_phase(torch, F, ref, paged_decode, paged_append,
@@ -493,10 +627,12 @@ def continuous_phase(torch, serve, kernels, ckpt):
             want_append += n * be.meter.prefill_calls
         if (got["paged_decode_attention"], got["paged_append_attention"]) \
                 != (want_decode, want_append) or not want_decode \
-                or got["decode_attention"] or got["flash_attention"]:
+                or got["decode_attention"] or got["flash_attention"] \
+                or got["ssd_scan"]:
             raise AssertionError(
                 f"continuous {label}: launches {got} != paged decode "
-                f"{want_decode}, paged append {want_append}, dense 0")
+                f"{want_decode}, paged append {want_append}, dense and "
+                "SSD 0")
         for i, h in enumerate(report.handles):
             res = h.result
             n_out = res.n_thinking_tokens + len(res.answer_ids)
@@ -588,6 +724,154 @@ def batch_invariance_phase(torch, serve, tasks, Model, load_checkpoint,
           "sequential path's on the card", flush=True)
 
 
+def ssm_main_phase(torch, serve, tasks, loader, kernels):
+    """SpecReason with the mamba2-1.3b base on the card: 3 requests greedy
+    and sampled, one greedy request in hierarchical mode.  The SSD scan
+    must launch 48 x the base's metered extends and the dense kernels
+    SMALL's layers x its metered calls.  Returns (launches, base
+    engine)."""
+    t0 = time.perf_counter()
+    base = loader.random_engine(SSM_ARCH, "cuda", seed=0)
+    small = loader.random_engine("testbed-small", "cuda", seed=1)
+    torch.cuda.synchronize()
+    cfg = base.model.cfg
+    print(f"[main] ssm: {SSM_ARCH} base, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.ssm_n_heads} SSD heads of {cfg.ssm_head_dim}"
+          f", state {cfg.ssm_state}, vocab {cfg.vocab_size} (cut from 50280)"
+          f", {sum(t.numel() for t in leaves(base.params))} "
+          f"parameters, random init in {time.perf_counter() - t0:.1f} s; "
+          f"testbed SMALL drafter; threshold {SSM_THRESHOLD}", flush=True)
+    rng = random.Random(0)
+    reqs = [tasks.sample_task(rng) for _ in range(3)]
+    layers = {"base": cfg.n_layers, "small": small.model.cfg.n_layers}
+    launches = dict.fromkeys(kernels, 0)
+    outputs = {}
+    runs = (("greedy", "specreason", 0.0, 3),
+            ("sampled", "specreason", 0.6, 3),
+            ("hierarchical greedy", "specreason+decode", 0.0, 1))
+    for label, scheme, temp, n_req in runs:
+        for k in kernels.values():
+            k.launches = 0
+        want = {"ssd_scan": 0, "decode_attention": 0, "flash_attention": 0}
+        drafted, outputs[label] = [], []
+        for i in range(n_req):
+            gen = torch.Generator(device="cuda").manual_seed(i)
+            res = serve.run_scheme(scheme, base, small, reqs[i], gen, 128,
+                                   SSM_THRESHOLD, temp)
+            mb, ms_ = res.meters["base"], res.meters["small"]
+            want["ssd_scan"] += layers["base"] * mb["prefill_calls"]
+            want["decode_attention"] += layers["small"] * ms_["decode_calls"]
+            want["flash_attention"] += layers["small"] * ms_["prefill_calls"]
+            toks = res.thinking_ids + res.answer_ids
+            outputs[label].append(toks)
+            steps = [s for s in res.steps if s.source == "small"]
+            drafted += steps
+            n_acc = sum(s.accepted for s in steps)
+            utils = [round(s.utility, 4) for s in steps]
+            print(f"[main] ssm {label} req{i}: {res.wall_time * 1e3:.1f} ms, "
+                  f"{len(toks)} tokens, {len(toks) / res.wall_time:.1f} "
+                  f"tok/s, {len(res.steps)} steps ({n_acc} accepted / "
+                  f"{len(steps)} drafted; utilities {utils}), base "
+                  f"{mb['prefill_calls']} extends / {mb['decode_calls']} "
+                  f"decodes" + (f", spec {res.spec_stats.accepted}/"
+                                f"{res.spec_stats.proposed} over "
+                                f"{res.spec_stats.rounds} rounds"
+                                if res.spec_stats.rounds else ""),
+                  flush=True)
+        got = {k: kernels[k].launches for k in want}
+        if got != want or not want["ssd_scan"] or any(
+                kernels[k].launches for k in kernels if k not in want):
+            now = {k: v.launches for k, v in kernels.items()}
+            raise AssertionError(f"ssm {label}: launches {now} != {want} "
+                                 "(paged kernels 0)")
+        if label == "greedy" and len({s.accepted for s in drafted}) < 2:
+            raise AssertionError("ssm greedy run saw only one verifier "
+                                 "decision; both paths must run")
+        print(f"[main] ssm {label}: launches ssd_scan {got['ssd_scan']} == "
+              f"{layers['base']} x base extends; decode {got['decode_attention']}"
+              f", prefill {got['flash_attention']} == {layers['small']} x "
+              "SMALL's calls; paged 0", flush=True)
+        for k in want:
+            launches[k] += got[k]
+    same = outputs["hierarchical greedy"][0] == outputs["greedy"][0]
+    print(f"[main] ssm (information): hierarchical greedy req0 tokens "
+          f"{'equal' if same else 'differ from'} plain greedy req0's",
+          flush=True)
+    ssm_profile(torch, serve, base, small, reqs[2])
+    return launches, base
+
+
+def ssm_profile(torch, serve, base, small, task):
+    """Information: one greedy ssm request run again, unprofiled and then
+    under torch.profiler: device time by kernel, and the device's idle
+    share of the unprofiled wall time (the profiler's own host cost
+    would inflate the profiled wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve.run_scheme("specreason", base, small, task, gen, 128,
+                     SSM_THRESHOLD, 0.0)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = serve.run_scheme("specreason", base, small, task, gen, 128,
+                               SSM_THRESHOLD, 0.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the device-side rows only (a CPU op's row repeats its kernels' time)
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    busy = sum(t for _, t, _ in rows) / 1e6
+    rows.sort(key=lambda r: -r[1])
+    top = "; ".join(f"{k[:48]} {t / 1e3:.1f} ms x{n}" for k, t, n in rows[:8])
+    n_out = len(res.thinking_ids + res.answer_ids)
+    print(f"[profile] ssm greedy req2 ({n_out} tokens): wall {plain_wall:.4f}"
+          f" s unprofiled ({wall:.4f} s profiled), device busy {busy:.4f} s, "
+          f"idle share {1 - busy / plain_wall:.4f} of the unprofiled wall; "
+          f"top device time: {top}", flush=True)
+
+
+def ssm_check_phase(torch, base):
+    """The mamba2-1.3b base's logits on the card against the same weights
+    on the CPU: a 300-token prompt (chunks of 128, 128 and 44 padded to
+    128), a resumed 40-token extend (one chunk), 3 decode steps."""
+    m = base.model
+    cpu_params = tree_map(lambda t: t.cpu(), base.params)
+    toks = torch.randint(0, m.cfg.vocab_size, (1, 343),
+                         generator=torch.Generator().manual_seed(5))
+    logits = {}
+    for dev, params in (("cuda", base.params), ("cpu", cpu_params)):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            st = m.init_state(1, 0, device=dev)
+            a, st = m.prefill(params, toks[:, :300].to(dev), st)
+            b, st = m.prefill(params, toks[:, 300:340].to(dev), st)
+            outs = [a[0], b[0]]
+            for t in range(340, 343):
+                c, st = m.decode_step(params, st, toks[:, t:t + 1].to(dev))
+                outs.append(c)
+        logits[dev] = torch.cat(outs).float().cpu()
+        print(f"[check] ssm {dev}: {time.perf_counter() - t0:.1f} s", flush=True)
+    err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    scale = logits["cpu"].abs().max().item()
+    if not torch.allclose(logits["cuda"], logits["cpu"], atol=LOGIT_TOL,
+                          rtol=LOGIT_TOL):
+        raise AssertionError(f"{SSM_ARCH}: card vs CPU logits differ by "
+                             f"{err} (> {LOGIT_TOL})")
+    print(f"[check] ssm {SSM_ARCH} ({m.cfg.n_layers} layers, published "
+          f"widths): card vs CPU"
+          f" logits over a 300-token prompt, a 40-token extend and 3 decode "
+          f"steps, max |diff| {err:.3g} at max |logit| {scale:.3g} "
+          f"(tolerance {LOGIT_TOL}: fp32 on both sides, TF32 off, sums in "
+          "other orders)", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -597,7 +881,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.checkpoint.checkpoint import load_checkpoint
-    from repro_torch.configs import minitron_4b, testbed
+    from repro_torch.configs import mamba2_1_3b, minitron_4b, testbed
     from repro_torch.data import tasks
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.decode_attention import decode_attention
@@ -606,7 +890,9 @@ def main() -> int:
         paged_append_attention
     from repro_torch.kernels.paged_decode_attention import \
         paged_decode_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch import serve
+    from repro_torch.models import mamba2
     from repro_torch.models.model import Model
     from repro_torch.serving import loader
     from repro_torch.serving.batch_engine import BatchEngine
@@ -636,14 +922,19 @@ def main() -> int:
     records.update(paged_kernel_phase(torch, F, ref, paged_decode_attention,
                                       paged_append_attention,
                                       minitron_4b.CONFIG))
+    records.update(ssd_kernel_phase(torch, ref, mamba2, ssd_scan,
+                                    mamba2_1_3b.CONFIG))
 
     ckpt = os.path.join(ROOT, "build", "smoke_ckpt")
     loader.save_random_testbed(ckpt, seed=0)
     paged_decode_attention.launches = paged_append_attention.launches = 0
+    ssd_scan.launches = 0
     launches, greedy = main_path_phase(torch, serve, decode_attention,
                                        flash_attention, ckpt)
-    if paged_decode_attention.launches or paged_append_attention.launches:
-        raise AssertionError("the sequential path launched a paged kernel")
+    if paged_decode_attention.launches or paged_append_attention.launches \
+            or ssd_scan.launches:
+        raise AssertionError("the sequential path launched a paged kernel "
+                             "or the SSD scan")
     check_phase(torch, Model, load_checkpoint, testbed, serve, tasks, loader,
                 greedy, ckpt)
     rows_check_phase(torch, Model, BatchEngine, testbed, load_checkpoint,
@@ -651,28 +942,37 @@ def main() -> int:
     kernels = {"decode_attention": decode_attention,
                "flash_attention": flash_attention,
                "paged_decode_attention": paged_decode_attention,
-               "paged_append_attention": paged_append_attention}
+               "paged_append_attention": paged_append_attention,
+               "ssd_scan": ssd_scan}
     paged, cont_greedy = continuous_phase(torch, serve, kernels, ckpt)
     launches.update(paged)
     batch_invariance_phase(torch, serve, tasks, Model, load_checkpoint,
                            testbed, loader, ckpt, cont_greedy)
+    ssm_launches, ssm_base = ssm_main_phase(torch, serve, tasks, loader,
+                                            kernels)
+    launches["ssd_scan"] = ssm_launches["ssd_scan"]
+    ssm_check_phase(torch, ssm_base)
 
     # one record per kernel at a representative serving-path shape (BASE
     # heads, fp32): decode at 128 cached tokens, a 16-token extend at 100;
-    # a paged decode step of 4 ragged rows, a 16-token paged extend
+    # a paged decode step of 4 ragged rows, a 16-token paged extend; a
+    # 37-token mamba2-1.3b extend (one chunk)
     rep = {"decode_attention": "base float32 B=1 cache=1024 lengths=[128]",
            "flash_attention": "base float32 S=16 q_offset=100 kv=1024 "
                               "causal=True window=0",
            "paged_decode_attention": "base float32 B=4 "
                                      "lengths=[0, 1, 77, 640]",
            "paged_append_attention": "base float32 T=16 B=2 ctx=[1, 100] "
-                                     "span=[16, 11]"}
+                                     "span=[16, 11]",
+           "ssd_scan": "mamba2 float32 B=1 L=37 H=64 P=64 G=1 N=128 "
+                       "chunk=37"}
     sources = {"decode_attention": "src/repro/kernels/decode_attention.py:83",
                "flash_attention": "src/repro/kernels/flash_attention.py:90",
                "paged_decode_attention":
                    "src/repro/kernels/paged_decode_attention.py:89",
                "paged_append_attention":
-                   "src/repro/kernels/paged_append_attention.py:118"}
+                   "src/repro/kernels/paged_append_attention.py:118",
+               "ssd_scan": "src/repro/kernels/ssd_scan.py:88"}
     kernels_json = []
     for name, recs in records.items():
         r = next(x for x in recs if x["shape"] == rep[name])

@@ -154,7 +154,8 @@ def spec_decode(base: Engine, draft: Engine, base_sess: Session,
     round's verification extend (``[pending] + draft``), and one base
     decode commits the last pending token when the routine finishes.  The
     draft context reconciles every round: truncate, then decode the final
-    suffix token."""
+    suffix token.  An engine that cannot truncate (SSM state) restores
+    the round's snapshot and replays the kept tokens instead."""
     out: List[int] = []
     stats = stats if stats is not None else SpecDecodeStats()
     pending: Optional[int] = None
@@ -186,14 +187,27 @@ def spec_decode(base: Engine, draft: Engine, base_sess: Session,
         base.meter.spec_accepted += n_acc
         out += suffix
         m = len(suffix)
-        base_sess = base.truncate(base_ext, b_snap.pos + p + m - 1,
-                                  b_snap.last_logits)      # stale; unread
+        if base.can_truncate:
+            base_sess = base.truncate(base_ext, b_snap.pos + p + m - 1,
+                                      b_snap.last_logits)  # stale; unread
+        else:
+            base_sess = base.rollback(base_ext, b_snap,
+                                      replay=chunk[:p + m - 1])
         pending = suffix[-1]
-        keep = draft.truncate(draft_sess, d_snap.pos + m - 1,
-                              d_snap.last_logits)          # stale; unread
-        draft_sess = draft.decode_one(keep, suffix[-1])
+        draft_sess = _reconcile(draft, draft_sess, d_snap, suffix)
         if hit_stop:
             break
     if pending is not None:
         base_sess = base.decode_one(base_sess, pending)
     return out, base_sess, draft_sess
+
+
+def _reconcile(engine: Engine, sess_with_cache: Session, snap: Session,
+               suffix: List[int]) -> Session:
+    """Place ``snap + suffix`` as the engine's context, reusing the cached
+    speculative entries when the engine can truncate."""
+    if engine.can_truncate:
+        keep = engine.truncate(sess_with_cache, snap.pos + len(suffix) - 1,
+                               snap.last_logits)          # stale; unread
+        return engine.decode_one(keep, suffix[-1])
+    return engine.rollback(sess_with_cache, snap, replay=suffix)

@@ -10,9 +10,14 @@ paged_decode_attention  flash-decode over a page pool through per-row block
 paged_append_attention  span attention: T queries per row over its pages
                   plus the span's own K/V (port of the Pallas
                   ``paged_append_attention``)
+ssd_scan          Mamba2 chunked SSD scan: intra-chunk quadratic term plus
+                  the inter-chunk state recurrence (port of the Pallas
+                  ``ssd_scan``)
 
 ``csrc/`` holds the CUDA sources (``decode_core.cuh`` is the flash-decode
 body both decode kernels share), ``build`` compiles them with nvcc at
-first use, ``ref`` holds the plain PyTorch versions, and ``ops``
-dispatches: CPU tensors to ``ref``, CUDA tensors to the kernels.
+first use, ``ref`` holds the plain PyTorch versions of the attention kernels and
+the SSD scan's sequential oracle (the scan's plain version is
+``models.mamba2.ssd_chunked``), and ``ops`` dispatches: CPU tensors to
+the plain versions, CUDA tensors to the kernels.
 """

@@ -1,8 +1,8 @@
-"""Attention entry points of the port: the plain version for a CPU
-tensor, the CUDA kernel for a CUDA tensor.
+"""Kernel entry points of the port (attention and the SSD scan): the
+plain version for a CPU tensor, the CUDA kernel for a CUDA tensor.
 
-The dispatch looks only at the device of the query: a CPU tensor runs
-the plain PyTorch version in ``ref``; a CUDA tensor launches the
+The dispatch looks only at the device of the query (of x for the scan):
+a CPU tensor runs the plain PyTorch version; a CUDA tensor launches the
 hand-written kernel, whose wrapper raises on anything it does not take.
 There is no fallback from the kernel to the plain version and no
 override.
@@ -10,7 +10,7 @@ override.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -19,6 +19,7 @@ from .decode_attention import decode_attention as decode_kernel
 from .flash_attention import flash_attention as flash_kernel
 from .paged_append_attention import paged_append_attention as append_kernel
 from .paged_decode_attention import paged_decode_attention as paged_kernel
+from .ssd_scan import ssd_scan as ssd_kernel
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -26,7 +27,7 @@ def _on_cpu(t: torch.Tensor) -> bool:
         return True
     if t.device.type == "cuda":
         return False
-    raise ValueError(f"no attention path for device {t.device}")
+    raise ValueError(f"no kernel path for device {t.device}")
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -72,3 +73,20 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
                                           block_tables, ctx_lens, span_lens)
     return append_kernel(q, k_new, v_new, k_pages, v_pages, block_tables,
                          ctx_lens, span_lens)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+        c: torch.Tensor, chunk: int,
+        init_state: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan: x (B,L,H,P), dt (B,L,H), a (H,), b/c (B,L,G,N),
+    init_state (B,H,P,N) or None (zeros); L a multiple of ``chunk``.
+    Returns (y (B,L,H,P), final state (B,H,P,N)).  On the CPU the final
+    state is in x's dtype (``ssd_chunked``, as the JAX package's plain
+    path), on the card float32 (the kernel, as the Pallas kernel)."""
+    if _on_cpu(x):
+        # imported here: models.mamba2 imports this module
+        from ..models.mamba2 import ssd_chunked
+        return ssd_chunked(x, dt, a, b, c, chunk, init_state)
+    init = None if init_state is None else init_state.float().contiguous()
+    return ssd_kernel(x, dt.float(), a.float(), b, c, chunk, init)

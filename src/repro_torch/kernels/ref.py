@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the attention kernels, and the SSD scan's
+sequential oracle.
 
 Counterparts of the JAX package's ``kernels/ref.py`` oracles, written in
 the most direct way: repeat the kv heads, form the whole score matrix in
@@ -11,7 +12,7 @@ them on the card.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -134,3 +135,27 @@ def paged_append_reference(q: torch.Tensor, k_new: torch.Tensor,
     out = out.transpose(1, 2)                          # (B, T, H, hd)
     valid = torch.arange(t, device=dev)[None, :, None, None] < span
     return out.masked_fill(~valid, 0.0)
+
+
+def ssd_reference(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                  b: torch.Tensor, c: torch.Tensor, init_state: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential (non-chunked) SSD recurrence, the definitional form and
+    the oracle of the SSD scan kernel.
+
+    x: (B,L,H,P); dt: (B,L,H); a: (H,); b,c: (B,L,G,N);
+    init_state: (B,H,P,N).  Returns (y in x's dtype, final state fp32)."""
+    h = x.shape[2]
+    rep = h // b.shape[2]
+    bh = b.repeat_interleave(rep, dim=2).float()
+    ch = c.repeat_interleave(rep, dim=2).float()
+    xf, dtf, af = x.float(), dt.float(), a.float()
+    state = init_state.float()
+    ys = []
+    for t in range(x.shape[1]):
+        decay = torch.exp(af[None, :] * dtf[:, t])               # (B,H)
+        upd = torch.einsum("bhp,bhn->bhpn", xf[:, t] * dtf[:, t, :, None],
+                           bh[:, t])
+        state = state * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, ch[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), state

@@ -1,9 +1,11 @@
-"""Decode state of the dense family and its rollback rules, and the
-per-call view of batched rows over a paged KV store (``PagedRows``).
+"""Decode state of the dense and ssm families and its rollback rules, and
+the per-call view of batched rows over a paged KV store (``PagedRows``).
 
 A :class:`DecodeState` holds the attention KV caches, stacked over layers
-as (L, B, C, K, hd) like the JAX package's, and the absolute position
-(the number of tokens already in context) as a host integer.
+as (L, B, C, K, hd) like the JAX package's (dense family), or the mamba2
+states, conv (L, B, W-1, C) and ssm (L, B, H, P, N) (ssm family), and the
+absolute position (the number of tokens already in context) as a host
+integer.
 
 **Caches are written in place.**  JAX arrays are immutable, so there a
 snapshot is the state object itself.  Here ``prefill`` and
@@ -24,11 +26,22 @@ So restoring a snapshot, or ``truncate``-ing to an earlier position,
 rolls the context back with no copy.  A ring-buffered cache wraps, so a
 later write can land on a slot the snapshot still sees: ``snapshot``
 therefore copies ring caches.
+
+**Recurrent states are never written in place.**  Every call folds each
+token into the whole conv and ssm state, so a shared state written in
+place would let a snapshot see later tokens.  ``prefill`` and
+``decode_step`` of the ssm family therefore build *new* conv and ssm
+tensors and hand back a state over them; the old tensors are untouched.
+A snapshot shares them and stays O(1), as in the JAX package (no 103 MB
+copy per snapshot at mamba2-1.3b); a call costs one fresh state's
+allocation instead.  SSM state cannot be rolled back by position:
+``truncate`` raises, and rollback restores a snapshot (and replays).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,18 +49,27 @@ import torch
 
 @dataclasses.dataclass
 class DecodeState:
-    k: torch.Tensor      # (L, B, C, K, hd)
-    v: torch.Tensor
+    k: Optional[torch.Tensor]     # (L, B, C, K, hd); None without attention
+    v: Optional[torch.Tensor]
     pos: int             # absolute position = tokens already in context
     ring: bool = False   # ring-buffer (sliding window) cache
+    conv: Optional[torch.Tensor] = None   # (L, B, W-1, C) mamba conv state
+    ssm: Optional[torch.Tensor] = None    # (L, B, H, P, N) SSM state
 
     @property
     def capacity(self) -> int:
-        return self.k.shape[2]
+        """Attention cache length; 0 without an attention cache (SSM
+        state has no positional capacity)."""
+        return self.k.shape[2] if self.k is not None else 0
 
     def truncate(self, new_pos: int) -> "DecodeState":
         """Roll back to an earlier position; stale slots are masked by
-        position and overwritten before they become visible."""
+        position and overwritten before they become visible.  Refused for
+        SSM state, which cannot be rolled back by position."""
+        if self.ssm is not None:
+            raise ValueError("truncate() cannot roll back SSM state; keep a "
+                             "snapshot of the DecodeState at the step "
+                             "boundary and restore it")
         if self.ring:
             raise ValueError("truncate() cannot roll back a ring buffer; "
                              "restore a snapshot instead")
@@ -56,8 +78,8 @@ class DecodeState:
         return dataclasses.replace(self, pos=int(new_pos))
 
     def snapshot(self) -> "DecodeState":
-        """The state as it is now.  Shares linear caches (see the module
-        docstring); copies ring caches."""
+        """The state as it is now.  Shares linear caches and SSM states
+        (see the module docstring); copies ring caches."""
         if self.ring:
             return dataclasses.replace(self, k=self.k.clone(),
                                        v=self.v.clone())
@@ -66,7 +88,16 @@ class DecodeState:
 
 def make_decode_state(cfg, batch: int, capacity: int, device,
                       dtype=torch.float32, ring: bool = False) -> DecodeState:
-    """A zeroed decode state for a dense ``cfg`` on ``device``."""
+    """A zeroed decode state for a dense or ssm ``cfg`` on ``device``
+    (``capacity`` and ``ring`` are unused for ssm)."""
+    if cfg.family == "ssm":
+        ch = cfg.ssm_d_inner + 2 * cfg.ssm_n_groups * cfg.ssm_state
+        conv = torch.zeros((cfg.n_layers, batch, cfg.ssm_conv_width - 1, ch),
+                           dtype=dtype, device=device)
+        ssm = torch.zeros((cfg.n_layers, batch, cfg.ssm_n_heads,
+                           cfg.ssm_head_dim, cfg.ssm_state),
+                          dtype=torch.float32, device=device)
+        return DecodeState(k=None, v=None, pos=0, conv=conv, ssm=ssm)
     if cfg.family != "dense":
         raise NotImplementedError(f"decode state for family {cfg.family!r} "
                                   "is not ported yet")

@@ -1,4 +1,5 @@
-"""Parameter specs and the elementary layers of the dense family.
+"""Parameter specs and the elementary layers of the dense family, with
+the two init rules of the mamba2 mixer (``arange_log``, ``uniform_dt``).
 
 Parameters are plain nested dicts of tensors stacked over layers, with
 the JAX package's key paths and layouts (``layers/attn/wq`` is
@@ -22,7 +23,8 @@ import torch.nn.functional as F
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    init: str = "normal"   # normal | zeros | ones | scaled
+    init: str = "normal"   # normal | zeros | ones | scaled | arange_log
+                           # | uniform_dt
     scale: float = 1.0     # stddev for normal; multiplier for scaled
     fan_in_axis: int = 0   # for "scaled": stddev = scale / sqrt(shape[axis])
 
@@ -41,6 +43,10 @@ def init_params(specs: Dict[str, ParamSpec], generator: torch.Generator,
             t = torch.zeros(s.shape)
         elif s.init == "ones":
             t = torch.ones(s.shape)
+        elif s.init == "arange_log":
+            t = arange_log(s.shape)
+        elif s.init == "uniform_dt":
+            t = uniform_dt(s.shape, generator)
         else:
             std = s.scale
             if s.init == "scaled":
@@ -48,6 +54,25 @@ def init_params(specs: Dict[str, ParamSpec], generator: torch.Generator,
             t = torch.randn(s.shape, generator=generator) * std
         out[key] = t.to(device=device, dtype=dtype)
     return out
+
+
+def arange_log(shape: Tuple[int, ...]) -> torch.Tensor:
+    """Mamba A_log init: log 1..H along the last axis."""
+    h = shape[-1]
+    return torch.log(torch.arange(1, h + 1, dtype=torch.float32)
+                     ).expand(shape).clone()
+
+
+def uniform_dt(shape: Tuple[int, ...], generator: torch.Generator,
+               dt_min: float = 1e-3, dt_max: float = 0.1,
+               floor: float = 1e-4) -> torch.Tensor:
+    """Mamba dt_bias init: the inverse softplus of a log-uniform dt in
+    [dt_min, dt_max], floored at ``floor``."""
+    u = torch.rand(shape, generator=generator)
+    dt = torch.exp(u * (math.log(dt_max) - math.log(dt_min))
+                   + math.log(dt_min))
+    dt = torch.clamp(dt, min=floor)
+    return dt + torch.log(-torch.expm1(-dt))
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
-"""Model assembly for the dense family.
+"""Model assembly for the dense and ssm families.
 
 Functions over a params dict, as in the JAX package: parameters are
 nested dicts of tensors stacked over layers (``params["layers"]["attn"]
 ["wq"]`` is (L, d, H, hd)), and the layers run as a Python loop over
-that stacked dimension.  Other families raise ``NotImplementedError``.
+that stacked dimension.  A dense layer is pre-norm attention plus an MLP;
+an ssm layer is a pre-norm mamba2 mixer (``layers/mixer/*``) and no MLP.
+Other families raise ``NotImplementedError``.
 
 Public surface:
   Model.init         -- random parameters from a seed, on a device
@@ -14,8 +16,9 @@ Public surface:
   Model.init_state   -- an empty KV cache
   Model.prefill_rows -- batched extend of B rows over a paged KV store,
                         each row at its own position -> logits (B, T, V)
+                        (dense family)
   Model.decode_rows  -- batched one-token decode over a paged KV store
-                        -> logits (B, V)
+                        -> logits (B, V) (dense family)
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from .. import device as devices
 from . import attention as attn
+from . import mamba2
 from .config import ModelConfig
 from .kvcache import DecodeState, PagedRows, make_decode_state
 from .layers import (ParamSpec, apply_mlp, apply_norm, embed_spec,
@@ -68,9 +72,10 @@ def _layer(stacked: Dict, i: int) -> Dict:
 class Model:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg.validate()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "ssm"):
             raise NotImplementedError(f"family {cfg.family!r} is not ported "
-                                      "yet; the port runs the dense family")
+                                      "yet; the port runs the dense and ssm "
+                                      "families")
 
     # ------------------------------------------------------------- params --
     def spec(self) -> Dict[str, ParamSpec]:
@@ -78,9 +83,12 @@ class Model:
         layouts."""
         cfg = self.cfg
         d, nt = cfg.d_model, cfg.norm_type
-        layer = {"ln1": norm_spec(d, nt), "attn": attn.attn_spec(cfg),
-                 "ln2": norm_spec(d, nt),
-                 "mlp": mlp_spec(d, cfg.d_ff, cfg.act)}
+        if cfg.family == "ssm":
+            layer = {"ln1": norm_spec(d, nt), "mixer": mamba2.mamba_spec(cfg)}
+        else:
+            layer = {"ln1": norm_spec(d, nt), "attn": attn.attn_spec(cfg),
+                     "ln2": norm_spec(d, nt),
+                     "mlp": mlp_spec(d, cfg.d_ff, cfg.act)}
         tree = {"tok_embed": embed_spec(cfg.vocab_size, d),
                 "final_norm": norm_spec(d, nt),
                 "layers": {k: s.stacked(cfg.n_layers)
@@ -141,6 +149,9 @@ class Model:
         for i in range(cfg.n_layers):
             lp = _layer(params["layers"], i)
             h = apply_norm(x, lp["ln1"], cfg.norm_type, cfg.rmsnorm_eps)
+            if cfg.family == "ssm":
+                x = x + mamba2.apply_mamba(h, lp["mixer"], cfg)
+                continue
             x = x + attn.self_attention(h, lp["attn"], cfg, positions,
                                         window=cfg.sliding_window)
             x = self._mlp_block(x, lp)
@@ -150,12 +161,16 @@ class Model:
     def prefill(self, params, tokens: torch.Tensor, state: DecodeState
                 ) -> Tuple[torch.Tensor, DecodeState]:
         """Process S tokens starting at ``state.pos``: writes their keys and
-        values into the state's caches in place and returns (logits
-        (B, S, V), the state advanced by S).  Prompts, step extends and
-        SpecReason verification passes all come through here."""
+        values into the state's caches in place (an ssm model resumes
+        from the state's conv and ssm tensors and returns new ones) and
+        returns (logits (B, S, V), the state advanced by S).  Prompts,
+        step extends and SpecReason verification passes all come through
+        here."""
         cfg = self.cfg
         start = state.pos
         x = self._embed(params, tokens, start)
+        if cfg.family == "ssm":
+            return self._ssm_layers(params, x, state, decode=False)
         for i in range(cfg.n_layers):
             lp = _layer(params["layers"], i)
             h = apply_norm(x, lp["ln1"], cfg.norm_type, cfg.rmsnorm_eps)
@@ -174,6 +189,10 @@ class Model:
         cfg = self.cfg
         pos = state.pos
         x = self._embed(params, tokens, pos)
+        if cfg.family == "ssm":
+            logits, new_state = self._ssm_layers(params, x, state,
+                                                 decode=True)
+            return logits[:, 0, :], new_state
         lengths = torch.full((tokens.shape[0],),
                              min(pos + 1, state.capacity),
                              dtype=torch.int32, device=x.device)
@@ -186,6 +205,32 @@ class Model:
             x = self._mlp_block(x, lp)
         logits = self._final(params, x)[:, 0, :]
         return logits, dataclasses.replace(state, pos=pos + 1)
+
+    def _ssm_layers(self, params, x: torch.Tensor, state: DecodeState,
+                    decode: bool) -> Tuple[torch.Tensor, DecodeState]:
+        """The mixer stack over the (B, S, d) embedded tokens from
+        ``state``: the chunked scan for an extend, the recurrent step for
+        a decoded token.  The conv and ssm states come back as new
+        tensors (``models/kvcache.py`` says why)."""
+        cfg = self.cfg
+        convs, ssms = [], []
+        for i in range(cfg.n_layers):
+            lp = _layer(params["layers"], i)
+            h = apply_norm(x, lp["ln1"], cfg.norm_type, cfg.rmsnorm_eps)
+            st = (state.conv[i], state.ssm[i])
+            if decode:
+                y, (conv, ssm) = mamba2.apply_mamba_decode(h, lp["mixer"],
+                                                           cfg, st)
+            else:
+                y, (conv, ssm) = mamba2.apply_mamba(h, lp["mixer"], cfg, st,
+                                                    return_state=True)
+            x = x + y
+            convs.append(conv)
+            ssms.append(ssm)
+        new_state = dataclasses.replace(
+            state, conv=torch.stack(convs), ssm=torch.stack(ssms),
+            pos=state.pos + x.shape[1])
+        return self._final(params, x), new_state
 
     # ------------------------------------------------------- paged rows --
     def prefill_rows(self, params, tokens: torch.Tensor,

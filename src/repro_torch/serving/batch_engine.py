@@ -79,6 +79,12 @@ class BatchEngine:
                  buckets: Sequence[int] = DEFAULT_BUCKETS, name: str = "",
                  pad_id: int = 0, pool: Optional[PagedKVPool] = None):
         cfg = model.cfg
+        if cfg.has_ssm:
+            raise ValueError(
+                "BatchEngine is attention-only: ragged batched rows rely on "
+                "position-masked caches; SSM state would be polluted by "
+                "pads.  Serve ssm/hybrid models through the sequential "
+                "Engine.")
         if cfg.family != "dense":
             raise NotImplementedError(f"family {cfg.family!r}: the batched "
                                       "engine serves the dense family")

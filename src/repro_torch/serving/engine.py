@@ -7,10 +7,12 @@ the pair.  As in the JAX package:
   * ``extend`` pads to a small set of sequence buckets; the Meter counts
     the padded bucket.  Trailing pads are harmless: queries attend only
     to positions <= their own and the next extend overwrites the padded
-    slots.
+    slots.  An ssm model's recurrent state would take the pads in, so
+    its extends run at their exact length (``exact_lengths``).
   * every Session keeps ``last_logits``, the logits after its last token.
   * ``truncate`` rolls an attention cache back by resetting the
-    position; ``rollback`` restores a snapshot (and may replay tokens).
+    position (``can_truncate``; SSM state refuses it); ``rollback``
+    restores a snapshot (and may replay tokens), for every family.
 
 Differences from the JAX package:
 
@@ -89,6 +91,9 @@ class Engine:
         self.buckets = tuple(sorted(b for b in buckets if b <= max_len))
         self.name = name or model.cfg.name
         self.pad_id = pad_id
+        # trailing pads are invisible to attention caches (position-masked)
+        # but would enter an SSM's recurrent state: exact-length extends
+        self.exact_lengths = model.cfg.has_ssm
         self.meter = Meter()
 
     def _sync(self) -> None:
@@ -103,6 +108,8 @@ class Engine:
         return Session(st, None, 0)
 
     def _bucket(self, n: int) -> int:
+        if self.exact_lengths:
+            return n
         for b in self.buckets:
             if n <= b:
                 return b
@@ -114,7 +121,9 @@ class Engine:
         """Bucket-pad, prefill, meter.  Returns the (B, bucket, V) logits
         and the new state with pos at the unpadded length."""
         n = len(ids)
-        if session.pos + n > session.state.capacity:
+        # SSM-only states have no positional capacity (constant size)
+        if session.state.k is not None and \
+                session.pos + n > session.state.capacity:
             raise ValueError(f"context overflow: {session.pos}+{n} > "
                              f"{session.state.capacity}")
         b = self._bucket(n)
@@ -195,11 +204,21 @@ class Engine:
             s = self.extend(s, list(replay))
         return s
 
+    @property
+    def can_truncate(self) -> bool:
+        """Attention-only models can roll back by resetting the position
+        (stale cache entries are masked); SSM state cannot."""
+        return not self.model.cfg.has_ssm
+
     def truncate(self, session: Session, to_pos: int,
                  last_logits: torch.Tensor) -> Session:
         """O(1) rollback: keep the cache, reset the position, restore the
         logits at the new last token (which the caller has from the
-        verification pass)."""
+        verification pass).  Refused for SSM state: restore a snapshot
+        with ``rollback`` instead."""
+        if not self.can_truncate:
+            raise ValueError(f"{self.name}: SSM state cannot be truncated; "
+                             "restore a snapshot with rollback()")
         if to_pos > session.pos:
             raise ValueError(f"truncate forward: {to_pos} > {session.pos}")
         ll = last_logits if last_logits.dim() == 2 else last_logits[None]

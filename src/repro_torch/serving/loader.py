@@ -1,19 +1,25 @@
-"""Load the testbed engine pair from npz checkpoints.
+"""Load the testbed engine pair from npz checkpoints, or build a
+random-init engine for a registry architecture.
 
 The port cannot train: a missing checkpoint is an error.  Checkpoints
 come from the JAX package's trainer or, for driving the machinery with
-random weights, from ``save_random_testbed``.
+random weights, from ``save_random_testbed``.  ``random_engine`` draws a
+registry architecture's weights from a seed, for driving the machinery
+at an architecture's published widths.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Tuple
 
 from .. import device as devices
 from ..checkpoint.checkpoint import load_checkpoint, save_checkpoint
-from ..configs import testbed
+from ..configs import registry, testbed
+from ..models.config import ModelConfig
 from ..models.model import Model
+from ..tokenizer import toy as tk
 from .engine import Engine
 
 PAIR = (("base", testbed.BASE), ("small", testbed.SMALL))
@@ -50,3 +56,20 @@ def save_random_testbed(ckpt_dir: str, seed: int = 0) -> None:
         params = Model(cfg).init(seed + i, device="cpu")
         save_checkpoint(checkpoint_path(ckpt_dir, cfg), params,
                         meta={"init": "random", "seed": seed + i})
+
+
+def arch_config(arch: str, reduced: bool = False) -> ModelConfig:
+    """The registry's config for ``arch`` (its ``reduced()`` smoke variant
+    when asked) with one cut: ``vocab_size`` is the toy tokenizer's 64,
+    so that the controller's token ids mean the same to every model."""
+    cfg = registry.reduced(arch) if reduced else registry.get(arch)
+    return dataclasses.replace(cfg, vocab_size=tk.VOCAB_SIZE, name=arch)
+
+
+def random_engine(arch: str, device="cuda", seed: int = 0) -> Engine:
+    """An Engine over ``arch_config(arch)`` with weights drawn by the
+    port's init from ``seed`` (on the CPU, so the same on every device)
+    and moved to ``device``."""
+    model = Model(arch_config(arch))
+    params = model.init(seed, device=devices.resolve(device))
+    return Engine(model, params, name=arch)

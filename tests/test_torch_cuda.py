@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version,
 the wrappers' refusals, and the model and engine on CUDA against the CPU
-(the sequential engine and the batched paged path).
+(the sequential engine, the batched paged path, and an ssm model whose
+extends go through the SSD scan kernel).
 
 Needs an NVIDIA GPU and nvcc (the kernels build on first use); every test
 skips where CUDA is absent.  Imports no JAX, so it runs on a machine
@@ -8,7 +9,8 @@ without it:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances: kernels fp32 atol = rtol = 2e-5, bf16 2e-2 (as
+Tolerances: attention kernels fp32 atol = rtol = 2e-5, bf16 2e-2, the
+SSD scan fp32 1e-4, bf16 y 3e-2 and its final state 1e-4 (as
 tests/test_kernels.py); model logits card vs CPU atol = rtol = 1e-4
 (fp32 GEMMs on both sides with TF32 off, summed in different orders).
 """
@@ -28,10 +30,13 @@ from repro_torch.kernels.paged_append_attention import \
     paged_append_attention
 from repro_torch.kernels.paged_decode_attention import \
     paged_decode_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.models import mamba2
 from repro_torch.models.model import Model
 from repro_torch.sampling.sample import SamplingParams
 from repro_torch.serving.batch_engine import BatchEngine
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.loader import arch_config
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -316,3 +321,65 @@ def test_sliding_window_decode_on_card_raises(dev):
     with pytest.raises(NotImplementedError, match="CUDA kernel"):
         m.decode_step(p, st, torch.zeros(1, 1, dtype=torch.long,
                                          device=dev))
+
+
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,h,p,g,n,chunk", [
+    (1, 37, 64, 64, 1, 128, 37),       # mamba2-1.3b heads, one ragged chunk
+    (2, 256, 4, 16, 2, 32, 64),        # G > 1, three carried chunks
+])
+def test_ssd_kernel_matches_plain(dev, dtype, b, l, h, p, g, n, chunk):
+    gen = torch.Generator(device=dev).manual_seed(l + g)
+    x = _randn(gen, b, l, h, p, dtype=dtype)
+    dt = torch.nn.functional.softplus(_randn(gen, b, l, h))
+    a = -torch.exp(_randn(gen, h) * 0.5)
+    bb = (_randn(gen, b, l, g, n) * 0.3).to(dtype)
+    cc = (_randn(gen, b, l, g, n) * 0.3).to(dtype)
+    init = _randn(gen, b, h, p, n) * 0.5
+    before = ssd_scan.launches
+    y, fin = ssd_scan(x, dt, a, bb, cc, chunk, init)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == dtype and fin.dtype == torch.float32
+    ye, fe = ref.ssd_reference(x, dt, a, bb, cc, init)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), ye.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(fin, fe, atol=1e-4, rtol=1e-4)
+    if dtype == torch.float32:
+        yp, fp = mamba2.ssd_chunked(x, dt, a, bb, cc, chunk, init)
+        torch.testing.assert_close(y, yp, atol=tol, rtol=tol)
+        torch.testing.assert_close(fin, fp, atol=tol, rtol=tol)
+    with pytest.raises(ValueError, match="divide L"):
+        ssd_scan(x[:, :l - 1], dt[:, :l - 1], a, bb[:, :l - 1],
+                 cc[:, :l - 1], chunk, init)
+    assert ssd_scan.launches == before + 1
+
+
+def test_ssm_model_on_card_matches_cpu_and_counts_launches(dev):
+    """The reduced mamba2-1.3b on the card against the CPU: a padded
+    prefill, a resumed extend and decode steps; the scan kernel launches
+    once per layer and extend."""
+    m = Model(arch_config("mamba2-1.3b", reduced=True))
+    params = m.init(2, device="cpu")
+    toks = torch.randint(0, 64, (1, 80), generator=torch.Generator()
+                         .manual_seed(0))
+    outs = {}
+    for d in ("cpu", "cuda"):
+        p = params_from_numpy(params_to_numpy(params), d)
+        ssd_scan.launches = 0
+        st = m.init_state(1, 0, device=d)
+        a, st = m.prefill(p, toks[:, :70].to(d), st)
+        seq = [a[0]]
+        a, st = m.prefill(p, toks[:, 70:77].to(d), st)
+        seq.append(a[0])
+        for t in range(77, 80):
+            a, st = m.decode_step(p, st, toks[:, t:t + 1].to(d))
+            seq.append(a)
+        outs[d] = torch.cat(seq).cpu()
+        assert ssd_scan.launches == (2 * m.cfg.n_layers if d == "cuda"
+                                     else 0)
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], atol=LOGIT_TOL,
+                               rtol=LOGIT_TOL)

@@ -30,7 +30,10 @@ def test_every_module_imports_without_jax_or_repro():
         "resilience", "telemetry", "scheduler", "workload")} \
         | {"repro_torch.core.spec_decode",
            "repro_torch.kernels.paged_decode_attention",
-           "repro_torch.kernels.paged_append_attention"} <= set(mods)
+           "repro_torch.kernels.paged_append_attention",
+           "repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
+           "repro_torch.configs.registry", "repro_torch.configs.mamba2_1_3b",
+           "repro_torch.launch.multiarch"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

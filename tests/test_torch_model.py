@@ -120,7 +120,7 @@ def test_load_checkpoint_checks_keys_and_shapes(tmp_path):
 
 def test_other_families_raise():
     with pytest.raises(NotImplementedError):
-        TModel(dataclasses.replace(testbed.MICRO, family="ssm",
+        TModel(dataclasses.replace(testbed.MICRO, family="hybrid",
                                    ssm_state=16))
 
 
