@@ -1,47 +1,70 @@
-// Paged span attention for Hopper (sm_90a): every batched extend of the
-// continuous-batching path (prompt chunks, step scoring, delimiters,
-// spec-decode verification) attends its T new queries per row over the
-// row's committed pages plus the span's own fresh K/V.
+// Paged span attention for Hopper (sm_90a) on the tensor cores: every
+// batched extend of the continuous-batching path (prompt chunks, step
+// scoring, delimiters, spec-decode verification) attends its T new queries
+// per row over the row's committed pages plus the span's own fresh K/V.
 //
 // Replaces: src/repro/kernels/paged_append_attention.py ::
 // paged_append_attention (the Pallas TPU kernel _paged_append_kernel).  Same
 // function: query i of row b (absolute position ctx_lens[b] + i) sees the
 // committed keys j < ctx_lens[b], key j lying in page tables[b, j / bs] at
 // slot j % bs, plus the span keys k_new[b, j] with j <= i and
-// j < span_lens[b]; causal within the span, no window.  Outputs of query
-// positions at or past span_lens[b] are unspecified (the caller slices them
-// off); a query that sees no key gives 0 (the l == 0 -> 1 guard).
+// j < span_lens[b]; causal within the span, no window.  A query that sees no
+// key gives 0 (the l == 0 -> 1 guard).  Outputs at or past span_lens[b] are
+// unspecified by the contract (the caller slices them off); this kernel
+// writes 0 there, as the plain version does.
 //
 // What bounds it on this card: for a few queries per row (a spec-decode
-// verification, T = gamma + 1) bytes, like decode; for 64 or more queries
-// over a long context, operations (4 * hd flops per query and key against
-// 2 * hd elements per key, shared by all the block's queries).
+// verification, T = gamma + 1 = 5) bytes: every committed K/V row is read
+// once (minitron-4b, B=8 over 4096 keys: 268 MB, 0.080 ms at 3.35 TB/s).
+// For 64 or more queries over a long context, operations: 4 * hd flops per
+// (query, key) pair, fp32-accurate, so 3xTF32 on the tensor cores at 495 / 3
+// TFLOP/s (minitron, T=64: 25.8 GFLOP of products, 0.156 ms).
 //
 // What the design does about it:
-//  * One block per (16-query tile x G heads, kv head, row): the 16 * G
-//    query rows of a tile share every K/V tile staged in shared memory, so
-//    a K/V element is read once per 16 span positions and G heads.  The
-//    TPU kernel fed all T * G rows as one MXU tile; G is 1 to 3 on the
-//    testbed and minitron-4b, far below the 64 rows of a wgmma, so the
-//    products run on CUDA cores in fp32 (tensor cores are later work).
-//  * The TPU grid's sequential page axis becomes a loop inside the block
-//    over 32-key tiles, first over the committed pages up to ctx_len (page
-//    addresses from the block table, read by the block itself: Hopper has
-//    no scalar prefetch), then over the side buffer up to the tile's last
-//    visible span key, one online softmax (fp32) across both.  Table
-//    entries at or past ceil(ctx_len / bs) are never read.
-//  * T runs up to the largest extend bucket (256): one kernel carries every
-//    batched extend.  When rows x kv heads x tiles would leave the 132 SMs
-//    idle (a verification of 5 queries over 4096 keys is 1 tile), the
-//    committed context is split over several blocks (split-K) and a merge
-//    kernel (decode_core.cuh) combines the partial (max, sum, acc) triples.
-//  * head_dim up to 128 is padded to 32, 64 or 128 in shared memory with
-//    bounds checks (BASE's 28); loads are scalar per element (bf16 rows of
-//    56 bytes are not 16-byte aligned); shared rows are padded by one word
-//    against bank conflicts.  Shared memory is dynamic (up to 117 KB for
-//    G = 8, hd = 128).
+//  * Rows packed as (position, head): row r = i * G + g of a (row b, kv
+//    head kh) is span position i of head kh * G + g, for any G.  A block
+//    holds 64 consecutive rows, 16 per warp: one m16n8k8 fragment each.
+//    A warp whose fragment holds no position below span_len does no
+//    arithmetic, so a verification of 5 positions x G = 3 is one fragment
+//    of 15 live rows (the old kernel ran a 16-position tile, 48 rows).
+//  * Both products on the tensor cores with mma.sync.m16n8k8 TF32, fp32
+//    accumulators in registers.  fp32 operands are split as hi =
+//    cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi) and multiplied as
+//    lo.hi' + hi.lo' + hi.hi' (3xTF32: one TF32 product misses the fp32
+//    tolerance 2e-5 at hd 128 over 4096 keys, the split stays far inside
+//    it; tests/test_torch_kernels.py emulates both).  bf16 operands are
+//    exact in TF32: Q.K^T takes one product with the softmax scale applied
+//    to S (1/sqrt(hd) is not exact), P.V two (P split, V exact).
+//  * Online softmax in registers: a lane holds 2 columns of rows gid and
+//    gid + 8 of each 8-key slice of S; the row max comes from two shuffles
+//    among the 4 lanes of a row, the row sum is kept per lane and reduced
+//    once at the end.  P feeds the next product straight from the S
+//    accumulators: the k order of an 8-key step is permuted (k = tig holds
+//    key 2 * tig, k = tig + 4 key 2 * tig + 1) and V's rows are read in
+//    the same order, so no shuffle or shared-memory round trip is needed.
+//  * K/V tiles of 32 keys staged by cp.async (16-byte copies, two stages:
+//    the next tile's copy runs under the current tile's products), page
+//    addresses from the block table, read by the block itself (Hopper has
+//    no scalar prefetch).  Where a key row or a stride is not a multiple of
+//    16 bytes (bf16 at hd 28: 56-byte rows) a scalar copy path stays.
+//    Shared rows are padded by 16 bytes, so fragment reads hit 32 banks.
+//  * The loop runs first over this split's committed keys, then (split 0)
+//    over the span keys up to the block's last live position, one online
+//    softmax across both.  When rows x kv heads x row blocks would leave
+//    the 132 SMs idle (a verification over 4096 keys), the committed
+//    context is split over blocks (split-K) and combine_kernel
+//    (decode_core.cuh) merges the partial (max, sum, acc) triples.
+//  * Shared memory a block: Q as fp32, R x (HD + 4) floats with R =
+//    min(64, T * G rounded up to 16), plus 2 stages x (K, V) x 32 keys x
+//    (HD + 16 bytes).  At hd 128: fp32 67.6 KB of K/V + 8.4 KB (T=5, G=3)
+//    or 33.8 KB (64 rows) of Q, so 3 or 2 blocks an SM; bf16 34.8 KB of
+//    K/V, 3 blocks an SM at 64 rows.  Registers: ptxas reports 128-168 a
+//    thread for the hd-128 variants (see PERF.md, PR 16), no spills.
 //
 // Plain C interface for ctypes; the launch returns cudaGetLastError().
+
+#include <cstdint>
+#include <initializer_list>
 
 #include "decode_core.cuh"
 
@@ -49,206 +72,348 @@ namespace {
 
 using namespace repro;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kQT = 16;  // span positions per block
-constexpr int kKT = 32;  // keys per shared-memory tile (= warp size)
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;  // (position, head) rows of a block
+constexpr int kKT = 32;             // keys per shared-memory tile
 
-struct Smem {
-  long long* koff;  // [kKT] element offsets of the tile's K rows
-  long long* voff;  // [kKT]
-  float* qs;        // [R][HD + 1]
-  float* ks;        // [kKT][HD + 1]
-  float* vs;        // [kKT][HD + 1]
-  float* ps;        // [R][kKT + 1]
-  float* m_s;       // [R]
-  float* l_s;       // [R]
-  float* a_s;       // [R]
+// Q rows a block stages: its 64, or all T * G rows rounded up to a fragment.
+__host__ __device__ inline int block_rows(int rows) {
+  return rows < kRows ? (rows + 15) / 16 * 16 : kRows;
+}
+
+template <typename T, int HD>
+__host__ __device__ constexpr int kv_ld() {
+  return HD + 16 / (int)sizeof(T);
+}
+
+template <typename T, int HD>
+__host__ __device__ inline size_t smem_bytes(int qr) {
+  return (size_t)qr * (HD + 4) * sizeof(float) +
+         (size_t)4 * kKT * kv_ld<T, HD>() * sizeof(T);
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + O(2^-22 |x|), both exact in TF32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// c += a . b on one m16n8k8 TF32 fragment
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+struct Args {
+  const void *q, *kn, *vn, *kp, *vp;
+  const int *tables, *ctx_lens, *span_lens;
+  void* out;
+  float* part;
+  int Tq, H, KH, nb, bs, hd, n_rt, n_split, split_keys;
+  long long q_sb, q_st, q_sh, kn_sb, kn_st, kn_sh, vn_sb, vn_st, vn_sh;
+  long long k_sp, k_sh, k_ss, v_sp, v_sh, v_ss, t_sb, o_sb, o_st, o_sh;
+  float scale;
 };
 
-__host__ __device__ inline size_t smem_bytes(int R, int HD) {
-  return 2 * kKT * sizeof(long long) +
-         sizeof(float) * ((size_t)R * (HD + 1) + 2 * kKT * (HD + 1) +
-                          (size_t)R * (kKT + 1) + 3 * R);
-}
-
-// One 32-key tile: keys k0 .. k0 + n - 1 whose K/V rows start at kbase +
-// koff[j] and vbase + voff[j] (filled by the caller).  In the span part the
-// causal mask key <= position applies; in the context part every key is
-// visible.  Updates the online softmax state and the accumulator.
-template <typename T, int HD, int kPer>
-__device__ __forceinline__ void attend_tile(const Smem& sm, const T* kbase,
-                                            const T* vbase, int n, int k0,
-                                            bool span, int q0, int R, int G,
-                                            int hd, float (&acc)[kPer]) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  constexpr int ld = HD + 1;
-  for (int i = tid; i < n * hd; i += kThreads) {
-    const int j = i / hd, d = i % hd;
-    sm.ks[j * ld + d] = to_f32(kbase[sm.koff[j] + d]);
-    sm.vs[j * ld + d] = to_f32(vbase[sm.voff[j] + d]);
-  }
-  __syncthreads();
-  for (int i = tid; i < R * kKT; i += kThreads) {
-    const int r = i / kKT, j = i % kKT;
-    float s = kNeg;
-    if (j < n && (!span || k0 + j <= q0 + r / G)) {
-      s = 0.f;
-      const float* qr = sm.qs + r * ld;
-      const float* kr = sm.ks + j * ld;
-      for (int d = 0; d < hd; ++d) s += qr[d] * kr[d];
-    }
-    sm.ps[r * (kKT + 1) + j] = s;
-  }
-  __syncthreads();
-  // online softmax: one warp per query row, one lane per key
-  for (int r = warp; r < R; r += kWarps) {
-    float* pr = sm.ps + r * (kKT + 1);
-    const float s = pr[lane];
-    const bool ok = s > 0.5f * kNeg;
-    const float m_old = sm.m_s[r];
-    const float m_new = fmaxf(m_old, warp_max(ok ? s : kNeg));
-    const float p = ok ? expf(s - m_new) : 0.f;
-    const float sum = warp_sum(p);
-    pr[lane] = p;
-    if (lane == 0) {
-      const float alpha = expf(m_old - m_new);
-      sm.a_s[r] = alpha;
-      sm.l_s[r] = sm.l_s[r] * alpha + sum;
-      sm.m_s[r] = m_new;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int u = 0; u < kPer; ++u) {
-    const int i = tid + u * kThreads;
-    if (i < R * hd) {
-      const int r = i / hd, d = i % hd;
-      const float* pr = sm.ps + r * (kKT + 1);
-      float o = acc[u] * sm.a_s[r];
-      for (int j = 0; j < n; ++j) o += pr[j] * sm.vs[j * ld + d];
-      acc[u] = o;
-    }
-  }
-  __syncthreads();
-}
-
-// grid (n_qt * n_split, KH, B): blockIdx.x = tile + n_qt * split.
-template <typename T, int HD, int GB>
+// grid (n_rt * n_split, KH, B): blockIdx.x = row block + n_rt * split.
+// kVec: every K/V row start is 16-byte aligned and hd * sizeof(T) is a
+// multiple of 16, so tiles are copied by cp.async 16 bytes at a time.
+template <typename T, int HD, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-paged_append_kernel(const T* __restrict__ q, const T* __restrict__ kn,
-                    const T* __restrict__ vn, const T* __restrict__ kp,
-                    const T* __restrict__ vp, const int* __restrict__ tables,
-                    const int* __restrict__ ctx_lens,
-                    const int* __restrict__ span_lens, T* __restrict__ out,
-                    float* __restrict__ part, int Tq, int H, int KH, int nb,
-                    int bs, int hd, int n_qt, int n_split, int split_keys,
-                    long long q_sb, long long q_st, long long q_sh,
-                    long long kn_sb, long long kn_st, long long kn_sh,
-                    long long vn_sb, long long vn_st, long long vn_sh,
-                    long long k_sp, long long k_sh, long long k_ss,
-                    long long v_sp, long long v_sh, long long v_ss,
-                    long long t_sb, long long o_sb, long long o_st,
-                    long long o_sh, float scale) {
-  constexpr int kPer = kQT * GB * HD / kThreads;  // (row, d) slots a thread
+paged_append_kernel(const Args a) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int ldq = HD + 4;          // floats; = 4 mod 32: no bank conflict
+  constexpr int ld = kv_ld<T, HD>();   // elements; rows 16 bytes apart mod 128
+  constexpr int kVecE = 16 / (int)sizeof(T);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int tile = blockIdx.x % n_qt, split = blockIdx.x / n_qt;
+
+  const int rt = blockIdx.x % a.n_rt, split = blockIdx.x / a.n_rt;
   const int kh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KH, R = kQT * G, q0 = tile * kQT;
-  const int tid = threadIdx.x;
-  constexpr int ld = HD + 1;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int G = a.H / a.KH, hd = a.hd, rows = a.Tq * G, r0 = rt * kRows;
+  const int qr = block_rows(rows);
 
-  Smem sm;
-  sm.koff = reinterpret_cast<long long*>(smem_raw);
-  sm.voff = sm.koff + kKT;
-  sm.qs = reinterpret_cast<float*>(sm.voff + kKT);
-  sm.ks = sm.qs + R * ld;
-  sm.vs = sm.ks + kKT * ld;
-  sm.ps = sm.vs + kKT * ld;
-  sm.m_s = sm.ps + R * (kKT + 1);
-  sm.l_s = sm.m_s + R;
-  sm.a_s = sm.l_s + R;
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  T* ks = reinterpret_cast<T*>(qs + qr * ldq);  // [2][kKT][ld]
+  T* vs = ks + 2 * kKT * ld;                    // [2][kKT][ld]
 
-  const int ctx = min(max(ctx_lens[b], 0), nb * bs);
-  const int span = min(max(span_lens[b], 0), Tq);
+  const int ctx = min(max(a.ctx_lens[b], 0), a.nb * a.bs);
+  const int span = min(max(a.span_lens[b], 0), a.Tq);
+  // rows r0 + i of this block with a position below span_len
+  const int live_rows = min(kRows, max(0, span * G - r0));
+  const bool warp_live = 16 * warp < live_rows;
+  const int span_hi =
+      live_rows > 0 ? min(span, (r0 + live_rows - 1) / G + 1) : 0;
+  const int lo = split * a.split_keys;
+  const int hi = live_rows > 0 ? min(lo + a.split_keys, ctx) : lo;
+  const int n_ctx = hi > lo ? (hi - lo + kKT - 1) / kKT : 0;
+  const int n_tiles = n_ctx + (split == 0 ? (span_hi + kKT - 1) / kKT : 0);
 
-  // query rows r = i * G + g: span position q0 + i, head kh * G + g
-  for (int i = tid; i < R * hd; i += kThreads) {
-    const int r = i / hd, d = i % hd, pos = q0 + r / G;
-    const int h = kh * G + r % G;
-    sm.qs[r * ld + d] =
-        pos < Tq ? to_f32(q[b * q_sb + pos * q_st + h * q_sh + d]) * scale
-                 : 0.f;
+  // zero K/V (pad columns and never-copied keys must hold finite values:
+  // a masked key's p = 0 still multiplies its V row), then stage Q as fp32
+  {
+    float4* z = reinterpret_cast<float4*>(ks);
+    const int n4 = 4 * kKT * ld * (int)sizeof(T) / 16;
+    for (int i = tid; i < n4; i += kThreads) z[i] = make_float4(0, 0, 0, 0);
   }
-  for (int r = tid; r < R; r += kThreads) {
-    sm.m_s[r] = kNeg;
-    sm.l_s[r] = 0.f;
+  const T* q = static_cast<const T*>(a.q);
+  for (int i = tid; i < qr * HD; i += kThreads) {
+    const int r = i / HD, d = i % HD, fr = r0 + r;
+    float x = 0.f;
+    if (d < hd && fr < rows)
+      x = to_f32(q[b * a.q_sb + (long long)(fr / G) * a.q_st +
+                   (long long)(kh * G + fr % G) * a.q_sh + d]);
+    qs[r * ldq + d] = x;
   }
-  float acc[kPer];
-#pragma unroll
-  for (int u = 0; u < kPer; ++u) acc[u] = 0.f;
   __syncthreads();
 
-  // the committed pages of this split
-  const int* table = tables + b * t_sb;
-  const int lo = split * split_keys, hi = min(lo + split_keys, ctx);
-  for (int k0 = lo; k0 < hi; k0 += kKT) {
-    const int n = min(kKT, hi - k0);
-    if (tid < n) {
-      const int key = k0 + tid, page = table[key / bs], slot = key % bs;
-      sm.koff[tid] = page * k_sp + kh * k_sh + slot * k_ss;
-      sm.voff[tid] = page * v_sp + kh * v_sh + slot * v_ss;
-    }
-    __syncthreads();
-    attend_tile<T, HD, kPer>(sm, kp, vp, n, k0, false, q0, R, G, hd, acc);
-  }
-  // the span's own keys, causal (split 0 only)
-  if (split == 0) {
-    const int span_hi = min(span, q0 + kQT);
-    for (int k0 = 0; k0 < span_hi; k0 += kKT) {
-      const int n = min(kKT, span_hi - k0);
-      if (tid < n) {
-        sm.koff[tid] = b * kn_sb + (k0 + tid) * kn_st + kh * kn_sh;
-        sm.voff[tid] = b * vn_sb + (k0 + tid) * vn_st + kh * vn_sh;
-      }
-      __syncthreads();
-      attend_tile<T, HD, kPer>(sm, kn, vn, n, k0, true, q0, R, G, hd, acc);
-    }
-  }
+  const int* table = a.tables + b * a.t_sb;
+  const T* kp = static_cast<const T*>(a.kp);
+  const T* vp = static_cast<const T*>(a.vp);
+  const T* kn = static_cast<const T*>(a.kn);
+  const T* vn = static_cast<const T*>(a.vn);
 
+  // tile i: committed keys of this split first, then the span's own keys
+  auto tile_keys = [&](int i, int& k0, int& n) {
+    if (i < n_ctx) {
+      k0 = lo + i * kKT;
+      n = min(kKT, hi - k0);
+    } else {
+      k0 = (i - n_ctx) * kKT;
+      n = min(kKT, span_hi - k0);
+    }
+  };
+  auto load_tile = [&](int i, int stage) {
+    int k0, n;
+    tile_keys(i, k0, n);
+    T* kd = ks + stage * kKT * ld;
+    T* vd = vs + stage * kKT * ld;
+    const bool paged = i < n_ctx;
+    const int per_row = kVec ? hd / kVecE : hd;
+    for (int c = tid; c < n * per_row; c += kThreads) {
+      const int j = c / per_row, d = (c % per_row) * (kVec ? kVecE : 1);
+      const int key = k0 + j;
+      long long ko, vo;
+      const T *kb, *vb;
+      if (paged) {
+        const long long page = table[key / a.bs], slot = key % a.bs;
+        ko = page * a.k_sp + kh * a.k_sh + slot * a.k_ss + d;
+        vo = page * a.v_sp + kh * a.v_sh + slot * a.v_ss + d;
+        kb = kp;
+        vb = vp;
+      } else {
+        ko = b * a.kn_sb + (long long)key * a.kn_st + kh * a.kn_sh + d;
+        vo = b * a.vn_sb + (long long)key * a.vn_st + kh * a.vn_sh + d;
+        kb = kn;
+        vb = vn;
+      }
+      if constexpr (kVec) {
+        cp_async16(kd + j * ld + d, kb + ko);
+        cp_async16(vd + j * ld + d, vb + vo);
+      } else {
+        kd[j * ld + d] = kb[ko];
+        vd[j * ld + d] = vb[vo];
+      }
+    }
+  };
+
+  // this lane's two rows of the warp's fragment: rows gid and gid + 8
+  const int fr0 = r0 + 16 * warp + gid;
+  const int pos[2] = {fr0 / G, (fr0 + 8) / G};
+  const float* qa = qs + (16 * warp + gid) * ldq + tig;
+  float o[HD / 8][4];
 #pragma unroll
-  for (int u = 0; u < kPer; ++u) {
-    const int i = tid + u * kThreads;
-    if (i < R * hd) {
-      const int r = i / hd, d = i % hd, pos = q0 + r / G;
-      const int h = kh * G + r % G;
-      if (pos < Tq) {
-        if (n_split == 1) {
-          const float l = sm.l_s[r] == 0.f ? 1.f : sm.l_s[r];
-          store(out + b * o_sb + pos * o_st + h * o_sh + d, acc[u] / l);
-        } else {
-          float* pb = part + ((((long long)b * Tq + pos) * H + h) * n_split +
-                              split) * (hd + 2);
-          pb[d] = acc[u];
-          if (d == 0) {
-            pb[hd] = sm.m_s[r];
-            pb[hd + 1] = sm.l_s[r];
+  for (int nd = 0; nd < HD / 8; ++nd)
+    o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+
+  if (n_tiles > 0) load_tile(0, 0);
+  cp_async_commit();
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) load_tile(i + 1, (i + 1) & 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    if (warp_live) {
+      int k0, n;
+      tile_keys(i, k0, n);
+      const bool in_span = i >= n_ctx;
+      const T* kt = ks + (i & 1) * kKT * ld;
+      const T* vt = vs + (i & 1) * kKT * ld;
+
+      // S = Q . K^T: 16 rows x 32 keys
+      float s[kKT / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < kKT / 8; ++nt)
+        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll 4
+      for (int kk = 0; kk < HD; kk += 8) {
+        const float qv[4] = {qa[kk], qa[8 * ldq + kk], qa[kk + 4],
+                             qa[8 * ldq + kk + 4]};
+        uint32_t ahi[4], alo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (kF32)
+            split_tf32(qv[e], ahi[e], alo[e]);
+          else
+            ahi[e] = __float_as_uint(qv[e]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < kKT / 8; ++nt) {
+          if (nt * 8 >= n) break;
+          const T* kr = kt + (nt * 8 + gid) * ld + kk + tig;
+          const float b0 = to_f32(kr[0]), b1 = to_f32(kr[4]);
+          if constexpr (kF32) {
+            uint32_t b0h, b0l, b1h, b1l;
+            split_tf32(b0, b0h, b0l);
+            split_tf32(b1, b1h, b1l);
+            mma_tf32(s[nt], alo, b0h, b1h);
+            mma_tf32(s[nt], ahi, b0l, b1l);
+            mma_tf32(s[nt], ahi, b0h, b1h);
+          } else {
+            mma_tf32(s[nt], ahi, __float_as_uint(b0), __float_as_uint(b1));
+          }
+        }
+      }
+
+      // masks and the online softmax; s[nt][e]: row gid + 8 * (e >> 1),
+      // key k0 + nt * 8 + 2 * tig + (e & 1)
+      float mx[2] = {kNeg, kNeg};
+#pragma unroll
+      for (int nt = 0; nt < kKT / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = nt * 8 + 2 * tig + (e & 1);
+          const bool ok = j < n && (!in_span || k0 + j <= pos[e >> 1]);
+          s[nt][e] = ok ? s[nt][e] * a.scale : kNeg;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int nt = 0; nt < kKT / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = s[nt][e] > 0.5f * kNeg
+                              ? expf(s[nt][e] - m[e >> 1]) : 0.f;
+          s[nt][e] = p;
+          l[e >> 1] += p;
+        }
+#pragma unroll
+      for (int nd = 0; nd < HD / 8; ++nd) {
+        o[nd][0] *= alpha[0];
+        o[nd][1] *= alpha[0];
+        o[nd][2] *= alpha[1];
+        o[nd][3] *= alpha[1];
+      }
+
+      // O += P . V, 8 keys a step; A's k = tig is key 2 * tig, k = tig + 4
+      // is key 2 * tig + 1, and V's rows are read in the same order
+#pragma unroll
+      for (int kt8 = 0; kt8 < kKT / 8; ++kt8) {
+        if (kt8 * 8 >= n) break;
+        const float pv[4] = {s[kt8][0], s[kt8][2], s[kt8][1], s[kt8][3]};
+        uint32_t phi[4], plo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(pv[e], phi[e], plo[e]);
+        const T* vr = vt + (kt8 * 8 + 2 * tig) * ld + gid;
+#pragma unroll
+        for (int nd = 0; nd < HD / 8; ++nd) {
+          const float b0 = to_f32(vr[nd * 8]), b1 = to_f32(vr[ld + nd * 8]);
+          if constexpr (kF32) {
+            uint32_t b0h, b0l, b1h, b1l;
+            split_tf32(b0, b0h, b0l);
+            split_tf32(b1, b1h, b1l);
+            mma_tf32(o[nd], plo, b0h, b1h);
+            mma_tf32(o[nd], phi, b0l, b1l);
+            mma_tf32(o[nd], phi, b0h, b1h);
+          } else {
+            mma_tf32(o[nd], plo, __float_as_uint(b0), __float_as_uint(b1));
+            mma_tf32(o[nd], phi, __float_as_uint(b0), __float_as_uint(b1));
           }
         }
       }
     }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffff, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffff, l[r], 2);
+  }
+  T* out = static_cast<T*>(a.out);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int fr = fr0 + 8 * r;
+    if (fr >= rows) continue;
+    const int p = pos[r], h = kh * G + fr % G;
+    const bool dead = p >= span;  // past span_len: written as 0
+    if (a.n_split == 1) {
+      const float inv = dead ? 0.f : 1.f / (l[r] == 0.f ? 1.f : l[r]);
+      T* orow = out + b * a.o_sb + (long long)p * a.o_st + h * a.o_sh;
+#pragma unroll
+      for (int nd = 0; nd < HD / 8; ++nd)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = nd * 8 + 2 * tig + e;
+          if (d < hd) store(orow + d, o[nd][2 * r + e] * inv);
+        }
+    } else {
+      float* pb = a.part + ((((long long)b * a.Tq + p) * a.H + h) *
+                                a.n_split + split) * (hd + 2);
+#pragma unroll
+      for (int nd = 0; nd < HD / 8; ++nd)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = nd * 8 + 2 * tig + e;
+          if (d < hd) pb[d] = dead ? 0.f : o[nd][2 * r + e];
+        }
+      if (tig == 0) {
+        pb[hd] = dead ? kNeg : m[r];
+        pb[hd + 1] = dead ? 0.f : l[r];
+      }
+    }
   }
 }
 
-template <typename T, int HD, int GB>
-int launch(const void* q, const void* kn, const void* vn, const void* kp,
-           const void* vp, const int* tables, const int* ctx_lens,
-           const int* span_lens, void* out, float* part, int B, int Tq, int H,
-           int KH, int nb, int bs, int hd, int n_split, int split_keys,
-           const long long* st, cudaStream_t stream) {
-  auto kernel = paged_append_kernel<T, HD, GB>;
-  const int G = H / KH, n_qt = (Tq + kQT - 1) / kQT;
-  const size_t bytes = smem_bytes(kQT * G, HD);
+template <typename T, int HD, bool kVec>
+int launch(const Args& a, int B, cudaStream_t stream) {
+  auto kernel = paged_append_kernel<T, HD, kVec>;
+  const size_t bytes = smem_bytes<T, HD>(block_rows(a.Tq * (a.H / a.KH)));
   static size_t configured = 48 * 1024;
   if (bytes > configured) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -256,52 +421,32 @@ int launch(const void* q, const void* kn, const void* vn, const void* kp,
     if (e != cudaSuccess) return (int)e;
     configured = bytes;
   }
-  const float scale = 1.f / sqrtf((float)hd);
-  kernel<<<dim3(n_qt * n_split, KH, B), kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)kn, (const T*)vn, (const T*)kp, (const T*)vp,
-      tables, ctx_lens, span_lens, (T*)out, part, Tq, H, KH, nb, bs, hd, n_qt,
-      n_split, split_keys, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14], st[15],
-      st[16], st[17], st[18], scale);
-  if (n_split > 1)
-    combine_kernel<T><<<B * Tq * H, 128, 0, stream>>>(
-        part, (T*)out, Tq, H, n_split, hd, st[16], st[17], st[18]);
+  kernel<<<dim3(a.n_rt * a.n_split, a.KH, B), kThreads, bytes, stream>>>(a);
+  if (a.n_split > 1)
+    combine_kernel<T><<<B * a.Tq * a.H, 128, 0, stream>>>(
+        a.part, static_cast<T*>(a.out), a.Tq, a.H, a.n_split, a.hd, a.o_sb,
+        a.o_st, a.o_sh);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
-int dispatch_group(int G, const void* q, const void* kn, const void* vn,
-                   const void* kp, const void* vp, const int* tables,
-                   const int* ctx_lens, const int* span_lens, void* out,
-                   float* part, int B, int Tq, int H, int KH, int nb, int bs,
-                   int hd, int n_split, int split_keys, const long long* st,
-                   cudaStream_t stream) {
-#define REPRO_APPEND_LAUNCH(GB_)                                             \
-  return launch<T, HD, GB_>(q, kn, vn, kp, vp, tables, ctx_lens, span_lens, \
-                            out, part, B, Tq, H, KH, nb, bs, hd, n_split,   \
-                            split_keys, st, stream)
-  if (G <= 2) REPRO_APPEND_LAUNCH(2);
-  if (G <= 4) REPRO_APPEND_LAUNCH(4);
-  if (G <= 8) REPRO_APPEND_LAUNCH(8);
-#undef REPRO_APPEND_LAUNCH
-  return (int)cudaErrorInvalidValue;
+int dispatch_vec(const Args& a, int B, cudaStream_t stream) {
+  constexpr int e = 16 / (int)sizeof(T);
+  bool vec = a.hd % e == 0;
+  for (const void* p : {a.kn, a.vn, a.kp, a.vp})
+    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  for (long long s : {a.kn_sb, a.kn_st, a.kn_sh, a.vn_sb, a.vn_st, a.vn_sh,
+                      a.k_sp, a.k_sh, a.k_ss, a.v_sp, a.v_sh, a.v_ss})
+    vec = vec && s % e == 0;
+  return vec ? launch<T, HD, true>(a, B, stream)
+             : launch<T, HD, false>(a, B, stream);
 }
 
 template <typename T>
-int dispatch_hd(int G, const void* q, const void* kn, const void* vn,
-                const void* kp, const void* vp, const int* tables,
-                const int* ctx_lens, const int* span_lens, void* out,
-                float* part, int B, int Tq, int H, int KH, int nb, int bs,
-                int hd, int n_split, int split_keys, const long long* st,
-                cudaStream_t stream) {
-#define REPRO_APPEND_HD(HD_)                                             \
-  return dispatch_group<T, HD_>(G, q, kn, vn, kp, vp, tables, ctx_lens, \
-                                span_lens, out, part, B, Tq, H, KH, nb,  \
-                                bs, hd, n_split, split_keys, st, stream)
-  if (hd <= 32) REPRO_APPEND_HD(32);
-  if (hd <= 64) REPRO_APPEND_HD(64);
-  if (hd <= 128) REPRO_APPEND_HD(128);
-#undef REPRO_APPEND_HD
+int dispatch_hd(const Args& a, int B, cudaStream_t stream) {
+  if (a.hd <= 32) return dispatch_vec<T, 32>(a, B, stream);
+  if (a.hd <= 64) return dispatch_vec<T, 64>(a, B, stream);
+  if (a.hd <= 128) return dispatch_vec<T, 128>(a, B, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -322,22 +467,20 @@ extern "C" int paged_append_attention_launch(
     const void* ctx_lens, const void* span_lens, void* out, void* part, int B,
     int Tq, int H, int KH, int nb, int bs, int hd, int n_split,
     int split_keys, const long long* strides, void* stream) {
-  if (KH <= 0 || H % KH != 0 || Tq <= 0 || nb <= 0 || bs <= 0 ||
+  if (KH <= 0 || H % KH != 0 || Tq <= 0 || nb <= 0 || bs <= 0 || hd <= 0 ||
       n_split <= 0 || split_keys <= 0 ||
       (long long)n_split * split_keys < (long long)nb * bs)
     return (int)cudaErrorInvalidValue;
-  const int G = H / KH;
+  const long long* s = strides;
+  const int rows = Tq * (H / KH);
+  const Args a{q, k_new, v_new, k_pages, v_pages, (const int*)tables,
+               (const int*)ctx_lens, (const int*)span_lens, out, (float*)part,
+               Tq, H, KH, nb, bs, hd, (rows + kRows - 1) / kRows, n_split,
+               split_keys, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7],
+               s[8], s[9], s[10], s[11], s[12], s[13], s[14], s[15], s[16],
+               s[17], s[18], 1.f / sqrtf((float)hd)};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch_hd<float>(G, q, k_new, v_new, k_pages, v_pages,
-                              (const int*)tables, (const int*)ctx_lens,
-                              (const int*)span_lens, out, (float*)part, B, Tq,
-                              H, KH, nb, bs, hd, n_split, split_keys, strides,
-                              st);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(
-        G, q, k_new, v_new, k_pages, v_pages, (const int*)tables,
-        (const int*)ctx_lens, (const int*)span_lens, out, (float*)part, B, Tq,
-        H, KH, nb, bs, hd, n_split, split_keys, strides, st);
+  if (dtype == 0) return dispatch_hd<float>(a, B, st);
+  if (dtype == 1) return dispatch_hd<__nv_bfloat16>(a, B, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -25,9 +25,9 @@ from . import build
 from .decode_attention import DTYPES
 from .paged_decode_attention import check_lengths, check_pages
 
-QUERY_TILE = 16     # span positions per block (the kernel's kQT)
+ROWS = 64           # (position, head) rows per block (the kernel's kRows)
 SPLIT_KEYS = 256    # committed keys per split, at the least
-FILL_BLOCKS = 264   # split until a launch has this many blocks (2 x 132 SMs)
+FILL_BLOCKS = 528   # split until a launch has this many blocks (4 x 132 SMs)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -42,11 +42,12 @@ def _entry():
     return fn
 
 
-def split_plan(b: int, t: int, kh: int, ctx_slots: int):
+def split_plan(b: int, t: int, h: int, kh: int, ctx_slots: int):
     """(n_split, split_keys): split the ``ctx_slots`` committed slots a
     table can address over blocks only while the launch has fewer than
-    FILL_BLOCKS blocks, and never below SPLIT_KEYS keys a split."""
-    base = b * kh * -(-t // QUERY_TILE)
+    FILL_BLOCKS blocks of ROWS (position, head) rows, and never below
+    SPLIT_KEYS keys a split."""
+    base = b * kh * -(-t * (h // kh) // ROWS)
     n_split = 1
     if base < FILL_BLOCKS:
         n_split = max(1, min(-(-ctx_slots // SPLIT_KEYS),
@@ -64,16 +65,18 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
     """q: (B, T, H, hd) span queries; k_new/v_new: (B, T, K, hd) the span's
     fresh K/V; k_pages/v_pages: (P, K, bs, hd); block_tables: (B, nb)
     int32; ctx_lens/span_lens: (B,) int32 (ctx_len at most nb * bs).  Any
-    strides with a unit stride over hd.  Returns (B, T, H, hd) in q's
-    dtype; a row's outputs at or past its span_len are unspecified.
-    float32 or bfloat16 in, fp32 arithmetic."""
+    strides with a unit stride over hd, any H / K.  Returns (B, T, H, hd)
+    in q's dtype; a row's outputs at or past its span_len are unspecified
+    (the kernel writes 0).  float32 or bfloat16 in, fp32-accurate
+    arithmetic (3xTF32 tensor-core products for fp32 operands)."""
     if not q.is_cuda:
         raise ValueError("paged_append_attention launches a CUDA kernel; "
                          f"got a tensor on {q.device}")
     if q.dim() != 4:
         raise ValueError(f"q must be (B, T, H, hd); got {tuple(q.shape)}")
     b, t, h, hd = q.shape
-    check_pages(q, k_pages, v_pages, block_tables, b, h, hd)
+    check_pages(q, k_pages, v_pages, block_tables, b, h, hd,
+                max_group=None)
     _, kh, bs, _ = k_pages.shape
     if k_new.shape != (b, t, kh, hd) or v_new.shape != k_new.shape:
         raise ValueError(f"k_new/v_new must be (B, T, K, hd) = "
@@ -88,7 +91,7 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
     nb = block_tables.shape[1]
 
     out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
-    n_split, split_keys = split_plan(b, t, kh, nb * bs)
+    n_split, split_keys = split_plan(b, t, h, kh, nb * bs)
     part = (torch.empty((b, t, h, n_split, hd + 2), dtype=torch.float32,
                         device=q.device) if n_split > 1 else out)
     strides = (ctypes.c_longlong * 19)(

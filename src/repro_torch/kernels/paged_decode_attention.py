@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -35,17 +36,21 @@ def _entry():
 
 def check_pages(q: torch.Tensor, k_pages: torch.Tensor,
                 v_pages: torch.Tensor, block_tables: torch.Tensor,
-                b: int, h: int, hd: int) -> None:
+                b: int, h: int, hd: int,
+                max_group: Optional[int] = MAX_GROUP) -> None:
     """The argument checks the two paged wrappers share: the page pool,
-    the block tables, dtypes, devices and unit strides over hd."""
+    the block tables, dtypes, devices and unit strides over hd; H / K at
+    most ``max_group`` unless it is None."""
     if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
         raise ValueError(f"k/v pages must be (P, K, bs, hd) and alike; got "
                          f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
     _, kh, bs, khd = k_pages.shape
-    if khd != hd or kh <= 0 or h % kh or h // kh > MAX_GROUP:
+    if khd != hd or kh <= 0 or h % kh or (max_group is not None
+                                          and h // kh > max_group):
         raise ValueError(f"shapes q {tuple(q.shape)} / pages "
                          f"{tuple(k_pages.shape)}: need matching hd, "
-                         f"H % K == 0 and H / K <= {MAX_GROUP}")
+                         f"H % K == 0" + (f" and H / K <= {max_group}"
+                                          if max_group is not None else ""))
     if not 0 < hd <= MAX_HEAD_DIM or bs <= 0:
         raise ValueError(f"head_dim {hd} must be in 1..{MAX_HEAD_DIM} and "
                          "the pages non-empty")

@@ -163,6 +163,14 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, h, kh, hd, bs, lens):
     (24, 8, 128, 16, 5, [4096], [5]),        # verification, split-K
     (24, 8, 128, 16, 64, [4096, 1000], [64, 30]),
     (4, 4, 16, 8, 8, [24, 24], [8, 7]),      # aliased first page
+    (4, 4, 64, 16, 7, [50, 0, 333], [7, 4, 0]),   # G = 1
+    (6, 2, 64, 16, 5, [129, 2048], [5, 2]),  # G = 3, T = 5: one fragment
+    (6, 2, 64, 16, 7, [300, 33], [7, 6]),    # G = 3, T = 7: 21 rows
+    (16, 2, 64, 16, 16, [200, 31], [16, 10]),     # G = 8
+    (18, 2, 32, 16, 9, [70, 1000], [9, 5]),  # G = 9
+    (32, 2, 64, 16, 12, [513, 40], [12, 3]),      # G = 16
+    (24, 8, 128, 16, 256, [100, 0, 300, 17, 64, 1],
+     [256, 200, 1, 256, 128, 77]),           # T = 256, 576 blocks: no split
 ])
 def test_paged_append_kernel_matches_plain(dev, dtype, h, kh, hd, bs, t, ctx,
                                            span):
@@ -187,6 +195,35 @@ def test_paged_append_kernel_matches_plain(dev, dtype, h, kh, hd, bs, t, ctx,
         if ctx[i] + n == 0:
             continue
         torch.testing.assert_close(out[i, :n].float(), exp[i, :n].float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_append_kernel_rows_are_independent(dev, dtype):
+    """Row b computed alone equals row b inside a batch of 8 (within the
+    tolerance: the split over the context depends on the batch), the
+    row-independence that continuous == sequential rests on."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    h, kh, hd, bs, t = 24, 8, 128, 16, 5
+    ctx = [4096, 17, 1000, 0, 2047, 333, 4000, 64]
+    span = [5, 3, 5, 1, 4, 5, 2, 5]
+    lens = [c + t for c in ctx]
+    n_pages = len(lens) * -(-max(lens) // bs) + 7
+    kp = _pool(gen, n_pages, kh, bs, hd, dtype)
+    vp = _pool(gen, n_pages, kh, bs, hd, dtype)
+    tables = _tables(gen, lens, bs, n_pages, alias=True)
+    q = _randn(gen, 8, t, h, hd, dtype=dtype)
+    kn = _randn(gen, 8, t, kh, hd, dtype=dtype)
+    vn = _randn(gen, 8, t, kh, hd, dtype=dtype)
+    cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    sl = torch.tensor(span, dtype=torch.int32, device=dev)
+    batch = paged_append_attention(q, kn, vn, kp, vp, tables, cl, sl)
+    for i in range(8):
+        one = paged_append_attention(q[i:i + 1], kn[i:i + 1], vn[i:i + 1],
+                                     kp, vp, tables[i:i + 1], cl[i:i + 1],
+                                     sl[i:i + 1])
+        torch.testing.assert_close(one[0, :span[i]].float(),
+                                   batch[i, :span[i]].float(),
                                    atol=TOL[dtype], rtol=TOL[dtype])
 
 

@@ -273,3 +273,74 @@ def test_build_names_libraries_by_source_hash(monkeypatch):
     monkeypatch.setattr(build.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build._nvcc()
+
+
+# ---------------------------------------------------------------------------
+# paged span attention (#4): the precision plan of its tensor-core products,
+# and the split of the committed context over blocks
+# ---------------------------------------------------------------------------
+
+def _tf32(x):
+    """Round fp32 to TF32 as ``cvt.rna.tf32.f32`` does: add half an ulp of
+    the 10-bit mantissa to the bits, then clear the low 13."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _one_tf32(a, b):
+    """One TF32 product per dot, summed exactly and stored as fp32."""
+    return (_tf32(a).astype(np.float64)
+            @ _tf32(b).astype(np.float64)).astype(np.float32)
+
+
+def _three_tf32(a, b):
+    """3xTF32: hi = tf32(x), lo = tf32(x - hi); lo.hi' + hi.lo' + hi.hi'."""
+    def split(x):
+        hi = _tf32(x)
+        return hi.astype(np.float64), _tf32(x - hi).astype(np.float64)
+    ah, al = split(a)
+    bh, bl = split(b)
+    return (al @ bh + ah @ bl + ah @ bh).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_span_attention_needs_the_3xtf32_split_for_fp32(seed):
+    """At hd 128 over 4096 keys (T=64), softmax(Q.K^T / sqrt(hd)).V with
+    both products as 3xTF32 stays within the fp32 tolerance of float64
+    (atol = rtol = 2e-5); with one TF32 product it does not (at seed 0 the
+    max |err| is 4.8e-5)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (_rand(rng, s) for s in ((64, 128), (4096, 128), (4096, 128)))
+    s = q.astype(np.float64) @ k.T.astype(np.float64) / np.sqrt(128)
+    p = np.exp(s - s.max(1, keepdims=True))
+    exp = (p @ v.astype(np.float64)) / p.sum(1, keepdims=True)
+
+    def attend(prod):
+        s = prod(q, k.T) * np.float32(1 / np.sqrt(128))
+        p = np.exp(s - s.max(1, keepdims=True)).astype(np.float32)
+        return prod(p, v) / p.sum(1, keepdims=True, dtype=np.float32)
+
+    np.testing.assert_allclose(attend(_three_tf32), exp, **FP32)
+    one = attend(_one_tf32)
+    assert not np.allclose(one, exp, **FP32)
+    assert np.abs(one - exp).max() > 2 * FP32["atol"]
+
+
+@pytest.mark.parametrize("b,t,h,kh,slots,want", [
+    (8, 5, 24, 8, 4096, 9),      # minitron-4b verification: 64 -> 576 blocks
+    (8, 64, 24, 8, 4096, 3),     # minitron-4b 64-query chunk: 192 -> 576
+    (6, 256, 24, 8, 4096, 1),    # 576 blocks of 64 rows: no split
+    (2, 256, 4, 2, 768, 3),      # SMALL heads: split while slots allow
+    (1, 5, 8, 4, 64, 1),         # BASE, one page a row: no room to split
+    (4, 16, 32, 2, 1024, 4),     # G = 16 (over the decode kernels' 8)
+])
+def test_paged_append_split_plan_fills_the_card(b, t, h, kh, slots, want):
+    from repro_torch.kernels import paged_append_attention as pa
+    n_split, split_keys = pa.split_plan(b, t, h, kh, slots)
+    base = b * kh * -(-t * (h // kh) // pa.ROWS)
+    assert n_split == want
+    assert split_keys % 32 == 0 and n_split * split_keys >= slots
+    assert (n_split - 1) * split_keys < slots       # no empty split
+    assert base * n_split >= pa.FILL_BLOCKS or \
+        n_split == -(-slots // pa.SPLIT_KEYS) or n_split == 1
