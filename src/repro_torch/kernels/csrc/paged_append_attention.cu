@@ -109,7 +109,7 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
 // c += a . b on one m16n8k8 TF32 fragment
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
+  asm(
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
@@ -208,36 +208,44 @@ paged_append_kernel(const Args a) {
       n = min(kKT, span_hi - k0);
     }
   };
+  // four threads a key: each finds its key's K/V rows once (one table
+  // read) and copies every fourth 16-byte chunk (every fourth element on
+  // the scalar path) of them
+  static_assert(kThreads == 4 * kKT, "four copying threads a key");
   auto load_tile = [&](int i, int stage) {
     int k0, n;
     tile_keys(i, k0, n);
-    T* kd = ks + stage * kKT * ld;
-    T* vd = vs + stage * kKT * ld;
-    const bool paged = i < n_ctx;
-    const int per_row = kVec ? hd / kVecE : hd;
-    for (int c = tid; c < n * per_row; c += kThreads) {
-      const int j = c / per_row, d = (c % per_row) * (kVec ? kVecE : 1);
-      const int key = k0 + j;
-      long long ko, vo;
-      const T *kb, *vb;
-      if (paged) {
-        const long long page = table[key / a.bs], slot = key % a.bs;
-        ko = page * a.k_sp + kh * a.k_sh + slot * a.k_ss + d;
-        vo = page * a.v_sp + kh * a.v_sh + slot * a.v_ss + d;
-        kb = kp;
-        vb = vp;
-      } else {
-        ko = b * a.kn_sb + (long long)key * a.kn_st + kh * a.kn_sh + d;
-        vo = b * a.vn_sb + (long long)key * a.vn_st + kh * a.vn_sh + d;
-        kb = kn;
-        vb = vn;
+    const int j = tid / 4, sub = tid % 4;
+    if (j >= n) return;
+    const int key = k0 + j;
+    const T *kb, *vb;
+    if (i < n_ctx) {
+      const long long page = table[key / a.bs], slot = key % a.bs;
+      kb = kp + page * a.k_sp + kh * a.k_sh + slot * a.k_ss;
+      vb = vp + page * a.v_sp + kh * a.v_sh + slot * a.v_ss;
+    } else {
+      kb = kn + b * a.kn_sb + (long long)key * a.kn_st + kh * a.kn_sh;
+      vb = vn + b * a.vn_sb + (long long)key * a.vn_st + kh * a.vn_sh;
+    }
+    T* kd = ks + (stage * kKT + j) * ld;
+    T* vd = vs + (stage * kKT + j) * ld;
+    if constexpr (kVec) {
+#pragma unroll
+      for (int u = 0; u < HD / kVecE / 4; ++u) {
+        const int d = (sub + 4 * u) * kVecE;
+        if (d < hd) {
+          cp_async16(kd + d, kb + d);
+          cp_async16(vd + d, vb + d);
+        }
       }
-      if constexpr (kVec) {
-        cp_async16(kd + j * ld + d, kb + ko);
-        cp_async16(vd + j * ld + d, vb + vo);
-      } else {
-        kd[j * ld + d] = kb[ko];
-        vd[j * ld + d] = vb[vo];
+    } else {
+#pragma unroll
+      for (int u = 0; u < HD / 4; ++u) {
+        const int d = sub + 4 * u;
+        if (d < hd) {
+          kd[d] = kb[d];
+          vd[d] = vb[d];
+        }
       }
     }
   };
@@ -266,16 +274,20 @@ paged_append_kernel(const Args a) {
       const T* kt = ks + (i & 1) * kKT * ld;
       const T* vt = vs + (i & 1) * kKT * ld;
 
-      // S = Q . K^T: 16 rows x 32 keys
-      float s[kKT / 8][4];
+      // S = Q . K^T: 16 rows x 32 keys, in two accumulators (fp32: the
+      // hi.hi' products and the two correction products; bf16: even and
+      // odd k steps) so that no mma waits on the one before it
+      float s[kKT / 8][4], s2[kKT / 8][4];
 #pragma unroll
       for (int nt = 0; nt < kKT / 8; ++nt)
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll 4
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = s2[nt][e] = 0.f;
+      const int n_nt = (n + 7) / 8;
+#pragma unroll
       for (int kk = 0; kk < HD; kk += 8) {
         const float qv[4] = {qa[kk], qa[8 * ldq + kk], qa[kk + 4],
                              qa[8 * ldq + kk + 4]};
-        uint32_t ahi[4], alo[4];
+        uint32_t ahi[4], alo[4], bhi[kKT / 8][2], blo[kKT / 8][2];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           if constexpr (kF32)
@@ -285,21 +297,37 @@ paged_append_kernel(const Args a) {
         }
 #pragma unroll
         for (int nt = 0; nt < kKT / 8; ++nt) {
-          if (nt * 8 >= n) break;
           const T* kr = kt + (nt * 8 + gid) * ld + kk + tig;
-          const float b0 = to_f32(kr[0]), b1 = to_f32(kr[4]);
-          if constexpr (kF32) {
-            uint32_t b0h, b0l, b1h, b1l;
-            split_tf32(b0, b0h, b0l);
-            split_tf32(b1, b1h, b1l);
-            mma_tf32(s[nt], alo, b0h, b1h);
-            mma_tf32(s[nt], ahi, b0l, b1l);
-            mma_tf32(s[nt], ahi, b0h, b1h);
-          } else {
-            mma_tf32(s[nt], ahi, __float_as_uint(b0), __float_as_uint(b1));
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float x = to_f32(kr[4 * e]);
+            if constexpr (kF32)
+              split_tf32(x, bhi[nt][e], blo[nt][e]);
+            else
+              bhi[nt][e] = __float_as_uint(x);
           }
         }
+        if constexpr (kF32) {
+#pragma unroll
+          for (int nt = 0; nt < kKT / 8; ++nt)
+            if (nt < n_nt) mma_tf32(s2[nt], alo, bhi[nt][0], bhi[nt][1]);
+#pragma unroll
+          for (int nt = 0; nt < kKT / 8; ++nt)
+            if (nt < n_nt) mma_tf32(s[nt], ahi, bhi[nt][0], bhi[nt][1]);
+#pragma unroll
+          for (int nt = 0; nt < kKT / 8; ++nt)
+            if (nt < n_nt) mma_tf32(s2[nt], ahi, blo[nt][0], blo[nt][1]);
+        } else {
+#pragma unroll
+          for (int nt = 0; nt < kKT / 8; ++nt)
+            if (nt < n_nt)
+              mma_tf32(kk % 16 ? s2[nt] : s[nt], ahi, bhi[nt][0], bhi[nt][1]);
+        }
       }
+#pragma unroll
+      for (int nt = 0; nt < kKT / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] += s2[nt][e];
 
       // masks and the online softmax; s[nt][e]: row gid + 8 * (e >> 1),
       // key k0 + nt * 8 + 2 * tig + (e & 1)
@@ -341,7 +369,11 @@ paged_append_kernel(const Args a) {
       }
 
       // O += P . V, 8 keys a step; A's k = tig is key 2 * tig, k = tig + 4
-      // is key 2 * tig + 1, and V's rows are read in the same order
+      // is key 2 * tig + 1, and V's rows are read in the same order.  The
+      // products of a step go over 8 output column slices at a time, each
+      // product over all 8 before the next, so no mma waits on the one
+      // before it
+      constexpr int kND = HD / 8 < 8 ? HD / 8 : 8;
 #pragma unroll
       for (int kt8 = 0; kt8 < kKT / 8; ++kt8) {
         if (kt8 * 8 >= n) break;
@@ -351,19 +383,29 @@ paged_append_kernel(const Args a) {
         for (int e = 0; e < 4; ++e) split_tf32(pv[e], phi[e], plo[e]);
         const T* vr = vt + (kt8 * 8 + 2 * tig) * ld + gid;
 #pragma unroll
-        for (int nd = 0; nd < HD / 8; ++nd) {
-          const float b0 = to_f32(vr[nd * 8]), b1 = to_f32(vr[ld + nd * 8]);
+        for (int n0 = 0; n0 < HD / 8; n0 += kND) {
+          uint32_t bhi[kND][2], blo[kND][2];
+#pragma unroll
+          for (int u = 0; u < kND; ++u)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float x = to_f32(vr[e * ld + (n0 + u) * 8]);
+              if constexpr (kF32)
+                split_tf32(x, bhi[u][e], blo[u][e]);
+              else
+                bhi[u][e] = __float_as_uint(x);
+            }
+#pragma unroll
+          for (int u = 0; u < kND; ++u)
+            mma_tf32(o[n0 + u], plo, bhi[u][0], bhi[u][1]);
           if constexpr (kF32) {
-            uint32_t b0h, b0l, b1h, b1l;
-            split_tf32(b0, b0h, b0l);
-            split_tf32(b1, b1h, b1l);
-            mma_tf32(o[nd], plo, b0h, b1h);
-            mma_tf32(o[nd], phi, b0l, b1l);
-            mma_tf32(o[nd], phi, b0h, b1h);
-          } else {
-            mma_tf32(o[nd], plo, __float_as_uint(b0), __float_as_uint(b1));
-            mma_tf32(o[nd], phi, __float_as_uint(b0), __float_as_uint(b1));
+#pragma unroll
+            for (int u = 0; u < kND; ++u)
+              mma_tf32(o[n0 + u], phi, blo[u][0], blo[u][1]);
           }
+#pragma unroll
+          for (int u = 0; u < kND; ++u)
+            mma_tf32(o[n0 + u], phi, bhi[u][0], bhi[u][1]);
         }
       }
     }
