@@ -93,10 +93,12 @@ __host__ __device__ inline size_t smem_bytes(int qr) {
          (size_t)4 * kKT * kv_ld<T, HD>() * sizeof(T);
 }
 
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero): add half an ulp of the 10-bit mantissa to the bits, clear the
+// low 13.  Two integer operations at the full rate, where the cvt runs on
+// the conversion unit at a fraction of it.  x is finite.
 __device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 // x = hi + lo + O(2^-22 |x|), both exact in TF32
@@ -136,7 +138,7 @@ struct Args {
   int Tq, H, KH, nb, bs, hd, n_rt, n_split, split_keys;
   long long q_sb, q_st, q_sh, kn_sb, kn_st, kn_sh, vn_sb, vn_st, vn_sh;
   long long k_sp, k_sh, k_ss, v_sp, v_sh, v_ss, t_sb, o_sb, o_st, o_sh;
-  float scale;
+  float scale_log2;  // log2(e) / sqrt(hd): scores in base 2
 };
 
 // grid (n_rt * n_split, KH, B): blockIdx.x = row block + n_rt * split.
@@ -338,7 +340,7 @@ paged_append_kernel(const Args a) {
         for (int e = 0; e < 4; ++e) {
           const int j = nt * 8 + 2 * tig + (e & 1);
           const bool ok = j < n && (!in_span || k0 + j <= pos[e >> 1]);
-          s[nt][e] = ok ? s[nt][e] * a.scale : kNeg;
+          s[nt][e] = ok ? s[nt][e] * a.scale_log2 : kNeg;
           mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
         }
       float alpha[2];
@@ -347,7 +349,7 @@ paged_append_kernel(const Args a) {
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 1));
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 2));
         const float m_new = fmaxf(m[r], mx[r]);
-        alpha[r] = expf(m[r] - m_new);
+        alpha[r] = exp2f(m[r] - m_new);
         m[r] = m_new;
         l[r] *= alpha[r];
       }
@@ -356,7 +358,7 @@ paged_append_kernel(const Args a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float p = s[nt][e] > 0.5f * kNeg
-                              ? expf(s[nt][e] - m[e >> 1]) : 0.f;
+                              ? exp2f(s[nt][e] - m[e >> 1]) : 0.f;
           s[nt][e] = p;
           l[e >> 1] += p;
         }
@@ -445,7 +447,7 @@ paged_append_kernel(const Args a) {
           if (d < hd) pb[d] = dead ? 0.f : o[nd][2 * r + e];
         }
       if (tig == 0) {
-        pb[hd] = dead ? kNeg : m[r];
+        pb[hd] = dead ? kNeg : m[r] * 0.6931471805599453f;  // base e
         pb[hd + 1] = dead ? 0.f : l[r];
       }
     }
@@ -520,7 +522,7 @@ extern "C" int paged_append_attention_launch(
                Tq, H, KH, nb, bs, hd, (rows + kRows - 1) / kRows, n_split,
                split_keys, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7],
                s[8], s[9], s[10], s[11], s[12], s[13], s[14], s[15], s[16],
-               s[17], s[18], 1.f / sqrtf((float)hd)};
+               s[17], s[18], 1.4426950408889634f / sqrtf((float)hd)};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) return dispatch_hd<float>(a, B, st);
   if (dtype == 1) return dispatch_hd<__nv_bfloat16>(a, B, st);
