@@ -454,23 +454,47 @@ paged_append_kernel(const Args a) {
   }
 }
 
+// Lets the kernel take `bytes` of dynamic shared memory (above 48 KB only
+// on request).
+template <typename T, int HD, bool kVec>
+cudaError_t allow_smem(size_t bytes) {
+  static size_t allowed = 48 * 1024;
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      paged_append_kernel<T, HD, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) allowed = bytes;
+  return e;
+}
+
 template <typename T, int HD, bool kVec>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  auto kernel = paged_append_kernel<T, HD, kVec>;
   const size_t bytes = smem_bytes<T, HD>(block_rows(a.Tq * (a.H / a.KH)));
-  static size_t configured = 48 * 1024;
-  if (bytes > configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    configured = bytes;
-  }
-  kernel<<<dim3(a.n_rt * a.n_split, a.KH, B), kThreads, bytes, stream>>>(a);
+  const cudaError_t e = allow_smem<T, HD, kVec>(bytes);
+  if (e != cudaSuccess) return (int)e;
+  paged_append_kernel<T, HD, kVec>
+      <<<dim3(a.n_rt * a.n_split, a.KH, B), kThreads, bytes, stream>>>(a);
   if (a.n_split > 1)
     combine_kernel<T><<<B * a.Tq * a.H, 128, 0, stream>>>(
         a.part, static_cast<T*>(a.out), a.Tq, a.H, a.n_split, a.hd, a.o_sb,
         a.o_st, a.o_sh);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the kernel the current card runs at once, for T * G = rows.
+template <typename T, int HD>
+int slots(int rows, int* out) {
+  const size_t bytes = smem_bytes<T, HD>(block_rows(rows));
+  cudaError_t e = allow_smem<T, HD, true>(bytes);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, paged_append_kernel<T, HD, true>, kThreads, bytes);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *out = per_sm * sms;
+  return (int)e;
 }
 
 template <typename T, int HD>
@@ -491,6 +515,14 @@ int dispatch_hd(const Args& a, int B, cudaStream_t stream) {
   if (a.hd <= 32) return dispatch_vec<T, 32>(a, B, stream);
   if (a.hd <= 64) return dispatch_vec<T, 64>(a, B, stream);
   if (a.hd <= 128) return dispatch_vec<T, 128>(a, B, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int slots_hd(int hd, int rows, int* out) {
+  if (hd <= 32) return slots<T, 32>(rows, out);
+  if (hd <= 64) return slots<T, 64>(rows, out);
+  if (hd <= 128) return slots<T, 128>(rows, out);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -526,5 +558,17 @@ extern "C" int paged_append_attention_launch(
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) return dispatch_hd<float>(a, B, st);
   if (dtype == 1) return dispatch_hd<__nv_bfloat16>(a, B, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// How many blocks of the kernel the current card runs at once for this
+// dtype, head_dim and T * G (rows): the split over the committed context is
+// planned against it.  Writes *out; returns a CUDA error code.
+extern "C" int paged_append_attention_slots(int dtype, int hd, int rows,
+                                            int* out) {
+  *out = 0;
+  if (hd <= 0 || rows <= 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return slots_hd<float>(hd, rows, out);
+  if (dtype == 1) return slots_hd<__nv_bfloat16>(hd, rows, out);
   return (int)cudaErrorInvalidValue;
 }

@@ -27,31 +27,56 @@ from .paged_decode_attention import check_lengths, check_pages
 
 ROWS = 64           # (position, head) rows per block (the kernel's kRows)
 SPLIT_KEYS = 256    # committed keys per split, at the least
-FILL_BLOCKS = 528   # split until a launch has this many blocks (4 x 132 SMs)
+# the cost of one more split, as a share of a whole row's committed keys
+# (a block's Q staging and epilogue, the merge's reads)
+SPLIT_COST = 1 / 32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.cache
-def _entry():
-    fn = build.load("paged_append_attention").paged_append_attention_launch
+def _lib():
+    lib = build.load("paged_append_attention")
+    fn = lib.paged_append_attention_launch
     fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                    _I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong),
                    _P]
     fn.restype = _I
-    return fn
+    lib.paged_append_attention_slots.argtypes = [
+        _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+    lib.paged_append_attention_slots.restype = _I
+    return lib
 
 
-def split_plan(b: int, t: int, h: int, kh: int, ctx_slots: int):
-    """(n_split, split_keys): split the ``ctx_slots`` committed slots a
-    table can address over blocks only while the launch has fewer than
-    FILL_BLOCKS blocks of ROWS (position, head) rows, and never below
-    SPLIT_KEYS keys a split."""
+@functools.cache
+def _slots(dtype: int, hd: int, rows: int, device: int) -> int:
+    """Blocks the card runs at once for this dtype, hd and T * G (only
+    ``min(ROWS, rows)`` changes the block's shared memory)."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _lib().paged_append_attention_slots(dtype, hd, rows,
+                                                 ctypes.byref(out))
+    if rc != 0 or out.value <= 0:
+        raise RuntimeError(f"paged_append_attention occupancy query failed: "
+                           f"CUDA error {rc}, {out.value} blocks")
+    return out.value
+
+
+def split_plan(b: int, t: int, h: int, kh: int, ctx_slots: int,
+               slots: int):
+    """(n_split, split_keys): when the launch's blocks of ROWS (position,
+    head) rows fill less than the ``slots`` blocks the card runs at once,
+    split the ``ctx_slots`` committed slots a table can address over more
+    blocks, never below SPLIT_KEYS keys a split.  Of the splits that fill
+    at least one wave, take the one with the least modelled time: waves
+    x (1 / n_split + SPLIT_COST)."""
     base = b * kh * -(-t * (h // kh) // ROWS)
+    n_max = max(1, -(-ctx_slots // SPLIT_KEYS))
     n_split = 1
-    if base < FILL_BLOCKS:
-        n_split = max(1, min(-(-ctx_slots // SPLIT_KEYS),
-                             -(-FILL_BLOCKS // base)))
+    if base < slots:
+        n_min = min(n_max, -(-slots // base))
+        n_split = min(range(n_min, n_max + 1), key=lambda n: (
+            -(-base * n // slots) * (1 / n + SPLIT_COST), n))
     split_keys = -(-ctx_slots // n_split)
     split_keys = -(-split_keys // 32) * 32
     return n_split, split_keys
@@ -91,7 +116,9 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
     nb = block_tables.shape[1]
 
     out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
-    n_split, split_keys = split_plan(b, t, h, kh, nb * bs)
+    slots = _slots(DTYPES[q.dtype], hd, min(ROWS, t * (h // kh)),
+                   q.device.index)
+    n_split, split_keys = split_plan(b, t, h, kh, nb * bs, slots)
     part = (torch.empty((b, t, h, n_split, hd + 2), dtype=torch.float32,
                         device=q.device) if n_split > 1 else out)
     strides = (ctypes.c_longlong * 19)(
@@ -100,12 +127,12 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
         *out.stride()[:3])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _entry()(DTYPES[q.dtype], q.data_ptr(), k_new.data_ptr(),
-                      v_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                      block_tables.data_ptr(), ctx_lens.data_ptr(),
-                      span_lens.data_ptr(), out.data_ptr(), part.data_ptr(),
-                      b, t, h, kh, nb, bs, hd, n_split, split_keys, strides,
-                      stream)
+        rc = _lib().paged_append_attention_launch(
+            DTYPES[q.dtype], q.data_ptr(), k_new.data_ptr(),
+            v_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), ctx_lens.data_ptr(),
+            span_lens.data_ptr(), out.data_ptr(), part.data_ptr(), b, t, h,
+            kh, nb, bs, hd, n_split, split_keys, strides, stream)
     if rc != 0:
         raise RuntimeError(f"paged_append_attention kernel launch failed: "
                            f"CUDA error {rc}")

@@ -327,20 +327,21 @@ def test_span_attention_needs_the_3xtf32_split_for_fp32(seed):
     assert np.abs(one - exp).max() > 2 * FP32["atol"]
 
 
-@pytest.mark.parametrize("b,t,h,kh,slots,want", [
-    (8, 5, 24, 8, 4096, 9),      # minitron-4b verification: 64 -> 576 blocks
-    (8, 64, 24, 8, 4096, 3),     # minitron-4b 64-query chunk: 192 -> 576
-    (6, 256, 24, 8, 4096, 1),    # 576 blocks of 64 rows: no split
-    (2, 256, 4, 2, 768, 3),      # SMALL heads: split while slots allow
-    (1, 5, 8, 4, 64, 1),         # BASE, one page a row: no room to split
-    (4, 16, 32, 2, 1024, 4),     # G = 16 (over the decode kernels' 8)
+@pytest.mark.parametrize("b,t,h,kh,ctx_slots,slots,want", [
+    (8, 5, 24, 8, 4112, 396, 12),    # minitron-4b verification: 64 blocks
+    (8, 64, 24, 8, 4160, 264, 4),    # minitron-4b 64-query chunk: 192
+    (6, 256, 24, 8, 4352, 264, 1),   # 576 blocks: a wave and more as it is
+    (2, 256, 4, 2, 768, 396, 3),     # SMALL heads: split while slots allow
+    (1, 5, 8, 4, 64, 396, 1),        # BASE, one page a row: no room
+    (4, 16, 32, 2, 1024, 264, 4),    # G = 16 (over the decode kernels' 8)
 ])
-def test_paged_append_split_plan_fills_the_card(b, t, h, kh, slots, want):
+def test_paged_append_split_plan_fills_the_card(b, t, h, kh, ctx_slots,
+                                                slots, want):
     from repro_torch.kernels import paged_append_attention as pa
-    n_split, split_keys = pa.split_plan(b, t, h, kh, slots)
+    n_split, split_keys = pa.split_plan(b, t, h, kh, ctx_slots, slots)
     base = b * kh * -(-t * (h // kh) // pa.ROWS)
     assert n_split == want
-    assert split_keys % 32 == 0 and n_split * split_keys >= slots
-    assert (n_split - 1) * split_keys < slots       # no empty split
-    assert base * n_split >= pa.FILL_BLOCKS or \
-        n_split == -(-slots // pa.SPLIT_KEYS) or n_split == 1
+    assert split_keys % 32 == 0 and n_split * split_keys >= ctx_slots
+    assert (n_split - 1) * split_keys < ctx_slots      # no empty split
+    assert base * n_split >= slots or \
+        n_split == -(-ctx_slots // pa.SPLIT_KEYS) or n_split == 1
