@@ -37,6 +37,10 @@ from the root of a checkout.  Phases, each printing its lines:
 5. check: BASE and SMALL logits on the card against the same checkpoint
    on the CPU, over a prefill and decode steps, and over the batched
    path (one ``prefill_rows`` and one ``decode_rows`` on 3 ragged rows);
+   then the batched path at minitron-4b's published widths (2 of its 32
+   layers, random init): 3 rows commit about 2K tokens, then 5- and
+   64-token spans and one ``feed_rows``, card logits against the CPU's
+   and paged launches against n_layers x the metered calls;
 6. main path, continuous: ``serve --scheduler continuous
    --no-prefix-cache``, 8 requests over 4 rows, greedy and at 0.6, then
    with ``--spec-decode --gamma 4``, then greedy under a KV budget that
@@ -75,7 +79,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12                        # H100 SXM, data sheet
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# the least time for fp32-accurate products: 3xTF32 on the tensor cores at
+# 495 / 3 TFLOP/s (dense TF32, data sheet), above the CUDA cores' 67
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}        # atol = rtol, as the tests
 LOGIT_TOL = 1e-4       # card vs CPU model logits (fp32 GEMMs, TF32 off)
 CACHE = 1024           # the serving engines' max_len
@@ -92,6 +98,8 @@ SSM_ARCH = "mamba2-1.3b"
 SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 SSD_STATE_TOL = 1e-4
 SSM_THRESHOLD = 4.5
+DENSE_ARCH = "minitron-4b"
+DENSE_DEPTH = 2        # minitron-4b's 32 layers cut to 2 for the rows check
 
 
 def nvidia_smi() -> str:
@@ -338,6 +346,10 @@ def paged_kernel_phase(torch, F, ref, paged_decode, paged_append,
                        minitron):
     """The paged kernels against their plain versions at the continuous
     path's shapes and minitron-4b's.  Returns per-kernel records."""
+    import importlib
+    append_mod = importlib.import_module(
+        "repro_torch.kernels.paged_append_attention")
+    from repro_torch.kernels.decode_attention import DTYPES
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     heads = {"base": (8, 4, 28), "small": (4, 2, 32),
@@ -468,6 +480,10 @@ def paged_kernel_phase(torch, F, ref, paged_decode, paged_append,
                 *args), reps=5 if model == "minitron" else 30)
             lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qh, kd, vd, attn_mask=mask[:, None], enable_gqa=True))
+            slots = append_mod.card_slots(DTYPES[dt], hd, min(
+                append_mod.ROWS, t * (h // kh)), torch.cuda.current_device())
+            split = append_mod.split_plan(b, t, h, kh, tables.shape[1] * bs,
+                                          slots)
             pairs = sum(n * c + n * (n + 1) // 2 for c, n in zip(ctx, span))
             real = sum(span)
             nbytes = (2 * real * h * hd + 2 * real * kh * hd
@@ -478,11 +494,12 @@ def paged_kernel_phase(torch, F, ref, paged_decode, paged_append,
             records["paged_append_attention"].append(dict(
                 shape=label, dtype=dname, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                bound_by=by))
+                bound_by=by, split=list(split), slots=slots))
             print(f"[kernels] paged_append_attention {label}: err {err:.3g} "
                   f"| kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
                   f"over gathered K/V (gather excluded) {lib_ms:.4f} ms, "
-                  f"bound {bound_ms:.5f} ms ({by})", flush=True)
+                  f"bound {bound_ms:.5f} ms ({by}) | split {split[0]} x "
+                  f"{split[1]} keys, {slots} blocks at once", flush=True)
     return records
 
 
@@ -595,6 +612,73 @@ def rows_check_phase(torch, Model, BatchEngine, testbed, load_checkpoint,
         print(f"[check] {cfg.name} batched rows (prefill_rows + decode_rows,"
               f" 3 ragged rows): card vs CPU logits max |diff| {err:.3g} "
               f"(tolerance {LOGIT_TOL})", flush=True)
+
+
+def dense_rows_check_phase(torch, Model, BatchEngine, loader, kernels):
+    """The batched paged path at minitron-4b's published widths (depth cut
+    to DENSE_DEPTH layers, random init from a seed, vocabulary cut to the
+    toy tokenizer's 64), card against CPU: 3 rows commit about 2K tokens
+    in extends of up to 256, then a 5-token and a 64-token span (buckets 8
+    and 64: a verification and a chunk) with logits, then one
+    ``feed_rows``.  Paged-append launches must equal n_layers x the
+    extends, paged-decode launches n_layers x the decode steps."""
+    import dataclasses
+    cfg = dataclasses.replace(loader.arch_config(DENSE_ARCH),
+                              n_layers=DENSE_DEPTH)
+    m = Model(cfg)
+    t0 = time.perf_counter()
+    cpu_params = m.init(3, device="cpu")
+    rng = random.Random(3)
+    ctx = [2048, 1931, 2000]
+    prompts = [[rng.randrange(cfg.vocab_size) for _ in range(n)] for n in ctx]
+    spans = [[[rng.randrange(cfg.vocab_size) for _ in range(n)]
+              for n in lens] for lens in ([5, 3, 5], [64, 64, 40])]
+    logits, extends = {}, 0
+    for dev in ("cuda", "cpu"):
+        params = cpu_params if dev == "cpu" else \
+            tree_map(lambda t: t.to(dev), cpu_params)
+        be = BatchEngine(m, params, batch=len(ctx), capacity=2304)
+        rows = [be.alloc_row() for _ in ctx]
+        for k in kernels.values():
+            k.launches = 0
+        for s0 in range(0, max(ctx), 256):
+            live = [i for i, n in enumerate(ctx) if s0 < n]
+            be.extend_rows([rows[i] for i in live],
+                           [prompts[i][s0:s0 + 256] for i in live])
+        out = []
+        for toks in spans:
+            out += be.extend_rows(rows, toks, want_logits=True)
+        be.feed_rows(rows, [7, 8, 9])
+        logits[dev] = torch.cat(out + [be.last_logits[rows]]).float().cpu()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            n = cfg.n_layers
+            extends = be.meter.prefill_calls
+            got = (kernels["paged_append_attention"].launches,
+                   kernels["paged_decode_attention"].launches)
+            if got != (n * extends, n * be.meter.decode_steps) \
+                    or not extends or any(
+                        k.launches for name, k in kernels.items()
+                        if not name.startswith("paged")):
+                raise AssertionError(
+                    f"{DENSE_ARCH} rows: launches (paged append, paged "
+                    f"decode) {got} != {n} x ({extends} extends, "
+                    f"{be.meter.decode_steps} decode steps), dense 0")
+    err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    scale = logits["cpu"].abs().max().item()
+    if not torch.allclose(logits["cuda"], logits["cpu"], atol=LOGIT_TOL,
+                          rtol=LOGIT_TOL):
+        raise AssertionError(f"{DENSE_ARCH} batched rows: card vs CPU "
+                             f"logits differ by {err} (> {LOGIT_TOL})")
+    print(f"[check] {DENSE_ARCH} batched rows (published widths: d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, hd "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}; cut: {DENSE_DEPTH} of "
+          f"32 layers, vocabulary 256000 -> {cfg.vocab_size}; random init, "
+          f"seed 3): 3 rows over {ctx} committed tokens, 5- and 64-token "
+          f"spans and one feed_rows; card vs CPU logits max |diff| "
+          f"{err:.3g} at max |logit| {scale:.3g} (tolerance {LOGIT_TOL}); "
+          f"paged-append launches {n * extends} == {n} x {extends} extends;"
+          f" {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def continuous_phase(torch, serve, kernels, ckpt):
@@ -944,6 +1028,7 @@ def main() -> int:
                "paged_decode_attention": paged_decode_attention,
                "paged_append_attention": paged_append_attention,
                "ssd_scan": ssd_scan}
+    dense_rows_check_phase(torch, Model, BatchEngine, loader, kernels)
     paged, cont_greedy = continuous_phase(torch, serve, kernels, ckpt)
     launches.update(paged)
     batch_invariance_phase(torch, serve, tasks, Model, load_checkpoint,

@@ -8,8 +8,8 @@ flash_attention   causal GQA prefill / verification attention with a
 paged_decode_attention  flash-decode over a page pool through per-row block
                   tables (port of the Pallas ``paged_decode_attention``)
 paged_append_attention  span attention: T queries per row over its pages
-                  plus the span's own K/V (port of the Pallas
-                  ``paged_append_attention``)
+                  plus the span's own K/V, on the tensor cores (3xTF32
+                  mma.sync; port of the Pallas ``paged_append_attention``)
 ssd_scan          Mamba2 chunked SSD scan: intra-chunk quadratic term plus
                   the inter-chunk state recurrence (port of the Pallas
                   ``ssd_scan``)

@@ -56,10 +56,14 @@
 //    (decode_core.cuh) merges the partial (max, sum, acc) triples.
 //  * Shared memory a block: Q as fp32, R x (HD + 4) floats with R =
 //    min(64, T * G rounded up to 16), plus 2 stages x (K, V) x 32 keys x
-//    (HD + 16 bytes).  At hd 128: fp32 67.6 KB of K/V + 8.4 KB (T=5, G=3)
-//    or 33.8 KB (64 rows) of Q, so 3 or 2 blocks an SM; bf16 34.8 KB of
-//    K/V, 3 blocks an SM at 64 rows.  Registers: ptxas reports 128-168 a
-//    thread for the hd-128 variants (see PERF.md, PR 16), no spills.
+//    (HD + 16 bytes).  At hd 128, fp32: 101,376 bytes at 64 rows (2 blocks
+//    an SM), 76,032 at 16 rows (T=5, G=3: 3 blocks); bf16: 68,608 bytes
+//    at 64 rows (3 blocks).  The split over the committed context is
+//    planned against the blocks the card runs at once, which
+//    paged_append_attention_slots asks of the occupancy calculator.
+//  * Registers (ptxas -v, sm_90a; cp.async / scalar copy variants): fp32
+//    hd 128 153 / 157, hd 64 141 / 142, hd 32 116; bf16 hd 128 162, hd 64
+//    124, hd 32 80 with 8 bytes spilled; no other variant spills.
 //
 // Plain C interface for ctypes; the launch returns cudaGetLastError().
 

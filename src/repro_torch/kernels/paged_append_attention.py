@@ -7,9 +7,12 @@ over the row's committed pages (through its block table) plus a dense
 (B, T, K, hd) side buffer of the span's own fresh K/V, causal within the
 span, with ragged context and span lengths.  The port runs every batched
 extend through it (prompt chunks, step scoring, delimiters, spec-decode
-verification), so T goes up to the largest extend bucket.  This wrapper
-checks its arguments, picks the split over the committed context,
-launches the CUDA kernel on the current stream and counts the launch; it
+verification), so T goes up to the largest extend bucket.  The kernel
+computes on the tensor cores (3xTF32 for fp32 operands).  This wrapper
+checks its arguments, picks the split over the committed context against
+the blocks the card runs at once (asked of the kernel's occupancy once
+per shape class), launches the CUDA kernel on the current stream and
+counts the launch; it
 never computes on the CPU (``ops.paged_append_attention`` sends CPU
 tensors to ``ref.paged_append_reference``).
 """
@@ -49,7 +52,7 @@ def _lib():
 
 
 @functools.cache
-def _slots(dtype: int, hd: int, rows: int, device: int) -> int:
+def card_slots(dtype: int, hd: int, rows: int, device: int) -> int:
     """Blocks the card runs at once for this dtype, hd and T * G (only
     ``min(ROWS, rows)`` changes the block's shared memory)."""
     out = ctypes.c_int(0)
@@ -116,7 +119,7 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
     nb = block_tables.shape[1]
 
     out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
-    slots = _slots(DTYPES[q.dtype], hd, min(ROWS, t * (h // kh)),
+    slots = card_slots(DTYPES[q.dtype], hd, min(ROWS, t * (h // kh)),
                    q.device.index)
     n_split, split_keys = split_plan(b, t, h, kh, nb * bs, slots)
     part = (torch.empty((b, t, h, n_split, hd + 2), dtype=torch.float32,

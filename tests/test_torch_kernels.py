@@ -2,7 +2,10 @@
 oracles (``repro.kernels.ref``), its Pallas kernels in interpret mode, and
 the masks of its ``prefill_self_attention`` / ``decode_self_attention``.
 Also: CPU calls never count a kernel launch, the CUDA wrappers refuse CPU
-tensors, and CUDA entry points raise where CUDA is absent.
+tensors, and CUDA entry points raise where CUDA is absent; the precision
+plan of paged span attention's tensor-core products (3xTF32 against one
+TF32 product, emulated in numpy) and its split over the committed
+context.
 
 Inputs are made with numpy from fixed seeds.  Tolerances follow
 tests/test_kernels.py: fp32 atol = rtol = 2e-5 (the two sides sum in
