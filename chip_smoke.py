@@ -346,9 +346,7 @@ def paged_kernel_phase(torch, F, ref, paged_decode, paged_append,
                        minitron):
     """The paged kernels against their plain versions at the continuous
     path's shapes and minitron-4b's.  Returns per-kernel records."""
-    import importlib
-    append_mod = importlib.import_module(
-        "repro_torch.kernels.paged_append_attention")
+    from repro_torch.kernels import paged_append_attention as append_mod
     from repro_torch.kernels.decode_attention import DTYPES
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -614,7 +612,8 @@ def rows_check_phase(torch, Model, BatchEngine, testbed, load_checkpoint,
               f"(tolerance {LOGIT_TOL})", flush=True)
 
 
-def dense_rows_check_phase(torch, Model, BatchEngine, loader, kernels):
+def dense_rows_check_phase(torch, Model, BatchEngine, loader, kernels,
+                           published):
     """The batched paged path at minitron-4b's published widths (depth cut
     to DENSE_DEPTH layers, random init from a seed, vocabulary cut to the
     toy tokenizer's 64), card against CPU: 3 rows commit about 2K tokens
@@ -673,7 +672,8 @@ def dense_rows_check_phase(torch, Model, BatchEngine, loader, kernels):
     print(f"[check] {DENSE_ARCH} batched rows (published widths: d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, hd "
           f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}; cut: {DENSE_DEPTH} of "
-          f"32 layers, vocabulary 256000 -> {cfg.vocab_size}; random init, "
+          f"{published.n_layers} layers, vocabulary {published.vocab_size} -> "
+          f"{cfg.vocab_size}; random init, "
           f"seed 3): 3 rows over {ctx} committed tokens, 5- and 64-token "
           f"spans and one feed_rows; card vs CPU logits max |diff| "
           f"{err:.3g} at max |logit| {scale:.3g} (tolerance {LOGIT_TOL}); "
@@ -1028,7 +1028,8 @@ def main() -> int:
                "paged_decode_attention": paged_decode_attention,
                "paged_append_attention": paged_append_attention,
                "ssd_scan": ssd_scan}
-    dense_rows_check_phase(torch, Model, BatchEngine, loader, kernels)
+    dense_rows_check_phase(torch, Model, BatchEngine, loader, kernels,
+                           minitron_4b.CONFIG)
     paged, cont_greedy = continuous_phase(torch, serve, kernels, ckpt)
     launches.update(paged)
     batch_invariance_phase(torch, serve, tasks, Model, load_checkpoint,
