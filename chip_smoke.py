@@ -7,7 +7,7 @@ from the root of a checkout.  Phases, each printing its lines:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: ``nvcc`` for every kernel source, in parallel, with each
-   variant's registers and spills;
+   variant's registers, static shared memory and spills;
 3. kernels: each CUDA kernel against its plain PyTorch version on the
    card, in fp32 and bf16, with the kernel's, the plain version's and a
    PyTorch yardstick's times and the card's bound:
@@ -15,7 +15,8 @@ from the root of a checkout.  Phases, each printing its lines:
      path's shapes (BASE and SMALL heads, prefill buckets 4..256 at
      offsets in a 1024-slot cache, decode at ragged lengths up to 1024)
      and at minitron-4b's attention shape (24 query heads over 8 kv
-     heads, hd 128: prefill S=2048, decode B=8 over 4096);
+     heads, hd 128: prefill S=2048, a 256-query chunk at 1792 over 2048
+     keys, decode B=8 over 4096), with #2's split over keys;
    * the SSD scan (the ssm path) at mamba2-1.3b's heads (H 64, P 64,
      N 128, one group) over one ragged chunk (L 7 and 37), one full chunk,
      300 tokens padded to 384 and 2048 tokens, against its plain version
@@ -73,6 +74,7 @@ non-zero at once.
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import time
@@ -123,6 +125,34 @@ def time_ms(torch, fn, reps=30):
     return start.elapsed_time(end) / reps
 
 
+def ptxas_variants(text):
+    """(variant, registers, static shared memory bytes, spill-store bytes)
+    per kernel entry in an ``nvcc -Xptxas -v`` report; dynamic shared
+    memory is not in it (the kernel phase prints #2's and #4's plans)."""
+    out, name, spill = [], "?", 0
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name, spill = m.group(1), 0
+            t = re.search(r"\d+([a-z_]+_kernel)I(f|13__nv_bfloat16)"
+                          r"(?:Li(\d+)E)?(?:Lb([01])E)?", name)
+            if t:
+                args = ["f32" if t.group(2) == "f" else "bf16"]
+                args += [t.group(3)] if t.group(3) else []
+                args += [("cp.async", "scalar")[t.group(4) == "0"]] \
+                    if t.group(4) else []
+                name = f"{t.group(1)}<{', '.join(args)}>"
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append((name, int(m.group(1)),
+                        int(smem.group(1)) if smem else 0, spill))
+    return out
+
+
 def leaves(tree):
     for v in tree.values():
         yield from leaves(v) if isinstance(v, dict) else (v,)
@@ -142,6 +172,8 @@ def bound(nbytes, flops, dtype):
 def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron):
     """Every kernel against its plain version at the path's shapes.
     Returns per-kernel records for the JSON line."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels.decode_attention import DTYPES
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     heads = {"base": (8, 4, 28), "small": (4, 2, 32),
@@ -205,7 +237,8 @@ def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron):
         prefill_cases += [("small", 64, 300, CACHE, True, 128),  # window
                           ("base", 128, 0, 128, False, 0),       # Pallas,
                           ("base", 128, 0, 128, True, 0),        # contract
-                          ("minitron", 2048, 0, 2048, True, 0)]
+                          ("minitron", 2048, 0, 2048, True, 0),
+                          ("minitron", 256, 1792, 2048, True, 0)]  # a chunk
         for model, s, off, cap, causal, window in prefill_cases:
             h, kh, hd = heads[model]
             q = randn(1, s, h, hd, dtype=dt).permute(0, 2, 1, 3)
@@ -232,14 +265,22 @@ def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron):
             keys = int(seen.max() - seen.min() + 1) if len(seen) else 0
             nbytes = (2 * q.numel() + 2 * keys * kh * hd) * esize
             bound_ms, by = bound(nbytes, 4 * hd * h * pairs, dname)
+            slots, smem = flash_mod.card_occupancy(
+                DTYPES[dt], hd, min(flash_mod.append.ROWS, s * (h // kh)),
+                torch.cuda.current_device())
+            split = flash_mod.split_plan(1, s, h, kh, off, cap, causal,
+                                         window, slots)
             records["flash_attention"].append(dict(
                 shape=label, dtype=dname, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                bound_by=by))
+                bound_by=by, split=list(split), slots=slots,
+                smem_bytes=smem))
             print(f"[kernels] flash_attention {label}: err {err:.3g} | "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({by})",
-                  flush=True)
+                  f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({by}) | "
+                  f"split {split[0]} x {split[1]} keys from {split[2]}, "
+                  f"{slots} blocks at once, {smem} bytes of shared memory "
+                  "a block", flush=True)
     return records
 
 
@@ -992,12 +1033,10 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = build.build()
     for name, text in reports.items():
-        regs = sorted({ln.split("Used ")[1].split(",")[0]
-                       for ln in text.splitlines() if "Used " in ln})
-        spills = sum(" 0 bytes spill" not in ln for ln in text.splitlines()
-                     if "spill stores" in ln)
-        print(f"[build] {name}: {regs} per variant, {spills} variants "
-              "spill", flush=True)
+        print(f"[build] {name}: " + "; ".join(
+            f"{v} {regs} registers, {smem} bytes static shared memory, "
+            f"{spill} bytes spilled" for v, regs, smem, spill
+            in ptxas_variants(text)), flush=True)
     print(f"[build] {len(reports)} sources in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 

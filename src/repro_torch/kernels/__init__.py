@@ -3,8 +3,9 @@
 decode_attention  flash-decode: one token per row over a dense KV cache
                   (port of the Pallas ``decode_attention``)
 flash_attention   causal GQA prefill / verification attention with a
-                  query offset, a kv length and a window (port of the
-                  Pallas ``flash_attention``)
+                  query offset, a kv length and a window, on the tensor
+                  cores (3xTF32 mma.sync; port of the Pallas
+                  ``flash_attention``)
 paged_decode_attention  flash-decode over a page pool through per-row block
                   tables (port of the Pallas ``paged_decode_attention``)
 paged_append_attention  span attention: T queries per row over its pages
@@ -15,9 +16,10 @@ ssd_scan          Mamba2 chunked SSD scan: intra-chunk quadratic term plus
                   ``ssd_scan``)
 
 ``csrc/`` holds the CUDA sources (``decode_core.cuh`` is the flash-decode
-body both decode kernels share), ``build`` compiles them with nvcc at
-first use, ``ref`` holds the plain PyTorch versions of the attention kernels and
-the SSD scan's sequential oracle (the scan's plain version is
+body both decode kernels share, ``tf32_mma.cuh`` the tensor-core helpers
+of flash_attention and paged_append_attention), ``build`` compiles them
+with nvcc at first use, ``ref`` holds the plain PyTorch versions of the
+attention kernels and the SSD scan's sequential oracle (the scan's plain version is
 ``models.mamba2.ssd_chunked``), and ``ops`` dispatches: CPU tensors to
 the plain versions, CUDA tensors to the kernels.
 """

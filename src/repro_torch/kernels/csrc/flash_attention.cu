@@ -1,5 +1,5 @@
-// Causal GQA flash attention for Hopper (sm_90a): prompt prefill, step
-// extends and verification passes.
+// Causal GQA flash attention for Hopper (sm_90a) on the tensor cores: prompt
+// prefill, step extends and verification passes of the sequential path.
 //
 // Replaces: src/repro/kernels/flash_attention.py :: flash_attention (the
 // Pallas TPU kernel _flash_kernel).  Query head h reads kv head h / G.  The
@@ -8,229 +8,527 @@
 // of a cache of capacity C and attends each query start + i over the cache,
 // so this kernel also takes `q_offset` (absolute position of query 0),
 // `kv_len` (keys j >= kv_len are invisible) and a sliding `window`, and
-// masks ragged edges itself: S is an engine bucket from 4 to 256.  Query i
-// sees key j iff j < kv_len and, when causal, j <= q_offset + i and
-// (window > 0) j > q_offset + i - window.  With q_offset = 0 and
-// kv_len = S it is the TPU kernel's function.
+// masks ragged edges itself: S is an engine bucket from 4 to 256, or a whole
+// prompt.  Query i sees key j iff j < kv_len and, when causal,
+// j <= q_offset + i and (window > 0) j > q_offset + i - window.  With
+// q_offset = 0 and kv_len = S it is the TPU kernel's function.  A query
+// that sees no key gives 0 (the l == 0 -> 1 guard).
 //
-// What bounds it on this card: at the port's shapes (S <= 256 queries over a
-// few hundred keys, head_dim 28 or 32) each launch moves a few hundred KB
-// and does a few MFLOP, so it is bound by latency; at long prompts it is
-// bound by operations, and this first version runs them on CUDA cores in
-// fp32, with every multiply-add reading two shared-memory words.
+// What bounds it on this card: at the serving buckets (S <= 256 over a
+// 1024-slot cache, head_dim 28 or 32) each launch moves a few hundred KB
+// and does a few MFLOP, so it is bound by latency.  At long prompts it is
+// bound by operations: 4 * hd flops per visible (query, key) pair,
+// fp32-accurate, so 3xTF32 on the tensor cores at 495 / 3 TFLOP/s
+// (minitron-4b, S=2048 causal: 25.8 GFLOP, 0.156 ms).
 //
-// What the design does about it:
-//  * One block per (16-query tile, query head, row).  The TPU grid's
-//    sequential kv axis becomes a loop inside the block over 32-key tiles
-//    staged in shared memory; tiles wholly above the causal diagonal, below
-//    the window or past kv_len are never loaded, so a short extend at a
-//    large offset reads only the keys it can see.
-//  * Eight threads share a query row: each scores four keys of the tile
-//    and owns hd / 8 output dims, and the row's max and sum are combined
-//    with three warp shuffles (online softmax, fp32).
-//  * head_dim up to 128 is padded to 32, 64 or 128 with bounds checks
-//    (BASE's 28 is not a power of two); loads are scalar per element because
-//    bf16 rows of 56 bytes are not 16-byte aligned; shared rows are padded
-//    by one word against bank conflicts.
-//  * q, k, v and out are read and written through element strides with a
-//    unit stride over hd, so the caller passes permuted views of its
-//    (B, S, H, hd) activations and (B, C, K, hd) caches without copies.
-//  * Tensor cores (wgmma over bf16 tiles) are later work.
+// What the design does about it (paged_append_attention.cu's design, over
+// a dense strided cache):
+//  * Rows packed as (position, head): row r = i * G + g of a (row b, kv
+//    head kh) is query position i of head kh * G + g, for any G.  A block
+//    holds 64 consecutive rows, 16 per warp: one m16n8k8 fragment each.  A
+//    K/V tile is read once for the G heads of its kv head (the per-head
+//    kernel before it read it G times).  The causal and window bounds are
+//    per row; a block loads only the key tiles between its first row's
+//    lower bound and its last row's upper bound, and a warp skips the
+//    products of a tile none of its rows sees, and the 8-key slices past
+//    its last row's diagonal.
+//  * Both products on the tensor cores with mma.sync.m16n8k8 TF32 and fp32
+//    accumulators (tf32_mma.cuh): fp32 operands as 3xTF32 (hi.hi' +
+//    hi.lo' + lo.hi'), bf16 operands exact in TF32 (Q.K^T one product with
+//    the softmax scale applied to S, P.V two); two accumulators for S so
+//    that no mma waits on the one before it.
+//  * Online softmax in registers, base 2.  P feeds P.V straight from the S
+//    accumulators: the k order of an 8-key step is permuted (k = tig holds
+//    key 2 * tig, k = tig + 4 key 2 * tig + 1) and V's rows are read in the
+//    same order.  The masks use each accumulator's true key, k0 + nt * 8 +
+//    2 * tig + (e & 1): the permutation lives only in P.V's operands.
+//  * K/V tiles of 32 keys staged by cp.async (16-byte copies, two stages)
+//    straight from the strided cache; a scalar copy path stays where a key
+//    row or a stride is not a multiple of 16 bytes (bf16 at hd 28: 56-byte
+//    rows).  head_dim is padded to 32, 64 or 128 with zeros.
+//  * Causal balance: at S = 2048 from position 0 the last row block reads
+//    64 key tiles and the first one, so blocks run heaviest first: the
+//    grid is (KH, B, row blocks x splits) and its last axis walks the row
+//    blocks from the last position down, so the tail wave holds the short
+//    blocks.
+//  * A short extend at a large offset (an engine bucket of 16 over a
+//    1024-slot cache) fills a handful of SMs, so the keys the launch sees
+//    are split over blocks, planned against the blocks the card runs at
+//    once (flash_attention_slots asks the occupancy calculator), and
+//    combine_kernel (decode_core.cuh) merges the partial (max, sum, acc)
+//    triples.
+//  * Shared memory a block: Q as fp32, R x (HD + 4) floats with R =
+//    min(64, S * G rounded up to 16), plus 2 stages x (K, V) x 32 keys x
+//    (HD + 16 bytes); the same as paged_append_attention.cu at the same R.
 //
 // Plain C interface for ctypes; the launch returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include <cstdint>
+#include <initializer_list>
 
-#include <cmath>
+#include "decode_core.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kRows = 16;               // query rows per block
-constexpr int kTpr = 8;                 // threads per query row
-constexpr int kThreads = kRows * kTpr;  // 128
-constexpr int kTile = 32;               // keys per shared-memory tile
-constexpr int kKpt = kTile / kTpr;      // keys scored per thread
-constexpr float kNeg = -1e30f;          // the TPU kernel's NEG_INF
+using namespace repro;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;  // (position, head) rows of a block
+constexpr int kKT = 32;             // keys per shared-memory tile
+
+// Q rows a block stages: its 64, or all S * G rows rounded up to a fragment.
+__host__ __device__ inline int block_rows(int rows) {
+  return rows < kRows ? (rows + 15) / 16 * 16 : kRows;
 }
 
-// max / sum over the kTpr consecutive lanes that share a query row
-__device__ __forceinline__ float row_max(float x) {
-  for (int o = kTpr / 2; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffff, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-  for (int o = kTpr / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffff, x, o);
-  return x;
-}
-
-// grid (ceil(S / kRows), H, B)
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int H, int KH,
-             int S, int hd, int q_offset, int kv_len, int window, int causal,
-             long long q_sb, long long q_sh, long long q_ss, long long k_sb,
-             long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-             long long v_ss, long long o_sb, long long o_sh, long long o_ss,
-             float scale) {
-  constexpr int kDpt = HD / kTpr;  // output dims per thread
-  __shared__ float qs[kRows][HD + 1];
-  __shared__ float ks[kTile][HD + 1];
-  __shared__ float vs[kTile][HD + 1];
-  __shared__ float ps[kRows][kTile + 1];
+__host__ __device__ constexpr int kv_ld() {
+  return HD + 16 / (int)sizeof(T);
+}
 
-  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (H / KH);
-  const int tid = threadIdx.x, r = tid / kTpr, sub = tid % kTpr;
-  const int row = q0 + r;
-  const bool active = row < S;
-  const int pos = q_offset + row;  // absolute position of this query
+template <typename T, int HD>
+__host__ __device__ inline size_t smem_bytes(int qr) {
+  return (size_t)qr * (HD + 4) * sizeof(float) +
+         (size_t)4 * kKT * kv_ld<T, HD>() * sizeof(T);
+}
 
-  for (int i = tid; i < kRows * hd; i += kThreads) {
-    const int rr = i / hd, d = i % hd;
-    qs[rr][d] = q0 + rr < S
-                    ? to_f32(q[b * q_sb + h * q_sh + (long long)(q0 + rr) * q_ss + d]) * scale
-                    : 0.f;
+struct Args {
+  const void *q, *k, *v;
+  void* out;
+  float* part;
+  int S, H, KH, hd, q_offset, kv_len, window, causal;
+  int n_rt, n_split, split_keys, key_lo;
+  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
+  long long o_sb, o_sh, o_ss;
+  float scale_log2;  // log2(e) / sqrt(hd): scores in base 2
+};
+
+// grid (KH, B, n_rt * n_split): blockIdx.z = n_rt - 1 - row block + n_rt *
+// split.  kVec: every K/V row start is 16-byte aligned and hd * sizeof(T)
+// is a multiple of 16, so tiles are copied by cp.async 16 bytes at a time.
+template <typename T, int HD, bool kVec>
+__global__ void __launch_bounds__(kThreads) flash_kernel(const Args a) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int ldq = HD + 4;          // floats; = 4 mod 32: no bank conflict
+  constexpr int ld = kv_ld<T, HD>();   // elements; rows 16 bytes apart mod 128
+  constexpr int kVecE = 16 / (int)sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int kh = blockIdx.x, b = blockIdx.y;
+  const int rt = a.n_rt - 1 - (int)(blockIdx.z % a.n_rt);
+  const int split = blockIdx.z / a.n_rt;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int G = a.H / a.KH, hd = a.hd, rows = a.S * G, r0 = rt * kRows;
+  const int qr = block_rows(rows);
+  const int live_rows = min(kRows, rows - r0);
+
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  T* ks = reinterpret_cast<T*>(qs + qr * ldq);  // [2][kKT][ld]
+  T* vs = ks + 2 * kKT * ld;                    // [2][kKT][ld]
+
+  // keys [lo, hi) that some row of this block (and split) sees
+  int lo = 0, hi = a.kv_len;
+  if (a.causal) {
+    hi = min(hi, a.q_offset + (r0 + live_rows - 1) / G + 1);
+    if (a.window > 0) lo = max(0, a.q_offset + r0 / G - a.window + 1);
   }
-
-  // keys this tile of queries can see
-  const int last = min(q0 + kRows, S) - 1;
-  int hi = kv_len;
-  int lo = 0;
-  if (causal) {
-    hi = min(hi, q_offset + last + 1);
-    if (window > 0) lo = max(0, q_offset + q0 - window + 1);
+  if (a.n_split > 1) {
+    const int s_lo = a.key_lo + split * a.split_keys;  // a multiple of kKT
+    lo = max(lo, s_lo);
+    hi = min(hi, s_lo + a.split_keys);
   }
-  lo = lo / kTile * kTile;
+  lo = lo / kKT * kKT;
+  const int n_tiles = hi > lo ? (hi - lo + kKT - 1) / kKT : 0;
 
-  float m = kNeg, l = 0.f;
-  float acc[kDpt];
-#pragma unroll
-  for (int u = 0; u < kDpt; ++u) acc[u] = 0.f;
+  // zero K/V (pad columns and never-copied keys must hold finite values:
+  // a masked key's p = 0 still multiplies its V row), then stage Q as fp32
+  {
+    float4* z = reinterpret_cast<float4*>(ks);
+    const int n4 = 4 * kKT * ld * (int)sizeof(T) / 16;
+    for (int i = tid; i < n4; i += kThreads) z[i] = make_float4(0, 0, 0, 0);
+  }
+  const T* q = static_cast<const T*>(a.q);
+  for (int i = tid; i < qr * HD; i += kThreads) {
+    const int r = i / HD, d = i % HD, fr = r0 + r;
+    float x = 0.f;
+    if (d < hd && fr < rows)
+      x = to_f32(q[b * a.q_sb + (long long)(fr / G) * a.q_ss +
+                   (long long)(kh * G + fr % G) * a.q_sh + d]);
+    qs[r * ldq + d] = x;
+  }
   __syncthreads();
 
-  const T* kb = k + b * k_sb + kh * k_sh;
-  const T* vb = v + b * v_sb + kh * v_sh;
-  for (int k0 = lo; k0 < hi; k0 += kTile) {
-    const int n = min(kTile, hi - k0);
-    for (int i = tid; i < n * hd; i += kThreads) {
-      const int j = i / hd, d = i % hd;
-      ks[j][d] = to_f32(kb[(long long)(k0 + j) * k_ss + d]);
-      vs[j][d] = to_f32(vb[(long long)(k0 + j) * v_ss + d]);
-    }
-    __syncthreads();
+  const T* kb0 = static_cast<const T*>(a.k) + b * a.k_sb + kh * a.k_sh;
+  const T* vb0 = static_cast<const T*>(a.v) + b * a.v_sb + kh * a.v_sh;
 
-    float s[kKpt];
-    bool ok[kKpt];
-    float mx = kNeg;
+  // four threads a key: each copies every fourth 16-byte chunk (every
+  // fourth element on the scalar path) of its key's K and V rows
+  static_assert(kThreads == 4 * kKT, "four copying threads a key");
+  auto load_tile = [&](int i, int stage) {
+    const int k0 = lo + i * kKT, n = min(kKT, hi - k0);
+    const int j = tid / 4, sub = tid % 4;
+    if (j >= n) return;
+    const T* kb = kb0 + (long long)(k0 + j) * a.k_ss;
+    const T* vb = vb0 + (long long)(k0 + j) * a.v_ss;
+    T* kd = ks + (stage * kKT + j) * ld;
+    T* vd = vs + (stage * kKT + j) * ld;
+    if constexpr (kVec) {
 #pragma unroll
-    for (int t = 0; t < kKpt; ++t) {
-      const int j = sub + kTpr * t, key = k0 + j;
-      ok[t] = active && j < n && (!causal || key <= pos) &&
-              (!causal || window <= 0 || key > pos - window);
-      s[t] = 0.f;
-      if (ok[t]) {
-        for (int d = 0; d < hd; ++d) s[t] += qs[r][d] * ks[j][d];
-        mx = fmaxf(mx, s[t]);
+      for (int u = 0; u < HD / kVecE / 4; ++u) {
+        const int d = (sub + 4 * u) * kVecE;
+        if (d < hd) {
+          cp_async16(kd + d, kb + d);
+          cp_async16(vd + d, vb + d);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < HD / 4; ++u) {
+        const int d = sub + 4 * u;
+        if (d < hd) {
+          kd[d] = kb[d];
+          vd[d] = vb[d];
+        }
       }
     }
-    // every lane runs both shuffles: rows of one warp may differ in whether
-    // they see any key of this tile (mx == kNeg when they see none)
-    mx = row_max(mx);
-    const float m_new = mx == kNeg ? m : fmaxf(m, mx);
-    const float alpha = mx == kNeg ? 1.f : expf(m - m_new);
-    float sum = 0.f;
+  };
+
+  // this warp's rows and the keys [w_lo, w_hi) they see; this lane's two
+  // rows of the fragment: gid and gid + 8, at absolute positions pos[]
+  const int wr0 = r0 + 16 * warp;
+  const bool warp_live = 16 * warp < live_rows;
+  const int wr1 = min(wr0 + 15, rows - 1);
+  int w_lo = lo, w_hi = hi;
+  if (a.causal) {
+    w_hi = min(hi, a.q_offset + wr1 / G + 1);
+    if (a.window > 0) w_lo = max(lo, a.q_offset + wr0 / G - a.window + 1);
+  }
+  const int fr0 = wr0 + gid;
+  const int pos[2] = {a.q_offset + fr0 / G, a.q_offset + (fr0 + 8) / G};
+  const float* qa = qs + (16 * warp + gid) * ldq + tig;
+  float o[HD / 8][4];
 #pragma unroll
-    for (int t = 0; t < kKpt; ++t) {
-      s[t] = ok[t] ? expf(s[t] - m_new) : 0.f;
-      sum += s[t];
-    }
-    l = l * alpha + row_sum(sum);
-    m = m_new;
+  for (int nd = 0; nd < HD / 8; ++nd)
+    o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+
+  if (n_tiles > 0) load_tile(0, 0);
+  cp_async_commit();
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) load_tile(i + 1, (i + 1) & 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const int k0 = lo + i * kKT;
+    // keys of this tile the warp may see: [k0, k0 + n)
+    const int n = min(kKT, w_hi - k0);
+    if (warp_live && n > 0 && k0 + kKT > w_lo) {
+      const T* kt = ks + (i & 1) * kKT * ld;
+      const T* vt = vs + (i & 1) * kKT * ld;
+
+      // S = Q . K^T: 16 rows x 32 keys, in two accumulators (fp32: the
+      // hi.hi' products and the two correction products; bf16: even and
+      // odd k steps) so that no mma waits on the one before it
+      float s[kKT / 8][4], s2[kKT / 8][4];
 #pragma unroll
-    for (int t = 0; t < kKpt; ++t) ps[r][sub + kTpr * t] = s[t];
-    __syncwarp();
+      for (int nt = 0; nt < kKT / 8; ++nt)
 #pragma unroll
-    for (int u = 0; u < kDpt; ++u) {
-      const int d = sub + kTpr * u;
-      if (d < hd) {
-        float o = acc[u] * alpha;
-        for (int j = 0; j < n; ++j) o += ps[r][j] * vs[j][d];
-        acc[u] = o;
+        for (int e = 0; e < 4; ++e) s[nt][e] = s2[nt][e] = 0.f;
+      const int n_nt = (n + 7) / 8;
+#pragma unroll
+      for (int kk = 0; kk < HD; kk += 8) {
+        const float qv[4] = {qa[kk], qa[8 * ldq + kk], qa[kk + 4],
+                             qa[8 * ldq + kk + 4]};
+        uint32_t ahi[4], alo[4], bhi[kKT / 8][2], blo[kKT / 8][2];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (kF32)
+            split_tf32(qv[e], ahi[e], alo[e]);
+          else
+            ahi[e] = __float_as_uint(qv[e]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < kKT / 8; ++nt) {
+          const T* kr = kt + (nt * 8 + gid) * ld + kk + tig;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float x = to_f32(kr[4 * e]);
+            if constexpr (kF32)
+              split_tf32(x, bhi[nt][e], blo[nt][e]);
+            else
+              bhi[nt][e] = __float_as_uint(x);
+          }
+        }
+        if constexpr (kF32) {
+#pragma unroll
+          for (int nt = 0; nt < kKT / 8; ++nt)
+            if (nt < n_nt) mma_tf32(s2[nt], alo, bhi[nt][0], bhi[nt][1]);
+#pragma unroll
+          for (int nt = 0; nt < kKT / 8; ++nt)
+            if (nt < n_nt) mma_tf32(s[nt], ahi, bhi[nt][0], bhi[nt][1]);
+#pragma unroll
+          for (int nt = 0; nt < kKT / 8; ++nt)
+            if (nt < n_nt) mma_tf32(s2[nt], ahi, blo[nt][0], blo[nt][1]);
+        } else {
+#pragma unroll
+          for (int nt = 0; nt < kKT / 8; ++nt)
+            if (nt < n_nt)
+              mma_tf32(kk % 16 ? s2[nt] : s[nt], ahi, bhi[nt][0], bhi[nt][1]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < kKT / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] += s2[nt][e];
+
+      // masks and the online softmax; s[nt][e]: row gid + 8 * (e >> 1),
+      // key k0 + nt * 8 + 2 * tig + (e & 1)
+      float mx[2] = {kNeg, kNeg};
+#pragma unroll
+      for (int nt = 0; nt < kKT / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = nt * 8 + 2 * tig + (e & 1), key = k0 + j;
+          const int p = pos[e >> 1];
+          const bool ok = j < n && (!a.causal || (key <= p && (
+                              a.window <= 0 || key > p - a.window)));
+          s[nt][e] = ok ? s[nt][e] * a.scale_log2 : kNeg;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int nt = 0; nt < kKT / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = s[nt][e] > 0.5f * kNeg
+                              ? exp2f(s[nt][e] - m[e >> 1]) : 0.f;
+          s[nt][e] = p;
+          l[e >> 1] += p;
+        }
+#pragma unroll
+      for (int nd = 0; nd < HD / 8; ++nd) {
+        o[nd][0] *= alpha[0];
+        o[nd][1] *= alpha[0];
+        o[nd][2] *= alpha[1];
+        o[nd][3] *= alpha[1];
+      }
+
+      // O += P . V, 8 keys a step; A's k = tig is key 2 * tig, k = tig + 4
+      // is key 2 * tig + 1, and V's rows are read in the same order.  The
+      // products of a step go over 8 output column slices at a time, each
+      // product over all 8 before the next, so no mma waits on the one
+      // before it
+      constexpr int kND = HD / 8 < 8 ? HD / 8 : 8;
+#pragma unroll
+      for (int kt8 = 0; kt8 < kKT / 8; ++kt8) {
+        if (kt8 * 8 >= n) break;
+        const float pv[4] = {s[kt8][0], s[kt8][2], s[kt8][1], s[kt8][3]};
+        uint32_t phi[4], plo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(pv[e], phi[e], plo[e]);
+        const T* vr = vt + (kt8 * 8 + 2 * tig) * ld + gid;
+#pragma unroll
+        for (int n0 = 0; n0 < HD / 8; n0 += kND) {
+          uint32_t bhi[kND][2], blo[kND][2];
+#pragma unroll
+          for (int u = 0; u < kND; ++u)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float x = to_f32(vr[e * ld + (n0 + u) * 8]);
+              if constexpr (kF32)
+                split_tf32(x, bhi[u][e], blo[u][e]);
+              else
+                bhi[u][e] = __float_as_uint(x);
+            }
+#pragma unroll
+          for (int u = 0; u < kND; ++u)
+            mma_tf32(o[n0 + u], plo, bhi[u][0], bhi[u][1]);
+          if constexpr (kF32) {
+#pragma unroll
+            for (int u = 0; u < kND; ++u)
+              mma_tf32(o[n0 + u], phi, blo[u][0], blo[u][1]);
+          }
+#pragma unroll
+          for (int u = 0; u < kND; ++u)
+            mma_tf32(o[n0 + u], phi, bhi[u][0], bhi[u][1]);
+        }
       }
     }
     __syncthreads();
   }
 
-  if (active) {
-    const float inv = 1.f / (l == 0.f ? 1.f : l);
-    T* ob = out + b * o_sb + h * o_sh + (long long)row * o_ss;
 #pragma unroll
-    for (int u = 0; u < kDpt; ++u) {
-      const int d = sub + kTpr * u;
-      if (d < hd) store(ob + d, acc[u] * inv);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffff, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffff, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int fr = fr0 + 8 * r;
+    if (fr >= rows) continue;
+    const int p = fr / G, h = kh * G + fr % G;
+    if (a.n_split == 1) {
+      const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+      T* orow = static_cast<T*>(a.out) + b * a.o_sb + h * a.o_sh +
+                (long long)p * a.o_ss;
+#pragma unroll
+      for (int nd = 0; nd < HD / 8; ++nd)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = nd * 8 + 2 * tig + e;
+          if (d < hd) store(orow + d, o[nd][2 * r + e] * inv);
+        }
+    } else {
+      float* pb = a.part + ((((long long)b * a.S + p) * a.H + h) *
+                                a.n_split + split) * (hd + 2);
+#pragma unroll
+      for (int nd = 0; nd < HD / 8; ++nd)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = nd * 8 + 2 * tig + e;
+          if (d < hd) pb[d] = o[nd][2 * r + e];
+        }
+      if (tig == 0) {
+        pb[hd] = m[r] * 0.6931471805599453f;  // base e
+        pb[hd + 1] = l[r];
+      }
     }
   }
+}
+
+// Lets the kernel take `bytes` of dynamic shared memory (above 48 KB only
+// on request).
+template <typename T, int HD, bool kVec>
+cudaError_t allow_smem(size_t bytes) {
+  static size_t allowed = 48 * 1024;
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_kernel<T, HD, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (e == cudaSuccess) allowed = bytes;
+  return e;
+}
+
+template <typename T, int HD, bool kVec>
+int launch(const Args& a, int B, cudaStream_t stream) {
+  const size_t bytes = smem_bytes<T, HD>(block_rows(a.S * (a.H / a.KH)));
+  const cudaError_t e = allow_smem<T, HD, kVec>(bytes);
+  if (e != cudaSuccess) return (int)e;
+  flash_kernel<T, HD, kVec>
+      <<<dim3(a.KH, B, a.n_rt * a.n_split), kThreads, bytes, stream>>>(a);
+  if (a.n_split > 1)
+    combine_kernel<T><<<B * a.S * a.H, 128, 0, stream>>>(
+        a.part, static_cast<T*>(a.out), a.S, a.H, a.n_split, a.hd, a.o_sb,
+        a.o_ss, a.o_sh);
+  return (int)cudaGetLastError();
+}
+
+// Blocks of the kernel the current card runs at once for S * G = rows, and
+// the dynamic shared memory of one.
+template <typename T, int HD>
+int slots(int rows, int* out, int* smem) {
+  const size_t bytes = smem_bytes<T, HD>(block_rows(rows));
+  cudaError_t e = allow_smem<T, HD, true>(bytes);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, flash_kernel<T, HD, true>, kThreads, bytes);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *out = per_sm * sms;
+  *smem = (int)bytes;
+  return (int)e;
+}
+
+template <typename T, int HD>
+int dispatch_vec(const Args& a, int B, cudaStream_t stream) {
+  constexpr int e = 16 / (int)sizeof(T);
+  bool vec = a.hd % e == 0;
+  for (const void* p : {a.k, a.v})
+    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  for (long long s : {a.k_sb, a.k_sh, a.k_ss, a.v_sb, a.v_sh, a.v_ss})
+    vec = vec && s % e == 0;
+  return vec ? launch<T, HD, true>(a, B, stream)
+             : launch<T, HD, false>(a, B, stream);
 }
 
 template <typename T>
-int dispatch_hd(const void* q, const void* k, const void* v, void* out, int B,
-                int H, int KH, int S, int hd, int q_offset, int kv_len,
-                int window, int causal, long long q_sb, long long q_sh,
-                long long q_ss, long long k_sb, long long k_sh, long long k_ss,
-                long long v_sb, long long v_sh, long long v_ss, long long o_sb,
-                long long o_sh, long long o_ss, cudaStream_t stream) {
-  const dim3 grid((S + kRows - 1) / kRows, H, B);
-  const float scale = 1.f / sqrtf((float)hd);
-#define REPRO_FLASH_LAUNCH(HD_)                                              \
-  flash_kernel<T, HD_><<<grid, kThreads, 0, stream>>>(                       \
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, H, KH, S, hd, q_offset, \
-      kv_len, window, causal, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, \
-      v_ss, o_sb, o_sh, o_ss, scale)
-  if (hd <= 32)
-    REPRO_FLASH_LAUNCH(32);
-  else if (hd <= 64)
-    REPRO_FLASH_LAUNCH(64);
-  else if (hd <= 128)
-    REPRO_FLASH_LAUNCH(128);
-  else
-    return (int)cudaErrorInvalidValue;
-#undef REPRO_FLASH_LAUNCH
-  return (int)cudaGetLastError();
+int dispatch_hd(const Args& a, int B, cudaStream_t stream) {
+  if (a.hd <= 32) return dispatch_vec<T, 32>(a, B, stream);
+  if (a.hd <= 64) return dispatch_vec<T, 64>(a, B, stream);
+  if (a.hd <= 128) return dispatch_vec<T, 128>(a, B, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int slots_hd(int hd, int rows, int* out, int* smem) {
+  if (hd <= 32) return slots<T, 32>(rows, out, smem);
+  if (hd <= 64) return slots<T, 64>(rows, out, smem);
+  if (hd <= 128) return slots<T, 128>(rows, out, smem);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q: (B, H, S, hd) and out: (B, H, S, hd)
 // with strides (*_sb, *_sh, *_ss, 1); k, v: (B, KH, Skv, hd) with strides
-// (*_sb, *_sh, *_ss, 1) and kv_len <= Skv.
+// (*_sb, *_sh, *_ss, 1) and kv_len <= Skv.  strides: the 12 element strides
+// q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss.
+// n_split > 1 splits the keys [key_lo, key_lo + n_split * split_keys), which
+// must hold every key a query sees, key_lo and split_keys multiples of 32;
+// part is then fp32 scratch of B * S * H * n_split * (hd + 2) floats.
 extern "C" int flash_attention_launch(
-    int dtype, const void* q, const void* k, const void* v, void* out, int B,
-    int H, int KH, int S, int hd, int q_offset, int kv_len, int window,
-    int causal, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
-    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-    long long v_ss, long long o_sb, long long o_sh, long long o_ss,
-    void* stream) {
-  if (KH <= 0 || H % KH != 0 || S <= 0) return (int)cudaErrorInvalidValue;
+    int dtype, const void* q, const void* k, const void* v, void* out,
+    void* part, int B, int H, int KH, int S, int hd, int q_offset,
+    int kv_len, int window, int causal, int n_split, int split_keys,
+    int key_lo, const long long* strides, void* stream) {
+  const int rows = S * (KH > 0 ? H / KH : 0);
+  const int n_rt = (rows + kRows - 1) / kRows;
+  // keys [lo, hi) that some query sees
+  const long long hi = causal && (long long)q_offset + S < kv_len
+                           ? (long long)q_offset + S : kv_len;
+  const long long lo = causal && window > 0 && q_offset >= window
+                           ? (long long)q_offset - window + 1 : 0;
+  if (KH <= 0 || H % KH != 0 || S <= 0 || B <= 0 || hd <= 0 ||
+      kv_len < 0 || q_offset < 0 || window < 0 || n_split <= 0 ||
+      (long long)n_rt * n_split > 65535 || B > 65535 || KH > 65535 ||
+      (n_split > 1 &&
+       (split_keys <= 0 || split_keys % kKT || key_lo < 0 || key_lo % kKT ||
+        key_lo > lo || key_lo + (long long)n_split * split_keys < hi)))
+    return (int)cudaErrorInvalidValue;
+  const long long* s = strides;
+  const Args a{q, k, v, out, (float*)part, S, H, KH, hd, q_offset, kv_len,
+               window, causal, n_rt, n_split, split_keys, key_lo, s[0], s[1],
+               s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
+               1.4426950408889634f / sqrtf((float)hd)};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch_hd<float>(q, k, v, out, B, H, KH, S, hd, q_offset, kv_len,
-                              window, causal, q_sb, q_sh, q_ss, k_sb, k_sh,
-                              k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, st);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, out, B, H, KH, S, hd, q_offset,
-                                      kv_len, window, causal, q_sb, q_sh, q_ss,
-                                      k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb,
-                                      o_sh, o_ss, st);
+  if (dtype == 0) return dispatch_hd<float>(a, B, st);
+  if (dtype == 1) return dispatch_hd<__nv_bfloat16>(a, B, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// How many blocks of the kernel the current card runs at once for this
+// dtype, head_dim and S * G (rows), and the dynamic shared memory of one
+// block: the split over keys is planned against it.  Writes *out and
+// *smem; returns a CUDA error code.
+extern "C" int flash_attention_slots(int dtype, int hd, int rows, int* out,
+                                     int* smem) {
+  *out = *smem = 0;
+  if (hd <= 0 || rows <= 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return slots_hd<float>(hd, rows, out, smem);
+  if (dtype == 1) return slots_hd<__nv_bfloat16>(hd, rows, out, smem);
   return (int)cudaErrorInvalidValue;
 }

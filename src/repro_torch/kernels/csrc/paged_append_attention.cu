@@ -71,6 +71,7 @@
 #include <initializer_list>
 
 #include "decode_core.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -95,43 +96,6 @@ template <typename T, int HD>
 __host__ __device__ inline size_t smem_bytes(int qr) {
   return (size_t)qr * (HD + 4) * sizeof(float) +
          (size_t)4 * kKT * kv_ld<T, HD>() * sizeof(T);
-}
-
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
-// from zero): add half an ulp of the 10-bit mantissa to the bits, clear the
-// low 13.  Two integer operations at the full rate, where the cvt runs on
-// the conversion unit at a fraction of it.  x is finite.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo + O(2^-22 |x|), both exact in TF32
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// c += a . b on one m16n8k8 TF32 fragment
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
 struct Args {

@@ -5,35 +5,79 @@ The port of the JAX package's Pallas kernel ``kernels/flash_attention.py``
 (query head h reads kv head h // G, online softmax over key tiles, tiles
 above the diagonal skipped), extended with the arguments the port's
 prefill needs: ``q_offset`` (absolute position of query 0), ``kv_len``
-(keys j >= kv_len are invisible) and a sliding ``window``.  This wrapper
-checks its arguments, launches the CUDA kernel on the current stream and
-counts the launch; it never computes on the CPU (``ops.flash_attention``
-sends CPU tensors to ``ref.mha_reference``).
+(keys j >= kv_len are invisible) and a sliding ``window``.  The kernel
+computes on the tensor cores (3xTF32 for fp32 operands) over (position,
+head) rows, so a K/V tile serves the G query heads of its kv head.  This
+wrapper checks its arguments, picks the split over keys against the
+blocks the card runs at once (asked of the kernel's occupancy once per
+shape class), launches the CUDA kernel on the current stream and counts
+the launch; it never computes on the CPU (``ops.flash_attention`` sends
+CPU tensors to ``ref.mha_reference``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import build
+from . import paged_append_attention as append
 
 MAX_HEAD_DIM = 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TILE = 32           # keys per shared-memory tile (the kernel's kKT)
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.cache
-def _entry():
-    fn = build.load("flash_attention").flash_attention_launch
-    fn.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                   _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _P]
+def _lib():
+    lib = build.load("flash_attention")
+    fn = lib.flash_attention_launch
+    fn.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong), _P]
     fn.restype = _I
-    return fn
+    lib.flash_attention_slots.argtypes = [
+        _I, _I, _I, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int)]
+    lib.flash_attention_slots.restype = _I
+    return lib
+
+
+@functools.cache
+def card_occupancy(dtype: int, hd: int, rows: int,
+                   device: int) -> Tuple[int, int]:
+    """(blocks the card runs at once, dynamic shared memory bytes of one
+    block) for this dtype, hd and S * G (only ``min(ROWS, rows)`` changes
+    the block's shared memory)."""
+    out, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _lib().flash_attention_slots(dtype, hd, rows, ctypes.byref(out),
+                                          ctypes.byref(smem))
+    if rc != 0 or out.value <= 0:
+        raise RuntimeError(f"flash_attention occupancy query failed: CUDA "
+                           f"error {rc}, {out.value} blocks")
+    return out.value, smem.value
+
+
+def split_plan(b: int, s: int, h: int, kh: int, q_offset: int, kv_len: int,
+               causal: bool, window: int, slots: int) -> Tuple[int, int, int]:
+    """(n_split, split_keys, key_lo): split i covers the keys [key_lo + i *
+    split_keys, key_lo + (i + 1) * split_keys), key_lo the first key some
+    query sees rounded down to a whole tile.  The launch's blocks of ROWS
+    (position, head) rows are planned as paged span attention's are
+    (``paged_append_attention.split_plan``) over the keys the launch sees:
+    a split only where the blocks fill less than the ``slots`` the card
+    runs at once, never below SPLIT_KEYS keys a split."""
+    hi = min(kv_len, q_offset + s) if causal else kv_len
+    lo = max(0, q_offset - window + 1) if causal and window else 0
+    lo = lo // TILE * TILE
+    n_split, split_keys = append.split_plan(b, s, h, kh, max(0, hi - lo),
+                                            slots)
+    return n_split, split_keys, lo
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -43,9 +87,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, H, S, hd); k, v: (B, K, Skv, hd) with H % K == 0; any
     strides with a unit stride over hd.  Query i is at absolute position
     ``q_offset + i`` and sees key j iff j < kv_len (default Skv) and, when
-    causal, j <= q_offset + i and (window > 0) j > q_offset + i - window.
-    Returns (B, H, S, hd) in q's dtype, laid out like q.  float32 or
-    bfloat16 in, fp32 arithmetic."""
+    causal, j <= q_offset + i and (window > 0) j > q_offset + i - window;
+    a query that sees no key gives 0.  Returns (B, H, S, hd) in q's dtype,
+    laid out like q.  float32 or bfloat16 in, fp32-accurate arithmetic
+    (3xTF32 tensor-core products for fp32 operands)."""
     if not q.is_cuda:
         raise ValueError("flash_attention launches a CUDA kernel; got a "
                          f"tensor on {q.device}")
@@ -73,15 +118,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"all tensors must be on {q.device}")
 
     out = torch.empty_like(q)   # keeps q's layout (dense strides)
+    slots, _ = card_occupancy(DTYPES[q.dtype], hd,
+                              min(append.ROWS, s * (h // kh)),
+                              q.device.index)
+    n_split, split_keys, key_lo = split_plan(b, s, h, kh, int(q_offset),
+                                             kv_len, causal, int(window),
+                                             slots)
+    part = (torch.empty((b, s, h, n_split, hd + 2), dtype=torch.float32,
+                        device=q.device) if n_split > 1 else out)
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                       *v.stride()[:3], *out.stride()[:3])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _entry()(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), out.data_ptr(), b, h, kh, s, hd,
-                      int(q_offset), kv_len, int(window), int(causal),
-                      q.stride(0), q.stride(1), q.stride(2),
-                      k.stride(0), k.stride(1), k.stride(2),
-                      v.stride(0), v.stride(1), v.stride(2),
-                      out.stride(0), out.stride(1), out.stride(2), stream)
+        rc = _lib().flash_attention_launch(
+            DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), part.data_ptr(), b, h, kh, s, hd, int(q_offset),
+            kv_len, int(window), int(causal), n_split, split_keys, key_lo,
+            strides, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")

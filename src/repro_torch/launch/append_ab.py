@@ -1,21 +1,32 @@
-"""Time paged span attention (kernel #4) of two checkouts on one card.
+"""Time one attention kernel of two checkouts on one card.
 
     python -m repro_torch.launch.append_ab --a <parent checkout> --b .
+    python -m repro_torch.launch.append_ab --kernel flash_attention \
+        --a <parent checkout> --b .
 
 Runs each checkout's own ``repro_torch`` in a fresh process, in turns
-A, B, B, A, on the same inputs (made on the card from a seed): B=8 rows
-of minitron-4b's attention shape (24 query heads over 8 kv heads, hd
-128) over 4096 committed tokens on shuffled 16-token pages, with a
-verification span (T=5) and a 64-query chunk, in fp32 and bf16; and
-the BASE serving shape of ``chip_smoke.py``'s representative record
-(8 heads over 4, hd 28, T=16, contexts 1 and 100, spans 16 and 11).
+A, B, B, A, on the same inputs (made on the card from a seed), in fp32
+and bf16:
+
+* ``paged_append_attention`` (#4, the default): B=8 rows of minitron-4b's
+  attention shape (24 query heads over 8 kv heads, hd 128) over 4096
+  committed tokens on shuffled 16-token pages, with a verification span
+  (T=5) and a 64-query chunk; and the BASE serving shape of
+  ``chip_smoke.py``'s representative record (8 heads over 4, hd 28,
+  T=16, contexts 1 and 100, spans 16 and 11);
+* ``flash_attention`` (#2): minitron-4b's heads over a 2048-token prompt
+  (causal, S=2048) and a 256-query chunk at offset 1792 over 2048 keys;
+  and BASE's 16-query bucket at offsets 100 and 700 of a 1024-slot
+  cache (the second splits its keys over blocks).
+
 For each it prints the time per call from CUDA events over back-to-back
 calls (the wrapper's host cost included, as ``chip_smoke.py`` times
-it) and the device time per call of the kernel and its merge from
-``torch.profiler``; for minitron also SDPA over the pre-gathered K/V
-(gather excluded), the yardstick.  Prints the card's name and power
-limit first and one JSON line per run.  Needs CUDA; builds the kernel
-of each checkout into that checkout's ``build/kernels``.
+it), the device time per call of the kernel and its merge from
+``torch.profiler``, and SDPA on the same inputs, the yardstick (#4:
+minitron only, over the pre-gathered K/V, gather excluded).  Prints the
+card's name and power limit first and one JSON line per run.  Needs
+CUDA; builds the kernel of each checkout into that checkout's
+``build/kernels``.
 """
 
 from __future__ import annotations
@@ -27,77 +38,121 @@ import subprocess
 import sys
 
 # (label, H, K, hd, T, ctx, span)
-CASES = [("minitron", 24, 8, 128, 5, [4096] * 8, [5] * 8),
-         ("minitron", 24, 8, 128, 64, [4096] * 8, [64] * 8),
-         ("base", 8, 4, 28, 16, [1, 100], [16, 11])]
+APPEND_CASES = [("minitron", 24, 8, 128, 5, [4096] * 8, [5] * 8),
+                ("minitron", 24, 8, 128, 64, [4096] * 8, [64] * 8),
+                ("base", 8, 4, 28, 16, [1, 100], [16, 11])]
+# (label, H, K, hd, S, cache slots, q_offset); causal, kv_len = the slots
+FLASH_CASES = [("minitron", 24, 8, 128, 2048, 2048, 0),
+               ("minitron", 24, 8, 128, 256, 2048, 1792),
+               ("base", 8, 4, 28, 16, 1024, 100),
+               ("base", 8, 4, 28, 16, 1024, 700)]
+KERNELS = ("paged_append_attention", "flash_attention")
 BLOCK = 16
 REPS = 30
 
 
-def _child(root: str) -> None:
+def _append_cases(torch, F, ref, kernel, dt, gen, dev):
+    """(row, call, SDPA call or None) for each of #4's cases."""
+    for label, h, kh, hd, t, ctx, span in APPEND_CASES:
+        b = len(ctx)
+        nb = -(-(max(ctx) + t) // BLOCK)
+        n_pages = b * nb + 7
+        kp = torch.randn(n_pages, kh, BLOCK, hd, generator=gen,
+                         device=dev).to(dt)
+        vp = torch.randn(n_pages, kh, BLOCK, hd, generator=gen,
+                         device=dev).to(dt)
+        perm = torch.randperm(n_pages, generator=gen, device=dev)
+        tables = perm[:b * nb].reshape(b, nb).to(torch.int32).contiguous()
+        q = torch.randn(b, t, h, hd, generator=gen, device=dev).to(dt)
+        kn = torch.randn(b, t, kh, hd, generator=gen, device=dev).to(dt)
+        vn = torch.randn(b, t, kh, hd, generator=gen, device=dev).to(dt)
+        cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+        sl = torch.tensor(span, dtype=torch.int32, device=dev)
+        args = (q, kn, vn, kp, vp, tables, cl, sl)
+        out = kernel(*args)
+        exp = ref.paged_append_reference(*args)
+        err = max((out[i, :n].float() - exp[i, :n].float()).abs().max()
+                  .item() for i, n in enumerate(span))
+        sdpa = None
+        if label == "minitron":
+            kd = kp[tables.long()].transpose(1, 2).reshape(b, kh, -1, hd)
+            vd = vp[tables.long()].transpose(1, 2).reshape(b, kh, -1, hd)
+            kd = torch.cat([kd, kn.transpose(1, 2)], 2)
+            vd = torch.cat([vd, vn.transpose(1, 2)], 2)
+            s_ctx = kd.shape[2] - t
+            kj = torch.arange(s_ctx + t, device=dev)[None, None, :]
+            qi = torch.arange(t, device=dev)[None, :, None]
+            mask = ((kj < cl[:, None, None]) & (kj < s_ctx)) | (
+                (kj >= s_ctx) & (kj - s_ctx <= qi)
+                & (kj - s_ctx < sl[:, None, None]))
+            qh = q.transpose(1, 2)
+
+            def sdpa(qh=qh, kd=kd, vd=vd, mask=mask):
+                return F.scaled_dot_product_attention(
+                    qh, kd, vd, attn_mask=mask[:, None], enable_gqa=True)
+        yield (dict(shape=f"{label} T={t} B={b}", max_abs_err=err),
+               lambda args=args: kernel(*args), sdpa)
+
+
+def _flash_cases(torch, F, ref, kernel, dt, gen, dev):
+    """(row, call, SDPA call) for each of #2's cases."""
+    for label, h, kh, hd, s, cap, off in FLASH_CASES:
+        q = torch.randn(1, s, h, hd, generator=gen,
+                        device=dev).to(dt).permute(0, 2, 1, 3)
+        kc = torch.randn(1, cap, kh, hd, generator=gen,
+                         device=dev).to(dt).permute(0, 2, 1, 3)
+        vc = torch.randn(1, cap, kh, hd, generator=gen,
+                         device=dev).to(dt).permute(0, 2, 1, 3)
+        args = (q, kc, vc, True, off, cap, 0)
+        err = (kernel(*args).float() - ref.mha_reference(*args).float()
+               ).abs().max().item()
+        # SDPA in its fastest form of the same function: is_causal over a
+        # whole prompt, else the mask
+        whole = off == 0 and cap == s
+        mask = None if whole else ref.attention_mask(s, cap, True, off, cap,
+                                                     device=dev)
+        yield (dict(shape=f"{label} S={s} q_offset={off} kv={cap}",
+                    max_abs_err=err),
+               lambda args=args: kernel(*args),
+               lambda q=q, kc=kc, vc=vc, mask=mask, whole=whole:
+               F.scaled_dot_product_attention(q, kc, vc, attn_mask=mask,
+                                              is_causal=whole,
+                                              enable_gqa=True))
+
+
+def _child(root: str, name: str) -> None:
     sys.path.insert(0, os.path.join(root, "src"))
+    import importlib
+
     import torch
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import build, ref
-    from repro_torch.kernels.paged_append_attention import \
-        paged_append_attention as kernel
 
-    build.build(["paged_append_attention"])
+    build.build([name])
+    kernel = getattr(importlib.import_module(f"repro_torch.kernels.{name}"),
+                     name)
+    cases = _flash_cases if name == "flash_attention" else _append_cases
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = []
     for dt in (torch.float32, torch.bfloat16):
         gen = torch.Generator(device=dev).manual_seed(0)
-        for label, h, kh, hd, t, ctx, span in CASES:
-            b = len(ctx)
-            nb = -(-(max(ctx) + t) // BLOCK)
-            n_pages = b * nb + 7
-            kp = torch.randn(n_pages, kh, BLOCK, hd, generator=gen,
-                             device=dev).to(dt)
-            vp = torch.randn(n_pages, kh, BLOCK, hd, generator=gen,
-                             device=dev).to(dt)
-            perm = torch.randperm(n_pages, generator=gen, device=dev)
-            tables = perm[:b * nb].reshape(b, nb).to(torch.int32).contiguous()
-            q = torch.randn(b, t, h, hd, generator=gen, device=dev).to(dt)
-            kn = torch.randn(b, t, kh, hd, generator=gen, device=dev).to(dt)
-            vn = torch.randn(b, t, kh, hd, generator=gen, device=dev).to(dt)
-            cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
-            sl = torch.tensor(span, dtype=torch.int32, device=dev)
-            args = (q, kn, vn, kp, vp, tables, cl, sl)
-            out = kernel(*args)
-            exp = ref.paged_append_reference(*args)
-            err = max((out[i, :n].float() - exp[i, :n].float()).abs().max()
-                      .item() for i, n in enumerate(span))
-            row = dict(shape=f"{label} T={t} B={b}", dtype=str(dt)[6:],
-                       max_abs_err=err, ms=_events(torch, lambda: kernel(
-                           *args)))
+        for row, call, sdpa in cases(torch, F, ref, kernel, dt, gen, dev):
+            row.update(dtype=str(dt)[6:], ms=_events(torch, call))
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(REPS):
-                    kernel(*args)
+                    call()
                 torch.cuda.synchronize()
             row["device_ms"] = sum(
                 e.self_device_time_total for e in prof.key_averages()
                 if e.self_device_time_total > 0) / 1e3 / REPS
-            if label == "minitron":
-                kd = kp[tables.long()].transpose(1, 2).reshape(b, kh, -1, hd)
-                vd = vp[tables.long()].transpose(1, 2).reshape(b, kh, -1, hd)
-                kd = torch.cat([kd, kn.transpose(1, 2)], 2)
-                vd = torch.cat([vd, vn.transpose(1, 2)], 2)
-                s_ctx = kd.shape[2] - t
-                kj = torch.arange(s_ctx + t, device=dev)[None, None, :]
-                qi = torch.arange(t, device=dev)[None, :, None]
-                mask = ((kj < cl[:, None, None]) & (kj < s_ctx)) | (
-                    (kj >= s_ctx) & (kj - s_ctx <= qi)
-                    & (kj - s_ctx < sl[:, None, None]))
-                qh = q.transpose(1, 2)
-                row["sdpa_ms"] = _events(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        qh, kd, vd, attn_mask=mask[:, None],
-                        enable_gqa=True))
+            if sdpa is not None:
+                row["sdpa_ms"] = _events(torch, sdpa)
             rows.append(row)
-    print(json.dumps({"root": root, "rows": rows}), flush=True)
+    print(json.dumps({"root": root, "kernel": name, "rows": rows}),
+          flush=True)
 
 
 def _events(torch, fn) -> float:
@@ -118,10 +173,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--a", required=True, help="checkout A (e.g. parent)")
     ap.add_argument("--b", required=True, help="checkout B (e.g. change)")
+    ap.add_argument("--kernel", choices=KERNELS, default=KERNELS[0],
+                    help="the kernel to time (default: %(default)s)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
-        _child(args.child)
+        _child(args.child, args.kernel)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -132,7 +189,8 @@ def main(argv=None) -> int:
         # this file runs as a script, so the child imports the kernel of
         # ``root`` and no other checkout's
         subprocess.run([sys.executable, os.path.abspath(__file__), "--a",
-                        args.a, "--b", args.b, "--child", root],
+                        args.a, "--b", args.b, "--kernel", args.kernel,
+                        "--child", root],
                        check=True, cwd=root, timeout=900,
                        env={**os.environ, "PYTHONPATH": ""})
     return 0

@@ -94,6 +94,18 @@ def test_decode_kernel_matches_plain(dev, dtype, b, h, kh, cap, hd, lens):
     (4, 2, 16, 64, 96, 20, 70, True, 0),
     (2, 2, 32, 128, 128, 0, 128, False, 0),
     (24, 8, 128, 300, 300, 0, 300, True, 0),
+    (8, 4, 28, 16, 1024, 700, 1024, True, 0),    # BASE bucket, split keys
+    (8, 4, 28, 16, 1024, 700, 1024, True, 600),  # split over keys 96..715
+    (4, 4, 64, 37, 200, 13, 150, True, 0),       # G = 1, kv_len < cap
+    (16, 2, 64, 45, 400, 300, 400, True, 0),     # G = 8, S % 8 != 0
+    (18, 2, 32, 23, 500, 400, 500, True, 37),    # G = 9, window
+    (32, 2, 64, 19, 600, 500, 600, True, 0),     # G = 16
+    (12, 4, 96, 77, 300, 100, 300, True, 0),     # hd 96
+    (6, 2, 64, 200, 600, 300, 600, True, 37),    # blocks straddle the window
+    (16, 2, 64, 40, 128, 0, 100, False, 0),      # not causal, kv_len < cap
+    (6, 2, 64, 50, 1000, 900, 1000, False, 0),   # not causal, split keys
+    (24, 8, 128, 256, 2048, 1792, 2048, True, 0),  # minitron-4b chunk
+    (24, 8, 128, 2048, 2048, 0, 2048, True, 0),    # minitron-4b prompt
 ])
 def test_flash_kernel_matches_plain(dev, dtype, h, kh, hd, s, cap, off,
                                     kv_len, causal, window):
@@ -110,6 +122,27 @@ def test_flash_kernel_matches_plain(dev, dtype, h, kh, hd, s, cap, off,
     torch.testing.assert_close(out.float(),
                                ref.mha_reference(q, kc, vc, *args).float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_rows_are_independent(dev, dtype):
+    """Row b computed alone equals row b inside a batch of 4: a 256-query
+    chunk at offset 1792 of minitron-4b's heads splits its keys over 5
+    blocks alone and not at all in the batch, whose blocks fill the card
+    (within the tolerance: the split changes the order of the sums)."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    h, kh, hd, s, cap, off = 24, 8, 128, 256, 2048, 1792
+    q = _randn(gen, 4, s, h, hd, dtype=dtype).permute(0, 2, 1, 3)
+    kc = _randn(gen, 4, cap, kh, hd, dtype=dtype).permute(0, 2, 1, 3)
+    vc = _randn(gen, 4, cap, kh, hd, dtype=dtype).permute(0, 2, 1, 3)
+    batch = flash_attention(q, kc, vc, True, off)
+    for i in range(4):
+        one = flash_attention(q[i:i + 1], kc[i:i + 1], vc[i:i + 1], True, off)
+        torch.testing.assert_close(one[0].float(), batch[i].float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(
+        batch.float(), ref.mha_reference(q, kc, vc, True, off).float(),
+        atol=TOL[dtype], rtol=TOL[dtype])
 
 
 def _pool(gen, n_pages, kh, bs, hd, dtype, layers=2):

@@ -3,9 +3,9 @@ oracles (``repro.kernels.ref``), its Pallas kernels in interpret mode, and
 the masks of its ``prefill_self_attention`` / ``decode_self_attention``.
 Also: CPU calls never count a kernel launch, the CUDA wrappers refuse CPU
 tensors, and CUDA entry points raise where CUDA is absent; the precision
-plan of paged span attention's tensor-core products (3xTF32 against one
-TF32 product, emulated in numpy) and its split over the committed
-context.
+plan of the tensor-core products of paged span attention and causal
+prefill (3xTF32 against one TF32 product, emulated in numpy), and their
+splits over keys.
 
 Inputs are made with numpy from fixed seeds.  Tolerances follow
 tests/test_kernels.py: fp32 atol = rtol = 2e-5 (the two sides sum in
@@ -279,8 +279,8 @@ def test_build_names_libraries_by_source_hash(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# paged span attention (#4): the precision plan of its tensor-core products,
-# and the split of the committed context over blocks
+# paged span attention (#4) and causal prefill (#2): the precision plan of
+# their tensor-core products; #4's split of the committed context
 # ---------------------------------------------------------------------------
 
 def _tf32(x):
@@ -307,20 +307,31 @@ def _three_tf32(a, b):
     return (al @ bh + ah @ bl + ah @ bh).astype(np.float32)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_span_attention_needs_the_3xtf32_split_for_fp32(seed):
-    """At hd 128 over 4096 keys (T=64), softmax(Q.K^T / sqrt(hd)).V with
-    both products as 3xTF32 stays within the fp32 tolerance of float64
-    (atol = rtol = 2e-5); with one TF32 product it does not (at seed 0 the
+@pytest.mark.parametrize("seed,t,n_keys,causal", [
+    (0, 64, 4096, False),     # paged span attention (#4): a 64-query chunk
+    (1, 64, 4096, False),
+    (0, 2048, 2048, True),    # causal prefill (#2) of a 2048-token prompt
+], ids=["0", "1", "causal-2048"])
+def test_span_attention_needs_the_3xtf32_split_for_fp32(seed, t, n_keys,
+                                                        causal):
+    """At hd 128, T=64 queries over 4096 keys or a causal prefill of 2048
+    queries over themselves, softmax(Q.K^T / sqrt(hd)).V with both
+    products as 3xTF32 stays within the fp32 tolerance of float64 (atol =
+    rtol = 2e-5); with one TF32 product it does not (at seed 0, T=64, the
     max |err| is 4.8e-5)."""
     rng = np.random.default_rng(seed)
-    q, k, v = (_rand(rng, s) for s in ((64, 128), (4096, 128), (4096, 128)))
+    q, k, v = (_rand(rng, s) for s in ((t, 128), (n_keys, 128),
+                                       (n_keys, 128)))
+    seen = np.tri(t, n_keys, dtype=bool) if causal else \
+        np.ones((t, n_keys), bool)
     s = q.astype(np.float64) @ k.T.astype(np.float64) / np.sqrt(128)
+    s = np.where(seen, s, -np.inf)
     p = np.exp(s - s.max(1, keepdims=True))
     exp = (p @ v.astype(np.float64)) / p.sum(1, keepdims=True)
 
     def attend(prod):
-        s = prod(q, k.T) * np.float32(1 / np.sqrt(128))
+        s = np.where(seen, prod(q, k.T) * np.float32(1 / np.sqrt(128)),
+                     -np.inf)
         p = np.exp(s - s.max(1, keepdims=True)).astype(np.float32)
         return prod(p, v) / p.sum(1, keepdims=True, dtype=np.float32)
 
@@ -348,3 +359,36 @@ def test_paged_append_split_plan_fills_the_card(b, t, h, kh, ctx_slots,
     assert (n_split - 1) * split_keys < ctx_slots      # no empty split
     assert base * n_split >= slots or \
         n_split == -(-ctx_slots // pa.SPLIT_KEYS) or n_split == 1
+
+
+# ---------------------------------------------------------------------------
+# causal prefill (#2): the split over the keys a launch sees
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,h,kh,q_offset,kv_len,causal,window,slots,want", [
+    (1, 16, 8, 4, 700, 1024, True, 0, 396, 3),       # BASE bucket at 700
+    (1, 16, 8, 4, 700, 1024, True, 600, 396, 3),     # keys 96..715 only
+    (1, 16, 8, 4, 100, 1024, True, 0, 396, 1),       # 116 keys: no room
+    (1, 256, 24, 8, 1792, 2048, True, 0, 264, 5),    # minitron-4b chunk
+    (4, 256, 24, 8, 1792, 2048, True, 0, 264, 1),    # 384 blocks: a wave
+    (1, 2048, 24, 8, 0, 2048, True, 0, 264, 1),      # whole prompt: 768
+    (1, 16, 32, 2, 900, 1024, True, 0, 264, 4),      # G = 16
+    (3, 50, 6, 2, 0, 1000, False, 0, 396, 4),        # not causal: kv_len
+])
+def test_flash_split_plan_fills_the_card(b, s, h, kh, q_offset, kv_len,
+                                         causal, window, slots, want):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_append_attention as pa
+    n_split, split_keys, key_lo = fa.split_plan(b, s, h, kh, q_offset,
+                                                kv_len, causal, window, slots)
+    hi = min(kv_len, q_offset + s) if causal else kv_len
+    first = max(0, q_offset - window + 1) if causal and window else 0
+    base = b * kh * -(-s * (h // kh) // pa.ROWS)
+    assert n_split == want
+    assert key_lo % fa.TILE == 0 and first - fa.TILE < key_lo <= first
+    if n_split > 1:
+        assert split_keys % fa.TILE == 0
+        assert key_lo + n_split * split_keys >= hi          # every key seen
+        assert key_lo + (n_split - 1) * split_keys < hi     # no empty split
+    assert base * n_split >= slots or n_split == 1 or \
+        n_split == -(-(hi - key_lo) // pa.SPLIT_KEYS)
