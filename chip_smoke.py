@@ -173,6 +173,7 @@ def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron):
     """Every kernel against its plain version at the path's shapes.
     Returns per-kernel records for the JSON line."""
     from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import tile_plan
     from repro_torch.kernels.decode_attention import DTYPES
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -265,8 +266,9 @@ def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron):
             keys = int(seen.max() - seen.min() + 1) if len(seen) else 0
             nbytes = (2 * q.numel() + 2 * keys * kh * hd) * esize
             bound_ms, by = bound(nbytes, 4 * hd * h * pairs, dname)
-            slots, smem = flash_mod.card_occupancy(
-                DTYPES[dt], hd, min(flash_mod.append.ROWS, s * (h // kh)),
+            slots, smem = tile_plan.card_occupancy(
+                "flash_attention", DTYPES[dt], hd,
+                min(tile_plan.ROWS, s * (h // kh)),
                 torch.cuda.current_device())
             split = flash_mod.split_plan(1, s, h, kh, off, cap, causal,
                                          window, slots)
@@ -387,7 +389,7 @@ def paged_kernel_phase(torch, F, ref, paged_decode, paged_append,
                        minitron):
     """The paged kernels against their plain versions at the continuous
     path's shapes and minitron-4b's.  Returns per-kernel records."""
-    from repro_torch.kernels import paged_append_attention as append_mod
+    from repro_torch.kernels import tile_plan
     from repro_torch.kernels.decode_attention import DTYPES
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -519,10 +521,12 @@ def paged_kernel_phase(torch, F, ref, paged_decode, paged_append,
                 *args), reps=5 if model == "minitron" else 30)
             lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qh, kd, vd, attn_mask=mask[:, None], enable_gqa=True))
-            slots = append_mod.card_slots(DTYPES[dt], hd, min(
-                append_mod.ROWS, t * (h // kh)), torch.cuda.current_device())
-            split = append_mod.split_plan(b, t, h, kh, tables.shape[1] * bs,
-                                          slots)
+            slots, _ = tile_plan.card_occupancy(
+                "paged_append_attention", DTYPES[dt], hd,
+                min(tile_plan.ROWS, t * (h // kh)),
+                torch.cuda.current_device())
+            split = tile_plan.split_plan(b, t, h, kh, tables.shape[1] * bs,
+                                         slots)
             pairs = sum(n * c + n * (n + 1) // 2 for c, n in zip(ctx, span))
             real = sum(span)
             nbytes = (2 * real * h * hd + 2 * real * kh * hd

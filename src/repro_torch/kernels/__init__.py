@@ -17,9 +17,10 @@ ssd_scan          Mamba2 chunked SSD scan: intra-chunk quadratic term plus
 
 ``csrc/`` holds the CUDA sources (``decode_core.cuh`` is the flash-decode
 body both decode kernels share, ``tf32_mma.cuh`` the tensor-core helpers
-of flash_attention and paged_append_attention), ``build`` compiles them
-with nvcc at first use, ``ref`` holds the plain PyTorch versions of the
-attention kernels and the SSD scan's sequential oracle (the scan's plain version is
+of flash_attention and paged_append_attention), ``tile_plan`` the block
+and split plan of those two, ``build`` compiles the sources with nvcc at
+first use, ``ref`` holds the plain PyTorch versions of the attention
+kernels and the SSD scan's sequential oracle (the scan's plain version is
 ``models.mamba2.ssd_chunked``), and ``ops`` dispatches: CPU tensors to
 the plain versions, CUDA tensors to the kernels.
 """

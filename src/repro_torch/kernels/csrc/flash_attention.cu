@@ -408,23 +408,10 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Args a) {
   }
 }
 
-// Lets the kernel take `bytes` of dynamic shared memory (above 48 KB only
-// on request).
-template <typename T, int HD, bool kVec>
-cudaError_t allow_smem(size_t bytes) {
-  static size_t allowed = 48 * 1024;
-  if (bytes <= allowed) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_kernel<T, HD, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (e == cudaSuccess) allowed = bytes;
-  return e;
-}
-
 template <typename T, int HD, bool kVec>
 int launch(const Args& a, int B, cudaStream_t stream) {
   const size_t bytes = smem_bytes<T, HD>(block_rows(a.S * (a.H / a.KH)));
-  const cudaError_t e = allow_smem<T, HD, kVec>(bytes);
+  const cudaError_t e = allow_smem<flash_kernel<T, HD, kVec>>(bytes);
   if (e != cudaSuccess) return (int)e;
   flash_kernel<T, HD, kVec>
       <<<dim3(a.KH, B, a.n_rt * a.n_split), kThreads, bytes, stream>>>(a);
@@ -440,7 +427,7 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 template <typename T, int HD>
 int slots(int rows, int* out, int* smem) {
   const size_t bytes = smem_bytes<T, HD>(block_rows(rows));
-  cudaError_t e = allow_smem<T, HD, true>(bytes);
+  cudaError_t e = allow_smem<flash_kernel<T, HD, true>>(bytes);
   int per_sm = 0, dev = 0, sms = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(

@@ -422,23 +422,10 @@ paged_append_kernel(const Args a) {
   }
 }
 
-// Lets the kernel take `bytes` of dynamic shared memory (above 48 KB only
-// on request).
-template <typename T, int HD, bool kVec>
-cudaError_t allow_smem(size_t bytes) {
-  static size_t allowed = 48 * 1024;
-  if (bytes <= allowed) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      paged_append_kernel<T, HD, kVec>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess) allowed = bytes;
-  return e;
-}
-
 template <typename T, int HD, bool kVec>
 int launch(const Args& a, int B, cudaStream_t stream) {
   const size_t bytes = smem_bytes<T, HD>(block_rows(a.Tq * (a.H / a.KH)));
-  const cudaError_t e = allow_smem<T, HD, kVec>(bytes);
+  const cudaError_t e = allow_smem<paged_append_kernel<T, HD, kVec>>(bytes);
   if (e != cudaSuccess) return (int)e;
   paged_append_kernel<T, HD, kVec>
       <<<dim3(a.n_rt * a.n_split, a.KH, B), kThreads, bytes, stream>>>(a);
@@ -449,11 +436,12 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// Blocks of the kernel the current card runs at once, for T * G = rows.
+// Blocks of the kernel the current card runs at once for T * G = rows, and
+// the dynamic shared memory of one.
 template <typename T, int HD>
-int slots(int rows, int* out) {
+int slots(int rows, int* out, int* smem) {
   const size_t bytes = smem_bytes<T, HD>(block_rows(rows));
-  cudaError_t e = allow_smem<T, HD, true>(bytes);
+  cudaError_t e = allow_smem<paged_append_kernel<T, HD, true>>(bytes);
   int per_sm = 0, dev = 0, sms = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -462,6 +450,7 @@ int slots(int rows, int* out) {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   *out = per_sm * sms;
+  *smem = (int)bytes;
   return (int)e;
 }
 
@@ -487,10 +476,10 @@ int dispatch_hd(const Args& a, int B, cudaStream_t stream) {
 }
 
 template <typename T>
-int slots_hd(int hd, int rows, int* out) {
-  if (hd <= 32) return slots<T, 32>(rows, out);
-  if (hd <= 64) return slots<T, 64>(rows, out);
-  if (hd <= 128) return slots<T, 128>(rows, out);
+int slots_hd(int hd, int rows, int* out, int* smem) {
+  if (hd <= 32) return slots<T, 32>(rows, out, smem);
+  if (hd <= 64) return slots<T, 64>(rows, out, smem);
+  if (hd <= 128) return slots<T, 128>(rows, out, smem);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -530,13 +519,14 @@ extern "C" int paged_append_attention_launch(
 }
 
 // How many blocks of the kernel the current card runs at once for this
-// dtype, head_dim and T * G (rows): the split over the committed context is
-// planned against it.  Writes *out; returns a CUDA error code.
+// dtype, head_dim and T * G (rows), and the dynamic shared memory of one
+// block: the split over the committed context is planned against it.
+// Writes *out and *smem; returns a CUDA error code.
 extern "C" int paged_append_attention_slots(int dtype, int hd, int rows,
-                                            int* out) {
-  *out = 0;
+                                            int* out, int* smem) {
+  *out = *smem = 0;
   if (hd <= 0 || rows <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return slots_hd<float>(hd, rows, out);
-  if (dtype == 1) return slots_hd<__nv_bfloat16>(hd, rows, out);
+  if (dtype == 0) return slots_hd<float>(hd, rows, out, smem);
+  if (dtype == 1) return slots_hd<__nv_bfloat16>(hd, rows, out, smem);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
 // Tensor-core helpers of the attention kernels that multiply on the tensor
 // cores (paged_append_attention.cu and flash_attention.cu): TF32 rounding
-// and the 3xTF32 split of fp32 operands, one m16n8k8 TF32 mma.sync, and the
-// 16-byte cp.async copies that stage K/V tiles in shared memory.
+// and the 3xTF32 split of fp32 operands, one m16n8k8 TF32 mma.sync, the
+// 16-byte cp.async copies that stage K/V tiles in shared memory, and, on the
+// host, the grant of the dynamic shared memory their blocks take.
 
 #pragma once
 
@@ -46,6 +47,25 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// Lets kKernel take `bytes` of dynamic shared memory on the current card:
+// above 48 KB only on request.  The grant is an attribute of the function
+// on one device, so what was granted is kept per device.
+template <auto kKernel>
+cudaError_t allow_smem(size_t bytes) {
+  constexpr int kCards = 64;
+  static size_t granted[kCards] = {};
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const bool kept = dev < kCards;
+  if (kept && bytes <= granted[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e == cudaSuccess && kept) granted[dev] = bytes;
+  return e;
 }
 
 }  // namespace repro

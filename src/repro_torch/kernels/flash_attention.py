@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import build
-from . import paged_append_attention as append
+from . import tile_plan
 
 MAX_HEAD_DIM = 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,27 +40,7 @@ def _lib():
     fn.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                    _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong), _P]
     fn.restype = _I
-    lib.flash_attention_slots.argtypes = [
-        _I, _I, _I, ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_int)]
-    lib.flash_attention_slots.restype = _I
     return lib
-
-
-@functools.cache
-def card_occupancy(dtype: int, hd: int, rows: int,
-                   device: int) -> Tuple[int, int]:
-    """(blocks the card runs at once, dynamic shared memory bytes of one
-    block) for this dtype, hd and S * G (only ``min(ROWS, rows)`` changes
-    the block's shared memory)."""
-    out, smem = ctypes.c_int(0), ctypes.c_int(0)
-    with torch.cuda.device(device):
-        rc = _lib().flash_attention_slots(dtype, hd, rows, ctypes.byref(out),
-                                          ctypes.byref(smem))
-    if rc != 0 or out.value <= 0:
-        raise RuntimeError(f"flash_attention occupancy query failed: CUDA "
-                           f"error {rc}, {out.value} blocks")
-    return out.value, smem.value
 
 
 def split_plan(b: int, s: int, h: int, kh: int, q_offset: int, kv_len: int,
@@ -69,13 +49,13 @@ def split_plan(b: int, s: int, h: int, kh: int, q_offset: int, kv_len: int,
     split_keys, key_lo + (i + 1) * split_keys), key_lo the first key some
     query sees rounded down to a whole tile.  The launch's blocks of ROWS
     (position, head) rows are planned as paged span attention's are
-    (``paged_append_attention.split_plan``) over the keys the launch sees:
+    (``tile_plan.split_plan``) over the keys the launch sees:
     a split only where the blocks fill less than the ``slots`` the card
     runs at once, never below SPLIT_KEYS keys a split."""
     hi = min(kv_len, q_offset + s) if causal else kv_len
     lo = max(0, q_offset - window + 1) if causal and window else 0
     lo = lo // TILE * TILE
-    n_split, split_keys = append.split_plan(b, s, h, kh, max(0, hi - lo),
+    n_split, split_keys = tile_plan.split_plan(b, s, h, kh, max(0, hi - lo),
                                             slots)
     return n_split, split_keys, lo
 
@@ -118,9 +98,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"all tensors must be on {q.device}")
 
     out = torch.empty_like(q)   # keeps q's layout (dense strides)
-    slots, _ = card_occupancy(DTYPES[q.dtype], hd,
-                              min(append.ROWS, s * (h // kh)),
-                              q.device.index)
+    slots, _ = tile_plan.card_occupancy(
+        "flash_attention", DTYPES[q.dtype], hd,
+        min(tile_plan.ROWS, s * (h // kh)), q.device.index)
     n_split, split_keys, key_lo = split_plan(b, s, h, kh, int(q_offset),
                                              kv_len, causal, int(window),
                                              slots)

@@ -27,12 +27,7 @@ import torch
 from . import build
 from .decode_attention import DTYPES
 from .paged_decode_attention import check_lengths, check_pages
-
-ROWS = 64           # (position, head) rows per block (the kernel's kRows)
-SPLIT_KEYS = 256    # committed keys per split, at the least
-# the cost of one more split, as a share of a whole row's committed keys
-# (a block's Q staging and epilogue, the merge's reads)
-SPLIT_COST = 1 / 32
+from .tile_plan import ROWS, card_occupancy, split_plan
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -45,44 +40,7 @@ def _lib():
                    _I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong),
                    _P]
     fn.restype = _I
-    lib.paged_append_attention_slots.argtypes = [
-        _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
-    lib.paged_append_attention_slots.restype = _I
     return lib
-
-
-@functools.cache
-def card_slots(dtype: int, hd: int, rows: int, device: int) -> int:
-    """Blocks the card runs at once for this dtype, hd and T * G (only
-    ``min(ROWS, rows)`` changes the block's shared memory)."""
-    out = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        rc = _lib().paged_append_attention_slots(dtype, hd, rows,
-                                                 ctypes.byref(out))
-    if rc != 0 or out.value <= 0:
-        raise RuntimeError(f"paged_append_attention occupancy query failed: "
-                           f"CUDA error {rc}, {out.value} blocks")
-    return out.value
-
-
-def split_plan(b: int, t: int, h: int, kh: int, ctx_slots: int,
-               slots: int):
-    """(n_split, split_keys): when the launch's blocks of ROWS (position,
-    head) rows fill less than the ``slots`` blocks the card runs at once,
-    split the ``ctx_slots`` committed slots a table can address over more
-    blocks, never below SPLIT_KEYS keys a split.  Of the splits that fill
-    at least one wave, take the one with the least modelled time: waves
-    x (1 / n_split + SPLIT_COST)."""
-    base = b * kh * -(-t * (h // kh) // ROWS)
-    n_max = max(1, -(-ctx_slots // SPLIT_KEYS))
-    n_split = 1
-    if base < slots:
-        n_min = min(n_max, -(-slots // base))
-        n_split = min(range(n_min, n_max + 1), key=lambda n: (
-            -(-base * n // slots) * (1 / n + SPLIT_COST), n))
-    split_keys = -(-ctx_slots // n_split)
-    split_keys = -(-split_keys // 32) * 32
-    return n_split, split_keys
 
 
 def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
@@ -119,8 +77,8 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
     nb = block_tables.shape[1]
 
     out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
-    slots = card_slots(DTYPES[q.dtype], hd, min(ROWS, t * (h // kh)),
-                   q.device.index)
+    slots, _ = card_occupancy("paged_append_attention", DTYPES[q.dtype], hd,
+                              min(ROWS, t * (h // kh)), q.device.index)
     n_split, split_keys = split_plan(b, t, h, kh, nb * bs, slots)
     part = (torch.empty((b, t, h, n_split, hd + 2), dtype=torch.float32,
                         device=q.device) if n_split > 1 else out)

@@ -351,14 +351,14 @@ def test_span_attention_needs_the_3xtf32_split_for_fp32(seed, t, n_keys,
 ])
 def test_paged_append_split_plan_fills_the_card(b, t, h, kh, ctx_slots,
                                                 slots, want):
-    from repro_torch.kernels import paged_append_attention as pa
-    n_split, split_keys = pa.split_plan(b, t, h, kh, ctx_slots, slots)
-    base = b * kh * -(-t * (h // kh) // pa.ROWS)
+    from repro_torch.kernels import tile_plan as tp
+    n_split, split_keys = tp.split_plan(b, t, h, kh, ctx_slots, slots)
+    base = b * kh * -(-t * (h // kh) // tp.ROWS)
     assert n_split == want
     assert split_keys % 32 == 0 and n_split * split_keys >= ctx_slots
     assert (n_split - 1) * split_keys < ctx_slots      # no empty split
     assert base * n_split >= slots or \
-        n_split == -(-ctx_slots // pa.SPLIT_KEYS) or n_split == 1
+        n_split == -(-ctx_slots // tp.SPLIT_KEYS) or n_split == 1
 
 
 # ---------------------------------------------------------------------------
@@ -378,12 +378,12 @@ def test_paged_append_split_plan_fills_the_card(b, t, h, kh, ctx_slots,
 def test_flash_split_plan_fills_the_card(b, s, h, kh, q_offset, kv_len,
                                          causal, window, slots, want):
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_append_attention as pa
+    from repro_torch.kernels import tile_plan as tp
     n_split, split_keys, key_lo = fa.split_plan(b, s, h, kh, q_offset,
                                                 kv_len, causal, window, slots)
     hi = min(kv_len, q_offset + s) if causal else kv_len
     first = max(0, q_offset - window + 1) if causal and window else 0
-    base = b * kh * -(-s * (h // kh) // pa.ROWS)
+    base = b * kh * -(-s * (h // kh) // tp.ROWS)
     assert n_split == want
     assert key_lo % fa.TILE == 0 and first - fa.TILE < key_lo <= first
     if n_split > 1:
@@ -391,4 +391,4 @@ def test_flash_split_plan_fills_the_card(b, s, h, kh, q_offset, kv_len,
         assert key_lo + n_split * split_keys >= hi          # every key seen
         assert key_lo + (n_split - 1) * split_keys < hi     # no empty split
     assert base * n_split >= slots or n_split == 1 or \
-        n_split == -(-(hi - key_lo) // pa.SPLIT_KEYS)
+        n_split == -(-(hi - key_lo) // tp.SPLIT_KEYS)
