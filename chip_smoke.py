@@ -135,12 +135,17 @@ def ptxas_variants(text):
         if m:
             name, spill = m.group(1), 0
             t = re.search(r"\d+([a-z_]+_kernel)I(f|13__nv_bfloat16)"
-                          r"(?:Li(\d+)E)?(?:Lb([01])E)?", name)
+                          r"((?:L[ib]\d+E)*)", name)
             if t:
                 args = ["f32" if t.group(2) == "f" else "bf16"]
-                args += [t.group(3)] if t.group(3) else []
-                args += [("cp.async", "scalar")[t.group(4) == "0"]] \
-                    if t.group(4) else []
+                ints = re.findall(r"L([ib])(\d+)E", t.group(3))
+                if "decode" in t.group(1) and len(ints) == 3:
+                    # decode kernels: <T, HD, GB, VB>
+                    args += [ints[0][1], f"G<={ints[1][1]}",
+                             f"{ints[2][1]}-byte copies"]
+                else:       # <T, HD> or <T, HD, kVec>
+                    args += [n if k == "i" else ("scalar", "cp.async")[
+                        n == "1"] for k, n in ints]
                 name = f"{t.group(1)}<{', '.join(args)}>"
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
@@ -169,9 +174,21 @@ def bound(nbytes, flops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def decode_plan_note(plan, label):
+    """One line of a decode launch's plan; the C entry's copy width must
+    equal the Python mirror's."""
+    if plan["vector_bytes"] != plan["vector_bytes_mirror"]:
+        raise AssertionError(f"{label}: copy width {plan['vector_bytes']} "
+                             f"bytes, mirror {plan['vector_bytes_mirror']}")
+    return (f"split {plan['n_split']} x {plan['split_keys']} keys, "
+            f"{plan['vector_bytes']}-byte copies, {plan['slots']} blocks at "
+            f"once, {plan['smem_bytes']} bytes of shared memory a block")
+
+
 def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron):
     """Every kernel against its plain version at the path's shapes.
     Returns per-kernel records for the JSON line."""
+    from repro_torch.kernels import decode_attention as decode_mod
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import tile_plan
     from repro_torch.kernels.decode_attention import DTYPES
@@ -179,7 +196,10 @@ def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron):
     gen = torch.Generator(device=dev).manual_seed(0)
     heads = {"base": (8, 4, 28), "small": (4, 2, 32),
              "minitron": (minitron.n_heads, minitron.n_kv_heads,
-                          minitron.resolved_head_dim)}
+                          minitron.resolved_head_dim),
+             # minitron-4b's kv heads and hd with G = 16 (qwen3-moe's G)
+             "minitron-g16": (16 * minitron.n_kv_heads, minitron.n_kv_heads,
+                              minitron.resolved_head_dim)}
     records = {"decode_attention": [], "flash_attention": []}
 
     def randn(*shape, dtype):
@@ -195,7 +215,8 @@ def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron):
 
     decode_cases = [("base", 1, [128]), ("base", 4, [1, 77, 640, 1024]),
                     ("small", 1, [128]), ("small", 4, [1, 300, 777, 1024]),
-                    ("minitron", 8, [4096] * 8)]
+                    ("minitron", 8, [4096] * 8),
+                    ("minitron-g16", 8, [4096] * 8)]
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
         esize = torch.tensor([], dtype=dt).element_size()
@@ -222,14 +243,16 @@ def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron):
             keys = sum(lens)
             nbytes = (2 * q.numel() + 2 * keys * kh * hd) * esize + 4 * b
             bound_ms, by = bound(nbytes, 4 * hd * h * keys, dname)
+            plan = decode_mod.plan(q, kc, vc)
             records["decode_attention"].append(dict(
                 shape=label, dtype=dname, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                bound_by=by))
+                bound_by=by, split=[plan["n_split"], plan["split_keys"]],
+                vector_bytes=plan["vector_bytes"]))
             print(f"[kernels] decode_attention {label}: err {err:.3g} | "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({by})",
-                  flush=True)
+                  f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({by}) | "
+                  + decode_plan_note(plan, label), flush=True)
 
         prefill_cases = [(m, s, off, CACHE, True, 0)
                          for m in ("base", "small")
@@ -389,13 +412,16 @@ def paged_kernel_phase(torch, F, ref, paged_decode, paged_append,
                        minitron):
     """The paged kernels against their plain versions at the continuous
     path's shapes and minitron-4b's.  Returns per-kernel records."""
+    from repro_torch.kernels import paged_decode_attention as paged_mod
     from repro_torch.kernels import tile_plan
     from repro_torch.kernels.decode_attention import DTYPES
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     heads = {"base": (8, 4, 28), "small": (4, 2, 32),
              "minitron": (minitron.n_heads, minitron.n_kv_heads,
-                          minitron.resolved_head_dim)}
+                          minitron.resolved_head_dim),
+             "minitron-g16": (16 * minitron.n_kv_heads, minitron.n_kv_heads,
+                              minitron.resolved_head_dim)}
     bs = 16
     records = {"paged_decode_attention": [], "paged_append_attention": []}
 
@@ -434,7 +460,7 @@ def paged_kernel_phase(torch, F, ref, paged_decode, paged_append,
 
     decode_cases = [("base", [0, 1, 77, 640]), ("base", [130]),
                     ("small", [1, 300, 777, 1024]),
-                    ("minitron", [4096] * 8)]
+                    ("minitron", [4096] * 8), ("minitron-g16", [4096] * 8)]
     append_cases = [("base", 5, [0, 1, 90, 300], [5, 3, 5, 4]),
                     ("base", 16, [1, 100], [16, 11]),
                     ("base", 64, [0, 200, 37], [64, 40, 64]),
@@ -479,14 +505,17 @@ def paged_kernel_phase(torch, F, ref, paged_decode, paged_append,
             nbytes = (2 * q.numel() + 2 * keys * kh * hd) * esize \
                 + 4 * (b + sum(-(-n // bs) for n in lens))
             bound_ms, by = bound(nbytes, 4 * hd * h * keys, dname)
+            plan = paged_mod.plan(q, kp, vp, tables)
             records["paged_decode_attention"].append(dict(
                 shape=label, dtype=dname, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                bound_by=by))
+                bound_by=by, split=[plan["n_split"], plan["split_keys"]],
+                vector_bytes=plan["vector_bytes"]))
             print(f"[kernels] paged_decode_attention {label}: err {err:.3g} "
                   f"| kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
                   f"over gathered K/V (gather excluded) {lib_ms:.4f} ms, "
-                  f"bound {bound_ms:.5f} ms ({by})", flush=True)
+                  f"bound {bound_ms:.5f} ms ({by}) | "
+                  + decode_plan_note(plan, label), flush=True)
 
         for model, t, ctx, span in append_cases:
             h, kh, hd = heads[model]

@@ -51,7 +51,7 @@ def split_plan(b: int, s: int, h: int, kh: int, q_offset: int, kv_len: int,
     (position, head) rows are planned as paged span attention's are
     (``tile_plan.split_plan``) over the keys the launch sees:
     a split only where the blocks fill less than the ``slots`` the card
-    runs at once, never below SPLIT_KEYS keys a split."""
+    runs at once, at most ceil(keys / SPLIT_KEYS) splits."""
     hi = min(kv_len, q_offset + s) if causal else kv_len
     lo = max(0, q_offset - window + 1) if causal and window else 0
     lo = lo // TILE * TILE

@@ -61,8 +61,7 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
     if q.dim() != 4:
         raise ValueError(f"q must be (B, T, H, hd); got {tuple(q.shape)}")
     b, t, h, hd = q.shape
-    check_pages(q, k_pages, v_pages, block_tables, b, h, hd,
-                max_group=None)
+    check_pages(q, k_pages, v_pages, block_tables, b, h, hd)
     _, kh, bs, _ = k_pages.shape
     if k_new.shape != (b, t, kh, hd) or v_new.shape != k_new.shape:
         raise ValueError(f"k_new/v_new must be (B, T, K, hd) = "

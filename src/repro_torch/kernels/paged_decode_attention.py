@@ -5,9 +5,11 @@ The port of the JAX package's Pallas kernel
 ``kernels/paged_decode_attention.py`` (one query token per row over a
 global page pool read through per-row block tables; the G query heads of
 a kv head as one tile; pages past a row's length skipped, the tail page
-masked).  This wrapper checks its arguments, launches the CUDA kernel on
-the current stream and counts the launch; it never computes on the CPU
-(``ops.paged_decode_attention`` sends CPU tensors to
+masked), for any G = H / K.  This wrapper checks its arguments, plans
+the split over keys against the blocks the card runs at once
+(``tile_plan.decode_split``, from the table's nb * bs slots), launches
+the CUDA kernel on the current stream and counts the launch; it never
+computes on the CPU (``ops.paged_decode_attention`` sends CPU tensors to
 ``ref.paged_decode_reference``).
 """
 
@@ -15,42 +17,54 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
 
 import torch
 
 from . import build
-from .decode_attention import DTYPES, MAX_GROUP, MAX_HEAD_DIM, SPLIT_KEYS
+from . import tile_plan
+from .decode_attention import DTYPES, MAX_HEAD_DIM
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_STRIDES = ctypes.c_longlong * 11
 
 
 @functools.cache
 def _entry():
     fn = build.load("paged_decode_attention").paged_decode_attention_launch
     fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                   _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _P]
+                   _I, _I, ctypes.POINTER(ctypes.c_longlong), _P]
     fn.restype = _I
     return fn
 
 
+def _strides(q, k_pages, v_pages, block_tables, out) -> ctypes.Array:
+    return _STRIDES(q.stride(0), q.stride(1), *k_pages.stride()[:3],
+                    *v_pages.stride()[:3], block_tables.stride(0),
+                    out.stride(0), out.stride(1))
+
+
+def plan(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+         block_tables: torch.Tensor) -> dict:
+    """``tile_plan.decode_plan`` of a launch on these CUDA tensors."""
+    return tile_plan.decode_plan(
+        "paged_decode_attention", DTYPES[q.dtype], q, k_pages, v_pages,
+        block_tables.shape[1] * k_pages.shape[2],
+        list(_strides(q, k_pages, v_pages, block_tables, q)))
+
+
 def check_pages(q: torch.Tensor, k_pages: torch.Tensor,
                 v_pages: torch.Tensor, block_tables: torch.Tensor,
-                b: int, h: int, hd: int,
-                max_group: Optional[int] = MAX_GROUP) -> None:
+                b: int, h: int, hd: int) -> None:
     """The argument checks the two paged wrappers share: the page pool,
-    the block tables, dtypes, devices and unit strides over hd; H / K at
-    most ``max_group`` unless it is None."""
+    the block tables, dtypes, devices and unit strides over hd."""
     if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
         raise ValueError(f"k/v pages must be (P, K, bs, hd) and alike; got "
                          f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
     _, kh, bs, khd = k_pages.shape
-    if khd != hd or kh <= 0 or h % kh or (max_group is not None
-                                          and h // kh > max_group):
+    if khd != hd or kh <= 0 or h % kh:
         raise ValueError(f"shapes q {tuple(q.shape)} / pages "
-                         f"{tuple(k_pages.shape)}: need matching hd, "
-                         f"H % K == 0" + (f" and H / K <= {max_group}"
-                                          if max_group is not None else ""))
+                         f"{tuple(k_pages.shape)}: need matching hd and "
+                         "H % K == 0")
     if not 0 < hd <= MAX_HEAD_DIM or bs <= 0:
         raise ValueError(f"head_dim {hd} must be in 1..{MAX_HEAD_DIM} and "
                          "the pages non-empty")
@@ -101,19 +115,19 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     nb = block_tables.shape[1]
 
     out = torch.empty((b, h, hd), dtype=q.dtype, device=q.device)
-    n_split = -(-(nb * bs) // SPLIT_KEYS)
+    n_split, split_keys = tile_plan.decode_split(
+        "paged_decode_attention", DTYPES[q.dtype], b, h, kh, hd, nb * bs,
+        q.device.index)
     part = (torch.empty((b, h, n_split, hd + 2), dtype=torch.float32,
                         device=q.device) if n_split > 1 else out)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _entry()(DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
-                      v_pages.data_ptr(), block_tables.data_ptr(),
-                      lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
-                      b, h, kh, nb, bs, hd, SPLIT_KEYS, q.stride(0),
-                      q.stride(1), k_pages.stride(0), k_pages.stride(1),
-                      k_pages.stride(2), v_pages.stride(0), v_pages.stride(1),
-                      v_pages.stride(2), block_tables.stride(0),
-                      out.stride(0), out.stride(1), stream)
+        rc = _entry()(
+            DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), part.data_ptr(), b, h, kh, nb, bs, hd, n_split,
+            split_keys, _strides(q, k_pages, v_pages, block_tables, out),
+            stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {rc}")

@@ -1,24 +1,30 @@
-"""Block plan shared by the attention kernels that multiply on the tensor
-cores (``csrc/paged_append_attention.cu`` and ``csrc/flash_attention.cu``).
+"""Block plan shared by the attention kernels: the two that multiply on
+the tensor cores (``csrc/paged_append_attention.cu``,
+``csrc/flash_attention.cu``) and the two flash-decode kernels
+(``csrc/decode_attention.cu``, ``csrc/paged_decode_attention.cu``).
 
-Both kernels give a block ROWS (position, head) rows and, when those
-blocks fill less than the card runs at once, split the keys over more
-blocks.  ``card_occupancy`` asks a kernel's C entry ``<name>_slots`` how
-many blocks that is; ``split_plan`` picks the split against it.
+The tensor-core kernels give a block ROWS (position, head) rows, the
+decode kernels GROUP query heads of one kv head; when those blocks fill
+less than the card runs at once, the keys are split over more blocks.
+``card_occupancy`` asks a kernel's C entry ``<name>_slots`` how many
+blocks that is; ``split_plan`` picks the split against it, and
+``decode_split`` does both for a decode launch.  ``vector_bytes`` mirrors
+the decode kernels' choice of copy width.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 from . import build
 
 ROWS = 64           # (position, head) rows per block (the kernels' kRows)
-SPLIT_KEYS = 256    # keys per split, at the least
+GROUP = 16          # query heads per decode block, at most (kGroup)
+SPLIT_KEYS = 256    # at most ceil(keys / SPLIT_KEYS) splits
 # the cost of one more split, as a share of a whole row's keys (a block's Q
 # staging and epilogue, the merge's reads)
 SPLIT_COST = 1 / 32
@@ -29,7 +35,9 @@ def card_occupancy(name: str, dtype: int, hd: int, rows: int,
                    device: int) -> Tuple[int, int]:
     """(blocks the card runs at once, dynamic shared memory bytes of one
     block) of kernel ``name`` for this dtype, hd and rows = queries x G
-    (only ``min(ROWS, rows)`` changes the block's shared memory)."""
+    (the tensor-core kernels: only ``min(ROWS, rows)`` changes the block's
+    shared memory; the decode kernels: G, whose bucket sets the
+    registers)."""
     fn = getattr(build.load(name), f"{name}_slots")
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
@@ -43,14 +51,14 @@ def card_occupancy(name: str, dtype: int, hd: int, rows: int,
 
 
 def split_plan(b: int, t: int, h: int, kh: int, keys: int,
-               slots: int) -> Tuple[int, int]:
-    """(n_split, split_keys): when the launch's blocks of ROWS (position,
-    head) rows (b rows of t queries over h heads, kh kv heads) fill less
-    than the ``slots`` blocks the card runs at once, split the ``keys``
-    over more blocks, never below SPLIT_KEYS keys a split.  Of the splits
-    that fill at least one wave, take the one with the least modelled
-    time: waves x (1 / n_split + SPLIT_COST)."""
-    base = b * kh * -(-t * (h // kh) // ROWS)
+               slots: int, rows: int = ROWS) -> Tuple[int, int]:
+    """(n_split, split_keys): when the launch's blocks of ``rows``
+    (position, head) rows (b rows of t queries over h heads, kh kv heads)
+    fill less than the ``slots`` blocks the card runs at once, split the
+    ``keys`` over more blocks, at most ceil(keys / SPLIT_KEYS) of them.  Of
+    the splits that fill at least one wave, take the one with the least
+    modelled time: waves x (1 / n_split + SPLIT_COST)."""
+    base = b * kh * -(-t * (h // kh) // rows)
     n_max = max(1, -(-keys // SPLIT_KEYS))
     n_split = 1
     if base < slots:
@@ -60,3 +68,56 @@ def split_plan(b: int, t: int, h: int, kh: int, keys: int,
     split_keys = -(-keys // n_split)
     split_keys = -(-split_keys // 32) * 32
     return n_split, split_keys
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_split(name: str, dtype: int, b: int, h: int, kh: int, hd: int,
+                 keys: int, device: int) -> Tuple[int, int]:
+    """(n_split, split_keys) of a decode launch of kernel ``name``: b rows
+    of h query heads over kh kv heads, a cache of ``keys`` slots (the
+    capacity the host knows, never the device's lengths), blocks of GROUP
+    query heads planned against the card's occupancy."""
+    slots, _ = card_occupancy(name, dtype, hd, h // kh, device)
+    return split_plan(b, 1, h, kh, keys, slots, rows=GROUP)
+
+
+def decode_plan(name: str, dtype: int, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, keys: int, strides: Sequence[int]) -> dict:
+    """How decode kernel ``name`` runs on q (B, H, hd) over K/V ``k``,
+    ``v`` (dim 1 the kv heads) of ``keys`` slots a row, with the element
+    strides its launch passes (K's and V's at [2:8]): the split over keys
+    (``n_split``, ``split_keys``), the blocks the card runs at once and
+    the dynamic shared memory of one (``slots``, ``smem_bytes``), and the
+    copy width in bytes the C entry picks (``vector_bytes``) beside this
+    module's mirror of its rule (``vector_bytes_mirror``).  CUDA tensors
+    only; the launches do not call it."""
+    b, h, hd = q.shape
+    kh = k.shape[1]
+    n_split, split_keys = decode_split(name, dtype, b, h, kh, hd, keys,
+                                       q.device.index)
+    slots, smem = card_occupancy(name, dtype, hd, h // kh, q.device.index)
+    fn = getattr(build.load(name), f"{name}_vector_bytes")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    ptrs = (k.data_ptr(), v.data_ptr())
+    with torch.cuda.device(q.device):
+        width = fn(dtype, hd, *ptrs,
+                   (ctypes.c_longlong * len(strides))(*strides))
+    return dict(n_split=n_split, split_keys=split_keys, slots=slots,
+                smem_bytes=smem, vector_bytes=width,
+                vector_bytes_mirror=vector_bytes(q.element_size(), hd, ptrs,
+                                                 strides[2:8]))
+
+
+def vector_bytes(esize: int, hd: int, ptrs: Sequence[int],
+                 strides: Sequence[int]) -> int:
+    """The decode kernels' copy width in bytes (``vector_bytes`` in
+    ``csrc/decode_core.cuh``): the widest of 16, 8 and 4 that divides the
+    row's hd * esize bytes, every K/V base address and every element
+    stride between rows times esize; else esize (element by element)."""
+    for vb in (16, 8, 4):
+        if hd * esize % vb == 0 and all(p % vb == 0 for p in ptrs) \
+                and all(s * esize % vb == 0 for s in strides):
+            return vb
+    return esize

@@ -3,6 +3,8 @@
     python -m repro_torch.launch.append_ab --a <parent checkout> --b .
     python -m repro_torch.launch.append_ab --kernel flash_attention \
         --a <parent checkout> --b .
+    python -m repro_torch.launch.append_ab --kernel decode_attention \
+        --a <parent checkout> --b .
 
 Runs each checkout's own ``repro_torch`` in a fresh process, in turns
 A, B, B, A, on the same inputs (made on the card from a seed), in fp32
@@ -17,15 +19,21 @@ and bf16:
 * ``flash_attention`` (#2): minitron-4b's heads over a 2048-token prompt
   (causal, S=2048) and a 256-query chunk at offset 1792 over 2048 keys;
   and BASE's 16-query bucket at offsets 100 and 700 of a 1024-slot
-  cache (the second splits its keys over blocks).
+  cache (the second splits its keys over blocks);
+* ``decode_attention`` (#1): minitron-4b's heads, B=8 rows over 4096
+  cached keys each, and the BASE record of ``chip_smoke.py`` (one row,
+  128 of 1024 slots);
+* ``paged_decode_attention`` (#3): minitron-4b's heads, B=8 rows over
+  4096 keys on shuffled 16-token pages, and the BASE record of
+  ``chip_smoke.py`` (4 rows of 0, 1, 77 and 640 keys).
 
 For each it prints the time per call from CUDA events over back-to-back
 calls (the wrapper's host cost included, as ``chip_smoke.py`` times
 it), the device time per call of the kernel and its merge from
 ``torch.profiler``, and SDPA on the same inputs, the yardstick (#4:
-minitron only, over the pre-gathered K/V, gather excluded).  Prints the
-card's name and power limit first and one JSON line per run.  Needs
-CUDA; builds the kernel of each checkout into that checkout's
+minitron only; #3 and #4 over the pre-gathered K/V, gather excluded).
+Prints the card's name and power limit first and one JSON line per run.
+Needs CUDA; builds the kernel of each checkout into that checkout's
 ``build/kernels``.
 """
 
@@ -46,7 +54,13 @@ FLASH_CASES = [("minitron", 24, 8, 128, 2048, 2048, 0),
                ("minitron", 24, 8, 128, 256, 2048, 1792),
                ("base", 8, 4, 28, 16, 1024, 100),
                ("base", 8, 4, 28, 16, 1024, 700)]
-KERNELS = ("paged_append_attention", "flash_attention")
+# (label, H, K, hd, cache slots, lengths): #1 and #3
+DECODE_CASES = [("minitron", 24, 8, 128, 4096, [4096] * 8),
+                ("base", 8, 4, 28, 1024, [128])]
+PAGED_DECODE_CASES = [("minitron", 24, 8, 128, 4096, [4096] * 8),
+                      ("base", 8, 4, 28, 640, [0, 1, 77, 640])]
+KERNELS = ("paged_append_attention", "flash_attention", "decode_attention",
+           "paged_decode_attention")
 BLOCK = 16
 REPS = 30
 
@@ -120,6 +134,66 @@ def _flash_cases(torch, F, ref, kernel, dt, gen, dev):
                                               enable_gqa=True))
 
 
+def _decode_cases(torch, F, ref, kernel, dt, gen, dev):
+    """(row, call, SDPA call) for each of #1's cases."""
+    for label, h, kh, hd, cap, lens in DECODE_CASES:
+        b = len(lens)
+        kc = torch.randn(b, cap, kh, hd, generator=gen,
+                         device=dev).to(dt).permute(0, 2, 1, 3)
+        vc = torch.randn(b, cap, kh, hd, generator=gen,
+                         device=dev).to(dt).permute(0, 2, 1, 3)
+        q = torch.randn(b, h, hd, generator=gen, device=dev).to(dt)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        args = (q, kc, vc, lengths)
+        err = (kernel(*args).float() - ref.decode_reference(*args).float()
+               ).abs().max().item()
+        mask = (torch.arange(cap, device=dev)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        yield (dict(shape=f"{label} B={b} cache={cap} lengths={lens[:4]}",
+                    max_abs_err=err),
+               lambda args=args: kernel(*args),
+               lambda q4=q[:, :, None], kc=kc, vc=vc, mask=mask:
+               F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask,
+                                              enable_gqa=True))
+
+
+def _paged_decode_cases(torch, F, ref, kernel, dt, gen, dev):
+    """(row, call, SDPA call over the gathered K/V) for each of #3's."""
+    for label, h, kh, hd, cap, lens in PAGED_DECODE_CASES:
+        b = len(lens)
+        nb = -(-cap // BLOCK)
+        n_pages = b * nb + 7
+        kp = torch.randn(n_pages, kh, BLOCK, hd, generator=gen,
+                         device=dev).to(dt)
+        vp = torch.randn(n_pages, kh, BLOCK, hd, generator=gen,
+                         device=dev).to(dt)
+        perm = torch.randperm(n_pages, generator=gen, device=dev)
+        tables = perm[:b * nb].reshape(b, nb).to(torch.int32).contiguous()
+        q = torch.randn(b, h, hd, generator=gen, device=dev).to(dt)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        args = (q, kp, vp, tables, lengths)
+        live = lengths > 0      # the plain version averages an empty row
+        err = (kernel(*args)[live].float()
+               - ref.paged_decode_reference(*args)[live].float()
+               ).abs().max().item()
+        kd = kp[tables.long()].transpose(1, 2).reshape(b, kh, -1, hd)
+        vd = vp[tables.long()].transpose(1, 2).reshape(b, kh, -1, hd)
+        mask = (torch.arange(kd.shape[2], device=dev)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        yield (dict(shape=f"{label} B={b} lengths={lens[:4]}",
+                    max_abs_err=err),
+               lambda args=args: kernel(*args),
+               lambda q4=q[:, :, None], kd=kd, vd=vd, mask=mask:
+               F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask,
+                                              enable_gqa=True))
+
+
+CASES = {"paged_append_attention": _append_cases,
+         "flash_attention": _flash_cases,
+         "decode_attention": _decode_cases,
+         "paged_decode_attention": _paged_decode_cases}
+
+
 def _child(root: str, name: str) -> None:
     sys.path.insert(0, os.path.join(root, "src"))
     import importlib
@@ -133,7 +207,7 @@ def _child(root: str, name: str) -> None:
     build.build([name])
     kernel = getattr(importlib.import_module(f"repro_torch.kernels.{name}"),
                      name)
-    cases = _flash_cases if name == "flash_attention" else _append_cases
+    cases = CASES[name]
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = []

@@ -23,6 +23,8 @@ import torch
 from repro_torch.checkpoint.checkpoint import params_from_numpy, \
     params_to_numpy
 from repro_torch.configs import testbed
+from repro_torch.kernels import decode_attention as dense_mod
+from repro_torch.kernels import paged_decode_attention as paged_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
@@ -66,6 +68,15 @@ def _randn(gen, *shape, dtype=torch.float32):
     (4, 4, 2, 1024, 32, [1, 256, 257, 1024]),
     (2, 2, 2, 100, 16, [0, 100]),          # empty row gives 0
     (2, 24, 8, 600, 128, [600, 513]),
+    (2, 4, 4, 700, 64, [700, 1]),          # G = 1
+    (2, 6, 2, 900, 64, [900, 300]),        # G = 3
+    (3, 16, 2, 1100, 64, [1100, 1, 555]),  # G = 8
+    (2, 18, 2, 1000, 32, [999, 64]),       # G = 9
+    (2, 32, 2, 2000, 128, [2000, 777]),    # G = 16
+    (1, 40, 2, 600, 64, [600]),            # G = 20: two head groups
+    (2, 12, 4, 800, 96, [800, 13]),        # hd 96
+    (40, 8, 8, 512, 32, [512, 1, 300, 0] * 10),  # 320 blocks: no split
+    (8, 24, 8, 4096, 128, [4096, 4000, 1, 0, 4095, 2048, 33, 3000]),
 ])
 def test_decode_kernel_matches_plain(dev, dtype, b, h, kh, cap, hd, lens):
     gen = torch.Generator(device=dev).manual_seed(cap + hd)
@@ -167,6 +178,16 @@ def _tables(gen, lens, bs, n_pages, alias=False):
     (4, 2, 32, 16, [129, 5, 1000]),        # SMALL heads, split-K
     (24, 8, 128, 16, [4096, 333]),         # minitron-4b heads
     (4, 4, 16, 8, [40, 40]),               # aliased first page
+    (4, 4, 64, 16, [700, 3]),              # G = 1
+    (6, 2, 64, 16, [1000, 257]),           # G = 3
+    (16, 2, 64, 16, [513, 40]),            # G = 8
+    (18, 2, 32, 16, [1000, 17]),           # G = 9
+    (32, 2, 128, 16, [2000, 600]),         # G = 16
+    (40, 2, 64, 16, [300]),                # G = 20: two head groups
+    (12, 4, 96, 16, [900, 31]),            # hd 96
+    (24, 8, 128, 24, [1000, 77, 49]),      # page runs cross the stages
+    (8, 4, 28, 48, [1000, 500]),           # pages longer than a stage
+    (8, 4, 28, 5, [333, 1, 40]),           # odd pages
 ])
 def test_paged_decode_kernel_matches_plain(dev, dtype, h, kh, hd, bs, lens):
     gen = torch.Generator(device=dev).manual_seed(hd + bs)
@@ -185,6 +206,77 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, h, kh, hd, bs, lens):
     torch.testing.assert_close(out[live].float(), exp[live].float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
     assert torch.all(out[~live] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernels_rows_are_independent(dev, dtype):
+    """Row b computed alone equals row b inside a batch of 8, for the dense
+    and the paged flash-decode at minitron-4b's heads: alone a row splits
+    its 4096 keys over more blocks than in the batch (within the
+    tolerance: the split changes the order of the sums)."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    h, kh, hd, bs, cap = 24, 8, 128, 16, 4096
+    lens = [4096, 17, 1000, 0, 2047, 333, 4000, 64]
+    q = _randn(gen, 8, h, hd, dtype=dtype)
+    kc = _randn(gen, 8, cap, kh, hd, dtype=dtype).permute(0, 2, 1, 3)
+    vc = _randn(gen, 8, cap, kh, hd, dtype=dtype).permute(0, 2, 1, 3)
+    n_pages = 8 * cap // bs + 7
+    kp = _pool(gen, n_pages, kh, bs, hd, dtype)
+    vp = _pool(gen, n_pages, kh, bs, hd, dtype)
+    tables = _tables(gen, lens, bs, n_pages, alias=True)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    assert dense_mod.plan(q[:1], kc[:1], vc[:1])["n_split"] > \
+        dense_mod.plan(q, kc, vc)["n_split"]
+    dense = decode_attention(q, kc, vc, lengths)
+    paged = paged_decode_attention(q, kp, vp, tables, lengths)
+    for i in range(8):
+        one = decode_attention(q[i:i + 1], kc[i:i + 1], vc[i:i + 1],
+                               lengths[i:i + 1])
+        torch.testing.assert_close(one[0].float(), dense[i].float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+        one = paged_decode_attention(q[i:i + 1], kp, vp, tables[i:i + 1],
+                                     lengths[i:i + 1])
+        torch.testing.assert_close(one[0].float(), paged[i].float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.float32, 28, 16),     # 112-byte rows
+    (torch.bfloat16, 28, 8),     # 56-byte rows: the narrow path
+    (torch.float32, 30, 8),
+    (torch.bfloat16, 30, 4),
+    (torch.float32, 15, 4),
+    (torch.bfloat16, 15, 2),     # element by element
+    (torch.bfloat16, 128, 16),
+])
+def test_decode_kernels_copy_width(dev, dtype, hd, want):
+    """The C entry's copy width equals the Python mirror's and ``want`` for
+    K/V rows of hd elements, and both kernels agree with their plain
+    versions on that path, over a split (1000 keys) and a page run that
+    crosses the stages."""
+    gen = torch.Generator(device=dev).manual_seed(hd)
+    b, h, kh, cap, bs = 2, 8, 4, 1000, 24
+    lens = [1000, 77]
+    q = _randn(gen, b, h, hd, dtype=dtype)
+    kc = _randn(gen, b, cap, kh, hd, dtype=dtype).permute(0, 2, 1, 3)
+    vc = _randn(gen, b, cap, kh, hd, dtype=dtype).permute(0, 2, 1, 3)
+    n_pages = 2 * -(-cap // bs) + 3
+    kp = _pool(gen, n_pages, kh, bs, hd, dtype)
+    vp = _pool(gen, n_pages, kh, bs, hd, dtype)
+    tables = _tables(gen, lens, bs, n_pages)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for plan in (dense_mod.plan(q, kc, vc),
+                 paged_mod.plan(q, kp, vp, tables)):
+        assert plan["vector_bytes"] == plan["vector_bytes_mirror"] == want
+        assert plan["n_split"] > 1
+    torch.testing.assert_close(
+        decode_attention(q, kc, vc, lengths).float(),
+        ref.decode_reference(q, kc, vc, lengths).float(),
+        atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(
+        paged_decode_attention(q, kp, vp, tables, lengths).float(),
+        ref.paged_decode_reference(q, kp, vp, tables, lengths).float(),
+        atol=TOL[dtype], rtol=TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -271,8 +363,8 @@ def test_paged_wrappers_refuse_what_the_kernels_do_not_take(dev):
         paged_decode_attention(q, pages, pages, tables.long(), lens)
     with pytest.raises(ValueError, match="lengths"):
         paged_decode_attention(q, pages, pages, tables, lens[:1])
-    with pytest.raises(ValueError, match="H / K"):
-        paged_decode_attention(torch.zeros(2, 18, 32, device=dev), pages,
+    with pytest.raises(ValueError, match="H % K"):
+        paged_decode_attention(torch.zeros(2, 5, 32, device=dev), pages,
                                pages, tables, lens)
     qs = torch.zeros(2, 5, 4, 32, device=dev)
     kn = torch.zeros(2, 5, 2, 32, device=dev)
@@ -284,6 +376,10 @@ def test_paged_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                lens.long())
     assert (paged_decode_attention.launches,
             paged_append_attention.launches) == before
+    # 18 query heads over 2 kv heads (G = 9) are taken
+    out = paged_decode_attention(torch.zeros(2, 18, 32, device=dev), pages,
+                                 pages, tables, lens)
+    assert out.shape == (2, 18, 32) and torch.all(out == 0)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -298,12 +394,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         decode_attention(q, k, k, lens.long())
     with pytest.raises(ValueError, match="dtypes"):
         decode_attention(q.half(), k.half(), k.half(), lens)
-    with pytest.raises(ValueError, match="H / K"):
-        decode_attention(torch.zeros(1, 18, 32, device=dev),
+    with pytest.raises(ValueError, match="H % K"):
+        decode_attention(torch.zeros(1, 5, 32, device=dev),
                          k, k, lens)
     with pytest.raises(ValueError, match="kv_len"):
         flash_attention(q[:, :, None], k, k, kv_len=65)
     assert (decode_attention.launches, flash_attention.launches) == before
+    # 18 query heads over 2 kv heads (G = 9) are taken
+    out = decode_attention(torch.zeros(1, 18, 32, device=dev), k, k, lens)
+    assert out.shape == (1, 18, 32) and torch.all(out == 0)
 
 
 @pytest.mark.parametrize("name", ["MICRO", "BASE"])

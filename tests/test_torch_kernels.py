@@ -5,7 +5,8 @@ Also: CPU calls never count a kernel launch, the CUDA wrappers refuse CPU
 tensors, and CUDA entry points raise where CUDA is absent; the precision
 plan of the tensor-core products of paged span attention and causal
 prefill (3xTF32 against one TF32 product, emulated in numpy), and their
-splits over keys.
+splits over keys; the flash-decode kernels' split over keys and their
+choice of copy width (the Python mirror of the C rule).
 
 Inputs are made with numpy from fixed seeds.  Tolerances follow
 tests/test_kernels.py: fp32 atol = rtol = 2e-5 (the two sides sum in
@@ -69,6 +70,10 @@ def _np(t):
     (1, 8, 4, 96, 28),     # BASE heads
     (3, 4, 2, 64, 32),     # SMALL heads, ragged batch
     (2, 2, 2, 48, 16),     # MICRO_SMALL heads: G = 1
+    (2, 18, 2, 40, 96),    # G = 9 (starcoder2-7b's), hd 96
+    (1, 9, 1, 33, 128),    # G = 9, hd 128
+    (2, 16, 1, 48, 96),    # G = 16 (qwen3-moe's), hd 96
+    (2, 32, 2, 40, 128),   # G = 16, hd 128
 ])
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_decode_reference_matches_jax(b, h, kh, s, hd, dtype):
@@ -392,3 +397,65 @@ def test_flash_split_plan_fills_the_card(b, s, h, kh, q_offset, kv_len,
         assert key_lo + (n_split - 1) * split_keys < hi     # no empty split
     assert base * n_split >= slots or n_split == 1 or \
         n_split == -(-(hi - key_lo) // tp.SPLIT_KEYS)
+
+
+# ---------------------------------------------------------------------------
+# flash-decode (#1, #3): the split over keys and the copy width
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,h,kh,keys,slots,want", [
+    (8, 24, 8, 4096, 264, 8),     # minitron-4b, B=8: 64 blocks -> 512
+    (8, 24, 8, 4096, 396, 12),    # the same at 3 blocks an SM
+    (1, 24, 8, 4096, 264, 16),    # one row: splits of SPLIT_KEYS
+    (1, 8, 4, 1024, 264, 4),      # BASE's 1024-slot cache
+    (4, 8, 4, 640, 264, 3),       # BASE, 4 paged rows of 40 pages
+    (40, 8, 8, 512, 264, 1),      # 320 blocks fill a wave as they are
+    (2, 4, 2, 200, 264, 1),       # under SPLIT_KEYS: nothing to split
+    (2, 32, 2, 2000, 264, 8),     # G = 16: one head group a kv head
+    (1, 40, 2, 4096, 264, 16),    # G = 20: two head groups a kv head
+])
+def test_decode_split_plan_fills_the_card(b, h, kh, keys, slots, want):
+    """The decode kernels' split (``tile_plan.split_plan`` over blocks of
+    GROUP query heads, one query a row): it fills at least one wave of
+    the ``slots`` blocks the card runs at once unless the keys run out of
+    splits, never makes more splits than ceil(keys / SPLIT_KEYS), and no
+    split starts at or past the capacity."""
+    from repro_torch.kernels import tile_plan as tp
+    n_split, split_keys = tp.split_plan(b, 1, h, kh, keys, slots,
+                                        rows=tp.GROUP)
+    base = b * kh * -(-(h // kh) // tp.GROUP)
+    assert n_split == want
+    assert split_keys % 32 == 0 and n_split * split_keys >= keys
+    assert (n_split - 1) * split_keys < keys          # no split past it
+    n_max = max(1, -(-keys // tp.SPLIT_KEYS))
+    assert n_split <= n_max
+    assert base * n_split >= slots or n_split == n_max
+
+
+_MB = 1 << 20
+
+
+@pytest.mark.parametrize("esize,hd,ptrs,strides,want", [
+    # (B, K, S, hd) views of a (B, S, K, hd) cache: strides (b, head, slot)
+    (4, 128, (0, 8 * _MB), (4096 * 8 * 128, 128, 8 * 128), 16),
+    (2, 128, (0, 8 * _MB), (4096 * 8 * 128, 128, 8 * 128), 16),
+    (4, 28, (0, _MB), (1024 * 4 * 28, 28, 4 * 28), 16),   # 112-byte rows
+    (2, 28, (0, _MB), (1024 * 4 * 28, 28, 4 * 28), 8),    # 56-byte rows
+    # a (P, K, bs, hd) pool's layer: strides (page, head, slot)
+    (2, 28, (3 * 64 * 4 * 16 * 28, _MB), (4 * 16 * 28, 16 * 28, 28), 8),
+    (2, 30, (0, _MB), (4 * 16 * 30, 16 * 30, 30), 4),     # 60-byte rows
+    (2, 15, (0, _MB), (4 * 16 * 15, 16 * 15, 15), 2),     # element copies
+    (4, 15, (0, _MB), (4 * 16 * 15, 16 * 15, 15), 4),
+    (4, 128, (8, 0), (4096 * 128, 128, 8 * 128), 8),      # base 8 bytes off
+    (4, 128, (0, 4), (4096 * 128, 128, 8 * 128), 4),
+    (4, 128, (0, 0), (4096 * 128, 128, 129), 4),          # odd slot stride
+    (2, 128, (0, 0), (4096 * 128, 132, 8 * 128), 8),      # 264-byte heads
+])
+def test_decode_copy_width_rule(esize, hd, ptrs, strides, want):
+    """``tile_plan.vector_bytes``, the mirror of the decode kernels' C
+    rule (``vector_bytes`` in csrc/decode_core.cuh, held to it on the card
+    by tests/test_torch_cuda.py): the widest of 16, 8 and 4 bytes that the
+    row's length, both base addresses and every row stride allow, else
+    one element."""
+    from repro_torch.kernels import tile_plan as tp
+    assert tp.vector_bytes(esize, hd, ptrs, strides + strides) == want

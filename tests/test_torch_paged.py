@@ -90,6 +90,34 @@ def test_paged_decode_plain_matches_jax(dtype, h, kh, hd, bs, lens):
     assert np.all(_np(pallas)[~live] == 0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,kh,hd,bs,lens", [
+    (18, 2, 96, 16, [40, 3]),           # G = 9 (starcoder2-7b's), hd 96
+    (9, 1, 128, 8, [33, 17]),           # G = 9, hd 128
+    (16, 1, 96, 16, [48, 0]),           # G = 16 (qwen3-moe's), hd 96
+    (32, 2, 128, 16, [40, 25]),         # G = 16, hd 128
+])
+def test_paged_decode_plain_matches_jax_wide_groups(dtype, h, kh, hd, bs,
+                                                    lens):
+    """The plain paged flash-decode against the jnp oracle at the query
+    group sizes past the Pallas tests' (G = 9 and 16) and hd 96 and 128:
+    the shapes the CUDA kernel takes since its block holds any G."""
+    rng = np.random.default_rng(h + hd + bs)
+    n_pages = 3 * sum(-(-n // bs) + 1 for n in lens)
+    jk, tk_ = _both(rng.standard_normal((n_pages, kh, bs, hd)), dtype)
+    jv, tv = _both(rng.standard_normal((n_pages, kh, bs, hd)), dtype)
+    jq, tq = _both(rng.standard_normal((len(lens), h, hd)), dtype)
+    tbl = _tables(rng, lens, bs, n_pages, alias=True)
+    lengths = np.asarray(lens, np.int32)
+    got = ref.paged_decode_reference(tq, tk_, tv, torch.from_numpy(tbl),
+                                     torch.from_numpy(lengths))
+    exp = jref.paged_decode_reference(jq, jk, jv, jnp.asarray(tbl),
+                                      jnp.asarray(lengths))
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(_np(got), _np(exp), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
 APPEND_CASES = [
     # h, kh, hd, bs, t, ctx, span
     (8, 4, 28, 16, 5, [0, 17, 40], [5, 3, 1]),     # verification, gamma+1
