@@ -112,17 +112,24 @@ def nvidia_smi() -> str:
 
 
 def time_ms(torch, fn, reps=30):
+    """ms a call of fn, host cost included: the median over five
+    CUDA-event windows of ``reps`` calls each, so that one slow window
+    does not set the reading."""
+    windows = 5
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[windows // 2]
 
 
 def ptxas_variants(text):

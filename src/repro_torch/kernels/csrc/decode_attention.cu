@@ -86,27 +86,11 @@ decode_kernel(const Args a) {
                               a.n_split, a.scale_log2);
 }
 
-template <typename T, int HD, int GB, int VB>
-int launch(const Args& a, int B, cudaStream_t stream) {
-  using S = DecodeShape<T, HD, GB>;
-  constexpr size_t bytes = S::smem_bytes();
-  const cudaError_t e = allow_smem<decode_kernel<T, HD, GB, VB>>(bytes);
-  if (e != cudaSuccess) return (int)e;
-  decode_kernel<T, HD, GB, VB>
-      <<<dim3(a.n_split, a.KH * a.n_hg, B), S::kThreads, bytes, stream>>>(
-          a);
-  if (a.n_split > 1)
-    combine_kernel<T><<<B * a.H, 128, 0, stream>>>(
-        a.part, static_cast<T*>(a.out), 1, a.H, a.n_split, a.hd, a.o_sb, 0,
-        a.o_sh);
-  return (int)cudaGetLastError();
-}
-
-int vec_bytes(int dtype, int hd, const void* k, const void* v,
-              const long long* s) {
-  return vector_bytes(dtype == 1 ? 2 : 4, hd, {k, v},
-                      {s[2], s[3], s[4], s[5], s[6], s[7]});
-}
+struct Dense {
+  template <typename V>
+  static constexpr auto kernel =
+      decode_kernel<typename V::type, V::hd, V::gb, V::vb>;
+};
 
 }  // namespace
 
@@ -123,47 +107,30 @@ extern "C" int decode_attention_launch(int dtype, const void* q, const void* k,
                                        int split_keys,
                                        const long long* strides,
                                        void* stream) {
-  if (KH <= 0 || H % KH != 0 || B <= 0 || B > 65535 || S <= 0 || hd <= 0 ||
-      hd > 128 || n_split <= 0 || split_keys <= 0 ||
-      (long long)n_split * split_keys < S)
+  const int n_hg = head_groups(H, KH);
+  if (n_hg == 0 || B <= 0 || B > 65535 || S <= 0 || hd <= 0 || hd > 128 ||
+      n_split <= 0 || split_keys <= 0 || (long long)n_split * split_keys < S)
     return (int)cudaErrorInvalidValue;
-  const int gb = group_bucket(H / KH);
-  const int n_hg = (H / KH + gb - 1) / gb;
-  if ((long long)KH * n_hg > 65535) return (int)cudaErrorInvalidValue;
   const long long* s = strides;
   const Args a{q, k, v, (const int*)lengths, out, (float*)part, H, KH, S, hd,
                n_hg, n_split, split_keys, s[0], s[1], s[2], s[3], s[4], s[5],
                s[6], s[7], s[8], s[9],
                1.4426950408889634f / sqrtf((float)hd)};
-  cudaStream_t st = (cudaStream_t)stream;
-  return decode_dispatch(dtype, hd, gb, vec_bytes(dtype, hd, k, v, strides),
-                         [&](auto var) {
-                           using V = decltype(var);
-                           return launch<typename V::type, V::hd, V::gb,
-                                         V::vb>(a, B, st);
-                         });
+  return decode_run<Dense>(dtype, a, B, k, v, strides, (cudaStream_t)stream);
 }
 
-// The copy width in bytes (16, 8, 4, or 2 for bf16 element copies) the
-// launch takes for these K/V base pointers and the same 10 strides.
+// The copy width in bytes (16, 4, or 2 for bf16 element copies) the launch
+// takes for these K/V base pointers and the same 10 strides.
 extern "C" int decode_attention_vector_bytes(int dtype, int hd, const void* k,
                                              const void* v,
                                              const long long* strides) {
-  return vec_bytes(dtype, hd, k, v, strides);
+  return vector_bytes(dtype, hd, k, v, strides);
 }
 
-// How many blocks of the kernel the current card runs at once for this
-// dtype, head_dim and G = H / K query heads a kv head (rows), and the
-// dynamic shared memory of one block: the split over keys is planned
-// against it.  Writes *out and *smem; returns a CUDA error code.
+// Blocks of the kernel the card runs at once for this dtype, head_dim and
+// G = H / K query heads a kv head (rows), and one block's dynamic shared
+// memory (decode_slots).  Writes *out and *smem; returns a CUDA error code.
 extern "C" int decode_attention_slots(int dtype, int hd, int rows, int* out,
                                       int* smem) {
-  *out = *smem = 0;
-  if (rows <= 0) return (int)cudaErrorInvalidValue;
-  return decode_dispatch(dtype, hd, group_bucket(rows), 16, [&](auto var) {
-    using V = decltype(var);
-    using S = DecodeShape<typename V::type, V::hd, V::gb>;
-    return decode_slots<decode_kernel<typename V::type, V::hd, V::gb, 16>>(
-        S::kThreads, S::smem_bytes(), out, smem);
-  });
+  return decode_slots<Dense>(dtype, hd, rows, out, smem);
 }

@@ -21,8 +21,8 @@
 //    bf16 in shared memory, so a stage holds twice the keys, widened on
 //    read).  Rows are copied with cp.async in VB-byte vectors: 16 where
 //    every row start and the row length allow it (the host entry picks VB
-//    from the base pointers and element strides, `vector_bytes`), else 8 or
-//    4 (bf16 rows of hd 28 are 56 bytes), and element by element for bf16
+//    from the base pointers and element strides, `vector_bytes`), else 4
+//    (bf16 rows of hd 28 are 56 bytes), and element by element for bf16
 //    rows at 2-byte alignment.  While one stage is read, the next
 //    kStages - 1 are in flight; the only block-wide barrier is the stage
 //    hand-off.
@@ -45,7 +45,6 @@
 
 #include <cmath>
 #include <cstdint>
-#include <initializer_list>
 
 #include "tf32_mma.cuh"  // cp_async_commit, allow_smem
 
@@ -90,7 +89,7 @@ struct DecodeShape {
   }
 };
 
-// one VB-byte copy global -> shared (VB = 4, 8 or 16)
+// one VB-byte copy global -> shared (VB = 4 or 16)
 template <int VB>
 __device__ __forceinline__ void cp_async_vec(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -109,8 +108,6 @@ template <int VB>
 __device__ __forceinline__ void zero_vec(void* dst) {
   if constexpr (VB == 16)
     *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-  else if constexpr (VB == 8)
-    *reinterpret_cast<uint2*>(dst) = make_uint2(0, 0);
   else if constexpr (VB == 4)
     *reinterpret_cast<uint32_t*>(dst) = 0u;
   else
@@ -396,22 +393,66 @@ __device__ __forceinline__ void decode_block(
   }
 }
 
+// grid (B * T * H); merges the n_split partial triples of one (row, query
+// position, head), laid out as part[(((b * T + t) * H + h) * n_split + s) *
+// (hd + 2)], into out[b * o_sb + t * o_st + h * o_sh].  Decode has T = 1.
+// A (row, position, head) that saw no key gives 0 (the l == 0 -> 1 guard).
+template <typename T>
+__global__ void combine_kernel(const float* __restrict__ part,
+                               T* __restrict__ out, int Tq, int H,
+                               int n_split, int hd, long long o_sb,
+                               long long o_st, long long o_sh) {
+  const int bth = blockIdx.x;
+  const int h = bth % H, t = (bth / H) % Tq, b = bth / (H * Tq);
+  const float* pb = part + (long long)bth * n_split * (hd + 2);
+  float m = kNeg;
+  for (int s = 0; s < n_split; ++s) m = fmaxf(m, pb[s * (hd + 2) + hd]);
+  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
+    float l = 0.f, o = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const float* ps = pb + s * (hd + 2);
+      const float w = expf(ps[hd] - m);
+      l += ps[hd + 1] * w;
+      o += ps[d] * w;
+    }
+    store(out + b * o_sb + t * o_st + h * o_sh + d, o / (l == 0.f ? 1.f : l));
+  }
+}
+
 // ---- host side of the two decode kernels ----
+//
+// Each kernel's source defines its Args (holding at least the H, KH, hd,
+// n_hg, n_split, part, out, o_sb and o_sh that decode_run reads), its
+// __global__ kernel template over (T, HD, GB, VB) with grid
+// (n_split, KH * n_hg, B), and a Family struct naming it:
+//   template <typename V> static constexpr auto kernel = its_kernel<...>;
+// Its extern "C" entries then call decode_run, decode_slots and
+// vector_bytes.
 
 // the query-head bucket of a block for G = H / K query heads a kv head
 inline int group_bucket(int G) { return G <= 4 ? 4 : G <= 8 ? 8 : kGroup; }
 
-// The widest copy (16, 8 or 4 bytes) that the row length and every K/V row
-// start allow: the base pointers and the element strides between rows; else
-// esize (element by element).  tile_plan.vector_bytes mirrors it.
-inline int vector_bytes(int esize, int hd,
-                        std::initializer_list<const void*> ptrs,
-                        std::initializer_list<long long> strides) {
-  for (int vb : {16, 8, 4}) {
-    bool ok = (long long)hd * esize % vb == 0;
-    for (const void* p : ptrs)
-      ok = ok && reinterpret_cast<uintptr_t>(p) % vb == 0;
-    for (long long s : strides) ok = ok && s * esize % vb == 0;
+// head groups a kv head: blocks of group_bucket(G) query heads for G =
+// H / KH; 0 where the shape has no launch (H % KH != 0, grid too high)
+inline int head_groups(int H, int KH) {
+  if (KH <= 0 || H <= 0 || H % KH != 0) return 0;
+  const int gb = group_bucket(H / KH);
+  const int n_hg = (H / KH + gb - 1) / gb;
+  return (long long)KH * n_hg > 65535 ? 0 : n_hg;
+}
+
+// The widest copy (16 or 4 bytes) that the row length and every K/V row
+// start allow: the base pointers k, v and the element strides between rows
+// (strides[2..8), K's and V's in both kernels); else the element size
+// (element by element).  tile_plan.vector_bytes mirrors it.
+inline int vector_bytes(int dtype, int hd, const void* k, const void* v,
+                        const long long* strides) {
+  const int esize = dtype == 1 ? 2 : 4;
+  for (int vb : {16, 4}) {
+    bool ok = (long long)hd * esize % vb == 0 &&
+              reinterpret_cast<uintptr_t>(k) % vb == 0 &&
+              reinterpret_cast<uintptr_t>(v) % vb == 0;
+    for (int i = 2; i < 8; ++i) ok = ok && strides[i] * esize % vb == 0;
     if (ok) return vb;
   }
   return esize;
@@ -428,7 +469,6 @@ struct Variant {
 template <typename T, int HD, int GB, typename F>
 int dispatch_vb(int vb, F& f) {
   if (vb == 16) return f(Variant<T, HD, GB, 16>{});
-  if (vb == 8) return f(Variant<T, HD, GB, 8>{});
   if (vb == 4) return f(Variant<T, HD, GB, 4>{});
   if constexpr (sizeof(T) == 2)
     if (vb == 2) return f(Variant<T, HD, GB, 2>{});
@@ -456,47 +496,58 @@ int decode_dispatch(int dtype, int hd, int gb, int vb, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
-// Blocks of kKernel (`threads` threads, `bytes` of dynamic shared memory)
-// the current card runs at once, into *out; *smem = bytes.
-template <auto kKernel>
-int decode_slots(int threads, size_t bytes, int* out, int* smem) {
-  cudaError_t e = allow_smem<kKernel>(bytes);
-  int per_sm = 0, dev = 0, sms = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kKernel,
-                                                      threads, bytes);
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  *out = per_sm * sms;
-  *smem = (int)bytes;
-  return (int)e;
+// Launches Family's kernel on a (B rows) with the copy width that k, v and
+// the strides allow and, when a.n_split > 1, the merge of the partial
+// triples into a.out; returns cudaGetLastError().
+template <typename Family, typename Args>
+int decode_run(int dtype, const Args& a, int B, const void* k,
+               const void* v, const long long* strides,
+               cudaStream_t stream) {
+  const int vb = vector_bytes(dtype, a.hd, k, v, strides);
+  return decode_dispatch(
+      dtype, a.hd, group_bucket(a.H / a.KH), vb, [&](auto var) {
+        using V = decltype(var);
+        using T = typename V::type;
+        using S = DecodeShape<T, V::hd, V::gb>;
+        constexpr auto kernel = Family::template kernel<V>;
+        constexpr size_t bytes = S::smem_bytes();
+        const cudaError_t e = allow_smem<kernel>(bytes);
+        if (e != cudaSuccess) return (int)e;
+        kernel<<<dim3(a.n_split, a.KH * a.n_hg, B), S::kThreads, bytes,
+                 stream>>>(a);
+        if (a.n_split > 1)
+          combine_kernel<T><<<B * a.H, 128, 0, stream>>>(
+              a.part, static_cast<T*>(a.out), 1, a.H, a.n_split, a.hd,
+              a.o_sb, 0, a.o_sh);
+        return (int)cudaGetLastError();
+      });
 }
 
-// grid (B * T * H); merges the n_split partial triples of one (row, query
-// position, head), laid out as part[(((b * T + t) * H + h) * n_split + s) *
-// (hd + 2)], into out[b * o_sb + t * o_st + h * o_sh].  Decode has T = 1.
-// A (row, position, head) that saw no key gives 0 (the l == 0 -> 1 guard).
-template <typename T>
-__global__ void combine_kernel(const float* __restrict__ part,
-                               T* __restrict__ out, int Tq, int H,
-                               int n_split, int hd, long long o_sb,
-                               long long o_st, long long o_sh) {
-  const int bth = blockIdx.x;
-  const int h = bth % H, t = (bth / H) % Tq, b = bth / (H * Tq);
-  const float* pb = part + (long long)bth * n_split * (hd + 2);
-  float m = kNeg;
-  for (int s = 0; s < n_split; ++s) m = fmaxf(m, pb[s * (hd + 2) + hd]);
-  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-    float l = 0.f, o = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const float* ps = pb + s * (hd + 2);
-      const float w = expf(ps[hd] - m);
-      l += ps[hd + 1] * w;
-      o += ps[d] * w;
-    }
-    store(out + b * o_sb + t * o_st + h * o_sh + d, o / (l == 0.f ? 1.f : l));
-  }
+// Blocks of Family's kernel the current card runs at once for this dtype,
+// head_dim and G = H / K query heads a kv head (rows), into *out, and the
+// dynamic shared memory of one block, into *smem: the split over keys is
+// planned against it.  Returns a CUDA error code.
+template <typename Family>
+int decode_slots(int dtype, int hd, int rows, int* out, int* smem) {
+  *out = *smem = 0;
+  if (rows <= 0) return (int)cudaErrorInvalidValue;
+  return decode_dispatch(dtype, hd, group_bucket(rows), 16, [&](auto var) {
+    using V = decltype(var);
+    using S = DecodeShape<typename V::type, V::hd, V::gb>;
+    constexpr auto kernel = Family::template kernel<V>;
+    constexpr size_t bytes = S::smem_bytes();
+    cudaError_t e = allow_smem<kernel>(bytes);
+    int per_sm = 0, dev = 0, sms = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        S::kThreads, bytes);
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    *out = per_sm * sms;
+    *smem = (int)bytes;
+    return (int)e;
+  });
 }
 
 }  // namespace repro

@@ -113,10 +113,10 @@ def decode_plan(name: str, dtype: int, q: torch.Tensor, k: torch.Tensor,
 def vector_bytes(esize: int, hd: int, ptrs: Sequence[int],
                  strides: Sequence[int]) -> int:
     """The decode kernels' copy width in bytes (``vector_bytes`` in
-    ``csrc/decode_core.cuh``): the widest of 16, 8 and 4 that divides the
+    ``csrc/decode_core.cuh``): the wider of 16 and 4 that divides the
     row's hd * esize bytes, every K/V base address and every element
     stride between rows times esize; else esize (element by element)."""
-    for vb in (16, 8, 4):
+    for vb in (16, 4):
         if hd * esize % vb == 0 and all(p % vb == 0 for p in ptrs) \
                 and all(s * esize % vb == 0 for s in strides):
             return vb

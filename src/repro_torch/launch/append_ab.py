@@ -28,10 +28,12 @@ and bf16:
   ``chip_smoke.py`` (4 rows of 0, 1, 77 and 640 keys).
 
 For each it prints the time per call from CUDA events over back-to-back
-calls (the wrapper's host cost included, as ``chip_smoke.py`` times
-it), the device time per call of the kernel and its merge from
-``torch.profiler``, and SDPA on the same inputs, the yardstick (#4:
-minitron only; #3 and #4 over the pre-gathered K/V, gather excluded).
+calls (the median of five windows of 30, the wrapper's host cost
+included, as ``chip_smoke.py`` times it) with each window's time and
+the SM clock after them, the device time per call of the kernel and its
+merge from ``torch.profiler``, and SDPA on the same inputs, the
+yardstick (#4: minitron only; #3 and #4 over the pre-gathered K/V,
+gather excluded).
 Prints the card's name and power limit first and one JSON line per run.
 Needs CUDA; builds the kernel of each checkout into that checkout's
 ``build/kernels``.
@@ -63,6 +65,7 @@ KERNELS = ("paged_append_attention", "flash_attention", "decode_attention",
            "paged_decode_attention")
 BLOCK = 16
 REPS = 30
+WINDOWS = 5
 
 
 def _append_cases(torch, F, ref, kernel, dt, gen, dev):
@@ -214,7 +217,9 @@ def _child(root: str, name: str) -> None:
     for dt in (torch.float32, torch.bfloat16):
         gen = torch.Generator(device=dev).manual_seed(0)
         for row, call, sdpa in cases(torch, F, ref, kernel, dt, gen, dev):
-            row.update(dtype=str(dt)[6:], ms=_events(torch, call))
+            ms, windows = _events(torch, call)
+            row.update(dtype=str(dt)[6:], ms=ms, ms_windows=windows,
+                       sm_clock=_sm_clock())
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(REPS):
                     call()
@@ -223,24 +228,37 @@ def _child(root: str, name: str) -> None:
                 e.self_device_time_total for e in prof.key_averages()
                 if e.self_device_time_total > 0) / 1e3 / REPS
             if sdpa is not None:
-                row["sdpa_ms"] = _events(torch, sdpa)
+                row["sdpa_ms"] = _events(torch, sdpa)[0]
             rows.append(row)
     print(json.dumps({"root": root, "kernel": name, "rows": rows}),
           flush=True)
 
 
-def _events(torch, fn) -> float:
+def _sm_clock() -> str:
+    """The card's SM clock (MHz) and active clock-throttle reasons now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks_throttle_reasons.active",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+
+def _events(torch, fn):
+    """(ms a call, host cost included: the median over WINDOWS
+    CUDA-event windows of REPS calls each; every window's ms)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(REPS):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / REPS
+    times = []
+    for _ in range(WINDOWS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(REPS):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / REPS)
+    return sorted(times)[WINDOWS // 2], times
 
 
 def main(argv=None) -> int:

@@ -242,8 +242,8 @@ def test_decode_kernels_rows_are_independent(dev, dtype):
 
 @pytest.mark.parametrize("dtype,hd,want", [
     (torch.float32, 28, 16),     # 112-byte rows
-    (torch.bfloat16, 28, 8),     # 56-byte rows: the narrow path
-    (torch.float32, 30, 8),
+    (torch.bfloat16, 28, 4),     # 56-byte rows: the narrow path
+    (torch.float32, 30, 4),      # 120-byte rows
     (torch.bfloat16, 30, 4),
     (torch.float32, 15, 4),
     (torch.bfloat16, 15, 2),     # element by element

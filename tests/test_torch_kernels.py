@@ -440,21 +440,21 @@ _MB = 1 << 20
     (4, 128, (0, 8 * _MB), (4096 * 8 * 128, 128, 8 * 128), 16),
     (2, 128, (0, 8 * _MB), (4096 * 8 * 128, 128, 8 * 128), 16),
     (4, 28, (0, _MB), (1024 * 4 * 28, 28, 4 * 28), 16),   # 112-byte rows
-    (2, 28, (0, _MB), (1024 * 4 * 28, 28, 4 * 28), 8),    # 56-byte rows
+    (2, 28, (0, _MB), (1024 * 4 * 28, 28, 4 * 28), 4),    # 56-byte rows
     # a (P, K, bs, hd) pool's layer: strides (page, head, slot)
-    (2, 28, (3 * 64 * 4 * 16 * 28, _MB), (4 * 16 * 28, 16 * 28, 28), 8),
+    (2, 28, (3 * 64 * 4 * 16 * 28, _MB), (4 * 16 * 28, 16 * 28, 28), 4),
     (2, 30, (0, _MB), (4 * 16 * 30, 16 * 30, 30), 4),     # 60-byte rows
     (2, 15, (0, _MB), (4 * 16 * 15, 16 * 15, 15), 2),     # element copies
     (4, 15, (0, _MB), (4 * 16 * 15, 16 * 15, 15), 4),
-    (4, 128, (8, 0), (4096 * 128, 128, 8 * 128), 8),      # base 8 bytes off
+    (4, 128, (8, 0), (4096 * 128, 128, 8 * 128), 4),      # base 8 bytes off
     (4, 128, (0, 4), (4096 * 128, 128, 8 * 128), 4),
     (4, 128, (0, 0), (4096 * 128, 128, 129), 4),          # odd slot stride
-    (2, 128, (0, 0), (4096 * 128, 132, 8 * 128), 8),      # 264-byte heads
+    (2, 128, (0, 0), (4096 * 128, 132, 8 * 128), 4),      # 264-byte heads
 ])
 def test_decode_copy_width_rule(esize, hd, ptrs, strides, want):
     """``tile_plan.vector_bytes``, the mirror of the decode kernels' C
     rule (``vector_bytes`` in csrc/decode_core.cuh, held to it on the card
-    by tests/test_torch_cuda.py): the widest of 16, 8 and 4 bytes that the
+    by tests/test_torch_cuda.py): the wider of 16 and 4 bytes that the
     row's length, both base addresses and every row stride allow, else
     one element."""
     from repro_torch.kernels import tile_plan as tp
