@@ -21,8 +21,11 @@ from the root of a checkout.  Phases, each printing its lines:
      N 128, one group) over one ragged chunk (L 7 and 37), one full chunk,
      300 tokens padded to 384 and 2048 tokens, against its plain version
      and the sequential oracle, with a state-resume case and the reduced
-     G > 1 shapes of tests/test_kernels.py; no single PyTorch call
-     computes the scan, so it has no yardstick;
+     G > 1 shapes of tests/test_kernels.py; at L 37 and 2048 also a scan's
+     device time (torch.profiler, its launches summed) and its plan
+     (route, each launch's grid, registers and shared memory, the
+     scratch), held to the Python mirror; no single PyTorch call computes
+     the scan, so it has no yardstick;
    * paged flash-decode and paged span attention (the continuous path)
      over shuffled 16-token pages with ragged lengths (0 and 1 among
      them) and two rows aliasing one page, spans T of 5, 16, 64 and 256
@@ -135,7 +138,8 @@ def time_ms(torch, fn, reps=30):
 def ptxas_variants(text):
     """(variant, registers, static shared memory bytes, spill-store bytes)
     per kernel entry in an ``nvcc -Xptxas -v`` report; dynamic shared
-    memory is not in it (the kernel phase prints #2's and #4's plans)."""
+    memory is not in it (the kernel phase prints #2's, #4's and #5's
+    plans)."""
     out, name, spill = [], "?", 0
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -154,6 +158,11 @@ def ptxas_variants(text):
                     args += [n if k == "i" else ("scalar", "cp.async")[
                         n == "1"] for k, n in ints]
                 name = f"{t.group(1)}<{', '.join(args)}>"
+            else:       # no element type: <int> or no template arguments
+                t = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)E)?E", name)
+                if t:
+                    name = t.group(1) + (f"<{t.group(2)}>" if t.group(2)
+                                         else "")
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
             spill = int(m.group(1))
@@ -316,10 +325,42 @@ def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron):
     return records
 
 
+def ssd_device_ms(torch, fn, reps=10):
+    """Device ms of one call of fn: torch.profiler's device time of its
+    kernels, summed over a run of ``reps`` calls, over reps."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.self_device_time_total > 0) / 1e3 / reps
+
+
+def ssd_plan_note(plan, label):
+    """One line of a scan's plan; the C entry's grids, threads and shared
+    memory must equal the Python mirror's."""
+    for got, want in zip(plan["launches"], plan["mirror"]["launches"]):
+        for key in ("blocks", "threads", "smem_bytes"):
+            if got[key] != want[key]:
+                raise AssertionError(f"ssd_scan {label}: {got['name']} "
+                                     f"{key} {got[key]}, mirror {want[key]}")
+    return f"route {plan['route']} ({plan['chunks']} chunks): " + "; ".join(
+        f"{x['name']} {x['blocks']} blocks x {x['threads']}, "
+        f"{x['registers']} registers, {x['smem_bytes']} bytes of shared "
+        f"memory, {x['blocks_per_sm']} an SM, {x['spill_bytes']} spilled"
+        for x in plan["launches"] if x["blocks"]) + \
+        f"; scratch {plan['scratch_bytes']} bytes"
+
+
 def ssd_kernel_phase(torch, ref, mamba2, ssd_scan, mamba):
     """The SSD scan kernel against its plain version (``ssd_chunked``) and
     the sequential oracle (``ssd_reference``) at mamba2-1.3b's heads and
-    the reduced G > 1 shapes.  Returns its records for the JSON line."""
+    the reduced G > 1 shapes; at L = 37 and 2048 also a scan's device time
+    and its plan.  Returns its records for the JSON line."""
+    from repro_torch.kernels import ssd_scan as ssd_mod
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     h, p, n = mamba.ssm_n_heads, mamba.ssm_head_dim, mamba.ssm_state
@@ -386,13 +427,21 @@ def ssd_kernel_phase(torch, ref, mamba2, ssd_scan, mamba):
             nbytes = (2 * b * real * hh * pp + 2 * b * real * gg * nn) \
                 * esize + 4 * (b * real * hh + hh + 2 * b * hh * pp * nn)
             bound_ms, by = bound(nbytes, 2 * macs, dname)
-            records.append(dict(shape=label, dtype=dname, max_abs_err=err,
-                                state_err=state_err, ms=ms, plain_ms=plain_ms,
-                                library_ms=None, bound_ms=bound_ms,
-                                bound_by=by))
+            rec = dict(shape=label, dtype=dname, max_abs_err=err,
+                       state_err=state_err, ms=ms, plain_ms=plain_ms,
+                       library_ms=None, bound_ms=bound_ms, bound_by=by)
+            note = ""
+            if kind == "mamba2" and l in (37, 2048):
+                rec["device_ms"] = ssd_device_ms(
+                    torch, lambda: ssd_scan(x, dt, a, bb, cc, chunk, init))
+                rec["plan"] = ssd_mod.plan(x, bb, chunk)
+                note = (f" | device {rec['device_ms']:.4f} ms a scan "
+                        f"(profiler, its launches summed) | "
+                        + ssd_plan_note(rec["plan"], label))
+            records.append(rec)
             print(f"[kernels] ssd_scan {label}: y err {err:.3g}, state err "
                   f"{state_err:.3g} | kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-                  f" ms, library none, bound {bound_ms:.5f} ms ({by})",
+                  f" ms, library none, bound {bound_ms:.5f} ms ({by})" + note,
                   flush=True)
         # state resume: two calls carrying the state equal one call
         l, half = 256, 128

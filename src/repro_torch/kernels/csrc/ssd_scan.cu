@@ -1,5 +1,6 @@
-// Mamba2 chunked SSD scan for Hopper (sm_90a): every extend of an ssm
-// model (prompts, SpecReason verification passes, accepted steps).
+// Mamba2 chunked SSD scan for Hopper (sm_90a) on the tensor cores: every
+// extend of an ssm model (prompts, SpecReason verification passes,
+// accepted steps).
 //
 // Replaces: src/repro/kernels/ssd_scan.py :: ssd_scan (the Pallas TPU kernel
 // _ssd_kernel).  Same function: for each (batch, head) and each chunk of Q
@@ -15,249 +16,868 @@
 // caller pads with dt = 0, as the JAX package's apply_mamba does).
 //
 // What bounds it on this card: at mamba2-1.3b's widths (H = 64 heads of
-// P = 64, N = 128, one group) a 2048-token prompt needs about 5.4 GFLOP
-// (the causal half of each chunk's Q x Q terms, C . B^T once for the
-// group's 64 heads; 7.5 with C . B^T per head, as this kernel does it)
-// against 74 MB of traffic, so it is bound by operations (0.081 ms at
-// 67 TFLOP/s fp32).  The serving path's calls are mostly one chunk of
-// 5 to 60 positions, where a launch is bound by latency.
+// P = 64, N = 128, one group) a 2048-token prompt needs 2.7 G multiply-adds
+// (5.4 GFLOP: the causal half of each chunk's Q x Q terms, C . B^T once for
+// the group's 64 heads) against 68 MB of inputs and outputs, so it is bound
+// by operations: 0.0328 ms for fp32-accurate products at 3xTF32's 495 / 3
+// TFLOP/s.  The serving path's calls are mostly one chunk of 5 to 60
+// positions, where a call is bound by latency and the host.
 //
-// What the design does about it:
-//  * The TPU grid's sequential chunk axis, with the state in VMEM scratch,
-//    becomes a loop over chunks inside one block; blocks carry nothing
-//    between them.  Row p of the state and y[..., p] depend only on column
-//    p of x, so a block owns one (16-column P tile, head, batch row): 256
-//    blocks at B = 1 for mamba2-1.3b, two resident on each SM (the launch
-//    bounds hold a thread to 128 registers; ptxas spills 12-20 bytes).
-//  * Per chunk, C . B^T (Q x Q) is accumulated in registers, a thread
-//    owning rows ty + 16 r and columns tx + 16 q of it, only where q <= r
-//    (the rest lies above the causal diagonal) and only for rows inside
-//    the chunk, over 32-wide slices of N staged in shared memory; the
-//    same pass adds C . state^T (the entering state's contribution) and,
-//    after it, updates that slice of the state.  Then the decayed, causal
-//    scores go to shared memory (over the slices' space) and are applied
-//    to dt * x.  The fp32 state tile (16 x N) stays in shared memory for
-//    the whole sequence.
-//  * Everything runs on CUDA cores in fp32, so fp32 results agree with the
-//    plain version to 1e-4.  Each block recomputes C . B^T, which is the
-//    same for the four P tiles of a head and, with one group, for every
-//    head: sharing it, then tensor cores, are the first speed-ups.
+// What the design does about it: the TPU kernel walks the chunks in order
+// with the state in VMEM.  Here the scan follows ssd_chunked's four steps
+// (models/mamba2.py), in up to three launches on the caller's stream, so
+// that the chunk axis spreads over blocks:
+//  1. ssd_chunk_kernel, grid (B*H*P tiles + B*G*row tiles) x chunks.  A
+//     state block owns (batch, head, 64 P columns, chunk): the chunk's
+//     cumulative sum as a block-wide scan (kept in scratch `cum`, which the
+//     other two launches read), and the chunk's own state contribution
+//     dS^T = B^T . (dt x exp(cum_last - cum)), written to scratch `st`
+//     (B, H, nc, P, N).  A C.B^T block owns 16 rows of one (batch, group,
+//     chunk)'s causal C . B^T and writes them to scratch `cb` (B, G, nc, Q,
+//     Q rounded up to 4): the product is made once per group, not per head.
+//  2. ssd_pass_kernel (only with more than one chunk): per (batch, head),
+//     one thread per state element walks the chunks, S <- exp(cum_last) S
+//     + dS, writing each chunk's entering state over its dS and the final
+//     state.  It is elementwise and moves the scratch state twice (0.13 GB
+//     at L = 2048, much of it in the 50 MB L2): this design's floor.
+//  3. ssd_scan_kernel, grid (B*H*P tiles) x chunks: y = diag(exp(cum)) C .
+//     S_in^T + (C.B^T o exp(segsum)) . (dt x) for 128 rows x 64 columns,
+//     the first product scaled after it is made, so that bf16 C stays
+//     exact.  The segsum decay is selected to 0 above the diagonal (never
+//     multiplied by a mask: exp there can overflow); the rows before a
+//     slice's first column and a warp's slices past its rows' diagonal are
+//     skipped.  y leaves through shared memory in 16-byte stores where P
+//     allows.
+//  With one chunk (most serving calls) the chunk launch writes the final
+//  state itself and the pass is skipped: two launches.
+//  * Operands reach shared memory in k slices of 32 through a two-stage
+//    ring of raw tiles: 16-byte cp.async copies (zero-filled past the
+//    edges) where every base and stride allows, element copies otherwise
+//    (kVec).  The next slice's copies are in flight while a slice is
+//    converted (decay, dt, the 3xTF32 split) into the tiles the warps
+//    multiply from; B^T and C feed the products from their raw stage, in
+//    padded rows.  Loads into registers instead stalled each warp on every
+//    load (three times slower at L = 2048); warps specialised to copy or
+//    to multiply, one block an SM, were slower than two blocks an SM that
+//    do both.
+//  * Products: mma.sync.m16n8k8 TF32 with fp32 accumulators (tf32_mma.cuh).
+//    fp32 operands are split as 3xTF32 (lo.hi' + hi.hi' + hi.lo'); a bf16
+//    operand is exact in TF32 and drops its lo product (B^T in step 1, C and
+//    B in C.B^T).  The operand that every warp of a block reads (dt x and
+//    S_in) is split once when it is converted and kept as (hi, lo) pairs.
+//  * 90 KB (chunk) and 106 KB (scan) of dynamic shared memory a block, two
+//    blocks an SM (128 registers a thread); the wrapper allocates the
+//    scratch, the kernels allocate nothing.
+//  * What remains (H100, L = 2048, fp32; PERF.md): the products run at
+//    about the rate mma.sync reaches for TF32, and a scan moves about
+//    0.24 GB through memory (x twice, the scratch state four times, y).
 //
 // Plain C interface for ctypes; the launch returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <cmath>
+#include <cstdint>
+#include <initializer_list>
+#include <type_traits>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kTy = 16, kTx = 16;
-constexpr int kThreads = kTy * kTx;  // 256
-constexpr int kMaxQ = 128;           // longest chunk
-constexpr int kRpt = kMaxQ / kTy;    // score rows (and columns) a thread owns
-constexpr int kPT = kTx;             // P columns a block owns
-constexpr int kNT = 32;              // state columns staged per slice
-constexpr int kMaxN = 256;
-constexpr int kSlice = kNT + 1;      // padded row of a staged B / C slice
+using namespace repro;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxQ = 128;  // longest chunk
+constexpr int kMaxN = 256;
+constexpr int kPT = 64;     // P columns a block owns
+constexpr int kKS = 32;     // k slice staged in shared memory
+constexpr int kNR = 128;    // state rows (N) a state block makes per pass
+constexpr int kNT = 8;      // 8-column n-tiles a warp holds at most
+// row strides, against bank conflicts of the fragment loads: fp32 rows read
+// as (row gid, k tig) = 4 mod 32, as (k tig, row gid) = 8 mod 32 (bf16: 4
+// and 8 words mod 32 as well); (hi, lo) pairs = 4 mod 16 either way; y's
+// staging rows = 4 mod 16 pairs
+constexpr int kLdRow = kKS + 4;  // fp32 [row][k]
+constexpr int kLdNR = kNR + 8;   // [k][row], the state block's raw B^T
+constexpr int kLdP2 = kPT + 4;   // (hi, lo) [k][column], dt x
+constexpr int kLdK2 = kKS + 4;   // (hi, lo) [column][k], S_in
+constexpr int kLdY = kPT + 8;    // fp32 [row][column], y on its way out
+// [row][k], the scan block's raw C: 16-byte rows
+template <typename T>
+__host__ __device__ constexpr int ld_c() {
+  return sizeof(T) == 4 ? kKS + 4 : kKS + 8;
+}
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// Dynamic shared memory a block, in bytes: a ring of two raw stages (A:
+// C, B^T or C.B^T rows, or a C.B^T block's C rows; B: x or S_in rows, or a
+// C.B^T block's B rows; up to 4-byte elements), the converted tiles, then
+// the per-position arrays.
+constexpr int kRawA =
+    4 * cmax(cmax(kMaxQ * ld_c<float>(), kKS * kLdNR), kMaxQ * kKS);
+constexpr int kRawB = 4 * cmax(kKS * kPT, kMaxQ * kKS);
+constexpr int kRing = 2 * (kRawA + kRawB);
+constexpr int kChunkTiles =
+    cmax(kKS * kLdP2 * 8,                            // state block
+         16 * kLdRow * 4 + kMaxQ * kLdRow * 4);      // C.B^T block
+constexpr int kScanTiles =
+    cmax(kMaxQ * kLdRow * 4 + cmax(kKS * kLdP2, kPT * kLdK2) * 8,
+         kMaxQ * kLdY * 4);
+constexpr int kVecBytes = 3 * kMaxQ * 4 + kWarps * 4;
+constexpr int kChunkSmem = kRing + kChunkTiles + kVecBytes;
+constexpr int kScanSmem = kRing + kScanTiles + kVecBytes;
+
+// Raw element bits: fp32 as uint32_t, bf16 as uint16_t.
+template <typename T>
+using Raw = std::conditional_t<sizeof(T) == 4, uint32_t, uint16_t>;
+template <typename T>
+__device__ __forceinline__ float to_f32(uint32_t v) {
+  return __uint_as_float(sizeof(T) == 4 ? v : v << 16);
+}
+// an operand element as fp32: from a converted tile, or raw bits
+__device__ __forceinline__ float val(float v) { return v; }
+__device__ __forceinline__ float val(uint32_t v) { return __uint_as_float(v); }
+__device__ __forceinline__ float val(uint16_t v) {
+  return __uint_as_float((uint32_t)v << 16);
+}
+// four consecutive raw elements as fp32 (16 or 8 bytes, aligned)
+__device__ __forceinline__ float4 val4(const uint32_t* p) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  return make_float4(__uint_as_float(u.x), __uint_as_float(u.y),
+                     __uint_as_float(u.z), __uint_as_float(u.w));
+}
+__device__ __forceinline__ float4 val4(const uint16_t* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
 }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
-
-// shared floats for chunk Q and state width N
-__host__ __device__ inline int region_a(int Q) {
-  return Q * (Q + 1) > 2 * Q * kSlice ? Q * (Q + 1) : 2 * Q * kSlice;
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
-inline size_t smem_bytes(int Q, int N) {
-  return sizeof(float) *
-         ((size_t)region_a(Q) + 2 * Q * kPT + kPT * (N + 1) + 2 * Q);
+// the (hi, lo) splits of four values to 32 aligned bytes
+__device__ __forceinline__ void split4(uint2* dst, float4 v) {
+  uint32_t h[4], l[4];
+  split_tf32(v.x, h[0], l[0]);
+  split_tf32(v.y, h[1], l[1]);
+  split_tf32(v.z, h[2], l[2]);
+  split_tf32(v.w, h[3], l[3]);
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  d[0] = make_uint4(h[0], l[0], h[1], l[1]);
+  d[1] = make_uint4(h[2], l[2], h[3], l[3]);
 }
 
-// grid (ceil(P / kPT), H, B)
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-           const float* __restrict__ a, const T* __restrict__ b,
-           const T* __restrict__ c, const float* __restrict__ init,
-           T* __restrict__ y, float* __restrict__ fin, int L, int H, int P,
-           int G, int N, int Q, long long x_sb, long long x_sl, long long x_sh,
-           long long dt_sb, long long dt_sl, long long dt_sh, long long b_sb,
-           long long b_sl, long long b_sg, long long c_sb, long long c_sl,
-           long long c_sg) {
-  extern __shared__ float smem[];
-  const int p0 = blockIdx.x * kPT, h = blockIdx.y, bi = blockIdx.z;
-  const int g = h / (H / G);
-  const int np = min(kPT, P - p0);  // real columns of this P tile
-  const int tid = threadIdx.x, ty = tid / kTx, tx = tid % kTx;
-  const int sp = Q + 1;             // padded score row
-  const int stp = N + 1;            // padded state row
+struct Args {
+  const void *x, *b, *c;
+  const float *dt, *a, *init;  // init may be null: a zero state
+  void* y;
+  float *fin, *cum, *cb, *st;  // st: null with one chunk
+  int B, L, H, P, G, N, Q, nc, npt, nrf, ldq, vec_y;
+  long long x_sb, x_sl, x_sh, dt_sb, dt_sl, dt_sh, b_sb, b_sl, b_sg, c_sb,
+      c_sl, c_sg;
+};
 
-  float* ss = smem;                     // scores (Q, Q+1), after the slices
-  float* cs = smem;                     // C slice (Q, kSlice)
-  float* bs = smem + Q * kSlice;        // B slice (Q, kSlice)
-  float* xd = smem + region_a(Q);       // dt * x (Q, kPT)
-  float* xdw = xd + Q * kPT;            // dt * x * exp(cum_last - cum)
-  float* st = xdw + Q * kPT;            // state tile (kPT, N+1)
-  float* cum = st + kPT * stp;          // (Q,)
-  float* dts = cum + Q;                 // (Q,)
-
-  const float av = a[h];
-  const long long bh = (long long)bi * H + h;
-  const float* ini = init + (bh * P + p0) * N;
-  for (int i = tid; i < kPT * N; i += kThreads) {
-    const int pp = i / N, n = i % N;
-    st[pp * stp + n] = pp < np ? ini[(long long)pp * N + n] : 0.f;
+// Copies rows x kCols raw elements, row r from src + r * stride, to dst
+// (row pitch kLd); rows >= nrows and columns >= ncols arrive as zero.
+// kVec: 16-byte cp.async, every row start 16-byte aligned; else element
+// loads and stores.
+template <int kCols, int kLd, bool kVec, typename E>
+__device__ __forceinline__ void copy_tile(E* dst, const E* src,
+                                          long long stride, int rows,
+                                          int nrows, int ncols) {
+  if constexpr (kVec) {
+    constexpr int kV = 16 / sizeof(E), kPer = kCols / kV;
+    static_assert(kLd % kV == 0, "16-byte rows");
+    for (int i = threadIdx.x; i < rows * kPer; i += kThreads) {
+      const int r = i / kPer, c = i % kPer * kV;
+      const int n = r < nrows ? max(0, min(kV, ncols - c)) : 0;
+      cp_async16z(dst + r * kLd + c, n ? src + r * stride + c : src,
+                  n * (int)sizeof(E));
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * kCols; i += kThreads) {
+      const int r = i / kCols, c = i % kCols;
+      dst[r * kLd + c] = r < nrows && c < ncols ? src[r * stride + c] : E(0);
+    }
   }
-  const T* xb = x + bi * x_sb + h * x_sh + p0;
-  const float* dtb = dt + bi * dt_sb + h * dt_sh;
-  const T* bb = b + bi * b_sb + g * b_sg;
-  const T* cb = c + bi * c_sb + g * c_sg;
+}
 
-  for (int t0 = 0; t0 < L; t0 += Q) {
-    __syncthreads();  // the previous chunk is done with cum, xd and ss
-    // inclusive cumulative sum of a * dt over the chunk, on warp 0: each
-    // lane sums up to four consecutive positions, then one warp scan
-    if (tid < 32) {
-      const int per = (Q + 31) / 32;
-      float loc[kMaxQ / 32];
-      float run = 0.f;
-      for (int u = 0; u < per; ++u) {
-        const int i = tid * per + u;
-        const float d = i < Q ? dtb[(long long)(t0 + i) * dt_sl] : 0.f;
-        if (i < Q) dts[i] = d;
-        run += av * d;
-        loc[u] = run;
-      }
-      float incl = run;
-      for (int o = 1; o < 32; o <<= 1) {
-        const float up = __shfl_up_sync(0xffffffff, incl, o);
-        if (tid >= o) incl += up;
-      }
-      const float before = incl - run;
-      for (int u = 0; u < per; ++u) {
-        const int i = tid * per + u;
-        if (i < Q) cum[i] = before + loc[u];
-      }
+// Runs ns k slices: fetch(s) starts slice s's copies into raw stage s & 1,
+// put(s) converts what needs converting into the tiles, mma(s) multiplies
+// from the tiles and the raw stage.  Slice s + 1's copies are in flight
+// while slice s is converted and multiplied.
+template <typename Fetch, typename Put, typename Mma>
+__device__ __forceinline__ void slices(int ns, Fetch fetch, Put put, Mma mma) {
+  fetch(0);
+  cp_async_commit();
+  for (int s = 0; s < ns; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // raw s landed; every warp is done with slice s - 1
+    if (s + 1 < ns) {
+      fetch(s + 1);
+      cp_async_commit();
     }
+    put(s);
     __syncthreads();
-    const float last = cum[Q - 1];
-    for (int i = tid; i < Q * kPT; i += kThreads) {
-      const int j = i / kPT, pp = i % kPT;
-      const float v =
-          pp < np ? to_f32(xb[(long long)(t0 + j) * x_sl + pp]) * dts[j] : 0.f;
-      xd[i] = v;
-      xdw[i] = v * expf(last - cum[j]);
-    }
+    mma(s);
+  }
+  __syncthreads();  // the caller may reuse the tiles
+}
 
-    // rows ty + kTy * r of the chunk this thread owns: r < rows
-    const int rows = (Q - ty + kTy - 1) / kTy;
-    float acc[kRpt][kRpt], yoff[kRpt];
+// What one warp computes of a block's output: 16 rows (fragment rf) and
+// nnt 8-column n-tiles from nt0 (nnt = 0: idle).  Warps go along rows
+// first, as many as the nrf fragments need (a power of two), and the rest
+// share the ntt n-tiles out along columns.
+struct WarpTile {
+  int rf, nt0, nnt;
+};
+__device__ __forceinline__ WarpTile warp_tile(int nrf, int ntt) {
+  const int warp = threadIdx.x / 32;
+  int wr = 1;
+  while (wr < nrf) wr *= 2;
+  const int wc = kWarps / wr, per = (ntt + wc - 1) / wc;
+  WarpTile t;
+  t.rf = warp % wr;
+  t.nt0 = warp / wr * per;
+  t.nnt = t.rf < nrf ? max(0, min(per, ntt - t.nt0)) : 0;
+  return t;
+}
+
+// acc[u] += A . B over k_steps steps of 8, for the warp's 16 rows and its
+// n-tiles u < nnt.  A: fp32 or raw bits (TA), element (row r, k) at a[r *
+// lda + k] (kAK false) or a[k * lda + r] (kAK true), a at the warp's row 0
+// and k 0.  B: float (split here) or uint2 (hi, lo) pairs, element (k,
+// column n) at b[k * ldb + n] (kBK true) or b[n * ldb + k], b at the warp's
+// first column.  kSplitA / kSplitB: the operand is fp32 and takes its lo
+// product.  The n-tiles go four at a time, each product over the four
+// before the next, so that no mma waits on the one before it.
+template <bool kAK, bool kBK, bool kSplitA, bool kSplitB, typename TA,
+          typename TB>
+__device__ __forceinline__ void warp_mma(float (&acc)[kNT][4], const TA* a,
+                                         int lda, const TB* b, int ldb,
+                                         int k_steps, int nnt) {
+  constexpr int kHalf = 4;
+  const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
 #pragma unroll
-    for (int r = 0; r < kRpt; ++r) {
-      yoff[r] = 0.f;
-#pragma unroll
-      for (int q = 0; q <= r; ++q) acc[r][q] = 0.f;
+  for (int s = 0; s < kKS / 8; ++s) {
+    if (s >= k_steps) break;
+    const int k = 8 * s;
+    float av[4];
+    if constexpr (kAK) {
+      const TA* ap = a + (k + tig) * lda + gid;
+      av[0] = val(ap[0]);
+      av[1] = val(ap[8]);
+      av[2] = val(ap[4 * lda]);
+      av[3] = val(ap[4 * lda + 8]);
+    } else {
+      const TA* ap = a + gid * lda + k + tig;
+      av[0] = val(ap[0]);
+      av[1] = val(ap[8 * lda]);
+      av[2] = val(ap[4]);
+      av[3] = val(ap[8 * lda + 4]);
     }
-    const float chunk_decay = expf(last);
-    for (int n0 = 0; n0 < N; n0 += kNT) {
-      const int nn = min(kNT, N - n0);
-      __syncthreads();  // the previous slice's state update is done
-      for (int i = tid; i < Q * kNT; i += kThreads) {
-        const int j = i / kNT, k = i % kNT;
-        const bool ok = k < nn;
-        cs[j * kSlice + k] =
-            ok ? to_f32(cb[(long long)(t0 + j) * c_sl + n0 + k]) : 0.f;
-        bs[j * kSlice + k] =
-            ok ? to_f32(bb[(long long)(t0 + j) * b_sl + n0 + k]) : 0.f;
-      }
-      __syncthreads();
-      for (int k = 0; k < nn; ++k) {
-        float cr[kRpt], br[kRpt];
+    uint32_t ahi[4], alo[4];
 #pragma unroll
-        for (int r = 0; r < kRpt; ++r) {
-          const int i = ty + kTy * r;
-          cr[r] = i < Q ? cs[i * kSlice + k] : 0.f;
-          const int j = tx + kTx * r;
-          br[r] = j < Q ? bs[j * kSlice + k] : 0.f;
-        }
-        const float s = st[tx * stp + n0 + k];
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (kSplitA)
+        split_tf32(av[e], ahi[e], alo[e]);
+      else
+        ahi[e] = __float_as_uint(av[e]);
+    }
 #pragma unroll
-        for (int r = 0; r < kRpt; ++r) {
-          if (r < rows) {
-            yoff[r] += cr[r] * s;
-            // column tile q > r lies above the diagonal: never needed
+    for (int u0 = 0; u0 < kNT; u0 += kHalf) {
+      if (u0 >= nnt) break;
+      uint32_t bhi[kHalf][2], blo[kHalf][2];
 #pragma unroll
-            for (int q = 0; q <= r; ++q) acc[r][q] += cr[r] * br[q];
+      for (int u = 0; u < kHalf; ++u) {
+        if (u0 + u >= nnt) break;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kk = k + tig + 4 * e, n = 8 * (u0 + u) + gid;
+          const TB v = kBK ? b[kk * ldb + n] : b[n * ldb + kk];
+          if constexpr (sizeof(TB) == 8) {
+            bhi[u][e] = v.x;
+            blo[u][e] = v.y;
+          } else if constexpr (kSplitB) {
+            split_tf32(v, bhi[u][e], blo[u][e]);
+          } else {
+            bhi[u][e] = __float_as_uint(v);
           }
         }
       }
-      __syncthreads();  // every read of this slice of the old state is done
-      for (int e = tid; e < kPT * kNT; e += kThreads) {
-        const int pp = e / kNT, k = e % kNT;
-        if (k < nn) {
-          float s = st[pp * stp + n0 + k] * chunk_decay;
-          for (int j = 0; j < Q; ++j) s += xdw[j * kPT + pp] * bs[j * kSlice + k];
-          st[pp * stp + n0 + k] = s;
-        }
+      if constexpr (kSplitA) {
+#pragma unroll
+        for (int u = 0; u < kHalf; ++u)
+          if (u0 + u < nnt) mma_tf32(acc[u0 + u], alo, bhi[u][0], bhi[u][1]);
+      }
+#pragma unroll
+      for (int u = 0; u < kHalf; ++u)
+        if (u0 + u < nnt) mma_tf32(acc[u0 + u], ahi, bhi[u][0], bhi[u][1]);
+      if constexpr (kSplitB) {
+#pragma unroll
+        for (int u = 0; u < kHalf; ++u)
+          if (u0 + u < nnt) mma_tf32(acc[u0 + u], ahi, blo[u][0], blo[u][1]);
       }
     }
-    __syncthreads();  // the slices are dead: the scores take their space
-#pragma unroll
-    for (int r = 0; r < kRpt; ++r) {
-      const int i = ty + kTy * r;
-#pragma unroll
-      for (int q = 0; q < kRpt; ++q) {
-        const int j = tx + kTx * q;
-        if (i < Q && j < Q)
-          ss[i * sp + j] =
-              q <= r && j <= i ? acc[r][q] * expf(cum[i] - cum[j]) : 0.f;
-      }
-    }
-    __syncthreads();
-    if (tx < np) {
-#pragma unroll
-      for (int r = 0; r < kRpt; ++r) {
-        const int i = ty + kTy * r;
-        if (i < Q) {
-          float v = expf(cum[i]) * yoff[r];
-          for (int j = 0; j <= i; ++j) v += ss[i * sp + j] * xd[j * kPT + tx];
-          store(y + (((long long)bi * L + t0 + i) * H + h) * P + p0 + tx, v);
-        }
-      }
-    }
-  }
-  __syncthreads();
-  float* fo = fin + (bh * P + p0) * N;
-  for (int i = tid; i < kPT * N; i += kThreads) {
-    const int pp = i / N, n = i % N;
-    if (pp < np) fo[(long long)pp * N + n] = st[pp * stp + n];
   }
 }
 
-template <typename T>
-int launch(const void* x, const float* dt, const float* a, const void* b,
-           const void* c, const float* init, void* y, float* fin, int B,
-           int L, int H, int P, int G, int N, int Q, long long x_sb,
-           long long x_sl, long long x_sh, long long dt_sb, long long dt_sl,
-           long long dt_sh, long long b_sb, long long b_sl, long long b_sg,
-           long long c_sb, long long c_sl, long long c_sg,
-           cudaStream_t stream) {
-  const size_t bytes = smem_bytes(Q, N);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((P + kPT - 1) / kPT, H, B);
-  ssd_kernel<T><<<grid, kThreads, bytes, stream>>>(
-      (const T*)x, dt, a, (const T*)b, (const T*)c, init, (T*)y, fin, L, H, P,
-      G, N, Q, x_sb, x_sl, x_sh, dt_sb, dt_sl, dt_sh, b_sb, b_sl, b_sg, c_sb,
-      c_sl, c_sg);
+// cum[i] = sum_{j<=i} a_h dt_j and dts[i] = dt_j over the chunk at t0, i <
+// Q: one warp scan per 32 positions, then each adds the warps before it.
+__device__ __forceinline__ void chunk_cumsum(const Args& a, int bi, int h,
+                                             int t0, float* cum, float* dts,
+                                             float* wsum) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const float d = tid < a.Q ? a.dt[bi * a.dt_sb + (long long)(t0 + tid) *
+                                   a.dt_sl + h * a.dt_sh]
+                            : 0.f;
+  float v = a.a[h] * d;
+#pragma unroll
+  for (int o = 1; o < 32; o *= 2) {
+    const float up = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += up;
+  }
+  if (lane == 31) wsum[warp] = v;
+  __syncthreads();
+  if (tid < a.Q) {
+    for (int w = 0; w < warp; ++w) v += wsum[w];
+    cum[tid] = v;
+    dts[tid] = d;
+  }
+  __syncthreads();
+}
+
+// (hi, lo) of dt x (times wdec) for a kKS x kPT raw x slice from row k0,
+// four elements a step: tile row j, column p at bs[j * kLdP2 + p]
+template <typename R>
+__device__ __forceinline__ void put_x(uint2* bs, const R* rx, const float* w,
+                                      int k0, int Q) {
+  for (int i = threadIdx.x; i < kKS * kPT / 4; i += kThreads) {
+    const int j = 4 * i / kPT, p = 4 * i % kPT;
+    const float s = k0 + j < Q ? w[k0 + j] : 0.f;
+    float4 v = val4(rx + 4 * i);
+    v.x *= s, v.y *= s, v.z *= s, v.w *= s;
+    split4(bs + j * kLdP2 + p, v);
+  }
+}
+
+// Step 1, a state block: (batch row bi, head h, P tile pt, chunk ci).  Its
+// slices walk the chunk's positions in steps of kKS for each pass of kNR
+// state rows; B^T feeds the products from its raw stage.
+template <typename T, bool kVec>
+__device__ __forceinline__ void chunk_state(const Args& a, int bh, int pt,
+                                            int ci, unsigned char* smem) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  using R = Raw<T>;
+  uint2* bs = reinterpret_cast<uint2*>(smem + kRing);  // dt x [k][p]
+  float* cum = reinterpret_cast<float*>(smem + kRing + kChunkTiles);
+  float* dts = cum + kMaxQ;
+  float* wdec = dts + kMaxQ;
+  float* wsum = wdec + kMaxQ;
+  const int tid = threadIdx.x, lane = tid % 32, gid = lane / 4, tig = lane % 4;
+  const int bi = bh / a.H, h = bh % a.H, g = h / (a.H / a.G);
+  const int t0 = ci * a.Q, p0 = pt * kPT, np = min(kPT, a.P - p0);
+  const int Q = a.Q, N = a.N;
+
+  chunk_cumsum(a, bi, h, t0, cum, dts, wsum);
+  const float last = cum[Q - 1];
+  if (tid < Q) {
+    if (pt == 0) a.cum[((long long)bh * a.nc + ci) * Q + tid] = cum[tid];
+    wdec[tid] = dts[tid] * expf(last - cum[tid]);  // <= dt: cum falls
+  }
+  __syncthreads();
+
+  const R* xb = static_cast<const R*>(a.x) + bi * a.x_sb + h * a.x_sh +
+                (long long)t0 * a.x_sl + p0;
+  const R* bb = static_cast<const R*>(a.b) + bi * a.b_sb + g * a.b_sg +
+                (long long)t0 * a.b_sl;
+  // with one chunk this block's output is the final state itself
+  const long long pn = (long long)a.P * N;
+  float* dst = (a.nc == 1 ? a.fin : a.st) + ((long long)bh * a.nc + ci) * pn +
+               (long long)p0 * N;
+  const float* base = a.nc == 1 && a.init
+                          ? a.init + (long long)bh * pn + (long long)p0 * N
+                          : nullptr;
+  const float chunk_decay = expf(last);
+  const int ntt = (np + 7) / 8, nks = (Q + kKS - 1) / kKS;
+  const int npass = (N + kNR - 1) / kNR;
+  auto raw_b = [&](int s) {  // raw B^T (kKS x kNR, pitch kLdNR)
+    return reinterpret_cast<R*>(smem + (s & 1) * (kRawA + kRawB));
+  };
+  auto raw_x = [&](int s) {  // raw x (kKS x kPT)
+    return reinterpret_cast<R*>(smem + (s & 1) * (kRawA + kRawB) + kRawA);
+  };
+  float acc[kNT][4];
+
+  slices(
+      npass * nks,
+      [&](int s) {
+        const int n0 = s / nks * kNR, k0 = s % nks * kKS;
+        copy_tile<kNR, kLdNR, kVec>(raw_b(s),
+                                    bb + (long long)k0 * a.b_sl + n0, a.b_sl,
+                                    kKS, Q - k0, N - n0);
+        copy_tile<kPT, kPT, kVec>(raw_x(s), xb + (long long)k0 * a.x_sl,
+                                  a.x_sl, kKS, Q - k0, np);
+      },
+      [&](int s) { put_x(bs, raw_x(s), wdec, s % nks * kKS, Q); },
+      [&](int s) {
+        const int n0 = s / nks * kNR, k0 = s % nks * kKS;
+        const int nr = min(kNR, N - n0);
+        const WarpTile wt = warp_tile((nr + 15) / 16, ntt);
+        if (k0 == 0) {
+#pragma unroll
+          for (int u = 0; u < kNT; ++u)
+            acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;
+        }
+        if (wt.nnt > 0)
+          warp_mma<true, true, kF32, true>(acc, raw_b(s) + 16 * wt.rf, kLdNR,
+                                           bs + 8 * wt.nt0, kLdP2,
+                                           (min(kKS, Q - k0) + 7) / 8,
+                                           wt.nnt);
+        if (k0 + kKS < Q) return;
+        // the pass's last slice: acc[u][e] is state row n, P column p.  Every
+        // load of the initial state comes before the first store, so that
+        // the loads are in flight together
+        auto offset = [&](int u, int e) {
+          const int n = n0 + 16 * wt.rf + gid + 8 * (e / 2);
+          const int p = 8 * (wt.nt0 + u) + 2 * tig + e % 2;
+          return n < N && p < np ? (long long)p * N + n : -1LL;
+        };
+        if (base) {
+#pragma unroll
+          for (int u = 0; u < kNT; ++u) {
+            if (u >= wt.nnt) break;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const long long o = offset(u, e);
+              if (o >= 0) acc[u][e] += chunk_decay * base[o];
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kNT; ++u) {
+          if (u >= wt.nnt) break;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const long long o = offset(u, e);
+            if (o >= 0) dst[o] = acc[u][e];
+          }
+        }
+      });
+}
+
+// Step 1, a C.B^T block: rows [16 f, 16 f + 16) of (batch, group, chunk)'s
+// C . B^T, columns up to the diagonal, over N in slices of kKS.
+template <typename T, bool kVec>
+__device__ __forceinline__ void chunk_cb(const Args& a, int z, int ci,
+                                         unsigned char* smem) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  using R = Raw<T>;
+  float* cs = reinterpret_cast<float*>(smem + kRing);  // C rows [16][k]
+  float* bs = cs + 16 * kLdRow;                        // B rows [j][k]
+  const int tid = threadIdx.x, lane = tid % 32, gid = lane / 4, tig = lane % 4;
+  const int bg = z / a.nrf, f = z % a.nrf, bi = bg / a.G, g = bg % a.G;
+  const int Q = a.Q, N = a.N, t0 = ci * Q, r0 = 16 * f;
+  const int ncols = min(r0 + 16, Q), ntt = (ncols + 7) / 8;
+  const WarpTile wt = warp_tile(1, ntt);
+  const R* cb0 = static_cast<const R*>(a.c) + bi * a.c_sb + g * a.c_sg +
+                 (long long)(t0 + r0) * a.c_sl;
+  const R* bb0 = static_cast<const R*>(a.b) + bi * a.b_sb + g * a.b_sg +
+                 (long long)t0 * a.b_sl;
+  auto raw_c = [&](int s) {  // raw C rows (16 x kKS), then B rows (kKS wide)
+    return reinterpret_cast<R*>(smem + (s & 1) * (kRawA + kRawB));
+  };
+  auto raw_b = [&](int s) {
+    return reinterpret_cast<R*>(smem + (s & 1) * (kRawA + kRawB) + kRawA);
+  };
+  float acc[kNT][4] = {};
+  slices(
+      (N + kKS - 1) / kKS,
+      [&](int s) {
+        const int n0 = s * kKS;
+        copy_tile<kKS, kKS, kVec>(raw_c(s), cb0 + n0, a.c_sl, 16, Q - r0,
+                                  N - n0);
+        copy_tile<kKS, kKS, kVec>(raw_b(s), bb0 + n0, a.b_sl, 8 * ntt, ncols,
+                                  N - n0);
+      },
+      [&](int s) {
+        const R* rc = raw_c(s);
+        for (int i = tid; i < 16 * kKS; i += kThreads)
+          cs[i / kKS * kLdRow + i % kKS] = to_f32<T>(rc[i]);
+        const R* rb = raw_b(s);
+        for (int i = tid; i < 8 * ntt * kKS; i += kThreads)
+          bs[i / kKS * kLdRow + i % kKS] = to_f32<T>(rb[i]);
+      },
+      [&](int s) {
+        if (wt.nnt > 0)
+          warp_mma<false, false, kF32, kF32>(
+              acc, cs, kLdRow, bs + 8 * wt.nt0 * kLdRow, kLdRow,
+              (min(kKS, N - s * kKS) + 7) / 8, wt.nnt);
+      });
+  float* out = a.cb + ((long long)bg * a.nc + ci) * Q * a.ldq;
+#pragma unroll
+  for (int u = 0; u < kNT; ++u) {
+    if (u >= wt.nnt) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = r0 + gid + 8 * (e / 2);
+      const int j = 8 * (wt.nt0 + u) + 2 * tig + e % 2;
+      if (i < Q && j < ncols) out[(long long)i * a.ldq + j] = acc[u][e];
+    }
+  }
+}
+
+// Step 1.  Block x of chunk x / per: per = B*H*npt state blocks, then
+// B*G*nrf C.B^T blocks.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 2) ssd_chunk_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n_state = a.B * a.H * a.npt, per = n_state + a.B * a.G * a.nrf;
+  const int ci = blockIdx.x / per, x = blockIdx.x % per;
+  if (x < n_state)
+    chunk_state<T, kVec>(a, x / a.npt, x % a.npt, ci, smem);
+  else
+    chunk_cb<T, kVec>(a, x - n_state, ci, smem);
+}
+
+// Step 2.  Block x: (batch, head) x / per, kV state elements a thread of
+// its P x N (kV = 4: float4 loads and stores, P * N % 4 == 0 and the state
+// pointers 16-byte aligned).
+template <int kV>
+__global__ void __launch_bounds__(kThreads) ssd_pass_kernel(const Args a) {
+  using V = std::conditional_t<kV == 4, float4, float>;
+  const long long pn = (long long)a.P * a.N, pv = pn / kV;
+  const int per = (int)((pv + kThreads - 1) / kThreads);
+  const int bh = blockIdx.x / per;
+  const long long e = (long long)(blockIdx.x % per) * kThreads + threadIdx.x;
+  if (e >= pv) return;
+  auto fma4 = [](float d, V s, V x) {
+    if constexpr (kV == 4)
+      return make_float4(d * s.x + x.x, d * s.y + x.y, d * s.z + x.z,
+                         d * s.w + x.w);
+    else
+      return d * s + x;
+  };
+  V s = a.init ? reinterpret_cast<const V*>(a.init)[bh * pv + e] : V{};
+  V* st = reinterpret_cast<V*>(a.st) + (long long)bh * a.nc * pv + e;
+  const float* last = a.cum + (long long)bh * a.nc * a.Q + a.Q - 1;
+  // kGroup chunks' loads in flight together, then their stores
+  constexpr int kGroup = 16;
+  for (int c0 = 0; c0 < a.nc; c0 += kGroup) {
+    V d[kGroup];
+    float decay[kGroup];
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      if (c0 + u < a.nc) {
+        d[u] = st[(c0 + u) * pv];
+        decay[u] = last[(long long)(c0 + u) * a.Q];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      if (c0 + u < a.nc) {
+        st[(c0 + u) * pv] = s;
+        s = fma4(expf(decay[u]), s, d[u]);
+      }
+    }
+  }
+  reinterpret_cast<V*>(a.fin)[bh * pv + e] = s;
+}
+
+// Step 3.  Block x of chunk x / per, per = B*H*npt: (batch, head, P tile).
+// Its slices: with an entering state, N in steps of kKS (y = C . S_in^T,
+// C fed from its raw stage), then, after y's rows are scaled by
+// exp(cum), the chunk's positions in steps of kKS (y += scores . dt x).
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const Args a) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int kLdC = ld_c<T>();
+  using R = Raw<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* as = reinterpret_cast<float*>(smem + kRing);  // scores [row][k]
+  uint2* bs = reinterpret_cast<uint2*>(smem + kRing + kMaxQ * kLdRow * 4);
+  float* ys = as;  // y tile, after the products
+  float* cum = reinterpret_cast<float*>(smem + kRing + kScanTiles);
+  float* dts = cum + kMaxQ;
+  float* ecum = dts + kMaxQ;
+  const int tid = threadIdx.x, lane = tid % 32, gid = lane / 4, tig = lane % 4;
+  const int per = a.B * a.H * a.npt;
+  const int ci = blockIdx.x / per, x = blockIdx.x % per;
+  const int bh = x / a.npt, pt = x % a.npt;
+  const int bi = bh / a.H, h = bh % a.H, g = h / (a.H / a.G);
+  const int Q = a.Q, N = a.N, t0 = ci * Q, p0 = pt * kPT;
+  const int np = min(kPT, a.P - p0);
+
+  if (tid < Q) {
+    const float c = a.cum[((long long)bh * a.nc + ci) * Q + tid];
+    cum[tid] = c;
+    ecum[tid] = expf(c);
+    dts[tid] = a.dt[bi * a.dt_sb + (long long)(t0 + tid) * a.dt_sl +
+                    h * a.dt_sh];
+  }
+  __syncthreads();
+
+  const int nrf = (Q + 15) / 16, rows = 16 * nrf, ntt = (np + 7) / 8;
+  const WarpTile wt = warp_tile(nrf, ntt);
+  const float* cbb =
+      a.cb + ((long long)(bi * a.G + g) * a.nc + ci) * Q * a.ldq;
+  const R* xb = static_cast<const R*>(a.x) + bi * a.x_sb + h * a.x_sh +
+                (long long)t0 * a.x_sl + p0;
+  const R* cb0 = static_cast<const R*>(a.c) + bi * a.c_sb + g * a.c_sg +
+                 (long long)t0 * a.c_sl;
+  // S_in: the pass's entering state, or with one chunk the initial state
+  // (none: zero, nothing to add)
+  const float* s_in = a.nc == 1 ? a.init : a.st;
+  if (s_in) s_in += ((long long)bh * a.nc + ci) * a.P * N + (long long)p0 * N;
+  const int nn = s_in ? (N + kKS - 1) / kKS : 0, nq = (Q + kKS - 1) / kKS;
+  auto raw_a = [&](int s) {  // C rows (pitch kLdC) or C.B^T rows (kKS)
+    return smem + (s & 1) * (kRawA + kRawB);
+  };
+  auto raw_b = [&](int s) {  // S_in rows (kPT x kKS) or x rows (kKS x kPT)
+    return smem + (s & 1) * (kRawA + kRawB) + kRawA;
+  };
+  float acc[kNT][4] = {};
+
+  slices(
+      nn + nq,
+      [&](int s) {
+        if (s < nn) {
+          const int n0 = s * kKS;
+          copy_tile<kKS, kLdC, kVec>(reinterpret_cast<R*>(raw_a(s)),
+                                     cb0 + n0, a.c_sl, rows, Q, N - n0);
+          copy_tile<kKS, kKS, kVec>(
+              reinterpret_cast<uint32_t*>(raw_b(s)),
+              reinterpret_cast<const uint32_t*>(s_in) + n0, N, kPT, np,
+              N - n0);
+        } else {
+          // rows r < k0 see none of the slice's columns (j > r): not copied
+          const int k0 = (s - nn) * kKS;
+          copy_tile<kKS, kKS, true>(
+              reinterpret_cast<uint32_t*>(raw_a(s)) + k0 * kKS,
+              reinterpret_cast<const uint32_t*>(cbb) + k0 * a.ldq + k0, a.ldq,
+              rows - k0, Q - k0, Q - k0);
+          copy_tile<kPT, kPT, kVec>(reinterpret_cast<R*>(raw_b(s)),
+                                    xb + (long long)k0 * a.x_sl, a.x_sl, kKS,
+                                    Q - k0, np);
+        }
+      },
+      [&](int s) {
+        if (s < nn) {  // S_in's (hi, lo) as [p][k]
+          const uint32_t* rb = reinterpret_cast<const uint32_t*>(raw_b(s));
+          for (int i = tid; i < kPT * kKS / 4; i += kThreads) {
+            const int p = 4 * i / kKS, k = 4 * i % kKS;
+            split4(bs + p * kLdK2 + k, val4(rb + 4 * i));
+          }
+          return;
+        }
+        // scores: C.B^T exp(cum_i - cum_j), selected to 0 above the
+        // diagonal (exp there can overflow); then dt x
+        const int k0 = (s - nn) * kKS;
+        const uint32_t* ra = reinterpret_cast<const uint32_t*>(raw_a(s));
+        for (int i = tid + k0 * kKS / 4; i < rows * kKS / 4; i += kThreads) {
+          const int r = 4 * i / kKS, j = k0 + 4 * i % kKS;
+          const float4 v = val4(ra + 4 * i);
+          const float vs[4] = {v.x, v.y, v.z, v.w};
+          float o[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            o[u] = r < Q && j + u <= r ? vs[u] * expf(cum[r] - cum[j + u])
+                                       : 0.f;
+          *reinterpret_cast<float4*>(as + r * kLdRow + j - k0) =
+              make_float4(o[0], o[1], o[2], o[3]);
+        }
+        put_x(bs, reinterpret_cast<const R*>(raw_b(s)), dts, k0, Q);
+      },
+      [&](int s) {
+        if (wt.nnt == 0) return;
+        if (s < nn) {
+          const int n0 = s * kKS;
+          warp_mma<false, false, kF32, true>(
+              acc, reinterpret_cast<const R*>(raw_a(s)) + 16 * wt.rf * kLdC,
+              kLdC, bs + 8 * wt.nt0 * kLdK2, kLdK2,
+              (min(kKS, N - n0) + 7) / 8, wt.nnt);
+          return;
+        }
+        const int k0 = (s - nn) * kKS;
+        if (s == nn && nn > 0) {  // C . S_in^T rows times exp(cum)
+          const int r = 16 * wt.rf + gid;
+          const float e0 = r < Q ? ecum[r] : 0.f;
+          const float e1 = r + 8 < Q ? ecum[r + 8] : 0.f;
+#pragma unroll
+          for (int u = 0; u < kNT; ++u) {
+            acc[u][0] *= e0, acc[u][1] *= e0;
+            acc[u][2] *= e1, acc[u][3] *= e1;
+          }
+        }
+        // rows of fragment rf see j <= 16 rf + 15: the warp stops there
+        const int steps = min((min(kKS, Q - k0) + 7) / 8,
+                              (16 * wt.rf + 16 - k0 + 7) / 8);
+        if (steps > 0)
+          warp_mma<false, true, true, true>(acc, as + 16 * wt.rf * kLdRow,
+                                            kLdRow, bs + 8 * wt.nt0, kLdP2,
+                                            steps, wt.nnt);
+      });
+
+  // y out through shared memory (the slices are done with it): whole
+  // 16-byte vectors of a row where P allows (vec_y), else element by element
+#pragma unroll
+  for (int u = 0; u < kNT; ++u) {
+    if (u >= wt.nnt) break;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = 16 * wt.rf + gid + 8 * e;
+      const int p = 8 * (wt.nt0 + u) + 2 * tig;
+      *reinterpret_cast<float2*>(ys + r * kLdY + p) =
+          make_float2(acc[u][2 * e], acc[u][2 * e + 1]);
+    }
+  }
+  __syncthreads();
+  T* yb = static_cast<T*>(a.y) + (((long long)bi * a.L + t0) * a.H + h) * a.P +
+          p0;
+  const long long y_sl = (long long)a.H * a.P;
+  if (a.vec_y) {
+    constexpr int kV = 16 / sizeof(T);
+    const int nv = np / kV;
+    for (int i = tid; i < Q * nv; i += kThreads) {
+      const int r = i / nv, p = i % nv * kV;
+      const float* src = ys + r * kLdY + p;
+      if constexpr (sizeof(T) == 4) {
+        *reinterpret_cast<float4*>(yb + r * y_sl + p) =
+            *reinterpret_cast<const float4*>(src);
+      } else {
+        const float4 lo = *reinterpret_cast<const float4*>(src);
+        const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+        *reinterpret_cast<uint4*>(yb + r * y_sl + p) =
+            make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w),
+                       pack_bf16(hi.x, hi.y), pack_bf16(hi.z, hi.w));
+      }
+    }
+  } else {
+    for (int i = tid; i < Q * np; i += kThreads) {
+      const int r = i / np, p = i % np;
+      store(yb + r * y_sl + p, ys[r * kLdY + p]);
+    }
+  }
+}
+
+// The pass moves float4s when the state's P x N splits into them and its
+// pointers allow.
+bool pass_vec(const Args& a) {
+  bool ok = (long long)a.P * a.N % 4 == 0;
+  for (const void* p : {(const void*)a.init, (const void*)a.st,
+                        (const void*)a.fin})
+    ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  return ok;
+}
+
+// Launches of one scan: grid blocks, in launch order (chunk, pass, scan);
+// the pass has none with one chunk.
+void grids(const Args& a, long long (&blocks)[3]) {
+  const long long pv = (long long)a.P * a.N / (pass_vec(a) ? 4 : 1);
+  blocks[0] = ((long long)a.B * a.H * a.npt + (long long)a.B * a.G * a.nrf) *
+              a.nc;
+  blocks[1] = a.nc > 1 ? (long long)a.B * a.H * ((pv + kThreads - 1) /
+                                                 kThreads)
+                       : 0;
+  blocks[2] = (long long)a.B * a.H * a.npt * a.nc;
+}
+
+template <typename T, bool kVec>
+int launch(const Args& a, cudaStream_t stream) {
+  long long blocks[3];
+  grids(a, blocks);
+  for (long long n : blocks)
+    if (n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem<ssd_chunk_kernel<T, kVec>>(kChunkSmem);
+  if (e == cudaSuccess) e = allow_smem<ssd_scan_kernel<T, kVec>>(kScanSmem);
+  if (e != cudaSuccess) return (int)e;
+  ssd_chunk_kernel<T, kVec>
+      <<<(unsigned)blocks[0], kThreads, kChunkSmem, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if (blocks[1]) {
+    if (pass_vec(a))
+      ssd_pass_kernel<4><<<(unsigned)blocks[1], kThreads, 0, stream>>>(a);
+    else
+      ssd_pass_kernel<1><<<(unsigned)blocks[1], kThreads, 0, stream>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  ssd_scan_kernel<T, kVec>
+      <<<(unsigned)blocks[2], kThreads, kScanSmem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// out[6 k .. 6 k + 5] for launch k (chunk, pass, scan): grid blocks,
+// threads a block, registers a thread, dynamic shared memory bytes, blocks
+// an SM runs at once, local (spill) bytes a thread.
+template <typename T, bool kVec>
+int plan(const Args& a, long long* out) {
+  long long blocks[3];
+  grids(a, blocks);
+  const void* fns[3] = {(const void*)ssd_chunk_kernel<T, kVec>,
+                        (const void*)ssd_pass_kernel<4>,
+                        (const void*)ssd_scan_kernel<T, kVec>};
+  const int smem[3] = {kChunkSmem, 0, kScanSmem};
+  cudaError_t e = allow_smem<ssd_chunk_kernel<T, kVec>>(kChunkSmem);
+  if (e == cudaSuccess) e = allow_smem<ssd_scan_kernel<T, kVec>>(kScanSmem);
+  for (int k = 0; k < 3 && e == cudaSuccess; ++k) {
+    cudaFuncAttributes at;
+    e = cudaFuncGetAttributes(&at, fns[k]);
+    int per_sm = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fns[k],
+                                                        kThreads, smem[k]);
+    long long* o = out + 6 * k;
+    o[0] = blocks[k];
+    o[1] = kThreads;
+    o[2] = at.numRegs;
+    o[3] = smem[k];
+    o[4] = per_sm;
+    o[5] = (long long)at.localSizeBytes;
+  }
+  return (int)e;
+}
+
+bool make_args(Args& a, int B, int L, int H, int P, int G, int N, int Q) {
+  if (B <= 0 || L <= 0 || H <= 0 || P <= 0 || G <= 0 || H % G != 0 ||
+      N <= 0 || N > kMaxN || Q <= 0 || Q > kMaxQ || L % Q != 0)
+    return false;
+  a.B = B, a.L = L, a.H = H, a.P = P, a.G = G, a.N = N, a.Q = Q;
+  a.nc = L / Q;
+  a.npt = (P + kPT - 1) / kPT;
+  a.nrf = (Q + 15) / 16;
+  a.ldq = (Q + 3) / 4 * 4;
+  return true;
+}
+
+// A tensor's copies take 16 bytes at a time when its base and every stride
+// between rows are whole 16-byte steps.
+bool vec16(const void* p, std::initializer_list<long long> strides,
+           int esize) {
+  bool ok = reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  for (long long s : strides) ok = ok && s * esize % 16 == 0;
+  return ok;
+}
+
+template <typename T>
+int dispatch(const Args& a, cudaStream_t s) {
+  constexpr int es = sizeof(T);
+  // the state rows (init with one chunk, else the scratch) are N floats
+  const bool vec = vec16(a.x, {a.x_sb, a.x_sl, a.x_sh}, es) &&
+                   vec16(a.b, {a.b_sb, a.b_sl, a.b_sg}, es) &&
+                   vec16(a.c, {a.c_sb, a.c_sl, a.c_sg}, es) &&
+                   vec16(a.nc == 1 ? a.init : a.st, {a.N}, 4);
+  return vec ? launch<T, true>(a, s) : launch<T, false>(a, s);
 }
 
 }  // namespace
@@ -265,30 +885,49 @@ int launch(const void* x, const float* dt, const float* a, const void* b,
 // dtype (of x, b, c and y): 0 = float32, 1 = bfloat16.  x: (B, L, H, P)
 // with strides (x_sb, x_sl, x_sh, 1); dt: (B, L, H) float32 with strides
 // (dt_sb, dt_sl, dt_sh); a: (H,) float32; b, c: (B, L, G, N) with strides
-// (*_sb, *_sl, *_sg, 1); init and fin: (B, H, P, N) float32, contiguous;
-// y: (B, L, H, P) contiguous.  1 <= Q <= 128, L % Q == 0, H % G == 0,
-// 1 <= N <= 256.
+// (*_sb, *_sl, *_sg, 1); init (or null: zeros) and fin: (B, H, P, N)
+// float32, contiguous; y: (B, L, H, P) contiguous.  1 <= Q <= 128, L % Q ==
+// 0, H % G == 0, 1 <= N <= 256.  Float32 scratch, nc = L / Q: cum
+// B*H*nc*Q, cb B*G*nc*Q*ldq (ldq = Q rounded up to 4; 16-byte aligned) and,
+// when nc > 1, st B*H*nc*P*N (else null).
 extern "C" int ssd_scan_launch(
     int dtype, const void* x, const void* dt, const void* a, const void* b,
-    const void* c, const void* init, void* y, void* fin, int B, int L, int H,
-    int P, int G, int N, int Q, long long x_sb, long long x_sl, long long x_sh,
-    long long dt_sb, long long dt_sl, long long dt_sh, long long b_sb,
-    long long b_sl, long long b_sg, long long c_sb, long long c_sl,
-    long long c_sg, void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0 || P <= 0 || G <= 0 || H % G != 0 ||
-      N <= 0 || N > kMaxN || Q <= 0 || Q > kMaxQ || L % Q != 0)
+    const void* c, const void* init, void* y, void* fin, void* cum, void* cb,
+    void* st, int B, int L, int H, int P, int G, int N, int Q, long long x_sb,
+    long long x_sl, long long x_sh, long long dt_sb, long long dt_sl,
+    long long dt_sh, long long b_sb, long long b_sl, long long b_sg,
+    long long c_sb, long long c_sl, long long c_sg, void* stream) {
+  Args r{};
+  if (!make_args(r, B, L, H, P, G, N, Q) || (r.nc > 1 && !st) ||
+      reinterpret_cast<uintptr_t>(cb) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch<float>(x, (const float*)dt, (const float*)a, b, c,
-                         (const float*)init, y, (float*)fin, B, L, H, P, G, N,
-                         Q, x_sb, x_sl, x_sh, dt_sb, dt_sl, dt_sh, b_sb, b_sl,
-                         b_sg, c_sb, c_sl, c_sg, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, (const float*)dt, (const float*)a, b, c,
-                                 (const float*)init, y, (float*)fin, B, L, H,
-                                 P, G, N, Q, x_sb, x_sl, x_sh, dt_sb, dt_sl,
-                                 dt_sh, b_sb, b_sl, b_sg, c_sb, c_sl, c_sg,
-                                 st);
+  r.x = x, r.b = b, r.c = c, r.y = y;
+  r.dt = (const float*)dt, r.a = (const float*)a, r.init = (const float*)init;
+  r.fin = (float*)fin, r.cum = (float*)cum, r.cb = (float*)cb;
+  r.st = (float*)st;
+  r.x_sb = x_sb, r.x_sl = x_sl, r.x_sh = x_sh;
+  r.dt_sb = dt_sb, r.dt_sl = dt_sl, r.dt_sh = dt_sh;
+  r.b_sb = b_sb, r.b_sl = b_sl, r.b_sg = b_sg;
+  r.c_sb = c_sb, r.c_sl = c_sl, r.c_sg = c_sg;
+  const int esize = dtype == 1 ? 2 : 4;
+  r.vec_y = P % (16 / esize) == 0 &&
+            reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) return dispatch<float>(r, s);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(r, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// How a scan of these shapes runs on the current card, with its copies
+// 16 bytes at a time: for each launch (chunk, pass, scan) six numbers in
+// out[6 k ..] (grid blocks, threads, registers, dynamic shared memory
+// bytes, blocks an SM runs at once, spill bytes); the pass has 0 blocks
+// with one chunk.  Returns a CUDA error code.
+extern "C" int ssd_scan_plan(int dtype, int B, int L, int H, int P, int G,
+                             int N, int Q, long long* out) {
+  Args r{};
+  if (!make_args(r, B, L, H, P, G, N, Q)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return plan<float, true>(r, out);
+  if (dtype == 1) return plan<__nv_bfloat16, true>(r, out);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,9 @@
-// Tensor-core helpers of the attention kernels that multiply on the tensor
-// cores (paged_append_attention.cu and flash_attention.cu): TF32 rounding
-// and the 3xTF32 split of fp32 operands, one m16n8k8 TF32 mma.sync, the
-// 16-byte cp.async copies that stage K/V tiles in shared memory, and, on the
-// host, the grant of the dynamic shared memory their blocks take.
+// Tensor-core helpers of the kernels that multiply on the tensor cores
+// (paged_append_attention.cu, flash_attention.cu, ssd_scan.cu): TF32
+// rounding and the 3xTF32 split of fp32 operands, one m16n8k8 TF32
+// mma.sync, the 16-byte cp.async copies that stage tiles in shared memory,
+// and, on the host, the grant of the dynamic shared memory their blocks
+// take.
 
 #pragma once
 
@@ -42,11 +43,22 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src));
 }
+// 16 bytes to shared memory of which the first `bytes` are read from src
+// and the rest are zero; src is 16-byte aligned even when bytes is 0
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
+                                            int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 // Lets kKernel take `bytes` of dynamic shared memory on the current card:

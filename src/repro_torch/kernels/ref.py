@@ -144,13 +144,15 @@ def ssd_reference(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     the oracle of the SSD scan kernel.
 
     x: (B,L,H,P); dt: (B,L,H); a: (H,); b,c: (B,L,G,N);
-    init_state: (B,H,P,N).  Returns (y in x's dtype, final state fp32)."""
+    init_state: (B,H,P,N).  Computes in float32, or float64 for float64
+    x.  Returns (y in x's dtype, final state in that precision)."""
+    wide = torch.promote_types(x.dtype, torch.float32)
     h = x.shape[2]
     rep = h // b.shape[2]
-    bh = b.repeat_interleave(rep, dim=2).float()
-    ch = c.repeat_interleave(rep, dim=2).float()
-    xf, dtf, af = x.float(), dt.float(), a.float()
-    state = init_state.float()
+    bh = b.repeat_interleave(rep, dim=2).to(wide)
+    ch = c.repeat_interleave(rep, dim=2).to(wide)
+    xf, dtf, af = x.to(wide), dt.to(wide), a.to(wide)
+    state = init_state.to(wide)
     ys = []
     for t in range(x.shape[1]):
         decay = torch.exp(af[None, :] * dtf[:, t])               # (B,H)

@@ -4,9 +4,16 @@
 The port of the JAX package's Pallas kernel ``kernels/ssd_scan.py``
 (``ssd_scan``): the intra-chunk quadratic term with the exp(segsum(a dt))
 decay matrix plus the inter-chunk state recurrence, emitting y and the
-final state.  This wrapper checks its arguments, launches the CUDA kernel
-on the current stream and counts the launch; it never computes on the CPU
-(``ops.ssd`` sends CPU tensors to ``models.mamba2.ssd_chunked``).
+final state.  The kernels follow ``models.mamba2.ssd_chunked``'s steps
+with the chunks spread over blocks and every product on the tensor cores
+(3xTF32 ``mma.sync`` for fp32 operands): a chunk launch (each chunk's
+cumulative decay and state contribution, and C.B^T once per group), a
+pass over the chunks' states (skipped with one chunk), and a scan launch
+that writes y.  This wrapper checks its arguments, allocates the scratch
+those launches share (one float32 buffer, ``tile_plan.ssd_scratch``),
+launches them on the current stream and counts one scan a call; it never
+computes on the CPU (``ops.ssd`` sends CPU tensors to
+``models.mamba2.ssd_chunked``).  ``plan`` reports how a call runs.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import build
+from . import tile_plan
 
 MAX_CHUNK = 128
 MAX_STATE = 256
@@ -27,13 +35,41 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 @functools.cache
-def _entry():
-    fn = build.load("ssd_scan").ssd_scan_launch
-    fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                   _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                   _P]
+def _lib():
+    lib = build.load("ssd_scan")
+    fn = lib.ssd_scan_launch
+    fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                   _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                   _L, _L, _L, _P]
     fn.restype = _I
-    return fn
+    lib.ssd_scan_plan.argtypes = [_I] * 8 + [ctypes.POINTER(_L)]
+    lib.ssd_scan_plan.restype = _I
+    return lib
+
+
+def plan(x: torch.Tensor, b: torch.Tensor, chunk: int) -> dict:
+    """How a scan of x (B, L, H, P) with B/C like ``b`` (B, L, G, N) in
+    chunks of ``chunk`` runs on x's card: ``tile_plan.ssd_plan`` (route,
+    chunks, scratch) with each launch's grid blocks, threads and dynamic
+    shared memory as the C entry reports them, and its registers, blocks
+    an SM runs at once and spill bytes; ``mirror`` is
+    ``tile_plan.ssd_plan``'s own numbers.  CUDA tensors only; the launches
+    do not call it."""
+    bsz, l, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    mirror = tile_plan.ssd_plan(bsz, l, h, p, g, n, chunk)
+    out = (_L * 18)()
+    with torch.cuda.device(x.device):
+        rc = _lib().ssd_scan_plan(DTYPES[x.dtype], bsz, l, h, p, g, n,
+                                  int(chunk), out)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan plan query failed: CUDA error {rc}")
+    launches = [dict(name=m["name"], blocks=out[6 * k],
+                     threads=out[6 * k + 1], registers=out[6 * k + 2],
+                     smem_bytes=out[6 * k + 3], blocks_per_sm=out[6 * k + 4],
+                     spill_bytes=out[6 * k + 5])
+                for k, m in enumerate(mirror["launches"])]
+    return {**mirror, "launches": launches, "mirror": mirror}
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -45,7 +81,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     (B, L, G, N) in x's dtype with a unit stride over N, H % G == 0;
     init_state: (B, H, P, N) float32 (zeros when None).  L must be a
     multiple of ``chunk`` (1..128), N at most 256.  Returns (y (B, L, H, P)
-    in x's dtype, final state (B, H, P, N) float32); fp32 arithmetic."""
+    in x's dtype, final state (B, H, P, N) float32); fp32-accurate
+    arithmetic (3xTF32 tensor-core products, fp32 accumulation)."""
     if not x.is_cuda:
         raise ValueError("ssd_scan launches a CUDA kernel; got a tensor on "
                          f"{x.device}")
@@ -73,32 +110,38 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if x.stride(-1) != 1 or b.stride(-1) != 1 or c.stride(-1) != 1:
         raise ValueError("x, b and c need a unit stride over their last "
                          "axis")
-    if init_state is None:
-        init_state = torch.zeros((bsz, h, p, n), dtype=torch.float32,
-                                 device=x.device)
-    if tuple(init_state.shape) != (bsz, h, p, n) \
-            or init_state.dtype != torch.float32 \
-            or not init_state.is_contiguous():
+    if init_state is not None and (
+            tuple(init_state.shape) != (bsz, h, p, n)
+            or init_state.dtype != torch.float32
+            or not init_state.is_contiguous()):
         raise ValueError(f"init_state must be a contiguous float32 "
                          f"{(bsz, h, p, n)}; got {init_state.dtype} "
                          f"{tuple(init_state.shape)}")
-    for t in (dt, a, b, c, init_state):
+    for t in (dt, a, b, c) + (() if init_state is None else (init_state,)):
         if t.device != x.device:
             raise ValueError(f"all tensors must be on {x.device}")
     a = a.contiguous()
 
     y = torch.empty((bsz, l, h, p), dtype=x.dtype, device=x.device)
     final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    n_cum, n_cb, n_st = tile_plan.ssd_scratch(bsz, l, h, p, g, n, chunk)
+    scratch = torch.empty(n_cum + n_cb + n_st, dtype=torch.float32,
+                          device=x.device)
+    cum = scratch.data_ptr()
+    cb = cum + 4 * n_cum
+    st = cb + 4 * n_cb if n_st else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _entry()(DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(),
-                      a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                      init_state.data_ptr(), y.data_ptr(), final.data_ptr(),
-                      bsz, l, h, p, g, n, int(chunk),
-                      x.stride(0), x.stride(1), x.stride(2),
-                      dt.stride(0), dt.stride(1), dt.stride(2),
-                      b.stride(0), b.stride(1), b.stride(2),
-                      c.stride(0), c.stride(1), c.stride(2), stream)
+        rc = _lib().ssd_scan_launch(
+            DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+            b.data_ptr(), c.data_ptr(),
+            None if init_state is None else init_state.data_ptr(),
+            y.data_ptr(), final.data_ptr(), cum, cb, st,
+            bsz, l, h, p, g, n, int(chunk),
+            x.stride(0), x.stride(1), x.stride(2),
+            dt.stride(0), dt.stride(1), dt.stride(2),
+            b.stride(0), b.stride(1), b.stride(2),
+            c.stride(0), c.stride(1), c.stride(2), stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
     ssd_scan.launches += 1

@@ -1,7 +1,8 @@
 """Block plan shared by the attention kernels: the two that multiply on
 the tensor cores (``csrc/paged_append_attention.cu``,
 ``csrc/flash_attention.cu``) and the two flash-decode kernels
-(``csrc/decode_attention.cu``, ``csrc/paged_decode_attention.cu``).
+(``csrc/decode_attention.cu``, ``csrc/paged_decode_attention.cu``); and
+the SSD scan's launches and scratch (``csrc/ssd_scan.cu``, ``ssd_plan``).
 
 The tensor-core kernels give a block ROWS (position, head) rows, the
 decode kernels GROUP query heads of one kv head; when those blocks fill
@@ -121,3 +122,67 @@ def vector_bytes(esize: int, hd: int, ptrs: Sequence[int],
                 and all(s * esize % vb == 0 for s in strides):
             return vb
     return esize
+
+
+# the SSD scan's blocks (csrc/ssd_scan.cu): SSD_PT P columns a block, k
+# slices of SSD_KS, state rows in passes of SSD_NR, 8 warps
+SSD_THREADS = 256
+SSD_PT = 64
+SSD_KS = 32
+SSD_NR = 128
+SSD_MAX_Q = 128
+
+
+def _ssd_smem() -> Tuple[int, int]:
+    """Dynamic shared memory bytes of a chunk and a scan block: a ring of
+    two raw stages, the converted tiles, the per-position arrays."""
+    ks, pt, nr, q = SSD_KS, SSD_PT, SSD_NR, SSD_MAX_Q
+    ring = 2 * (4 * max(q * (ks + 4), ks * (nr + 8), q * ks)
+                + 4 * max(ks * pt, q * ks))
+    vec = 3 * q * 4 + SSD_THREADS // 32 * 4
+    chunk = max(ks * (pt + 4) * 8, 16 * (ks + 4) * 4 + q * (ks + 4) * 4)
+    scan = max(q * (ks + 4) * 4 + max(ks * (pt + 4), pt * (ks + 4)) * 8,
+               q * (pt + 8) * 4)
+    return ring + chunk + vec, ring + scan + vec
+
+
+@functools.lru_cache(maxsize=1024)
+def ssd_scratch(b: int, l: int, h: int, p: int, g: int, n: int,
+                q: int) -> Tuple[int, int, int]:
+    """Float32 scratch of a scan, each part a whole number of 16-byte
+    steps: (cum (b, h, nc, q), cb (b, g, nc, q, q rounded up to 4), st (b,
+    h, nc, p, n), 0 with one chunk)."""
+    nc = l // q
+
+    def whole(floats):
+        return -(-floats // 4) * 4
+    return (whole(b * h * nc * q), whole(b * g * nc * q * whole(q)),
+            whole(b * h * nc * p * n) if nc > 1 else 0)
+
+
+def ssd_plan(b: int, l: int, h: int, p: int, g: int, n: int,
+             q: int) -> dict:
+    """The mirror of ``csrc/ssd_scan.cu``'s plan for x (b, l, h, p), B/C
+    (b, l, g, n) and chunks of q: the route (``one chunk``: the chunk
+    launch writes the final state and the pass is skipped; else
+    ``chunks``), each launch's grid blocks, threads and dynamic shared
+    memory bytes (chunk, pass, scan), and the float32 scratch the wrapper
+    allocates (``ssd_scratch``)."""
+    nc = l // q
+    npt = -(-p // SSD_PT)
+    nrf = -(-q // 16)
+    chunk_smem, scan_smem = _ssd_smem()
+    pass_v = 4 if p * n % 4 == 0 else 1    # float4s where P x N splits
+    launches = [
+        dict(name="ssd_chunk_kernel", blocks=(b * h * npt + b * g * nrf) * nc,
+             threads=SSD_THREADS, smem_bytes=chunk_smem),
+        dict(name="ssd_pass_kernel",
+             blocks=b * h * -(-(p * n // pass_v) // SSD_THREADS)
+             if nc > 1 else 0, threads=SSD_THREADS, smem_bytes=0),
+        dict(name="ssd_scan_kernel", blocks=b * h * npt * nc,
+             threads=SSD_THREADS, smem_bytes=scan_smem)]
+
+    scratch = dict(zip(("cum", "cb", "st"), ssd_scratch(b, l, h, p, g, n, q)))
+    return dict(route="one chunk" if nc == 1 else "chunks", chunks=nc,
+                launches=launches, scratch_floats=scratch,
+                scratch_bytes=4 * sum(scratch.values()))

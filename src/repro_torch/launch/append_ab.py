@@ -1,9 +1,11 @@
-"""Time one attention kernel of two checkouts on one card.
+"""Time one kernel of two checkouts on one card.
 
     python -m repro_torch.launch.append_ab --a <parent checkout> --b .
     python -m repro_torch.launch.append_ab --kernel flash_attention \
         --a <parent checkout> --b .
     python -m repro_torch.launch.append_ab --kernel decode_attention \
+        --a <parent checkout> --b .
+    python -m repro_torch.launch.append_ab --kernel ssd_scan \
         --a <parent checkout> --b .
 
 Runs each checkout's own ``repro_torch`` in a fresh process, in turns
@@ -25,15 +27,20 @@ and bf16:
   128 of 1024 slots);
 * ``paged_decode_attention`` (#3): minitron-4b's heads, B=8 rows over
   4096 keys on shuffled 16-token pages, and the BASE record of
-  ``chip_smoke.py`` (4 rows of 0, 1, 77 and 640 keys).
+  ``chip_smoke.py`` (4 rows of 0, 1, 77 and 640 keys);
+* ``ssd_scan`` (#5): mamba2-1.3b's heads (64 of P 64, N 128, one group)
+  over a 37-token extend (one chunk) and a 2048-token prompt (16 chunks
+  of 128), with an initial state and B and C sliced from one conv output
+  as ``apply_mamba`` passes them; the device time is also given per
+  kernel name.  No single PyTorch call computes the scan.
 
 For each it prints the time per call from CUDA events over back-to-back
 calls (the median of five windows of 30, the wrapper's host cost
 included, as ``chip_smoke.py`` times it) with each window's time and
 the SM clock after them, the device time per call of the kernel and its
-merge from ``torch.profiler``, and SDPA on the same inputs, the
-yardstick (#4: minitron only; #3 and #4 over the pre-gathered K/V,
-gather excluded).
+merge (#5: its launches) from ``torch.profiler``, and SDPA on the same
+inputs, the yardstick (#4: minitron only; #3 and #4 over the
+pre-gathered K/V, gather excluded; #5 none).
 Prints the card's name and power limit first and one JSON line per run.
 Needs CUDA; builds the kernel of each checkout into that checkout's
 ``build/kernels``.
@@ -61,8 +68,11 @@ DECODE_CASES = [("minitron", 24, 8, 128, 4096, [4096] * 8),
                 ("base", 8, 4, 28, 1024, [128])]
 PAGED_DECODE_CASES = [("minitron", 24, 8, 128, 4096, [4096] * 8),
                       ("base", 8, 4, 28, 640, [0, 1, 77, 640])]
+# (label, L, chunk): #5 at mamba2-1.3b's heads
+SSD_CASES = [("mamba2", 37, 37), ("mamba2", 2048, 128)]
+SSD_HEADS = (64, 64, 1, 128)    # H, P, G, N
 KERNELS = ("paged_append_attention", "flash_attention", "decode_attention",
-           "paged_decode_attention")
+           "paged_decode_attention", "ssd_scan")
 BLOCK = 16
 REPS = 30
 WINDOWS = 5
@@ -191,10 +201,34 @@ def _paged_decode_cases(torch, F, ref, kernel, dt, gen, dev):
                                               enable_gqa=True))
 
 
+def _ssd_cases(torch, F, ref, kernel, dt, gen, dev):
+    """(row, call, None) for each of #5's cases."""
+    h, p, g, n = SSD_HEADS
+    for label, l, chunk in SSD_CASES:
+        di, gn = h * p, g * n
+        xbc = torch.randn(1, l, di + 2 * gn, generator=gen, device=dev)
+        xbc[..., di:] *= 0.3
+        xbc = xbc.to(dt)
+        x = xbc[..., :di].reshape(1, l, h, p)
+        bb = xbc[..., di:di + gn].reshape(1, l, g, n)
+        cc = xbc[..., di + gn:].reshape(1, l, g, n)
+        dtv = torch.nn.functional.softplus(
+            torch.randn(1, l, h, generator=gen, device=dev))
+        a = -torch.exp(torch.randn(h, generator=gen, device=dev) * 0.5)
+        init = torch.randn(1, h, p, n, generator=gen, device=dev) * 0.5
+        args = (x, dtv, a, bb, cc, chunk, init)
+        y, _ = kernel(*args)
+        ye, _ = ref.ssd_reference(x, dtv, a, bb, cc, init)
+        err = (y.float() - ye.float()).abs().max().item()
+        yield (dict(shape=f"{label} L={l} chunk={chunk}", max_abs_err=err),
+               lambda args=args: kernel(*args), None)
+
+
 CASES = {"paged_append_attention": _append_cases,
          "flash_attention": _flash_cases,
          "decode_attention": _decode_cases,
-         "paged_decode_attention": _paged_decode_cases}
+         "paged_decode_attention": _paged_decode_cases,
+         "ssd_scan": _ssd_cases}
 
 
 def _child(root: str, name: str) -> None:
@@ -224,9 +258,12 @@ def _child(root: str, name: str) -> None:
                 for _ in range(REPS):
                     call()
                 torch.cuda.synchronize()
-            row["device_ms"] = sum(
-                e.self_device_time_total for e in prof.key_averages()
-                if e.self_device_time_total > 0) / 1e3 / REPS
+            dev_rows = [(e.key, e.self_device_time_total / 1e3 / REPS)
+                        for e in prof.key_averages()
+                        if e.self_device_time_total > 0]
+            row["device_ms"] = sum(t for _, t in dev_rows)
+            if name == "ssd_scan":
+                row["device_ms_by_kernel"] = {k[:40]: t for k, t in dev_rows}
             if sdpa is not None:
                 row["sdpa_ms"] = _events(torch, sdpa)[0]
             rows.append(row)

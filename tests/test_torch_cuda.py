@@ -495,36 +495,112 @@ def test_sliding_window_decode_on_card_raises(dev):
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,l,h,p,g,n,chunk", [
-    (1, 37, 64, 64, 1, 128, 37),       # mamba2-1.3b heads, one ragged chunk
-    (2, 256, 4, 16, 2, 32, 64),        # G > 1, three carried chunks
-])
-def test_ssd_kernel_matches_plain(dev, dtype, b, l, h, p, g, n, chunk):
-    gen = torch.Generator(device=dev).manual_seed(l + g)
-    x = _randn(gen, b, l, h, p, dtype=dtype)
+def _ssd_inputs(gen, dtype, b, l, h, p, g, n, real=None, layout="dense"):
+    """x, dt, a, B, C of a scan; positions from ``real`` on are the
+    caller's pads (x, dt, B, C = 0).  layout "xbc": x, B and C are views
+    of one (b, l, h*p + 2*g*n) tensor, as ``apply_mamba`` slices the conv
+    output (B's and C's stride over L is the channel count)."""
+    di, gn = h * p, g * n
+    xbc = _randn(gen, b, l, di + 2 * gn)
+    xbc[..., di:] *= 0.3
     dt = torch.nn.functional.softplus(_randn(gen, b, l, h))
     a = -torch.exp(_randn(gen, h) * 0.5)
-    bb = (_randn(gen, b, l, g, n) * 0.3).to(dtype)
-    cc = (_randn(gen, b, l, g, n) * 0.3).to(dtype)
-    init = _randn(gen, b, h, p, n) * 0.5
+    if real is not None:
+        xbc[:, real:] = 0
+        dt[:, real:] = 0
+    xbc = xbc.to(dtype)
+    x, bb, cc = (xbc[..., :di].reshape(b, l, h, p),
+                 xbc[..., di:di + gn].reshape(b, l, g, n),
+                 xbc[..., di + gn:].reshape(b, l, g, n))
+    if layout == "dense":
+        x, bb, cc = x.contiguous(), bb.contiguous(), cc.contiguous()
+    return x, dt, a, bb, cc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,h,p,g,n,chunk,real,layout,init", [
+    (1, 37, 64, 64, 1, 128, 37, 37, "dense", True),   # mamba2-1.3b heads,
+    #                                                   one ragged chunk
+    (2, 256, 4, 16, 2, 32, 64, 256, "dense", True),   # G > 1, 4 chunks
+    (1, 2048, 64, 64, 1, 128, 128, 2048, "xbc", True),  # mamba2 prompt
+    (1, 384, 64, 64, 1, 128, 128, 300, "xbc", True),  # padded tail
+    (2, 9, 4, 5, 1, 7, 1, 9, "dense", True),          # Q = 1; element
+    #                     copies, element y stores, a scalar pass (P N = 35)
+    (1, 256, 2, 48, 1, 16, 64, 256, "dense", False),  # P 48, N 16, no state
+    (1, 200, 2, 80, 1, 256, 40, 200, "dense", True),  # N 256, two P tiles
+    (3, 96, 8, 32, 2, 64, 32, 96, "xbc", True),       # B = 3, G 2, H/G 4
+    (1, 100, 4, 36, 2, 18, 50, 90, "xbc", False),     # ragged everything,
+    #                                                   element copies
+], ids=["37", "g2", "2048", "384-pad", "q1", "p48-n16-none", "n256-p80",
+        "b3-g2", "ragged"])
+def test_ssd_kernel_matches_plain(dev, dtype, b, l, h, p, g, n, chunk, real,
+                                  layout, init):
+    gen = torch.Generator(device=dev).manual_seed(l + g + n)
+    x, dt, a, bb, cc = _ssd_inputs(gen, dtype, b, l, h, p, g, n, real, layout)
+    init = _randn(gen, b, h, p, n) * 0.5 if init else None
     before = ssd_scan.launches
     y, fin = ssd_scan(x, dt, a, bb, cc, chunk, init)
     torch.cuda.synchronize()
     assert ssd_scan.launches == before + 1
     assert y.dtype == dtype and fin.dtype == torch.float32
-    ye, fe = ref.ssd_reference(x, dt, a, bb, cc, init)
+    zero = torch.zeros(b, h, p, n, device=dev)
+    ye, fe = ref.ssd_reference(x, dt, a, bb, cc, zero if init is None
+                               else init)
     tol = SSD_TOL[dtype]
-    torch.testing.assert_close(y.float(), ye.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(y[:, :real].float(), ye[:, :real].float(),
+                               atol=tol, rtol=tol)
     torch.testing.assert_close(fin, fe, atol=1e-4, rtol=1e-4)
     if dtype == torch.float32:
         yp, fp = mamba2.ssd_chunked(x, dt, a, bb, cc, chunk, init)
-        torch.testing.assert_close(y, yp, atol=tol, rtol=tol)
+        torch.testing.assert_close(y[:, :real], yp[:, :real], atol=tol,
+                                   rtol=tol)
         torch.testing.assert_close(fin, fp, atol=tol, rtol=tol)
-    with pytest.raises(ValueError, match="divide L"):
-        ssd_scan(x[:, :l - 1], dt[:, :l - 1], a, bb[:, :l - 1],
-                 cc[:, :l - 1], chunk, init)
+    if chunk > 1:
+        with pytest.raises(ValueError, match="divide L"):
+            ssd_scan(x[:, :l - 1], dt[:, :l - 1], a, bb[:, :l - 1],
+                     cc[:, :l - 1], chunk, init)
     assert ssd_scan.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_carries_the_state_across_calls(dev, dtype):
+    """Two calls carrying the state (384 then 256 positions, three and
+    two chunks of 128) equal one call over 640: the boundary between the
+    calls falls between chunks of the multi-chunk route."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x, dt, a, bb, cc = _ssd_inputs(gen, dtype, 1, 640, 64, 64, 1, 128,
+                                   layout="xbc")
+    init = _randn(gen, 1, 64, 64, 128) * 0.5
+    y, fin = ssd_scan(x, dt, a, bb, cc, 128, init)
+    y1, f1 = ssd_scan(x[:, :384], dt[:, :384], a, bb[:, :384], cc[:, :384],
+                      128, init)
+    y2, f2 = ssd_scan(x[:, 384:], dt[:, 384:], a, bb[:, 384:], cc[:, 384:],
+                      128, f1)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(torch.cat([y1, y2], 1).float(), y.float(),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(f2, fin, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,h,p,g,n,chunk,route", [
+    (1, 37, 64, 64, 1, 128, 37, "one chunk"),
+    (1, 2048, 64, 64, 1, 128, 128, "chunks"),
+    (3, 96, 8, 80, 2, 256, 32, "chunks"),
+])
+def test_ssd_plan_matches_its_mirror(dev, dtype, b, l, h, p, g, n, chunk,
+                                     route):
+    """The C entry's grids, threads and static shared memory equal
+    ``tile_plan.ssd_plan``'s; every launch fits on an SM."""
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    x = torch.empty(b, l, h, p, dtype=dtype, device=dev)
+    bb = torch.empty(b, l, g, n, dtype=dtype, device=dev)
+    pl = ssd_mod.plan(x, bb, chunk)
+    assert pl["route"] == route
+    for got, want in zip(pl["launches"], pl["mirror"]["launches"]):
+        for key in ("blocks", "threads", "smem_bytes"):
+            assert got[key] == want[key], (got, want)
+        assert got["registers"] > 0 and got["blocks_per_sm"] >= 1
 
 
 def test_ssm_model_on_card_matches_cpu_and_counts_launches(dev):

@@ -3,10 +3,11 @@ oracles (``repro.kernels.ref``), its Pallas kernels in interpret mode, and
 the masks of its ``prefill_self_attention`` / ``decode_self_attention``.
 Also: CPU calls never count a kernel launch, the CUDA wrappers refuse CPU
 tensors, and CUDA entry points raise where CUDA is absent; the precision
-plan of the tensor-core products of paged span attention and causal
-prefill (3xTF32 against one TF32 product, emulated in numpy), and their
-splits over keys; the flash-decode kernels' split over keys and their
-choice of copy width (the Python mirror of the C rule).
+plan of the tensor-core products of paged span attention, causal
+prefill and the SSD scan (3xTF32 against one TF32 product, emulated in
+numpy), and their splits over keys; the flash-decode kernels' split over
+keys and their choice of copy width (the Python mirror of the C rule);
+the SSD scan's launches and scratch (the Python mirror of its plan).
 
 Inputs are made with numpy from fixed seeds.  Tolerances follow
 tests/test_kernels.py: fp32 atol = rtol = 2e-5 (the two sides sum in
@@ -459,3 +460,99 @@ def test_decode_copy_width_rule(esize, hd, ptrs, strides, want):
     one element."""
     from repro_torch.kernels import tile_plan as tp
     assert tp.vector_bytes(esize, hd, ptrs, strides + strides) == want
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan (#5): the precision plan of its tensor-core products, and
+# the Python mirror of its launches and scratch
+# ---------------------------------------------------------------------------
+
+def _ssd_emulated(prod, x, dt, a, b, c, init, q):
+    """The kernels' arithmetic (csrc/ssd_scan.cu) for one group of heads,
+    every product through ``prod``, everything else in float32.  x: (L, H,
+    P); dt: (L, H); a: (H,); b, c: (L, N); init: (H, P, N)."""
+    l, h, p = x.shape
+    f32 = np.float32
+    y = np.zeros((l, h, p), f32)
+    state = init.copy()
+    for t0 in range(0, l, q):
+        bc, cc = b[t0:t0 + q], c[t0:t0 + q]
+        cb = prod(cc, bc.T)                          # once for the group
+        tri = np.tri(q, dtype=bool)
+        for k in range(h):
+            xc, dtc = x[t0:t0 + q, k], dt[t0:t0 + q, k]
+            cum = np.cumsum(a[k] * dtc, dtype=f32)
+            last = cum[-1]
+            wdec = (dtc * np.exp(last - cum)).astype(f32)
+            ds = prod(bc.T, xc * wdec[:, None]).T    # (P, N)
+            s_in = state[k]
+            yk = prod(cc, s_in.T) * np.exp(cum)[:, None]
+            seg = np.where(tri, cum[:, None] - cum[None, :], 0).astype(f32)
+            scores = np.where(tri, cb * np.exp(seg), 0).astype(f32)
+            yk = yk + prod(scores, xc * dtc[:, None])
+            y[t0:t0 + q, k] = yk
+            state[k] = (np.exp(last) * s_in + ds).astype(f32)
+    return y, state
+
+
+def test_ssd_scan_needs_the_3xtf32_split_for_fp32():
+    """mamba2-1.3b's head widths (P = 64, N = 128, chunks of 128) over
+    L = 2048 for 2 heads of one group with an initial state: the kernels'
+    steps (C.B^T once for the group, each chunk's state contribution, the
+    pass over chunks, y through the scores and the entering state) with
+    every product as 3xTF32 stay within the scan's fp32 tolerance of the
+    sequential oracle in float64 (atol = rtol = 1e-4,
+    tests/test_kernels.py's; max |err| of y 2.7e-5 at max |y| 21).  With
+    one TF32 product a dot neither y nor the final state does (y 1.0e-2,
+    the state 1.3e-3)."""
+    rng = np.random.default_rng(0)
+    l, h, p, n, q = 2048, 2, 64, 128, 128
+    x = _rand(rng, (l, h, p))
+    dt = np.log1p(np.exp(_rand(rng, (l, h)))).astype(np.float32)
+    a = -np.exp(_rand(rng, (h,)) * 0.5)
+    b, c = _rand(rng, (l, n)) * 0.3, _rand(rng, (l, n)) * 0.3
+    init = _rand(rng, (h, p, n)) * 0.5
+    t = [torch.from_numpy(v.astype(np.float64)) for v in
+         (x[None], dt[None], a, b[None, :, None], c[None, :, None],
+          init[None])]
+    ye, fe = ref.ssd_reference(*t)
+    ye, fe = ye[0].numpy(), fe[0].numpy()
+    tol = dict(atol=1e-4, rtol=1e-4)
+    y3, f3 = _ssd_emulated(_three_tf32, x, dt, a, b, c, init, q)
+    np.testing.assert_allclose(y3, ye, **tol)
+    np.testing.assert_allclose(f3, fe, **tol)
+    y1, f1 = _ssd_emulated(_one_tf32, x, dt, a, b, c, init, q)
+    assert not np.allclose(y1, ye, **tol)
+    assert not np.allclose(f1, fe, **tol)
+
+
+@pytest.mark.parametrize("b,l,h,p,g,n,q,route,blocks", [
+    (1, 37, 64, 64, 1, 128, 37, "one chunk", (67, 0, 64)),
+    (1, 2048, 64, 64, 1, 128, 128, "chunks", (1152, 512, 1024)),
+    (3, 96, 8, 80, 2, 256, 32, "chunks", (180, 480, 144)),
+    (2, 9, 4, 16, 1, 7, 1, "chunks", (90, 8, 72)),   # Q = 1, P x N = 112
+    (1, 100, 4, 36, 2, 18, 50, "chunks", (24, 4, 8)),  # P x N = 648
+])
+def test_ssd_plan_mirror(b, l, h, p, g, n, q, route, blocks):
+    """``tile_plan.ssd_plan``, the mirror of csrc/ssd_scan.cu's plan (held
+    to the C entry on the card by tests/test_torch_cuda.py): one chunk
+    skips the pass; the chunk launch has a state block per (row, head, 64
+    P columns, chunk) and a C.B^T block per (row, group, 16 rows, chunk);
+    the pass moves float4s where P x N allows; every scratch part is a
+    whole number of 16-byte steps, C.B^T rows padded to 4 floats; two
+    blocks fit an SM's 228 KB of shared memory."""
+    from repro_torch.kernels import tile_plan as tp
+    pl = tp.ssd_plan(b, l, h, p, g, n, q)
+    nc = l // q
+    assert pl["route"] == route and pl["chunks"] == nc
+    assert tuple(x["blocks"] for x in pl["launches"]) == blocks
+    assert all(x["threads"] == tp.SSD_THREADS for x in pl["launches"])
+    sc = pl["scratch_floats"]
+    assert all(v % 4 == 0 for v in sc.values())
+    assert sc["cum"] >= b * h * nc * q
+    assert sc["cb"] >= b * g * nc * q * (-(-q // 4) * 4)
+    assert sc["st"] == (0 if nc == 1 else b * h * nc * p * n
+                        + (-(b * h * nc * p * n)) % 4)
+    assert pl["scratch_bytes"] == 4 * sum(sc.values())
+    for x in pl["launches"]:
+        assert 2 * (x["smem_bytes"] + 1024) <= 228 * 1024
