@@ -347,7 +347,8 @@ def ssd_plan_note(plan, label):
             if got[key] != want[key]:
                 raise AssertionError(f"ssd_scan {label}: {got['name']} "
                                      f"{key} {got[key]}, mirror {want[key]}")
-    return f"route {plan['route']} ({plan['chunks']} chunks): " + "; ".join(
+    return (f"route {plan['route']} ({plan['chunks']} chunks, "
+            f"{plan['copies']} copies): ") + "; ".join(
         f"{x['name']} {x['blocks']} blocks x {x['threads']}, "
         f"{x['registers']} registers, {x['smem_bytes']} bytes of shared "
         f"memory, {x['blocks_per_sm']} an SM, {x['spill_bytes']} spilled"
@@ -434,7 +435,7 @@ def ssd_kernel_phase(torch, ref, mamba2, ssd_scan, mamba):
             if kind == "mamba2" and l in (37, 2048):
                 rec["device_ms"] = ssd_device_ms(
                     torch, lambda: ssd_scan(x, dt, a, bb, cc, chunk, init))
-                rec["plan"] = ssd_mod.plan(x, bb, chunk)
+                rec["plan"] = ssd_mod.plan(x, dt, a, bb, cc, chunk, init)
                 note = (f" | device {rec['device_ms']:.4f} ms a scan "
                         f"(profiler, its launches summed) | "
                         + ssd_plan_note(rec["plan"], label))

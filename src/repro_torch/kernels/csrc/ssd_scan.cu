@@ -32,14 +32,15 @@
 //     cumulative sum as a block-wide scan (kept in scratch `cum`, which the
 //     other two launches read), and the chunk's own state contribution
 //     dS^T = B^T . (dt x exp(cum_last - cum)), written to scratch `st`
-//     (B, H, nc, P, N).  A C.B^T block owns 16 rows of one (batch, group,
-//     chunk)'s causal C . B^T and writes them to scratch `cb` (B, G, nc, Q,
-//     Q rounded up to 4): the product is made once per group, not per head.
+//     (B, H, nc, P x N rounded up to 4).  A C.B^T block owns 16 rows of
+//     one (batch, group, chunk)'s causal C . B^T and writes them to scratch
+//     `cb` (B, G, nc, Q, Q rounded up to 4): the product is made once per
+//     group, not per head.
 //  2. ssd_pass_kernel (only with more than one chunk): per (batch, head),
-//     one thread per state element walks the chunks, S <- exp(cum_last) S
-//     + dS, writing each chunk's entering state over its dS and the final
-//     state.  It is elementwise and moves the scratch state twice (0.13 GB
-//     at L = 2048, much of it in the 50 MB L2): this design's floor.
+//     one thread per four state elements walks the chunks, S <-
+//     exp(cum_last) S + dS, writing each chunk's entering state over its
+//     dS and the final state.  It is elementwise and moves the scratch
+//     state twice (67 MB at L = 2048, part of it in the 50 MB L2).
 //  3. ssd_scan_kernel, grid (B*H*P tiles) x chunks: y = diag(exp(cum)) C .
 //     S_in^T + (C.B^T o exp(segsum)) . (dt x) for 128 rows x 64 columns,
 //     the first product scaled after it is made, so that bf16 C stays
@@ -64,13 +65,19 @@
 //    fp32 operands are split as 3xTF32 (lo.hi' + hi.hi' + hi.lo'); a bf16
 //    operand is exact in TF32 and drops its lo product (B^T in step 1, C and
 //    B in C.B^T).  The operand that every warp of a block reads (dt x and
-//    S_in) is split once when it is converted and kept as (hi, lo) pairs.
+//    S_in) is split once when it is converted and kept as quads (hi_k,
+//    hi_{k+4}, lo_k, lo_{k+4}): one 16-byte load a B fragment, already in
+//    the register order mma.sync takes.  A warp that holds the full eight
+//    n-tiles (the mamba2 shapes' P tile of 64) runs a product loop with
+//    that count fixed at compile time: a predicated mma.sync costs a
+//    warp-synchronise of its own.
 //  * 90 KB (chunk) and 106 KB (scan) of dynamic shared memory a block, two
 //    blocks an SM (128 registers a thread); the wrapper allocates the
 //    scratch, the kernels allocate nothing.
-//  * What remains (H100, L = 2048, fp32; PERF.md): the products run at
-//    about the rate mma.sync reaches for TF32, and a scan moves about
-//    0.24 GB through memory (x twice, the scratch state four times, y).
+//  * Where the time goes (H100, L = 2048): PERF.md, from the device time of
+//    each launch with the products, the copies or both compiled out
+//    (launch/ssd_breakdown.py) against the card's mma.sync rate
+//    (launch/mma_rate.py).
 //
 // Plain C interface for ctypes; the launch returns cudaGetLastError().
 
@@ -97,13 +104,14 @@ constexpr int kNR = 128;    // state rows (N) a state block makes per pass
 constexpr int kNT = 8;      // 8-column n-tiles a warp holds at most
 // row strides, against bank conflicts of the fragment loads: fp32 rows read
 // as (row gid, k tig) = 4 mod 32, as (k tig, row gid) = 8 mod 32 (bf16: 4
-// and 8 words mod 32 as well); (hi, lo) pairs = 4 mod 16 either way; y's
+// and 8 words mod 32 as well); quads (16 bytes) read 8 lanes at a time as
+// (k tig, column gid) = 2 mod 8, as (column gid, k tig) = 4 mod 8; y's
 // staging rows = 4 mod 16 pairs
-constexpr int kLdRow = kKS + 4;  // fp32 [row][k]
-constexpr int kLdNR = kNR + 8;   // [k][row], the state block's raw B^T
-constexpr int kLdP2 = kPT + 4;   // (hi, lo) [k][column], dt x
-constexpr int kLdK2 = kKS + 4;   // (hi, lo) [column][k], S_in
-constexpr int kLdY = kPT + 8;    // fp32 [row][column], y on its way out
+constexpr int kLdRow = kKS + 4;       // fp32 [row][k]
+constexpr int kLdNR = kNR + 8;        // [k][row], the state block's raw B^T
+constexpr int kLdXQ = kPT + 2;        // quads [k][column], dt x
+constexpr int kLdSQ = kKS / 2 + 4;    // quads [column][k], S_in
+constexpr int kLdY = kPT + 8;         // fp32 [row][column], y on its way out
 // [row][k], the scan block's raw C: 16-byte rows
 template <typename T>
 __host__ __device__ constexpr int ld_c() {
@@ -121,10 +129,10 @@ constexpr int kRawA =
 constexpr int kRawB = 4 * cmax(kKS * kPT, kMaxQ * kKS);
 constexpr int kRing = 2 * (kRawA + kRawB);
 constexpr int kChunkTiles =
-    cmax(kKS * kLdP2 * 8,                            // state block
+    cmax(kKS / 2 * kLdXQ * 16,                       // state block
          16 * kLdRow * 4 + kMaxQ * kLdRow * 4);      // C.B^T block
 constexpr int kScanTiles =
-    cmax(kMaxQ * kLdRow * 4 + cmax(kKS * kLdP2, kPT * kLdK2) * 8,
+    cmax(kMaxQ * kLdRow * 4 + cmax(kKS / 2 * kLdXQ, kPT * kLdSQ) * 16,
          kMaxQ * kLdY * 4);
 constexpr int kVecBytes = 3 * kMaxQ * 4 + kWarps * 4;
 constexpr int kChunkSmem = kRing + kChunkTiles + kVecBytes;
@@ -143,18 +151,11 @@ __device__ __forceinline__ float val(uint32_t v) { return __uint_as_float(v); }
 __device__ __forceinline__ float val(uint16_t v) {
   return __uint_as_float((uint32_t)v << 16);
 }
-// four consecutive raw elements as fp32 (16 or 8 bytes, aligned)
+// four consecutive fp32 raw elements (16 bytes, aligned)
 __device__ __forceinline__ float4 val4(const uint32_t* p) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
   return make_float4(__uint_as_float(u.x), __uint_as_float(u.y),
                      __uint_as_float(u.z), __uint_as_float(u.w));
-}
-__device__ __forceinline__ float4 val4(const uint16_t* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
 }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
@@ -164,16 +165,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
-// the (hi, lo) splits of four values to 32 aligned bytes
-__device__ __forceinline__ void split4(uint2* dst, float4 v) {
-  uint32_t h[4], l[4];
-  split_tf32(v.x, h[0], l[0]);
-  split_tf32(v.y, h[1], l[1]);
-  split_tf32(v.z, h[2], l[2]);
-  split_tf32(v.w, h[3], l[3]);
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  d[0] = make_uint4(h[0], l[0], h[1], l[1]);
-  d[1] = make_uint4(h[2], l[2], h[3], l[3]);
+// the 3xTF32 quad of one B fragment element pair: (hi_k, hi_{k+4}, lo_k,
+// lo_{k+4}), the two k of a thread in an m16n8k8 step, in one 16-byte load
+__device__ __forceinline__ uint4 quad(float k0, float k4) {
+  uint4 q;
+  split_tf32(k0, q.x, q.z);
+  split_tf32(k4, q.y, q.w);
+  return q;
 }
 
 struct Args {
@@ -182,6 +180,7 @@ struct Args {
   void* y;
   float *fin, *cum, *cb, *st;  // st: null with one chunk
   int B, L, H, P, G, N, Q, nc, npt, nrf, ldq, vec_y;
+  long long sp;  // a state's pitch in st: P * N rounded up to 4
   long long x_sb, x_sl, x_sh, dt_sb, dt_sl, dt_sh, b_sb, b_sl, b_sg, c_sb,
       c_sl, c_sg;
 };
@@ -253,20 +252,24 @@ __device__ __forceinline__ WarpTile warp_tile(int nrf, int ntt) {
 }
 
 // acc[u] += A . B over k_steps steps of 8, for the warp's 16 rows and its
-// n-tiles u < nnt.  A: fp32 or raw bits (TA), element (row r, k) at a[r *
-// lda + k] (kAK false) or a[k * lda + r] (kAK true), a at the warp's row 0
-// and k 0.  B: float (split here) or uint2 (hi, lo) pairs, element (k,
-// column n) at b[k * ldb + n] (kBK true) or b[n * ldb + k], b at the warp's
-// first column.  kSplitA / kSplitB: the operand is fp32 and takes its lo
-// product.  The n-tiles go four at a time, each product over the four
-// before the next, so that no mma waits on the one before it.
-template <bool kAK, bool kBK, bool kSplitA, bool kSplitB, typename TA,
-          typename TB>
+// n-tiles u < nnt (kN > 0: nnt is kN, known here, so that no product is
+// predicated).  A: fp32 or raw bits (TA), element (row r, k) at a[r * lda +
+// k] (kAK false) or a[k * lda + r] (kAK true), a at the warp's row 0 and k
+// 0.  B: float (split here), element (k, column n) at b[k * ldb + n] (kBK
+// true) or b[n * ldb + k]; or uint4 quads (split once by the block), the
+// quad of step s, lane tig and column n at b[(4 s + tig) * ldb + n] (kBK
+// true) or b[n * ldb + 4 s + tig]; b at the warp's first column.  kSplitA
+// / kSplitB: the operand is fp32 and takes its lo product.  The n-tiles go
+// four at a time, each product over the four before the next, so that no
+// mma waits on the one before it.
+template <int kN, bool kAK, bool kBK, bool kSplitA, bool kSplitB,
+          typename TA, typename TB>
 __device__ __forceinline__ void warp_mma(float (&acc)[kNT][4], const TA* a,
                                          int lda, const TB* b, int ldb,
-                                         int k_steps, int nnt) {
+                                         int k_steps, int n_tiles) {
   constexpr int kHalf = 4;
   const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
+  const int nnt = kN ? kN : n_tiles;
 #pragma unroll
   for (int s = 0; s < kKS / 8; ++s) {
     if (s >= k_steps) break;
@@ -300,17 +303,20 @@ __device__ __forceinline__ void warp_mma(float (&acc)[kNT][4], const TA* a,
 #pragma unroll
       for (int u = 0; u < kHalf; ++u) {
         if (u0 + u >= nnt) break;
+        const int n = 8 * (u0 + u) + gid;
+        if constexpr (sizeof(TB) == 16) {
+          const uint4 q = kBK ? b[(4 * s + tig) * ldb + n]
+                              : b[n * ldb + 4 * s + tig];
+          bhi[u][0] = q.x, bhi[u][1] = q.y, blo[u][0] = q.z, blo[u][1] = q.w;
+        } else {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kk = k + tig + 4 * e, n = 8 * (u0 + u) + gid;
-          const TB v = kBK ? b[kk * ldb + n] : b[n * ldb + kk];
-          if constexpr (sizeof(TB) == 8) {
-            bhi[u][e] = v.x;
-            blo[u][e] = v.y;
-          } else if constexpr (kSplitB) {
-            split_tf32(v, bhi[u][e], blo[u][e]);
-          } else {
-            bhi[u][e] = __float_as_uint(v);
+          for (int e = 0; e < 2; ++e) {
+            const int kk = k + tig + 4 * e;
+            const TB v = kBK ? b[kk * ldb + n] : b[n * ldb + kk];
+            if constexpr (kSplitB)
+              split_tf32(v, bhi[u][e], blo[u][e]);
+            else
+              bhi[u][e] = __float_as_uint(v);
           }
         }
       }
@@ -329,6 +335,22 @@ __device__ __forceinline__ void warp_mma(float (&acc)[kNT][4], const TA* a,
       }
     }
   }
+}
+
+// warp_mma over the warp's n-tiles, with the tile count known at compile
+// time where the warp holds the full kNT (the mamba2 shapes' P tile of 64)
+template <bool kAK, bool kBK, bool kSplitA, bool kSplitB, typename TA,
+          typename TB>
+__device__ __forceinline__ void warp_mma_tiles(float (&acc)[kNT][4],
+                                               const TA* a, int lda,
+                                               const TB* b, int ldb,
+                                               int k_steps, int nnt) {
+  if (nnt == kNT)
+    warp_mma<kNT, kAK, kBK, kSplitA, kSplitB>(acc, a, lda, b, ldb, k_steps,
+                                              nnt);
+  else
+    warp_mma<0, kAK, kBK, kSplitA, kSplitB>(acc, a, lda, b, ldb, k_steps,
+                                            nnt);
 }
 
 // cum[i] = sum_{j<=i} a_h dt_j and dts[i] = dt_j over the chunk at t0, i <
@@ -356,17 +378,18 @@ __device__ __forceinline__ void chunk_cumsum(const Args& a, int bi, int h,
   __syncthreads();
 }
 
-// (hi, lo) of dt x (times wdec) for a kKS x kPT raw x slice from row k0,
-// four elements a step: tile row j, column p at bs[j * kLdP2 + p]
+// The quads of dt x (times w) for a kKS x kPT raw x slice from row k0:
+// rows k and k + 4 of each 8 (k = 8 s + t), column p, at q[(4 s + t) *
+// kLdXQ + p]
 template <typename R>
-__device__ __forceinline__ void put_x(uint2* bs, const R* rx, const float* w,
-                                      int k0, int Q) {
-  for (int i = threadIdx.x; i < kKS * kPT / 4; i += kThreads) {
-    const int j = 4 * i / kPT, p = 4 * i % kPT;
-    const float s = k0 + j < Q ? w[k0 + j] : 0.f;
-    float4 v = val4(rx + 4 * i);
-    v.x *= s, v.y *= s, v.z *= s, v.w *= s;
-    split4(bs + j * kLdP2 + p, v);
+__device__ __forceinline__ void put_xq(uint4* q, const R* rx, const float* w,
+                                       int k0, int Q) {
+  for (int i = threadIdx.x; i < kKS / 2 * kPT; i += kThreads) {
+    const int row = i / kPT, p = i % kPT, k = row / 4 * 8 + row % 4;
+    const float w0 = k0 + k < Q ? w[k0 + k] : 0.f;
+    const float w4 = k0 + k + 4 < Q ? w[k0 + k + 4] : 0.f;
+    q[row * kLdXQ + p] =
+        quad(val(rx[k * kPT + p]) * w0, val(rx[(k + 4) * kPT + p]) * w4);
   }
 }
 
@@ -378,7 +401,7 @@ __device__ __forceinline__ void chunk_state(const Args& a, int bh, int pt,
                                             int ci, unsigned char* smem) {
   constexpr bool kF32 = sizeof(T) == 4;
   using R = Raw<T>;
-  uint2* bs = reinterpret_cast<uint2*>(smem + kRing);  // dt x [k][p]
+  uint4* bs = reinterpret_cast<uint4*>(smem + kRing);  // dt x quads
   float* cum = reinterpret_cast<float*>(smem + kRing + kChunkTiles);
   float* dts = cum + kMaxQ;
   float* wdec = dts + kMaxQ;
@@ -402,8 +425,9 @@ __device__ __forceinline__ void chunk_state(const Args& a, int bh, int pt,
                 (long long)t0 * a.b_sl;
   // with one chunk this block's output is the final state itself
   const long long pn = (long long)a.P * N;
-  float* dst = (a.nc == 1 ? a.fin : a.st) + ((long long)bh * a.nc + ci) * pn +
-               (long long)p0 * N;
+  float* dst = a.nc == 1 ? a.fin + (long long)bh * pn + (long long)p0 * N
+                         : a.st + ((long long)bh * a.nc + ci) * a.sp +
+                               (long long)p0 * N;
   const float* base = a.nc == 1 && a.init
                           ? a.init + (long long)bh * pn + (long long)p0 * N
                           : nullptr;
@@ -428,7 +452,7 @@ __device__ __forceinline__ void chunk_state(const Args& a, int bh, int pt,
         copy_tile<kPT, kPT, kVec>(raw_x(s), xb + (long long)k0 * a.x_sl,
                                   a.x_sl, kKS, Q - k0, np);
       },
-      [&](int s) { put_x(bs, raw_x(s), wdec, s % nks * kKS, Q); },
+      [&](int s) { put_xq(bs, raw_x(s), wdec, s % nks * kKS, Q); },
       [&](int s) {
         const int n0 = s / nks * kNR, k0 = s % nks * kKS;
         const int nr = min(kNR, N - n0);
@@ -439,10 +463,9 @@ __device__ __forceinline__ void chunk_state(const Args& a, int bh, int pt,
             acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;
         }
         if (wt.nnt > 0)
-          warp_mma<true, true, kF32, true>(acc, raw_b(s) + 16 * wt.rf, kLdNR,
-                                           bs + 8 * wt.nt0, kLdP2,
-                                           (min(kKS, Q - k0) + 7) / 8,
-                                           wt.nnt);
+          warp_mma_tiles<true, true, kF32, true>(
+              acc, raw_b(s) + 16 * wt.rf, kLdNR, bs + 8 * wt.nt0, kLdXQ,
+              (min(kKS, Q - k0) + 7) / 8, wt.nnt);
         if (k0 + kKS < Q) return;
         // the pass's last slice: acc[u][e] is state row n, P column p.  Every
         // load of the initial state comes before the first store, so that
@@ -519,7 +542,7 @@ __device__ __forceinline__ void chunk_cb(const Args& a, int z, int ci,
       },
       [&](int s) {
         if (wt.nnt > 0)
-          warp_mma<false, false, kF32, kF32>(
+          warp_mma<0, false, false, kF32, kF32>(
               acc, cs, kLdRow, bs + 8 * wt.nt0 * kLdRow, kLdRow,
               (min(kKS, N - s * kKS) + 7) / 8, wt.nnt);
       });
@@ -549,31 +572,28 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_kernel(const Args a) {
     chunk_cb<T, kVec>(a, x - n_state, ci, smem);
 }
 
-// Step 2.  Block x: (batch, head) x / per, kV state elements a thread of
-// its P x N (kV = 4: float4 loads and stores, P * N % 4 == 0 and the state
-// pointers 16-byte aligned).
-template <int kV>
-__global__ void __launch_bounds__(kThreads) ssd_pass_kernel(const Args a) {
-  using V = std::conditional_t<kV == 4, float4, float>;
-  const long long pn = (long long)a.P * a.N, pv = pn / kV;
+// Step 2.  Block x: (batch, head) x / per.  A thread walks four
+// consecutive elements of its P x N state over the chunks: float4s of the
+// scratch (pitch sp, a multiple of 4), the initial and the final state
+// element by element (P x N need not split into float4s there).
+__global__ void __launch_bounds__(kThreads, 2) ssd_pass_kernel(const Args a) {
+  const long long pn = (long long)a.P * a.N, pv = a.sp / 4;
   const int per = (int)((pv + kThreads - 1) / kThreads);
   const int bh = blockIdx.x / per;
   const long long e = (long long)(blockIdx.x % per) * kThreads + threadIdx.x;
   if (e >= pv) return;
-  auto fma4 = [](float d, V s, V x) {
-    if constexpr (kV == 4)
-      return make_float4(d * s.x + x.x, d * s.y + x.y, d * s.z + x.z,
-                         d * s.w + x.w);
-    else
-      return d * s + x;
-  };
-  V s = a.init ? reinterpret_cast<const V*>(a.init)[bh * pv + e] : V{};
-  V* st = reinterpret_cast<V*>(a.st) + (long long)bh * a.nc * pv + e;
+  const long long e0 = (long long)bh * pn + 4 * e;  // in init and fin
+  const int ne = (int)min(4LL, pn - 4 * e);         // the rest is pitch
+  float s[4] = {};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (a.init && i < ne) s[i] = a.init[e0 + i];
+  float4* st = reinterpret_cast<float4*>(a.st) + (long long)bh * a.nc * pv + e;
   const float* last = a.cum + (long long)bh * a.nc * a.Q + a.Q - 1;
   // kGroup chunks' loads in flight together, then their stores
   constexpr int kGroup = 16;
   for (int c0 = 0; c0 < a.nc; c0 += kGroup) {
-    V d[kGroup];
+    float4 d[kGroup];
     float decay[kGroup];
 #pragma unroll
     for (int u = 0; u < kGroup; ++u) {
@@ -585,12 +605,18 @@ __global__ void __launch_bounds__(kThreads) ssd_pass_kernel(const Args a) {
 #pragma unroll
     for (int u = 0; u < kGroup; ++u) {
       if (c0 + u < a.nc) {
-        st[(c0 + u) * pv] = s;
-        s = fma4(expf(decay[u]), s, d[u]);
+        st[(c0 + u) * pv] = make_float4(s[0], s[1], s[2], s[3]);
+        const float w = expf(decay[u]);
+        s[0] = w * s[0] + d[u].x;
+        s[1] = w * s[1] + d[u].y;
+        s[2] = w * s[2] + d[u].z;
+        s[3] = w * s[3] + d[u].w;
       }
     }
   }
-  reinterpret_cast<V*>(a.fin)[bh * pv + e] = s;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < ne) a.fin[e0 + i] = s[i];
 }
 
 // Step 3.  Block x of chunk x / per, per = B*H*npt: (batch, head, P tile).
@@ -604,7 +630,8 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const Args a) {
   using R = Raw<T>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* as = reinterpret_cast<float*>(smem + kRing);  // scores [row][k]
-  uint2* bs = reinterpret_cast<uint2*>(smem + kRing + kMaxQ * kLdRow * 4);
+  // dt x or S_in quads
+  uint4* bs = reinterpret_cast<uint4*>(smem + kRing + kMaxQ * kLdRow * 4);
   float* ys = as;  // y tile, after the products
   float* cum = reinterpret_cast<float*>(smem + kRing + kScanTiles);
   float* dts = cum + kMaxQ;
@@ -636,8 +663,10 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const Args a) {
                  (long long)t0 * a.c_sl;
   // S_in: the pass's entering state, or with one chunk the initial state
   // (none: zero, nothing to add)
-  const float* s_in = a.nc == 1 ? a.init : a.st;
-  if (s_in) s_in += ((long long)bh * a.nc + ci) * a.P * N + (long long)p0 * N;
+  const float* s_in =
+      a.nc == 1 ? (a.init ? a.init + (long long)bh * a.P * N : nullptr)
+                : a.st + ((long long)bh * a.nc + ci) * a.sp;
+  if (s_in) s_in += (long long)p0 * N;
   const int nn = s_in ? (N + kKS - 1) / kKS : 0, nq = (Q + kKS - 1) / kKS;
   auto raw_a = [&](int s) {  // C rows (pitch kLdC) or C.B^T rows (kKS)
     return smem + (s & 1) * (kRawA + kRawB);
@@ -671,11 +700,12 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const Args a) {
         }
       },
       [&](int s) {
-        if (s < nn) {  // S_in's (hi, lo) as [p][k]
-          const uint32_t* rb = reinterpret_cast<const uint32_t*>(raw_b(s));
-          for (int i = tid; i < kPT * kKS / 4; i += kThreads) {
-            const int p = 4 * i / kKS, k = 4 * i % kKS;
-            split4(bs + p * kLdK2 + k, val4(rb + 4 * i));
+        if (s < nn) {  // S_in's quads: column p, k = 8 s + t and k + 4
+          const float* rb = reinterpret_cast<const float*>(raw_b(s));
+          for (int i = tid; i < kPT * kKS / 2; i += kThreads) {
+            const int p = i / (kKS / 2), st = i % (kKS / 2);
+            const int k = st / 4 * 8 + st % 4;
+            bs[p * kLdSQ + st] = quad(rb[p * kKS + k], rb[p * kKS + k + 4]);
           }
           return;
         }
@@ -695,15 +725,15 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const Args a) {
           *reinterpret_cast<float4*>(as + r * kLdRow + j - k0) =
               make_float4(o[0], o[1], o[2], o[3]);
         }
-        put_x(bs, reinterpret_cast<const R*>(raw_b(s)), dts, k0, Q);
+        put_xq(bs, reinterpret_cast<const R*>(raw_b(s)), dts, k0, Q);
       },
       [&](int s) {
         if (wt.nnt == 0) return;
         if (s < nn) {
           const int n0 = s * kKS;
-          warp_mma<false, false, kF32, true>(
+          warp_mma_tiles<false, false, kF32, true>(
               acc, reinterpret_cast<const R*>(raw_a(s)) + 16 * wt.rf * kLdC,
-              kLdC, bs + 8 * wt.nt0 * kLdK2, kLdK2,
+              kLdC, bs + 8 * wt.nt0 * kLdSQ, kLdSQ,
               (min(kKS, N - n0) + 7) / 8, wt.nnt);
           return;
         }
@@ -722,9 +752,9 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const Args a) {
         const int steps = min((min(kKS, Q - k0) + 7) / 8,
                               (16 * wt.rf + 16 - k0 + 7) / 8);
         if (steps > 0)
-          warp_mma<false, true, true, true>(acc, as + 16 * wt.rf * kLdRow,
-                                            kLdRow, bs + 8 * wt.nt0, kLdP2,
-                                            steps, wt.nnt);
+          warp_mma_tiles<false, true, true, true>(
+              acc, as + 16 * wt.rf * kLdRow, kLdRow, bs + 8 * wt.nt0, kLdXQ,
+              steps, wt.nnt);
       });
 
   // y out through shared memory (the slices are done with it): whole
@@ -769,24 +799,13 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(const Args a) {
   }
 }
 
-// The pass moves float4s when the state's P x N splits into them and its
-// pointers allow.
-bool pass_vec(const Args& a) {
-  bool ok = (long long)a.P * a.N % 4 == 0;
-  for (const void* p : {(const void*)a.init, (const void*)a.st,
-                        (const void*)a.fin})
-    ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  return ok;
-}
-
 // Launches of one scan: grid blocks, in launch order (chunk, pass, scan);
 // the pass has none with one chunk.
 void grids(const Args& a, long long (&blocks)[3]) {
-  const long long pv = (long long)a.P * a.N / (pass_vec(a) ? 4 : 1);
   blocks[0] = ((long long)a.B * a.H * a.npt + (long long)a.B * a.G * a.nrf) *
               a.nc;
-  blocks[1] = a.nc > 1 ? (long long)a.B * a.H * ((pv + kThreads - 1) /
-                                                 kThreads)
+  blocks[1] = a.nc > 1 ? (long long)a.B * a.H *
+                             ((a.sp / 4 + kThreads - 1) / kThreads)
                        : 0;
   blocks[2] = (long long)a.B * a.H * a.npt * a.nc;
 }
@@ -805,10 +824,7 @@ int launch(const Args& a, cudaStream_t stream) {
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if (blocks[1]) {
-    if (pass_vec(a))
-      ssd_pass_kernel<4><<<(unsigned)blocks[1], kThreads, 0, stream>>>(a);
-    else
-      ssd_pass_kernel<1><<<(unsigned)blocks[1], kThreads, 0, stream>>>(a);
+    ssd_pass_kernel<<<(unsigned)blocks[1], kThreads, 0, stream>>>(a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -819,13 +835,14 @@ int launch(const Args& a, cudaStream_t stream) {
 
 // out[6 k .. 6 k + 5] for launch k (chunk, pass, scan): grid blocks,
 // threads a block, registers a thread, dynamic shared memory bytes, blocks
-// an SM runs at once, local (spill) bytes a thread.
+// an SM runs at once, local (spill) bytes a thread; out[18]: 1 where the
+// copies take 16 bytes at a time (kVec).
 template <typename T, bool kVec>
 int plan(const Args& a, long long* out) {
   long long blocks[3];
   grids(a, blocks);
   const void* fns[3] = {(const void*)ssd_chunk_kernel<T, kVec>,
-                        (const void*)ssd_pass_kernel<4>,
+                        (const void*)ssd_pass_kernel,
                         (const void*)ssd_scan_kernel<T, kVec>};
   const int smem[3] = {kChunkSmem, 0, kScanSmem};
   cudaError_t e = allow_smem<ssd_chunk_kernel<T, kVec>>(kChunkSmem);
@@ -845,6 +862,7 @@ int plan(const Args& a, long long* out) {
     o[4] = per_sm;
     o[5] = (long long)at.localSizeBytes;
   }
+  out[18] = kVec;
   return (int)e;
 }
 
@@ -857,6 +875,7 @@ bool make_args(Args& a, int B, int L, int H, int P, int G, int N, int Q) {
   a.npt = (P + kPT - 1) / kPT;
   a.nrf = (Q + 15) / 16;
   a.ldq = (Q + 3) / 4 * 4;
+  a.sp = ((long long)P * N + 3) / 4 * 4;
   return true;
 }
 
@@ -869,14 +888,17 @@ bool vec16(const void* p, std::initializer_list<long long> strides,
   return ok;
 }
 
+// Launches the scan, or with out non-null writes its plan (see plan) and
+// launches nothing.
 template <typename T>
-int dispatch(const Args& a, cudaStream_t s) {
+int dispatch(const Args& a, cudaStream_t s, long long* out) {
   constexpr int es = sizeof(T);
   // the state rows (init with one chunk, else the scratch) are N floats
   const bool vec = vec16(a.x, {a.x_sb, a.x_sl, a.x_sh}, es) &&
                    vec16(a.b, {a.b_sb, a.b_sl, a.b_sg}, es) &&
                    vec16(a.c, {a.c_sb, a.c_sl, a.c_sg}, es) &&
                    vec16(a.nc == 1 ? a.init : a.st, {a.N}, 4);
+  if (out) return vec ? plan<T, true>(a, out) : plan<T, false>(a, out);
   return vec ? launch<T, true>(a, s) : launch<T, false>(a, s);
 }
 
@@ -887,20 +909,29 @@ int dispatch(const Args& a, cudaStream_t s) {
 // (dt_sb, dt_sl, dt_sh); a: (H,) float32; b, c: (B, L, G, N) with strides
 // (*_sb, *_sl, *_sg, 1); init (or null: zeros) and fin: (B, H, P, N)
 // float32, contiguous; y: (B, L, H, P) contiguous.  1 <= Q <= 128, L % Q ==
-// 0, H % G == 0, 1 <= N <= 256.  Float32 scratch, nc = L / Q: cum
-// B*H*nc*Q, cb B*G*nc*Q*ldq (ldq = Q rounded up to 4; 16-byte aligned) and,
-// when nc > 1, st B*H*nc*P*N (else null).
+// 0, H % G == 0, 1 <= N <= 256.  Float32 scratch, 16-byte aligned, nc = L
+// / Q: cum B*H*nc*Q, cb B*G*nc*Q*ldq (ldq = Q rounded up to 4) and, when
+// nc > 1, st B*H*nc*sp (sp = P*N rounded up to 4; else null).  With plan
+// null the scan is launched on stream; else nothing is launched and plan
+// receives 19 numbers: for each launch k (chunk, pass, scan) of this call,
+// in plan[6 k ..], grid blocks (0: the pass with one chunk), threads,
+// registers, dynamic shared memory bytes, blocks an SM runs at once and
+// spill bytes; plan[18] 1 where the copies take 16 bytes at a time.
+// Returns a CUDA error code.
 extern "C" int ssd_scan_launch(
     int dtype, const void* x, const void* dt, const void* a, const void* b,
     const void* c, const void* init, void* y, void* fin, void* cum, void* cb,
     void* st, int B, int L, int H, int P, int G, int N, int Q, long long x_sb,
     long long x_sl, long long x_sh, long long dt_sb, long long dt_sl,
     long long dt_sh, long long b_sb, long long b_sl, long long b_sg,
-    long long c_sb, long long c_sl, long long c_sg, void* stream) {
+    long long c_sb, long long c_sl, long long c_sg, void* stream,
+    long long* plan) {
   Args r{};
-  if (!make_args(r, B, L, H, P, G, N, Q) || (r.nc > 1 && !st) ||
-      reinterpret_cast<uintptr_t>(cb) % 16 != 0)
+  if (!make_args(r, B, L, H, P, G, N, Q) || (r.nc > 1 && !st))
     return (int)cudaErrorInvalidValue;
+  for (const void* p : {(const void*)cb, (const void*)st})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
   r.x = x, r.b = b, r.c = c, r.y = y;
   r.dt = (const float*)dt, r.a = (const float*)a, r.init = (const float*)init;
   r.fin = (float*)fin, r.cum = (float*)cum, r.cb = (float*)cb;
@@ -913,21 +944,7 @@ extern "C" int ssd_scan_launch(
   r.vec_y = P % (16 / esize) == 0 &&
             reinterpret_cast<uintptr_t>(y) % 16 == 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch<float>(r, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(r, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// How a scan of these shapes runs on the current card, with its copies
-// 16 bytes at a time: for each launch (chunk, pass, scan) six numbers in
-// out[6 k ..] (grid blocks, threads, registers, dynamic shared memory
-// bytes, blocks an SM runs at once, spill bytes); the pass has 0 blocks
-// with one chunk.  Returns a CUDA error code.
-extern "C" int ssd_scan_plan(int dtype, int B, int L, int H, int P, int G,
-                             int N, int Q, long long* out) {
-  Args r{};
-  if (!make_args(r, B, L, H, P, G, N, Q)) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return plan<float, true>(r, out);
-  if (dtype == 1) return plan<__nv_bfloat16, true>(r, out);
+  if (dtype == 0) return dispatch<float>(r, s, plan);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(r, s, plan);
   return (int)cudaErrorInvalidValue;
 }

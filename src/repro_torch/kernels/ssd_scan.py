@@ -35,54 +35,17 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 @functools.cache
-def _lib():
-    lib = build.load("ssd_scan")
-    fn = lib.ssd_scan_launch
+def _entry():
+    fn = build.load("ssd_scan").ssd_scan_launch
     fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                    _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                   _L, _L, _L, _P]
+                   _L, _L, _L, _P, ctypes.POINTER(_L)]
     fn.restype = _I
-    lib.ssd_scan_plan.argtypes = [_I] * 8 + [ctypes.POINTER(_L)]
-    lib.ssd_scan_plan.restype = _I
-    return lib
+    return fn
 
 
-def plan(x: torch.Tensor, b: torch.Tensor, chunk: int) -> dict:
-    """How a scan of x (B, L, H, P) with B/C like ``b`` (B, L, G, N) in
-    chunks of ``chunk`` runs on x's card: ``tile_plan.ssd_plan`` (route,
-    chunks, scratch) with each launch's grid blocks, threads and dynamic
-    shared memory as the C entry reports them, and its registers, blocks
-    an SM runs at once and spill bytes; ``mirror`` is
-    ``tile_plan.ssd_plan``'s own numbers.  CUDA tensors only; the launches
-    do not call it."""
-    bsz, l, h, p = x.shape
-    g, n = b.shape[2], b.shape[3]
-    mirror = tile_plan.ssd_plan(bsz, l, h, p, g, n, chunk)
-    out = (_L * 18)()
-    with torch.cuda.device(x.device):
-        rc = _lib().ssd_scan_plan(DTYPES[x.dtype], bsz, l, h, p, g, n,
-                                  int(chunk), out)
-    if rc != 0:
-        raise RuntimeError(f"ssd_scan plan query failed: CUDA error {rc}")
-    launches = [dict(name=m["name"], blocks=out[6 * k],
-                     threads=out[6 * k + 1], registers=out[6 * k + 2],
-                     smem_bytes=out[6 * k + 3], blocks_per_sm=out[6 * k + 4],
-                     spill_bytes=out[6 * k + 5])
-                for k, m in enumerate(mirror["launches"])]
-    return {**mirror, "launches": launches, "mirror": mirror}
-
-
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-             b: torch.Tensor, c: torch.Tensor, chunk: int,
-             init_state: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, L, H, P) float32 or bfloat16 with a unit stride over P;
-    dt: (B, L, H) float32, any strides; a: (H,) float32; b, c:
-    (B, L, G, N) in x's dtype with a unit stride over N, H % G == 0;
-    init_state: (B, H, P, N) float32 (zeros when None).  L must be a
-    multiple of ``chunk`` (1..128), N at most 256.  Returns (y (B, L, H, P)
-    in x's dtype, final state (B, H, P, N) float32); fp32-accurate
-    arithmetic (3xTF32 tensor-core products, fp32 accumulation)."""
+def _check(x, dt, a, b, c, chunk, init_state):
+    """Raises ValueError on arguments the kernels do not take."""
     if not x.is_cuda:
         raise ValueError("ssd_scan launches a CUDA kernel; got a tensor on "
                          f"{x.device}")
@@ -120,8 +83,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     for t in (dt, a, b, c) + (() if init_state is None else (init_state,)):
         if t.device != x.device:
             raise ValueError(f"all tensors must be on {x.device}")
-    a = a.contiguous()
 
+
+def _call(x, dt, a, b, c, chunk, init_state, plan_out=None):
+    """Checks the arguments, allocates y, the final state and the scratch
+    and calls the C entry: a launch, or with ``plan_out`` (19 longs) the
+    plan of this very call.  Returns (y, final state)."""
+    _check(x, dt, a, b, c, chunk, init_state)
+    bsz, l, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    a = a.contiguous()
     y = torch.empty((bsz, l, h, p), dtype=x.dtype, device=x.device)
     final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     n_cum, n_cb, n_st = tile_plan.ssd_scratch(bsz, l, h, p, g, n, chunk)
@@ -132,7 +103,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     st = cb + 4 * n_cb if n_st else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _lib().ssd_scan_launch(
+        rc = _entry()(
             DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
             b.data_ptr(), c.data_ptr(),
             None if init_state is None else init_state.data_ptr(),
@@ -141,9 +112,49 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             x.stride(0), x.stride(1), x.stride(2),
             dt.stride(0), dt.stride(1), dt.stride(2),
             b.stride(0), b.stride(1), b.stride(2),
-            c.stride(0), c.stride(1), c.stride(2), stream)
+            c.stride(0), c.stride(1), c.stride(2), stream, plan_out)
     if rc != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
+        what = "plan query" if plan_out is not None else "kernel launch"
+        raise RuntimeError(f"ssd_scan {what} failed: CUDA error {rc}")
+    return y, final
+
+
+def plan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+         b: torch.Tensor, c: torch.Tensor, chunk: int,
+         init_state: Optional[torch.Tensor] = None) -> dict:
+    """How ``ssd_scan`` on these arguments runs on x's card, launching
+    nothing: ``tile_plan.ssd_plan`` (route, chunks, scratch) with each
+    launch's grid blocks, threads and dynamic shared memory as the C entry
+    reports them for this call, and its registers, blocks an SM runs at
+    once and spill bytes; ``copies``: ``"16-byte"`` (cp.async) or
+    ``"element"``, as the call's bases and strides allow; ``mirror`` is
+    ``tile_plan.ssd_plan``'s own numbers."""
+    bsz, l, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    mirror = tile_plan.ssd_plan(bsz, l, h, p, g, n, chunk)
+    out = (_L * 19)()
+    _call(x, dt, a, b, c, chunk, init_state, out)
+    launches = [dict(name=m["name"], blocks=out[6 * k],
+                     threads=out[6 * k + 1], registers=out[6 * k + 2],
+                     smem_bytes=out[6 * k + 3], blocks_per_sm=out[6 * k + 4],
+                     spill_bytes=out[6 * k + 5])
+                for k, m in enumerate(mirror["launches"])]
+    return {**mirror, "launches": launches,
+            "copies": "16-byte" if out[18] else "element", "mirror": mirror}
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, chunk: int,
+             init_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, L, H, P) float32 or bfloat16 with a unit stride over P;
+    dt: (B, L, H) float32, any strides; a: (H,) float32; b, c:
+    (B, L, G, N) in x's dtype with a unit stride over N, H % G == 0;
+    init_state: (B, H, P, N) float32 (zeros when None).  L must be a
+    multiple of ``chunk`` (1..128), N at most 256.  Returns (y (B, L, H, P)
+    in x's dtype, final state (B, H, P, N) float32); fp32-accurate
+    arithmetic (3xTF32 tensor-core products, fp32 accumulation)."""
+    y, final = _call(x, dt, a, b, c, chunk, init_state)
     ssd_scan.launches += 1
     return y, final
 

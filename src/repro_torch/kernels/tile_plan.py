@@ -140,8 +140,10 @@ def _ssd_smem() -> Tuple[int, int]:
     ring = 2 * (4 * max(q * (ks + 4), ks * (nr + 8), q * ks)
                 + 4 * max(ks * pt, q * ks))
     vec = 3 * q * 4 + SSD_THREADS // 32 * 4
-    chunk = max(ks * (pt + 4) * 8, 16 * (ks + 4) * 4 + q * (ks + 4) * 4)
-    scan = max(q * (ks + 4) * 4 + max(ks * (pt + 4), pt * (ks + 4)) * 8,
+    chunk = max(ks // 2 * (pt + 2) * 16,
+                16 * (ks + 4) * 4 + q * (ks + 4) * 4)
+    scan = max(q * (ks + 4) * 4 + max(ks // 2 * (pt + 2),
+                                      pt * (ks // 2 + 4)) * 16,
                q * (pt + 8) * 4)
     return ring + chunk + vec, ring + scan + vec
 
@@ -151,13 +153,14 @@ def ssd_scratch(b: int, l: int, h: int, p: int, g: int, n: int,
                 q: int) -> Tuple[int, int, int]:
     """Float32 scratch of a scan, each part a whole number of 16-byte
     steps: (cum (b, h, nc, q), cb (b, g, nc, q, q rounded up to 4), st (b,
-    h, nc, p, n), 0 with one chunk)."""
+    h, nc, p n rounded up to 4), 0 with one chunk)."""
     nc = l // q
+    return (_whole4(b * h * nc * q), _whole4(b * g * nc * q * _whole4(q)),
+            b * h * nc * _whole4(p * n) if nc > 1 else 0)
 
-    def whole(floats):
-        return -(-floats // 4) * 4
-    return (whole(b * h * nc * q), whole(b * g * nc * q * whole(q)),
-            whole(b * h * nc * p * n) if nc > 1 else 0)
+
+def _whole4(floats: int) -> int:
+    return -(-floats // 4) * 4
 
 
 def ssd_plan(b: int, l: int, h: int, p: int, g: int, n: int,
@@ -172,12 +175,11 @@ def ssd_plan(b: int, l: int, h: int, p: int, g: int, n: int,
     npt = -(-p // SSD_PT)
     nrf = -(-q // 16)
     chunk_smem, scan_smem = _ssd_smem()
-    pass_v = 4 if p * n % 4 == 0 else 1    # float4s where P x N splits
     launches = [
         dict(name="ssd_chunk_kernel", blocks=(b * h * npt + b * g * nrf) * nc,
              threads=SSD_THREADS, smem_bytes=chunk_smem),
         dict(name="ssd_pass_kernel",
-             blocks=b * h * -(-(p * n // pass_v) // SSD_THREADS)
+             blocks=b * h * -(-(_whole4(p * n) // 4) // SSD_THREADS)
              if nc > 1 else 0, threads=SSD_THREADS, smem_bytes=0),
         dict(name="ssd_scan_kernel", blocks=b * h * npt * nc,
              threads=SSD_THREADS, smem_bytes=scan_smem)]

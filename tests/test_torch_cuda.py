@@ -525,7 +525,7 @@ def _ssd_inputs(gen, dtype, b, l, h, p, g, n, real=None, layout="dense"):
     (1, 2048, 64, 64, 1, 128, 128, 2048, "xbc", True),  # mamba2 prompt
     (1, 384, 64, 64, 1, 128, 128, 300, "xbc", True),  # padded tail
     (2, 9, 4, 5, 1, 7, 1, 9, "dense", True),          # Q = 1; element
-    #                     copies, element y stores, a scalar pass (P N = 35)
+    #       copies, element y stores, states pitched to 36 floats (P N = 35)
     (1, 256, 2, 48, 1, 16, 64, 256, "dense", False),  # P 48, N 16, no state
     (1, 200, 2, 80, 1, 256, 40, 200, "dense", True),  # N 256, two P tiles
     (3, 96, 8, 32, 2, 64, 32, 96, "xbc", True),       # B = 3, G 2, H/G 4
@@ -582,21 +582,44 @@ def test_ssd_kernel_carries_the_state_across_calls(dev, dtype):
     torch.testing.assert_close(f2, fin, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("l,chunk", [(8, 8), (16, 4)])
+def test_ssd_kernel_takes_an_unaligned_state(dev, l, chunk):
+    """An initial state 4 bytes off a 16-byte boundary (a contiguous view
+    into a larger buffer), on the one-chunk and the multi-chunk route, P x
+    N = 35: the result equals the same state's aligned copy's."""
+    gen = torch.Generator(device=dev).manual_seed(l)
+    x, dt, a, bb, cc = _ssd_inputs(gen, torch.float32, 1, l, 2, 5, 1, 7)
+    init = _randn(gen, 2 * 5 * 7 + 1)[1:].view(1, 2, 5, 7)
+    assert init.data_ptr() % 16 != 0
+    y, fin = ssd_scan(x, dt, a, bb, cc, chunk, init)
+    ya, fa = ssd_scan(x, dt, a, bb, cc, chunk, init.clone())
+    torch.testing.assert_close(y, ya, atol=0, rtol=0)
+    torch.testing.assert_close(fin, fa, atol=0, rtol=0)
+    ye, fe = ref.ssd_reference(x, dt, a, bb, cc, init)
+    torch.testing.assert_close(y, ye, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(fin, fe, atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,l,h,p,g,n,chunk,route", [
-    (1, 37, 64, 64, 1, 128, 37, "one chunk"),
-    (1, 2048, 64, 64, 1, 128, 128, "chunks"),
-    (3, 96, 8, 80, 2, 256, 32, "chunks"),
+@pytest.mark.parametrize("b,l,h,p,g,n,chunk,layout,route,copies", [
+    (1, 37, 64, 64, 1, 128, 37, "xbc", "one chunk", "16-byte"),
+    (1, 2048, 64, 64, 1, 128, 128, "xbc", "chunks", "16-byte"),
+    (3, 96, 8, 80, 2, 256, 32, "dense", "chunks", "16-byte"),
+    (1, 100, 4, 36, 2, 18, 50, "xbc", "chunks", "element"),
 ])
 def test_ssd_plan_matches_its_mirror(dev, dtype, b, l, h, p, g, n, chunk,
-                                     route):
-    """The C entry's grids, threads and static shared memory equal
-    ``tile_plan.ssd_plan``'s; every launch fits on an SM."""
+                                     layout, route, copies):
+    """The C entry's plan of a call: its grids, threads and dynamic shared
+    memory equal ``tile_plan.ssd_plan``'s, every launch fits on an SM, and
+    the copy variant is the one the call's bases and strides allow."""
     from repro_torch.kernels import ssd_scan as ssd_mod
-    x = torch.empty(b, l, h, p, dtype=dtype, device=dev)
-    bb = torch.empty(b, l, g, n, dtype=dtype, device=dev)
-    pl = ssd_mod.plan(x, bb, chunk)
-    assert pl["route"] == route
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x, dt, a, bb, cc = _ssd_inputs(gen, dtype, b, l, h, p, g, n,
+                                   layout=layout)
+    before = ssd_scan.launches
+    pl = ssd_mod.plan(x, dt, a, bb, cc, chunk)
+    assert ssd_scan.launches == before
+    assert pl["route"] == route and pl["copies"] == copies
     for got, want in zip(pl["launches"], pl["mirror"]["launches"]):
         for key in ("blocks", "threads", "smem_bytes"):
             assert got[key] == want[key], (got, want)

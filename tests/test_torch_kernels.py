@@ -532,15 +532,17 @@ def test_ssd_scan_needs_the_3xtf32_split_for_fp32():
     (3, 96, 8, 80, 2, 256, 32, "chunks", (180, 480, 144)),
     (2, 9, 4, 16, 1, 7, 1, "chunks", (90, 8, 72)),   # Q = 1, P x N = 112
     (1, 100, 4, 36, 2, 18, 50, "chunks", (24, 4, 8)),  # P x N = 648
+    (1, 8, 2, 5, 1, 7, 4, "chunks", (6, 2, 4)),    # P x N = 35: pitch 36
 ])
 def test_ssd_plan_mirror(b, l, h, p, g, n, q, route, blocks):
     """``tile_plan.ssd_plan``, the mirror of csrc/ssd_scan.cu's plan (held
     to the C entry on the card by tests/test_torch_cuda.py): one chunk
     skips the pass; the chunk launch has a state block per (row, head, 64
     P columns, chunk) and a C.B^T block per (row, group, 16 rows, chunk);
-    the pass moves float4s where P x N allows; every scratch part is a
-    whole number of 16-byte steps, C.B^T rows padded to 4 floats; two
-    blocks fit an SM's 228 KB of shared memory."""
+    the pass moves float4s, each chunk's state pitched to a multiple of 4
+    floats in the scratch; every scratch part is a whole number of 16-byte
+    steps, C.B^T rows padded to 4 floats; two blocks fit an SM's 228 KB of
+    shared memory."""
     from repro_torch.kernels import tile_plan as tp
     pl = tp.ssd_plan(b, l, h, p, g, n, q)
     nc = l // q
@@ -551,8 +553,7 @@ def test_ssd_plan_mirror(b, l, h, p, g, n, q, route, blocks):
     assert all(v % 4 == 0 for v in sc.values())
     assert sc["cum"] >= b * h * nc * q
     assert sc["cb"] >= b * g * nc * q * (-(-q // 4) * 4)
-    assert sc["st"] == (0 if nc == 1 else b * h * nc * p * n
-                        + (-(b * h * nc * p * n)) % 4)
+    assert sc["st"] == (0 if nc == 1 else b * h * nc * (-(-p * n // 4) * 4))
     assert pl["scratch_bytes"] == 4 * sum(sc.values())
     for x in pl["launches"]:
         assert 2 * (x["smem_bytes"] + 1024) <= 228 * 1024
