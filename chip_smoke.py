@@ -34,10 +34,27 @@ from the root of a checkout.  Phases, each printing its lines:
      yardstick is SDPA over the pre-gathered dense K/V (gather excluded);
 4. main path, sequential: random-init BASE/SMALL checkpoints written by
    the port, served by ``repro_torch.launch.serve --scheme specreason``
-   on the card, 3 requests, greedy and at temperature 0.6; launches of
-   the dense kernels must equal n_layers x the engines' metered decode
-   and prefill calls, and the greedy run must see the verifier both
-   accept and reject a drafted step;
+   on the card through its default fused decode loop (CUDA graphs with
+   flash-decode inside), 3 requests, greedy and at temperature 0.6;
+   launches of the dense kernels must equal n_layers x the engines'
+   metered decode steps (a graph replay counts the launches it ran) and
+   prefill calls, and the greedy run must see the verifier both accept
+   and reject a drafted step;
+   fused: the same 3 requests on one engine pair, greedy and at 0.6, in
+   turns fused, eager, eager, fused: identical tokens in every turn,
+   decode launches == n_layers x decode steps, each engine's graphs over
+   one KV pair (one capture per key, none in the second fused turn), at
+   most ceil(budget / k) + 1 host waits and 2k wasted steps a fused
+   call; tok/s each turn, captures, waits and wasted steps a call, the
+   memory the loops hold, and one greedy request profiled each way (idle
+   share, device time by kernel; the profiler's count of flash-decode
+   launches must equal the wrapper's counter).  Then the same turns at
+   a published dense width: minitron-4b (all 32 layers, random init from
+   a seed, vocabulary cut to 64) with the testbed SMALL drafter; then
+   the minitron-4b base alone at its published vocabulary (256000), 128
+   tokens from a 64-token prompt greedy and at 0.6 (probabilities
+   collected), fused against eager in turns, and one such greedy call
+   profiled each way;
 5. check: BASE and SMALL logits on the card against the same checkpoint
    on the CPU, over a prefill and decode steps, and over the batched
    path (one ``prefill_rows`` and one ``decode_rows`` on 3 ragged rows);
@@ -56,7 +73,8 @@ from the root of a checkout.  Phases, each printing its lines:
    For information, how many requests' continuous greedy tokens equal
    the sequential path's on the card (batch-size-dependent GEMMs may
    move a logit by an ulp);
-7. main path, ssm: SpecReason with a mamba2-1.3b base at its published
+7. main path, ssm (per-token decode loop for both models): SpecReason
+   with a mamba2-1.3b base at its published
    widths (48 layers, d_model 2048, 64 SSD heads of 64, state 128; random
    init from a seed, vocabulary cut to the toy tokenizer's 64) and the
    testbed SMALL drafter, through ``serve.run_scheme``: 3 requests greedy
@@ -74,6 +92,7 @@ non-zero before that line; without CUDA, or outside a checkout, it exits
 non-zero at once.
 """
 
+import gc
 import json
 import os
 import random
@@ -633,8 +652,9 @@ def paged_kernel_phase(torch, F, ref, paged_decode, paged_append,
 
 
 def main_path_phase(torch, serve, decode_kernel, flash_kernel, ckpt):
-    """Serve 3 specreason requests on the card, greedy and sampled; the
-    kernels' launch counts must equal n_layers x the metered calls."""
+    """Serve 3 specreason requests on the card, greedy and sampled, by the
+    CLI's default fused decode loop; the kernels' launch counts must equal
+    n_layers x the metered decode steps and prefill calls."""
     launches = {"decode_attention": 0, "flash_attention": 0}
     greedy = None
     for label, temp in (("greedy", "0"), ("sampled", "0.6")):
@@ -653,7 +673,8 @@ def main_path_phase(torch, serve, decode_kernel, flash_kernel, ckpt):
             if not res.steps or not res.thinking_ids:
                 raise AssertionError(f"{label} req{i}: empty step trace")
             for name, m in res.meters.items():
-                want[0] += layers[name] * m["decode_calls"]
+                # a fused call is one call of many one-token steps
+                want[0] += layers[name] * m["decode_steps"]
                 want[1] += layers[name] * m["prefill_calls"]
             toks = res.thinking_ids + res.answer_ids
             print(f"[main] {label} req{i}: {res.wall_time * 1e3:.1f} ms, "
@@ -670,8 +691,9 @@ def main_path_phase(torch, serve, decode_kernel, flash_kernel, ckpt):
         if list(got) != want or min(got) == 0:
             raise AssertionError(f"{label}: launches (decode, prefill) "
                                  f"{got} != n_layers x meter calls {want}")
-        print(f"[main] {label}: launches decode {got[0]}, prefill {got[1]} "
-              "== n_layers x metered calls", flush=True)
+        print(f"[main] {label} (decode loop {report.decode_loop}): launches "
+              f"decode {got[0]}, prefill {got[1]} == n_layers x metered "
+              "decode steps and prefill calls", flush=True)
         launches["decode_attention"] += got[0]
         launches["flash_attention"] += got[1]
         if greedy is None:
@@ -955,7 +977,10 @@ def ssm_main_phase(torch, serve, tasks, loader, kernels):
           f", state {cfg.ssm_state}, vocab {cfg.vocab_size} (cut from 50280)"
           f", {sum(t.numel() for t in leaves(base.params))} "
           f"parameters, random init in {time.perf_counter() - t0:.1f} s; "
-          f"testbed SMALL drafter; threshold {SSM_THRESHOLD}", flush=True)
+          f"testbed SMALL drafter; threshold {SSM_THRESHOLD}; decode loop "
+          "eager for both (the ssm base has no fused loop; the drafter's "
+          "stays eager so that the readings compare with earlier runs)",
+          flush=True)
     rng = random.Random(0)
     reqs = [tasks.sample_task(rng) for _ in range(3)]
     layers = {"base": cfg.n_layers, "small": small.model.cfg.n_layers}
@@ -972,10 +997,10 @@ def ssm_main_phase(torch, serve, tasks, loader, kernels):
         for i in range(n_req):
             gen = torch.Generator(device="cuda").manual_seed(i)
             res = serve.run_scheme(scheme, base, small, reqs[i], gen, 128,
-                                   SSM_THRESHOLD, temp)
+                                   SSM_THRESHOLD, temp, fused=False)
             mb, ms_ = res.meters["base"], res.meters["small"]
             want["ssd_scan"] += layers["base"] * mb["prefill_calls"]
-            want["decode_attention"] += layers["small"] * ms_["decode_calls"]
+            want["decode_attention"] += layers["small"] * ms_["decode_steps"]
             want["flash_attention"] += layers["small"] * ms_["prefill_calls"]
             toks = res.thinking_ids + res.answer_ids
             outputs[label].append(toks)
@@ -1002,10 +1027,11 @@ def ssm_main_phase(torch, serve, tasks, loader, kernels):
         if label == "greedy" and len({s.accepted for s in drafted}) < 2:
             raise AssertionError("ssm greedy run saw only one verifier "
                                  "decision; both paths must run")
-        print(f"[main] ssm {label}: launches ssd_scan {got['ssd_scan']} == "
-              f"{layers['base']} x base extends; decode {got['decode_attention']}"
-              f", prefill {got['flash_attention']} == {layers['small']} x "
-              "SMALL's calls; paged 0", flush=True)
+        print(f"[main] ssm {label} (decode loop eager): launches ssd_scan "
+              f"{got['ssd_scan']} == {layers['base']} x base extends; decode "
+              f"{got['decode_attention']}, prefill {got['flash_attention']} =="
+              f" {layers['small']} x SMALL's decode steps and prefill calls; "
+              "paged 0", flush=True)
         for k in want:
             launches[k] += got[k]
     same = outputs["hierarchical greedy"][0] == outputs["greedy"][0]
@@ -1016,27 +1042,29 @@ def ssm_main_phase(torch, serve, tasks, loader, kernels):
     return launches, base
 
 
-def ssm_profile(torch, serve, base, small, task):
-    """Information: one greedy ssm request run again, unprofiled and then
-    under torch.profiler: device time by kernel, and the device's idle
-    share of the unprofiled wall time (the profiler's own host cost
-    would inflate the profiled wall time)."""
+def profile_request(torch, run, counter=None):
+    """Information: ``run()`` (one request, returning its result) run
+    unprofiled and then under torch.profiler.  Returns a dict: ``res``
+    the result, ``plain_wall`` and ``wall`` the unprofiled and profiled
+    wall s, ``busy`` the device's busy s, ``idle`` its idle share of the
+    unprofiled wall (the profiler's own host cost would inflate the
+    profiled wall time), ``rows`` (kernel, device us, count) and ``top``
+    the largest of them; with a kernel wrapper ``counter``, ``counted``
+    is its launch count's increase over the profiled run."""
     from torch.profiler import ProfilerActivity, profile
-    gen = torch.Generator(device="cuda").manual_seed(2)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    serve.run_scheme("specreason", base, small, task, gen, 128,
-                     SSM_THRESHOLD, 0.0)
+    run()
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
-    gen = torch.Generator(device="cuda").manual_seed(2)
+    before = counter.launches if counter is not None else 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = serve.run_scheme("specreason", base, small, task, gen, 128,
-                               SSM_THRESHOLD, 0.0)
+        res = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    counted = counter.launches - before if counter is not None else None
     # the device-side rows only (a CPU op's row repeats its kernels' time)
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
@@ -1045,11 +1073,346 @@ def ssm_profile(torch, serve, base, small, task):
     busy = sum(t for _, t, _ in rows) / 1e6
     rows.sort(key=lambda r: -r[1])
     top = "; ".join(f"{k[:48]} {t / 1e3:.1f} ms x{n}" for k, t, n in rows[:8])
-    n_out = len(res.thinking_ids + res.answer_ids)
-    print(f"[profile] ssm greedy req2 ({n_out} tokens): wall {plain_wall:.4f}"
-          f" s unprofiled ({wall:.4f} s profiled), device busy {busy:.4f} s, "
-          f"idle share {1 - busy / plain_wall:.4f} of the unprofiled wall; "
-          f"top device time: {top}", flush=True)
+    return dict(res=res, plain_wall=plain_wall, wall=wall, busy=busy,
+                idle=1 - busy / plain_wall, rows=rows, top=top,
+                counted=counted)
+
+
+def traced(rows, kernel):
+    """(launches, device ms) of the ``__global__`` function ``kernel`` in
+    a profile's rows (its template instances summed)."""
+    pat = re.compile(r"(?<![\w])" + kernel + r"[<(]")
+    hits = [(t, n) for k, t, n in rows if pat.search(k)]
+    return sum(n for _, n in hits), sum(t for t, _ in hits) / 1e3
+
+
+def ssm_profile(torch, serve, base, small, task):
+    """Information: one greedy ssm request, device time by kernel and the
+    device's idle share (``profile_request``)."""
+    def run():
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        return serve.run_scheme("specreason", base, small, task, gen, 128,
+                                SSM_THRESHOLD, 0.0, fused=False)
+    p = profile_request(torch, run)
+    n_out = len(p["res"].thinking_ids + p["res"].answer_ids)
+    print(f"[profile] ssm greedy req2 ({n_out} tokens): wall "
+          f"{p['plain_wall']:.4f} s unprofiled ({p['wall']:.4f} s profiled), "
+          f"device busy {p['busy']:.4f} s, idle share {p['idle']:.4f} of the "
+          f"unprofiled wall; top device time: {p['top']}", flush=True)
+
+
+def mib(n):
+    return f"{n / 2 ** 20:.1f} MiB"
+
+
+def loop_bytes(eng):
+    """(device bytes, pinned host bytes) of an engine's fused-loop
+    buffers (the KV caches and the graphs' own pools excluded)."""
+    dev = host = 0
+    for loop in eng._loops.values():
+        for t in (loop.ctl, loop.logits, loop.toks, loop.stop, loop.probs):
+            dev += t.numel() * t.element_size() if t is not None else 0
+        for t in (loop.inp, loop.status, loop.toks_host, loop.probs_host):
+            host += t.numel() * t.element_size() if t is not None else 0
+    return dev, host
+
+
+def graph_pool_bytes(torch):
+    """Bytes the caching allocator holds in private pools (the CUDA
+    graphs' own), from its snapshot; None where the snapshot does not
+    name pools."""
+    segs = torch.cuda.memory_snapshot()
+    if not any("segment_pool_id" in sg for sg in segs):
+        return None
+    return sum(sg["total_size"] for sg in segs
+               if tuple(sg["segment_pool_id"]) != (0, 0))
+
+
+def memory_mark(torch):
+    """(reserved bytes, graph pool bytes) now, for ``memory_line``.  An
+    engine whose ``generate_fused`` ``fused_phase`` wrapped is a cycle:
+    collect it first, so that its graphs' pools do not leave later."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(), graph_pool_bytes(torch)
+
+
+def memory_line(torch, engines, mark):
+    reserved0, pools0 = mark
+    gc.collect()
+    pools = graph_pool_bytes(torch)
+    parts = []
+    for n, e in engines.items():
+        dev, host = loop_bytes(e)
+        kv = sum(st.k.numel() * st.k.element_size() * 2
+                 for pairs in e._kv_pool.values() for st, _ in pairs)
+        parts.append(f"{n} loop buffers {mib(dev)} on the card and "
+                     f"{mib(host)} pinned on the host over {len(e._loops)} "
+                     f"keys, pooled KV pairs {mib(kv)}")
+    return ("; ".join(parts) + "; graph pools "
+            f"{'not measured' if pools is None else mib(pools - pools0)} "
+            "and reserved "
+            f"{mib(torch.cuda.memory_reserved() - reserved0)} more than "
+            "before the first turn")
+
+
+def fused_phase(torch, serve, tasks, engine_mod, decode_kernel, base,
+                small, tag, threshold):
+    """The dense pair's fused decode loop against its per-token loop on
+    the card, on one pair of engines: the main path's 3 specreason
+    requests, greedy and at temperature 0.6, in turns fused, eager,
+    eager, fused.  Tokens must be identical in every turn; decode launches
+    must equal n_layers x the metered decode steps (masked and warm-up
+    steps included); each engine's graphs must all run over one KV pair
+    (one capture per key, none in the second fused turn); every fused
+    call must wait on the card at most ceil(budget / k) + 1 times and
+    waste at most 2k steps.  Prints tok/s a request and wall each turn,
+    captures and capture time, syncs and wasted steps a call, the memory
+    the loops hold, and one greedy request profiled each way (idle share,
+    device time by kernel), where the profiler's count of flash-decode
+    launches must equal the wrapper's."""
+    engines = {"base": base, "small": small}
+    layers = {n: e.model.cfg.n_layers for n, e in engines.items()}
+    rng = random.Random(0)
+    reqs = [tasks.sample_task(rng) for _ in range(3)]
+    calls = []      # per fused call: engine, budget, k, tokens, steps, syncs
+
+    def recorded(name, eng):
+        inner = eng.generate_fused
+
+        def generate_fused(session, max_tokens, *args, **kw):
+            m, caps = eng.meter, eng.captures
+            before = (m.decode_tokens, m.decode_steps, m.decode_syncs)
+            budget = min(max_tokens, session.state.capacity - session.pos)
+            out = inner(session, max_tokens, *args, **kw)
+            if budget > 0:
+                k = min(engine_mod.FUSED_CHUNK,
+                        1 << (budget - 1).bit_length())
+                n = m.decode_tokens - before[0]
+                wasted = m.decode_steps - before[1] - n \
+                    - (eng.captures - caps)     # a capture's warm-up step
+                calls.append((name, budget, k, n, wasted,
+                              m.decode_syncs - before[2]))
+            return out
+        eng.generate_fused = generate_fused
+    for name, eng in engines.items():
+        recorded(name, eng)
+
+    def run(temp, loop, i):
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        return serve.run_scheme("specreason", base, small, reqs[i], gen, 128,
+                                threshold, temp, fused=loop == "fused")
+
+    mark = memory_mark(torch)
+    for label, temp in (("greedy", 0.0), ("sampled", 0.6)):
+        first = None
+        for turn, loop in enumerate(("fused", "eager", "eager", "fused")):
+            decode_kernel.launches = 0
+            caps = {n: e.captures for n, e in engines.items()}
+            want, toks, rates, wall = 0, [], [], 0.0
+            meter = {n: dict.fromkeys(("decode_tokens", "decode_time",
+                                       "prefill_time"), 0)
+                     for n in engines}
+            for i in range(len(reqs)):
+                res = run(temp, loop, i)
+                out = res.thinking_ids + res.answer_ids
+                toks.append(out)
+                rates.append(len(out) / res.wall_time)
+                wall += res.wall_time
+                want += sum(layers[n] * m["decode_steps"]
+                            for n, m in res.meters.items())
+                for n, m in res.meters.items():
+                    for key in meter[n]:
+                        meter[n][key] += m[key]
+            torch.cuda.synchronize()
+            if decode_kernel.launches != want or not want:
+                raise AssertionError(f"[fused] {tag} {label} {loop}: decode "
+                                     f"launches {decode_kernel.launches} != "
+                                     f"n_layers x decode steps {want}")
+            if first is None:
+                first = toks
+            elif toks != first:
+                raise AssertionError(f"[fused] {tag} {label}: {loop} turn "
+                                     f"{turn} tokens differ from the first "
+                                     "turn's")
+            new = {n: e.captures - caps[n] for n, e in engines.items()}
+            if turn == 3 and any(new.values()):
+                raise AssertionError(f"[fused] {tag} {label}: the second "
+                                     f"fused turn captured again: {new}")
+            print(f"[fused] {tag} {label} turn {turn} ({loop}): "
+                  f"{', '.join(f'{r:.1f}' for r in rates)} tok/s a request, "
+                  f"wall {wall:.4f} s, {sum(map(len, toks))} tokens; "
+                  + "; ".join(
+                      f"{n} decode {m['decode_tokens'] / m['decode_time']:.1f}"
+                      f" tok/s ({m['decode_tokens']} tokens in "
+                      f"{m['decode_time']:.4f} s), prefill "
+                      f"{m['prefill_time']:.4f} s" for n, m in meter.items())
+                  + f"; decode launches {want} == n_layers x decode steps; "
+                  f"captures {new}", flush=True)
+        print(f"[fused] {tag} {label}: tokens identical in all four turns "
+              f"({len(first)} requests)", flush=True)
+    for name, eng in engines.items():
+        pairs = {key[:2] for key in eng._loops}
+        if eng.captures != len(eng._loops) or len(pairs) != 1:
+            raise AssertionError(f"[fused] {tag} {name}: {eng.captures} "
+                                 f"captures, {len(eng._loops)} keys over "
+                                 f"{len(pairs)} KV pairs")
+        mine = [c for c in calls if c[0] == name]
+        bad = [c for c in mine if c[5] > -(-c[1] // c[2]) + 1
+               or c[4] > 2 * c[2]]
+        if bad:
+            raise AssertionError(f"[fused] {tag} {name}: calls beyond "
+                                 "ceil(budget/k) + 1 syncs or 2k wasted "
+                                 f"steps: {bad}")
+        print(f"[fused] {tag} {name}: {eng.captures} captures in "
+              f"{eng.capture_time:.3f} s, one per key (keys "
+              f"{sorted((k[3].temperature, k[4], k[5], k[7]) for k in eng._loops)}"
+              f" as (temperature, probs, buffer, k)), all over one KV pair; "
+              f"{len(mine)} fused calls: syncs a call mean "
+              f"{sum(c[5] for c in mine) / len(mine):.3f} max "
+              f"{max(c[5] for c in mine)}, wasted steps a call mean "
+              f"{sum(c[4] for c in mine) / len(mine):.3f} max "
+              f"{max(c[4] for c in mine)}, tokens a call mean "
+              f"{sum(c[3] for c in mine) / len(mine):.2f}, budgets "
+              f"{sorted(set(c[1] for c in mine))}, k "
+              f"{sorted(set(c[2] for c in mine))}; syncs <= ceil(budget / k)"
+              " + 1 and wasted <= 2k in every call", flush=True)
+    print(f"[fused] {tag} memory: {memory_line(torch, engines, mark)}",
+          flush=True)
+    for loop in ("fused", "eager"):
+        p = profile_request(torch, lambda: run(0.0, loop, 2), decode_kernel)
+        n_out = len(p["res"].thinking_ids + p["res"].answer_ids)
+        seen, dev_ms = traced(p["rows"], "decode_kernel")
+        if seen != p["counted"] or not seen:
+            raise AssertionError(f"[profile] {tag} {loop}: the profiler saw "
+                                 f"{seen} decode_kernel launches, the "
+                                 f"wrapper counted {p['counted']}")
+        print(f"[profile] {tag} dense greedy req2 ({loop}, {n_out} tokens): "
+              f"wall {p['plain_wall']:.4f} s unprofiled ({p['wall']:.4f} s "
+              f"profiled), {n_out / p['plain_wall']:.1f} tok/s, device busy "
+              f"{p['busy']:.4f} s, idle share {p['idle']:.4f} of the "
+              f"unprofiled wall; decode_kernel {seen} launches traced == "
+              f"{p['counted']} counted, {dev_ms:.1f} ms; top device time: "
+              f"{p['top']}", flush=True)
+
+
+def fused_dense_phase(torch, serve, tasks, loader, engine_mod, registry,
+                      Model, Engine, SamplingParams, decode_kernel):
+    """The fused loop at a published dense width: minitron-4b (all 32
+    layers, random init from a seed, vocabulary cut to the toy
+    tokenizer's 64 as the ssm phase's base) with the testbed SMALL
+    drafter through ``fused_phase``; then the base alone at its published
+    vocabulary (256000; the same layers, embeddings drawn on the card
+    from a seed): a 64-token prompt, 128 tokens greedy and 128 sampled at
+    0.6 with probabilities collected, in turns fused, eager, eager,
+    fused, with identical tokens, probabilities within 2e-5, launches
+    == n_layers x decode steps, and the memory the loop holds; then one
+    greedy call profiled each way (idle share, device time by kernel,
+    the profiler's flash-decode launches against the wrapper's)."""
+    t0 = time.perf_counter()
+    base = loader.random_engine(DENSE_ARCH, "cuda", seed=0)
+    small = loader.random_engine("testbed-small", "cuda", seed=1)
+    torch.cuda.synchronize()
+    cfg = base.model.cfg
+    n_params = sum(t.numel() for t in leaves(base.params))
+    print(f"[fused] {DENSE_ARCH}: base {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} kv "
+          f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size} (cut from 256000), {n_params} parameters "
+          f"(fp32), random init in {time.perf_counter() - t0:.1f} s; testbed "
+          f"SMALL drafter; threshold {THRESHOLD}; loops {loader.decode_loops(base, small)}",
+          flush=True)
+    fused_phase(torch, serve, tasks, engine_mod, decode_kernel, base, small,
+                DENSE_ARCH, THRESHOLD)
+
+    full = Model(registry.get(DENSE_ARCH))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = dict(base.params)
+    for key, spec in full.spec().items():
+        if key in ("tok_embed", "unembed"):     # as the port's init draws
+            std = spec.scale / (spec.shape[spec.fan_in_axis] ** 0.5
+                                if spec.init == "scaled" else 1.0)
+            params[key] = torch.randn(spec.shape, generator=gen,
+                                      device="cuda") * std
+        elif "/" not in key and params[key].shape != spec.shape:
+            raise AssertionError(f"{key}: {params[key].shape} does not "
+                                 f"match the spec's {spec.shape}")
+    eng = Engine(full, params, name=DENSE_ARCH)
+    full = full.cfg
+    prompt = torch.randint(0, full.vocab_size, (64,),
+                           generator=torch.Generator().manual_seed(4)).tolist()
+    mark = memory_mark(torch)
+    for label, temp, probs in (("greedy", 0.0, False),
+                               ("sampled", 0.6, True)):
+        first = None
+        for turn, loop in enumerate(("fused", "eager", "eager", "fused")):
+            session = eng.extend(eng.new_session(), prompt)
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            launches, steps = decode_kernel.launches, eng.meter.decode_steps
+            caps, syncs = eng.captures, eng.meter.decode_syncs
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids, session, ps = eng.generate(
+                session, 128, [], SamplingParams(temperature=temp), gen,
+                collect_probs=probs, fused=loop == "fused")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            want = cfg.n_layers * (eng.meter.decode_steps - steps)
+            if decode_kernel.launches - launches != want or len(ids) != 128:
+                raise AssertionError(
+                    f"[fused] {DENSE_ARCH} vocab {full.vocab_size} {label} "
+                    f"{loop}: {len(ids)} tokens, decode launches "
+                    f"{decode_kernel.launches - launches} != {want}")
+            del session         # its KV pair goes back to the pool
+            if turn == 3 and eng.captures != caps:
+                raise AssertionError(f"[fused] {DENSE_ARCH} vocab "
+                                     f"{full.vocab_size} {label}: the second"
+                                     " fused turn captured again")
+            if first is None:
+                first = (ids, ps)
+            else:
+                err = max((abs(a - b).max() for a, b in zip(ps, first[1])),
+                          default=0.0)
+                if ids != first[0] or len(ps) != len(first[1]) or err > 2e-5:
+                    raise AssertionError(
+                        f"[fused] {DENSE_ARCH} vocab {full.vocab_size} "
+                        f"{label}: turn {turn} ({loop}) tokens or "
+                        f"probabilities differ from the first turn's "
+                        f"(probs max |diff| {err})")
+            print(f"[fused] {DENSE_ARCH} vocab {full.vocab_size} {label} "
+                  f"turn {turn} ({loop}): {len(ids)} tokens in {wall:.4f} s,"
+                  f" {len(ids) / wall:.1f} tok/s"
+                  + (f", probabilities collected" if probs else "")
+                  + f"; captures {eng.captures - caps}, syncs "
+                  f"{eng.meter.decode_syncs - syncs}, decode launches {want}"
+                  " == n_layers x decode steps", flush=True)
+        print(f"[fused] {DENSE_ARCH} vocab {full.vocab_size} {label}: tokens "
+              "identical in all four turns", flush=True)
+    print(f"[fused] {DENSE_ARCH} vocab {full.vocab_size} memory: "
+          f"{memory_line(torch, {'base': eng}, mark)}", flush=True)
+
+    def call(loop):
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        ids, _, _ = eng.generate(eng.extend(eng.new_session(), prompt), 128,
+                                 [], SamplingParams(temperature=0.0), gen,
+                                 fused=loop == "fused")
+        return ids
+    for loop in ("fused", "eager"):
+        p = profile_request(torch, lambda: call(loop), decode_kernel)
+        seen, dev_ms = traced(p["rows"], "decode_kernel")
+        if seen != p["counted"] or not seen:
+            raise AssertionError(f"[profile] {DENSE_ARCH} vocab "
+                                 f"{full.vocab_size} {loop}: the profiler "
+                                 f"saw {seen} decode_kernel launches, the "
+                                 f"wrapper counted {p['counted']}")
+        print(f"[profile] {DENSE_ARCH} vocab {full.vocab_size} greedy, a "
+              f"64-token extend and 128 tokens ({loop}): wall "
+              f"{p['plain_wall']:.4f} s unprofiled ({p['wall']:.4f} s "
+              f"profiled), device busy {p['busy']:.4f} s, idle share "
+              f"{p['idle']:.4f}; decode_kernel {seen} launches traced == "
+              f"{p['counted']} counted, {dev_ms:.1f} ms; top device time: "
+              f"{p['top']}", flush=True)
 
 
 def ssm_check_phase(torch, base):
@@ -1096,7 +1459,8 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.checkpoint.checkpoint import load_checkpoint
-    from repro_torch.configs import mamba2_1_3b, minitron_4b, testbed
+    from repro_torch.configs import mamba2_1_3b, minitron_4b, registry, \
+        testbed
     from repro_torch.data import tasks
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.decode_attention import decode_attention
@@ -1109,6 +1473,8 @@ def main() -> int:
     from repro_torch.launch import serve
     from repro_torch.models import mamba2
     from repro_torch.models.model import Model
+    from repro_torch.sampling.sample import SamplingParams
+    from repro_torch.serving import engine as engine_mod
     from repro_torch.serving import loader
     from repro_torch.serving.batch_engine import BatchEngine
 
@@ -1148,6 +1514,14 @@ def main() -> int:
             or ssd_scan.launches:
         raise AssertionError("the sequential path launched a paged kernel "
                              "or the SSD scan")
+    base, small = loader.load_testbed_engines(ckpt, "cuda")
+    fused_phase(torch, serve, tasks, engine_mod, decode_attention, base,
+                small, "testbed", THRESHOLD)
+    del base, small
+    fused_dense_phase(torch, serve, tasks, loader, engine_mod, registry,
+                      Model, engine_mod.Engine, SamplingParams,
+                      decode_attention)
+    torch.cuda.empty_cache()
     check_phase(torch, Model, load_checkpoint, testbed, serve, tasks, loader,
                 greedy, ckpt)
     rows_check_phase(torch, Model, BatchEngine, testbed, load_checkpoint,

@@ -9,7 +9,7 @@ scheme alike.
 from __future__ import annotations
 
 import time
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -23,21 +23,23 @@ from .spec_decode import SpecDecodeStats, spec_decode
 def vanilla_reason(engine: Engine, prompt_ids: Sequence[int],
                    generator: torch.Generator, token_budget: int = 256,
                    sampling: SamplingParams = SamplingParams(temperature=0.6),
-                   answer_max_tokens: int = 8) -> SpecReasonResult:
+                   answer_max_tokens: int = 8,
+                   fused: Optional[bool] = None) -> SpecReasonResult:
     """Plain autoregressive reasoning with one model: think until
     ``</think>`` / ``<eos>`` or the budget, close the thinking phase if
-    needed, then answer."""
+    needed, then answer.  ``fused`` picks the decode loop (None: the
+    engine's default)."""
     engine.meter.reset()
     t0 = time.perf_counter()
     sess = engine.extend(engine.new_session(), list(prompt_ids))
     thinking, sess, _ = engine.generate(sess, token_budget,
                                         [tk.THINK_END, tk.EOS], sampling,
-                                        generator)
+                                        generator, fused=fused)
     if not thinking or thinking[-1] != tk.THINK_END:
         sess = engine.extend(sess, [tk.THINK_END])
         thinking = thinking + [tk.THINK_END]
     answer, sess, _ = engine.generate(sess, answer_max_tokens, [tk.EOS],
-                                      sampling, generator)
+                                      sampling, generator, fused=fused)
     return SpecReasonResult(
         thinking_ids=thinking, answer_ids=answer,
         steps=[StepRecord(engine.name, 9.0, True, thinking)],
@@ -51,10 +53,11 @@ def spec_decode_reason(base: Engine, small: Engine,
                        sampling: SamplingParams = SamplingParams(
                            temperature=0.6),
                        gamma: int = 4,
-                       answer_max_tokens: int = 8) -> SpecReasonResult:
+                       answer_max_tokens: int = 8,
+                       fused: Optional[bool] = None) -> SpecReasonResult:
     """Token-level speculative decoding over the whole generation: the
     paper's "SpecDecode" baseline (exact with respect to the base
-    model)."""
+    model).  ``fused`` picks the draft's decode loop."""
     base.meter.reset()
     small.meter.reset()
     t0 = time.perf_counter()
@@ -63,14 +66,14 @@ def spec_decode_reason(base: Engine, small: Engine,
     s = small.extend(small.new_session(), list(prompt_ids))
     thinking, b, s = spec_decode(base, small, b, s, token_budget,
                                  [tk.THINK_END, tk.EOS], sampling, generator,
-                                 gamma=gamma, stats=stats)
+                                 gamma=gamma, stats=stats, fused=fused)
     if not thinking or thinking[-1] != tk.THINK_END:
         b = base.extend(b, [tk.THINK_END])
         s = small.extend(s, [tk.THINK_END])
         thinking = thinking + [tk.THINK_END]
     answer, b, s = spec_decode(base, small, b, s, answer_max_tokens,
                                [tk.EOS], sampling, generator, gamma=gamma,
-                               stats=stats)
+                               stats=stats, fused=fused)
     return SpecReasonResult(
         thinking_ids=thinking, answer_ids=answer,
         steps=[StepRecord("base", 9.0, True, thinking)],

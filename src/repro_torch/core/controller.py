@@ -57,6 +57,10 @@ class SpecReasonConfig:
     # future work); the sequential runtime measures the overlap-eligible
     # seconds in SpecReasonResult.overlapped_s
     overlapped: bool = False
+    # decode loop of every generate call: fused (one CUDA graph replay a
+    # chunk of tokens), eager (the per-token loop), or None for each
+    # engine's default (fused for dense, eager for ssm)
+    fused_decode: Optional[bool] = None
     sampling: SamplingParams = dataclasses.field(
         default_factory=lambda: SamplingParams(temperature=0.6))
     answer_max_tokens: int = 8
@@ -263,7 +267,8 @@ class SpecReason:
         else:
             ids, st.small_sess, _ = self.small.generate(
                 st.small_sess, self.max_step_tokens(st),
-                self.segmenter.stop_ids, cfg.sampling, st.generator)
+                self.segmenter.stop_ids, cfg.sampling, st.generator,
+                fused=cfg.fused_decode)
         st.draft_ids = ids
         end = self.segmenter.classify_end(ids)
 
@@ -273,7 +278,8 @@ class SpecReason:
             t_ov = time.perf_counter()
             nids, nsess, _ = self.small.generate(
                 st.small_sess, self.segmenter.cfg.max_step_tokens,
-                self.segmenter.stop_ids, cfg.sampling, st.generator)
+                self.segmenter.stop_ids, cfg.sampling, st.generator,
+                fused=cfg.fused_decode)
             st.overlapped_s += time.perf_counter() - t_ov
             st.pending = (nids, nsess)
         st.phase = "verify"
@@ -311,11 +317,12 @@ class SpecReason:
             ids, st.base_sess, st.small_sess = spec_decode(
                 self.base, self.small, st.base_sess, st.small_sess,
                 max_step, self.segmenter.stop_ids, cfg.sampling,
-                st.generator, gamma=cfg.spec_gamma, stats=st.spec_stats)
+                st.generator, gamma=cfg.spec_gamma, stats=st.spec_stats,
+                fused=cfg.fused_decode)
         else:
             ids, st.base_sess, _ = self.base.generate(
                 st.base_sess, max_step, self.segmenter.stop_ids,
-                cfg.sampling, st.generator)
+                cfg.sampling, st.generator, fused=cfg.fused_decode)
             # keep the small model's context in sync
             st.small_sess = self.small.extend(st.small_sess, ids)
         self.note_base_step(st, ids)
@@ -337,9 +344,10 @@ class SpecReason:
             st.answer_ids, st.base_sess, st.small_sess = spec_decode(
                 self.base, self.small, st.base_sess, st.small_sess,
                 cfg.answer_max_tokens, [tk.EOS], cfg.sampling, st.generator,
-                gamma=cfg.spec_gamma, stats=st.spec_stats)
+                gamma=cfg.spec_gamma, stats=st.spec_stats,
+                fused=cfg.fused_decode)
         else:
             st.answer_ids, st.base_sess, _ = self.base.generate(
                 st.base_sess, cfg.answer_max_tokens, [tk.EOS], cfg.sampling,
-                st.generator)
+                st.generator, fused=cfg.fused_decode)
         st.phase = "done"

@@ -142,7 +142,8 @@ def spec_decode(base: Engine, draft: Engine, base_sess: Session,
                 draft_sess: Session, max_tokens: int,
                 stop_ids: Sequence[int], params: SamplingParams,
                 generator: torch.Generator, gamma: int = 4,
-                stats: Optional[SpecDecodeStats] = None
+                stats: Optional[SpecDecodeStats] = None,
+                fused: Optional[bool] = None
                 ) -> Tuple[List[int], Session, Session]:
     """Generate up to ``max_tokens`` tokens of the base model's
     distribution, accelerated by the draft model.  Both sessions start
@@ -155,7 +156,11 @@ def spec_decode(base: Engine, draft: Engine, base_sess: Session,
     decode commits the last pending token when the routine finishes.  The
     draft context reconciles every round: truncate, then decode the final
     suffix token.  An engine that cannot truncate (SSM state) restores
-    the round's snapshot and replays the kept tokens instead."""
+    the round's snapshot and replays the kept tokens instead.
+
+    ``fused`` picks the draft's decode loop (None: the draft engine's
+    default); either way the proposal comes with its per-token
+    distributions."""
     out: List[int] = []
     stats = stats if stats is not None else SpecDecodeStats()
     pending: Optional[int] = None
@@ -163,7 +168,8 @@ def spec_decode(base: Engine, draft: Engine, base_sess: Session,
         g = min(gamma, max_tokens - len(out))
         d_snap = draft_sess.snapshot()
         draft_ids, draft_sess, dprobs = draft.generate(
-            draft_sess, g, (), params, generator, collect_probs=True)
+            draft_sess, g, (), params, generator, collect_probs=True,
+            fused=fused)
         if not draft_ids:
             break
         stats.proposed += len(draft_ids)

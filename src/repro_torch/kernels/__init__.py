@@ -21,6 +21,8 @@ of flash_attention and paged_append_attention), ``tile_plan`` the block
 and split plan of the four attention kernels, ``build`` compiles the
 sources with nvcc at first use, ``ref`` holds the plain PyTorch versions
 of the attention kernels and the SSD scan's sequential oracle (the scan's
-plain version is ``models.mamba2.ssd_chunked``), and ``ops`` dispatches:
-CPU tensors to the plain versions, CUDA tensors to the kernels.
+plain version is ``models.mamba2.ssd_chunked``), ``counts`` the
+wrappers' launch counts (launches recorded into a CUDA graph count on
+each replay), and ``ops`` dispatches: CPU tensors to the plain versions,
+CUDA tensors to the kernels.
 """

@@ -8,6 +8,11 @@ blocks the card runs at once (``tile_plan.decode_split``, from the
 cache's capacity), launches the CUDA kernel on the current stream and
 counts the launch; it never computes on the CPU
 (``ops.decode_attention`` sends CPU tensors to ``ref.decode_reference``).
+
+The split depends on the capacity and never on ``lengths``, so a launch
+can be recorded into a CUDA graph (the fused decode loop,
+``serving/engine.py``); ``counts`` says how a recorded launch is
+counted.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import functools
 
 import torch
 
-from . import build
+from . import build, counts
 from . import tile_plan
 
 MAX_HEAD_DIM = 128
@@ -102,7 +107,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    decode_attention.launches += 1
+    counts.launched(decode_attention)
     return out
 
 

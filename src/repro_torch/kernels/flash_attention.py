@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import build
+from . import build, counts
 from . import tile_plan
 
 MAX_HEAD_DIM = 128
@@ -118,7 +118,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    flash_attention.launches += 1
+    counts.launched(flash_attention)
     return out
 
 

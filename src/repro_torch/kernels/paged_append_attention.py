@@ -24,7 +24,7 @@ import functools
 
 import torch
 
-from . import build
+from . import build, counts
 from .decode_attention import DTYPES
 from .paged_decode_attention import check_lengths, check_pages
 from .tile_plan import ROWS, card_occupancy, split_plan
@@ -96,7 +96,7 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"paged_append_attention kernel launch failed: "
                            f"CUDA error {rc}")
-    paged_append_attention.launches += 1
+    counts.launched(paged_append_attention)
     return out
 
 

@@ -20,7 +20,7 @@ import functools
 
 import torch
 
-from . import build
+from . import build, counts
 from . import tile_plan
 from .decode_attention import DTYPES, MAX_HEAD_DIM
 
@@ -131,7 +131,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {rc}")
-    paged_decode_attention.launches += 1
+    counts.launched(paged_decode_attention)
     return out
 
 

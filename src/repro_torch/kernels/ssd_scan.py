@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import build
+from . import build, counts
 from . import tile_plan
 
 MAX_CHUNK = 128
@@ -155,7 +155,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     in x's dtype, final state (B, H, P, N) float32); fp32-accurate
     arithmetic (3xTF32 tensor-core products, fp32 accumulation)."""
     y, final = _call(x, dt, a, b, c, chunk, init_state)
-    ssd_scan.launches += 1
+    counts.launched(ssd_scan)
     return y, final
 
 

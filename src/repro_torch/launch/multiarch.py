@@ -5,7 +5,9 @@ speculator drafts for each base, and each base rolls back its own way
 The port's twin of the JAX package's ``examples/multiarch_smoke.py``,
 over the port's registry (minitron-4b, dense; mamba2-1.3b, ssm); the
 registry refuses the JAX package's other architectures, and a model of
-a family not yet ported raises ``NotImplementedError``.
+a family not yet ported raises ``NotImplementedError``.  Each engine
+decodes by its default loop (fused for dense, per-token for ssm), and
+each line names it.
 
   PYTHONPATH=src python -m repro_torch.launch.multiarch --device cpu
 """
@@ -26,7 +28,7 @@ from ..data import tasks
 from ..models.config import ModelConfig
 from ..models.model import Model
 from ..serving.engine import Engine
-from ..serving.loader import arch_config
+from ..serving.loader import arch_config, decode_loops
 from ..tokenizer import toy as tk
 
 SMALL = ModelConfig(name="spec-small", family="dense", n_layers=1,
@@ -54,7 +56,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"{arch:24s} [{cfg.family:7s}] steps={len(res.steps)} "
               f"think={res.n_thinking_tokens:3d} "
               f"wall={res.wall_time:5.2f}s "
-              f"rollback={'snapshot' if cfg.has_ssm else 'kv-truncate'}")
+              f"rollback={'snapshot' if cfg.has_ssm else 'kv-truncate'} "
+              f"decode loop: {decode_loops(base, small)}")
 
 
 if __name__ == "__main__":

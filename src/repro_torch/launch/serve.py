@@ -14,7 +14,12 @@ an error.  Request i samples from a ``torch.Generator`` seeded with
 ``1000 * seed + i``.
 
 ``--scheduler sequential`` (the default) serves one request at a time,
-schemes base, small, specdecode, specreason and specreason+decode.
+schemes base, small, specdecode, specreason and specreason+decode.  Its
+engines decode through ``--decode-loop fused`` (the default: chunks of
+tokens replayed as CUDA graphs on the card, ``serving/engine.py``) or
+``eager`` (the per-token loop); the batched rows of the continuous
+scheduler decode one step a call either way (their fused loop is ROADMAP
+queue 1, item 1).
 ``--scheduler continuous`` serves the specreason scheme through the
 continuous-batching scheduler over paged KV (``--batch`` rows,
 ``--kv-budget-mb`` for the static KV partition, chunked admission
@@ -49,7 +54,7 @@ from ..data.evaluate import is_correct
 from ..sampling.sample import SamplingParams
 from ..serving.engine import Engine
 from ..serving.kv_manager import KVBudget, KVManager
-from ..serving.loader import load_testbed_engines
+from ..serving.loader import decode_loops, load_testbed_engines
 from ..serving.scheduler import ContinuousScheduler
 from ..serving.workload import poisson_arrivals, run_workload, summarize
 from ..tokenizer import toy as tk
@@ -59,19 +64,19 @@ SCHEMES = ("base", "small", "specdecode", "specreason", "specreason+decode")
 # the reference CLI's flags this slice leaves out, with the ROADMAP item
 # that brings each (queue 1)
 NOT_PORTED = {
-    "num_samples": ("--num-samples", "item 5 (best-of-N)"),
-    "vote": ("--vote", "item 5 (best-of-N)"),
-    "tp": ("--tp", "item 9 (tensor parallelism)"),
-    "deadline": ("--deadline", "item 5 (resilience)"),
-    "slo_tpot": ("--slo-tpot", "item 5 (resilience)"),
-    "shed_policy": ("--shed-policy", "item 5 (resilience)"),
-    "degrade": ("--degrade", "item 5 (resilience)"),
-    "inject_faults": ("--inject-faults", "item 5 (faults and audits)"),
-    "audit": ("--audit", "item 5 (faults and audits)"),
-    "trace": ("--trace", "item 5 (observability)"),
-    "metrics_out": ("--metrics-out", "item 5 (observability)"),
-    "admin_port": ("--admin-port", "item 5 (observability)"),
-    "snapshot_every": ("--snapshot-every", "item 5 (observability)"),
+    "num_samples": ("--num-samples", "item 4 (best-of-N)"),
+    "vote": ("--vote", "item 4 (best-of-N)"),
+    "tp": ("--tp", "item 8 (tensor parallelism)"),
+    "deadline": ("--deadline", "item 6 (resilience)"),
+    "slo_tpot": ("--slo-tpot", "item 6 (resilience)"),
+    "shed_policy": ("--shed-policy", "item 6 (resilience)"),
+    "degrade": ("--degrade", "item 6 (resilience)"),
+    "inject_faults": ("--inject-faults", "item 6 (faults and audits)"),
+    "audit": ("--audit", "item 6 (faults and audits)"),
+    "trace": ("--trace", "item 6 (observability)"),
+    "metrics_out": ("--metrics-out", "item 6 (observability)"),
+    "admin_port": ("--admin-port", "item 6 (observability)"),
+    "snapshot_every": ("--snapshot-every", "item 6 (observability)"),
     "xla_profile_dir": ("--xla-profile-dir", "item 6 (compile and device "
                         "plane)"),
 }
@@ -79,18 +84,25 @@ NOT_PORTED = {
 
 def run_scheme(scheme: str, base: Engine, small: Engine, task,
                generator: torch.Generator, budget: int, threshold: float,
-               temperature: float) -> SpecReasonResult:
+               temperature: float, fused: Optional[bool] = None
+               ) -> SpecReasonResult:
+    """One request of ``scheme``; ``fused`` picks every generate call's
+    decode loop (None: each engine's default)."""
     prompt = tasks.question_tokens(task)
     sp = SamplingParams(temperature=temperature)
     if scheme == "base":
-        return vanilla_reason(base, prompt, generator, budget, sp)
+        return vanilla_reason(base, prompt, generator, budget, sp,
+                              fused=fused)
     if scheme == "small":
-        return vanilla_reason(small, prompt, generator, budget, sp)
+        return vanilla_reason(small, prompt, generator, budget, sp,
+                              fused=fused)
     if scheme == "specdecode":
-        return spec_decode_reason(base, small, prompt, generator, budget, sp)
+        return spec_decode_reason(base, small, prompt, generator, budget, sp,
+                                  fused=fused)
     cfg = SpecReasonConfig(policy=StaticThreshold(threshold),
                            token_budget=budget, sampling=sp,
-                           use_spec_decode=(scheme == "specreason+decode"))
+                           use_spec_decode=(scheme == "specreason+decode"),
+                           fused_decode=fused)
     return SpecReason(base, small, cfg).run(prompt, generator)
 
 
@@ -117,12 +129,13 @@ def _spec_suffix(res: SpecReasonResult) -> str:
 
 @dataclasses.dataclass
 class ServeReport:
-    """What a run served: the engines and, per request, (scheme, request
-    index, task, result); a continuous run also keeps its scheduler, the
-    request handles and the summary."""
+    """What a run served: the engines, the decode loop and, per request,
+    (scheme, request index, task, result); a continuous run also keeps
+    its scheduler, the request handles and the summary."""
     base: Engine
     small: Engine
     runs: List[Tuple[str, int, tasks.Task, SpecReasonResult]]
+    decode_loop: str = "fused"
     sched: Optional[ContinuousScheduler] = None
     handles: Optional[list] = None
     stats: Optional[dict] = None
@@ -158,7 +171,7 @@ def serve_continuous(args, base: Engine, small: Engine, reqs,
     handles = run_workload(sched, pairs, arrivals)
     wall = time.perf_counter() - t0
     tag = "hierspec" if args.spec_decode else "continuous"
-    report = ServeReport(base, small, [], sched, handles)
+    report = ServeReport(base, small, [], "eager", sched, handles)
     for i, h in enumerate(handles):
         res = h.result
         ok = is_correct(h.task, res.answer_ids)
@@ -174,6 +187,7 @@ def serve_continuous(args, base: Engine, small: Engine, reqs,
     stats = summarize(handles, wall)
     stats.update({
         "scheduler": "continuous", "device": str(dev), "batch": args.batch,
+        "decode_loop": "eager",
         "spec_decode": args.spec_decode, "gamma": args.gamma,
         "arrival_rate": args.arrival_rate, "ticks": sched.ticks,
         "preemptions": sched.preemptions, "prefix_cache": False,
@@ -213,6 +227,13 @@ def main(argv: Optional[List[str]] = None) -> ServeReport:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--meters", action="store_true",
                     help="print the per-engine meter breakdown per request")
+    ap.add_argument("--decode-loop", choices=("fused", "eager"),
+                    default="fused",
+                    help="sequential engines: fused = chunks of tokens a "
+                         "CUDA graph replay on the card (the body runs "
+                         "eagerly on the CPU), eager = the per-token loop; "
+                         "the continuous scheduler's rows decode per step "
+                         "either way")
     ap.add_argument("--scheduler", choices=("sequential", "continuous"),
                     default="sequential",
                     help="sequential = one request start-to-finish; "
@@ -272,7 +293,7 @@ def main(argv: Optional[List[str]] = None) -> ServeReport:
         if not args.no_prefix_cache:
             raise NotImplementedError(
                 "the continuous scheduler's prefix cache is not ported yet "
-                "(ROADMAP queue 1, item 5); pass --no-prefix-cache")
+                "(ROADMAP queue 1, item 4); pass --no-prefix-cache")
     elif args.spec_decode:
         ap.error("--spec-decode rides on the continuous scheduler; the "
                  "sequential regime has the specreason+decode scheme")
@@ -286,13 +307,17 @@ def main(argv: Optional[List[str]] = None) -> ServeReport:
     if args.scheduler == "continuous":
         return serve_continuous(args, base, small, reqs, dev)
     scheme = args.scheme
+    fused = args.decode_loop == "fused"
+    print(f"[serve] decode loop: {base.name} {args.decode_loop}, "
+          f"{small.name} {args.decode_loop} (engine defaults: "
+          f"{decode_loops(base, small)})", flush=True)
 
-    report = ServeReport(base, small, [])
+    report = ServeReport(base, small, [], args.decode_loop)
     lat, acc, think, out_tokens = [], [], [], 0
     for i, task in enumerate(reqs):
         gen = torch.Generator(device=dev).manual_seed(1000 * args.seed + i)
         res = run_scheme(scheme, base, small, task, gen, args.budget,
-                         args.threshold, args.temperature)
+                         args.threshold, args.temperature, fused=fused)
         ok = is_correct(task, res.answer_ids)
         report.runs.append((scheme, i, task, res))
         lat.append(res.wall_time)
@@ -308,6 +333,7 @@ def main(argv: Optional[List[str]] = None) -> ServeReport:
                 print(_meter_line(name, m))
     print(json.dumps({
         "scheme": scheme, "device": str(dev),
+        "decode_loop": args.decode_loop,
         "mean_latency_s": sum(lat) / len(lat),
         "output_tokens_per_s": out_tokens / sum(lat),
         "accuracy": sum(acc) / len(acc),

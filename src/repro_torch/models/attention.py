@@ -15,7 +15,7 @@ read them through permuted views, so no cache is copied per call.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -99,27 +99,47 @@ def prefill_self_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
 
 def decode_self_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
                           cfg: ModelConfig, k_cache: torch.Tensor,
-                          v_cache: torch.Tensor, pos: int,
-                          lengths: torch.Tensor,
-                          ring: bool = False) -> torch.Tensor:
+                          v_cache: torch.Tensor, pos,
+                          lengths: torch.Tensor, ring: bool = False,
+                          active: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """One-token decode.  x: (B, 1, d); k_cache/v_cache: (B, C, K, hd),
     written in place at the new token's slot; pos: the new token's
-    absolute position; lengths: (B,) int32 on x's device, the number of
-    valid slots (``min(pos + 1, C)``), built once per decode step.
+    absolute position, a host int (the per-token loop) or a 0-d integer
+    tensor on x's device (the fused loop, which reads nothing back);
+    lengths: (B,) int32 on x's device, the number of valid slots
+    (``min(pos + 1, C)``), built once per decode step.
+
+    With a tensor ``pos`` the slot ``min(pos, C - 1)`` is written by an
+    indexed copy, and ``active`` (a 0-d bool tensor) may mask the step: a
+    step the fused loop runs after its stop writes back the K/V already
+    at the slot, so a masked step at ``pos == C`` leaves slot C - 1, which
+    is in the context, as it was.
 
     Linear caches run the decode kernel (``ops.decode_attention``).  Ring
-    buffers and sliding windows run a plain masked path on the CPU and
-    raise on CUDA until a kernel covers them."""
+    buffers and sliding windows run a plain masked path on the CPU with a
+    host ``pos`` and raise on CUDA until a kernel covers them."""
     b = x.shape[0]
     cap = k_cache.shape[1]
     q, k, v = qkv(x, p)
+    on_device = isinstance(pos, torch.Tensor)
+    if on_device and (ring or cfg.sliding_window):
+        raise NotImplementedError(
+            "a device position (the fused decode loop) takes linear caches "
+            "without a window")
     if cfg.use_rope:
-        posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+        posv = pos.reshape(1, 1).expand(b, 1) if on_device else \
+            torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
         q = apply_rope(q, posv, cfg.rope_theta)
         k = apply_rope(k, posv, cfg.rope_theta)
-    slot = pos % cap if ring else min(pos, cap - 1)
-    k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+    if on_device:
+        slot = pos.clamp(max=cap - 1).long().reshape(1)
+        _write_slot(k_cache, slot, k, active)
+        _write_slot(v_cache, slot, v, active)
+    else:
+        slot = pos % cap if ring else min(pos, cap - 1)
+        k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
     if ring or cfg.sliding_window:
         if x.is_cuda:
             raise NotImplementedError(
@@ -131,6 +151,17 @@ def decode_self_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
         o = ops.decode_attention(q[:, 0], _heads_first(k_cache),
                                  _heads_first(v_cache), lengths)
     return out_proj(o[:, None], p)
+
+
+def _write_slot(cache: torch.Tensor, slot: torch.Tensor, new: torch.Tensor,
+                active: Optional[torch.Tensor]) -> None:
+    """cache (B, C, K, hd)[:, slot] = new (B, 1, K, hd) by an indexed copy
+    at the device index ``slot`` (1,); where ``active`` is false, the
+    slot's own K/V are written back."""
+    new = new.to(cache.dtype)
+    if active is not None:
+        new = torch.where(active, new, cache.index_select(1, slot))
+    cache.index_copy_(1, slot, new)
 
 
 def _masked_decode(q: torch.Tensor, k_cache: torch.Tensor,

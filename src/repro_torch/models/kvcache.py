@@ -55,6 +55,10 @@ class DecodeState:
     ring: bool = False   # ring-buffer (sliding window) cache
     conv: Optional[torch.Tensor] = None   # (L, B, W-1, C) mamba conv state
     ssm: Optional[torch.Tensor] = None    # (L, B, H, P, N) SSM state
+    # held by every state over an engine's pooled caches, so the engine
+    # knows when no live state holds them (``Engine.new_session``)
+    lease: object = dataclasses.field(default=None, repr=False,
+                                      compare=False)
 
     @property
     def capacity(self) -> int:

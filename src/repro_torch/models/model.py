@@ -12,7 +12,8 @@ Public surface:
   Model.forward      -- full-sequence causal forward -> logits (B, S, V)
   Model.prefill      -- chunked prefill / extend from state.pos
                         -> (logits (B, S, V), new state)
-  Model.decode_step  -- one-token decode -> (logits (B, V), new state)
+  Model.decode_step  -- one-token decode -> (logits (B, V), new state),
+                        from a host or a device position
   Model.init_state   -- an empty KV cache
   Model.prefill_rows -- batched extend of B rows over a paged KV store,
                         each row at its own position -> logits (B, T, V)
@@ -24,7 +25,7 @@ Public surface:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -113,8 +114,9 @@ class Model:
     # ---------------------------------------------------------- embeddings --
     def _embed(self, params, tokens: torch.Tensor, start
                ) -> torch.Tensor:
-        """``start``: the first token's position, or a (B, S) tensor of
-        every token's position."""
+        """``start``: the first token's position, or a tensor of every
+        token's position, (B, S) or 0-d for one token (the fused decode
+        loop's device position)."""
         cfg = self.cfg
         x = params["tok_embed"][tokens]
         if not cfg.use_rope:
@@ -182,10 +184,18 @@ class Model:
         return self._final(params, x), new_state
 
     # --------------------------------------------------------------- decode --
-    def decode_step(self, params, state: DecodeState, tokens: torch.Tensor
+    def decode_step(self, params, state: DecodeState, tokens: torch.Tensor,
+                    active: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, DecodeState]:
         """One-token decode.  tokens: (B, 1).  Returns (logits (B, V), the
-        state advanced by one)."""
+        state advanced by one).
+
+        ``state.pos`` is a host int, or (dense family, the fused decode
+        loop) a 0-d integer tensor on the device: then the rope positions,
+        ``lengths`` and the cache slot are built on the device with no
+        host read, and a 0-d bool ``active`` may mask the step (its K/V
+        write puts back what the slot held, and the returned position
+        advances by ``active``)."""
         cfg = self.cfg
         pos = state.pos
         x = self._embed(params, tokens, pos)
@@ -193,18 +203,24 @@ class Model:
             logits, new_state = self._ssm_layers(params, x, state,
                                                  decode=True)
             return logits[:, 0, :], new_state
-        lengths = torch.full((tokens.shape[0],),
-                             min(pos + 1, state.capacity),
-                             dtype=torch.int32, device=x.device)
+        b = tokens.shape[0]
+        if isinstance(pos, torch.Tensor):
+            lengths = (pos + 1).clamp(max=state.capacity).to(
+                torch.int32).reshape(1).expand(b).contiguous()
+            new_pos = pos + (1 if active is None else active.to(pos.dtype))
+        else:
+            lengths = torch.full((b,), min(pos + 1, state.capacity),
+                                 dtype=torch.int32, device=x.device)
+            new_pos = pos + 1
         for i in range(cfg.n_layers):
             lp = _layer(params["layers"], i)
             h = apply_norm(x, lp["ln1"], cfg.norm_type, cfg.rmsnorm_eps)
             x = x + attn.decode_self_attention(
                 h, lp["attn"], cfg, state.k[i], state.v[i], pos, lengths,
-                ring=state.ring)
+                ring=state.ring, active=active)
             x = self._mlp_block(x, lp)
         logits = self._final(params, x)[:, 0, :]
-        return logits, dataclasses.replace(state, pos=pos + 1)
+        return logits, dataclasses.replace(state, pos=new_pos)
 
     def _ssm_layers(self, params, x: torch.Tensor, state: DecodeState,
                     decode: bool) -> Tuple[torch.Tensor, DecodeState]:

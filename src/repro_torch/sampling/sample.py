@@ -7,6 +7,11 @@ so sampled tokens differ from the JAX package's, which draws from
 ``jax.random`` keys; greedy tokens do not depend on the noise.  Tests
 hold the sampling rule itself to the JAX package's by handing both the
 same noise (``categorical``).
+
+Nothing here reads a tensor back to the host, so the fused decode loop
+(``serving/engine.py``) records these functions into a CUDA graph:
+``SamplingParams`` (temperature, top-k, top-p) are host constants of the
+graph's key.
 """
 
 from __future__ import annotations
@@ -50,8 +55,8 @@ def probs_from_logits(logits: torch.Tensor,
     """Post-adjustment probabilities; greedy is the one-hot of the
     argmax."""
     if params.temperature <= 0.0:
-        return torch.nn.functional.one_hot(
-            torch.argmax(logits, dim=-1), logits.shape[-1]).float()
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        return (vocab == torch.argmax(logits, dim=-1, keepdim=True)).float()
     return torch.softmax(adjust_logits(logits, params).float(), dim=-1)
 
 

@@ -27,7 +27,8 @@ Differences from the JAX package:
     raises if the caller did not reserve them.
   * ``generate_rows`` is a per-token host loop (one forward, one host
     sync and one sample per token), like the port's sequential
-    ``Engine.generate``.  The Meter counts one decode call per
+    ``Engine.generate_eager``; a fused form in CUDA graphs is ROADMAP
+    queue 1, item 1.  The Meter counts one decode call per
     ``generate_rows`` as the JAX package does, and the forward passes in
     ``decode_steps``.
   * Random draws come from one ``torch.Generator`` per row (its
@@ -36,7 +37,7 @@ Differences from the JAX package:
 Identity with the sequential engine rests on row-independent
 arithmetic; the port runs the rows of a call as one batch, so a GEMM
 that picks another algorithm for another row count can move a logit by
-an ulp (the hazard in ROADMAP queue 1, item 5).
+an ulp (a hazard ROADMAP section 3 watches).
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@ The port cannot train: a missing checkpoint is an error.  Checkpoints
 come from the JAX package's trainer or, for driving the machinery with
 random weights, from ``save_random_testbed``.  ``random_engine`` draws a
 registry architecture's weights from a seed, for driving the machinery
-at an architecture's published widths.
+at an architecture's published widths.  Engines take ``Engine``'s
+decode-loop default: the fused loop for a dense model, the per-token
+loop for an ssm model.
 """
 
 from __future__ import annotations
@@ -73,3 +75,10 @@ def random_engine(arch: str, device="cuda", seed: int = 0) -> Engine:
     model = Model(arch_config(arch))
     params = model.init(seed, device=devices.resolve(device))
     return Engine(model, params, name=arch)
+
+
+def decode_loops(*engines: Engine) -> str:
+    """Which loop each engine's ``generate`` runs by default, for a log
+    line: "name fused, name eager"."""
+    return ", ".join(f"{e.name} {'fused' if e.fused else 'eager'}"
+                     for e in engines)

@@ -4,7 +4,7 @@ status constants, ``RequestError``, ``TickConfig``, and an inert
 ``ResilienceConfig`` / ``OverloadController``.
 
 Deadlines, shedding and the degradation ladder are not ported yet
-(ROADMAP queue 1, item 5): a ``ResilienceConfig`` that asks for any of
+(ROADMAP queue 1, item 6): a ``ResilienceConfig`` that asks for any of
 them raises ``NotImplementedError``, and the controller always answers
 the full configuration.
 """
@@ -64,7 +64,7 @@ class ResilienceConfig:
                                                   False):
             raise NotImplementedError(
                 "SLOs, shedding and the degradation ladder are not ported "
-                "yet (ROADMAP queue 1, item 5)")
+                "yet (ROADMAP queue 1, item 6)")
 
 
 class OverloadController:

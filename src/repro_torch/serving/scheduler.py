@@ -40,11 +40,11 @@ engines' KV (``PagedKVStore``).  So:
     shares the row's partial tail block, and the draft written after it
     lands in a copy, so a rejection reads back the pre-snapshot K/V.
 
-Not ported yet (ROADMAP queue 1, item 5), each raising
-``NotImplementedError``: the radix prefix cache (``prefix_cache=False``
-is required), deadlines, shedding and the degradation ladder, fault
-injection and audits, tracing, metrics, monitors and the admin plane,
-the compile and memory watches, tensor parallelism, and overlapped
+Not ported yet, each raising ``NotImplementedError``: the radix prefix
+cache (``prefix_cache=False`` is required; ROADMAP queue 1, item 4),
+deadlines, shedding and the degradation ladder, fault injection and
+audits, tracing, metrics, monitors and the admin plane, the compile and
+memory watches (item 6), tensor parallelism (item 8), and overlapped
 mode.
 """
 
@@ -77,9 +77,9 @@ from .telemetry import SchedEvent
 DEFAULT_MAX_PREFILL_TOKENS = 64
 
 
-def _not_ported(what: str) -> NotImplementedError:
+def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
-                               "item 5)")
+                               f"item {item})")
 
 
 @dataclasses.dataclass
@@ -223,7 +223,8 @@ class ContinuousScheduler:
                 "sequential controller for overlapped mode")
         if prefix_cache:
             raise _not_ported("the radix prefix cache over paged rows "
-                              "(pass prefix_cache=False, --no-prefix-cache)")
+                              "(pass prefix_cache=False, --no-prefix-cache)",
+                              4)
         self.controller = controller
         self.kv = kv
         self.spec = cfg.use_spec_decode if spec_decode is None \
@@ -281,7 +282,7 @@ class ContinuousScheduler:
         admission seeds a generator on the engines' device from the
         scheduler's ``seed`` and the arrival index."""
         if deadline_s is not None:
-            raise _not_ported("request deadlines")
+            raise _not_ported("request deadlines", 6)
         req = Request(task, generator=generator, priority=priority,
                       arrival_idx=self._submitted)
         self._submitted += 1

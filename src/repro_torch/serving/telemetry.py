@@ -2,7 +2,7 @@
 ``serving/telemetry.py`` the core tick reads.  ``SchedEvent`` is the
 ``str`` subclass behind the serve CLI's ``--verbose`` lines.  Tracing,
 metrics and the Chrome-trace export are not ported yet (ROADMAP queue 1,
-item 5)."""
+item 6)."""
 
 from __future__ import annotations
 

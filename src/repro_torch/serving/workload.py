@@ -4,7 +4,7 @@ latency, TTFT and TPOT percentiles, spec-decode acceptance).
 
 The port of the JAX package's ``serving/workload.py`` (its best-of-N
 expansion, majority vote and template families wait for the prefix
-cache, ROADMAP queue 1, item 5).  Requests carry ``torch.Generator``s in
+cache, ROADMAP queue 1, item 4).  Requests carry ``torch.Generator``s in
 place of PRNG keys.
 """
 

@@ -68,7 +68,7 @@ def pairs():
         tp = tckpt.params_from_numpy(jckpt._flatten(jp), device="cpu")
         out.append((JEngine(jm, jp, max_len=1024, fused=False),
                     Engine(Model(getattr(testbed, cfg_name)), tp,
-                           max_len=1024)))
+                           max_len=1024, fused=False)))
     (jb, tb), (js, ts) = out
     return (jb, js), (tb, ts)
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain version,
 the wrappers' refusals, and the model and engine on CUDA against the CPU
 (the sequential engine, the batched paged path, and an ssm model whose
-extends go through the SSD scan kernel).
+extends go through the SSD scan kernel); the fused decode loop's CUDA
+graphs against the per-token loop on the card.
 
 Needs an NVIDIA GPU and nvcc (the kernels build on first use); every test
 skips where CUDA is absent.  Imports no JAX, so it runs on a machine
@@ -442,7 +443,7 @@ def test_engine_on_card_launches_per_metered_call(dev):
         tokens[d] = ids
         if d == "cuda":
             n = m.cfg.n_layers
-            assert decode_attention.launches == n * e.meter.decode_calls
+            assert decode_attention.launches == n * e.meter.decode_steps
             assert flash_attention.launches == n * e.meter.prefill_calls
         else:
             assert decode_attention.launches == flash_attention.launches == 0
@@ -651,3 +652,143 @@ def test_ssm_model_on_card_matches_cpu_and_counts_launches(dev):
                                      else 0)
     torch.testing.assert_close(outs["cuda"], outs["cpu"], atol=LOGIT_TOL,
                                rtol=LOGIT_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the fused decode loop: CUDA graphs with flash-decode inside
+# ---------------------------------------------------------------------------
+
+def _base_engine(dev, max_len=256, seed=1):
+    m = Model(testbed.BASE)
+    return Engine(m, m.init(seed, device=dev), max_len=max_len)
+
+
+def _two_calls(eng, fused, temperature, seed=7):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sp = SamplingParams(temperature=temperature)
+    s = eng.extend(eng.new_session(), list(range(10, 31)))
+    out = []
+    for budget, stops in ((37, [2]), (11, [])):
+        ids, s, probs = eng.generate(s, budget, stops, sp, gen,
+                                     collect_probs=True, fused=fused)
+        out.append((ids, probs))
+    return out, s, torch.rand(3, generator=gen, device="cuda")
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.6])
+def test_fused_graphs_match_eager_on_card(dev, temperature):
+    """Two consecutive calls on one generator: the replayed graphs give
+    the per-token loop's tokens, probabilities, logits and position, and
+    leave the generator where it does; decode launches == n_layers x the
+    decode steps, masked and warm-up steps included."""
+    eng = _base_engine(dev)
+    eo, es, enext = _two_calls(eng, False, temperature)
+    eng.meter.reset()
+    decode_attention.launches = 0
+    fo, fs, fnext = _two_calls(eng, True, temperature)
+    assert [i for i, _ in fo] == [i for i, _ in eo]
+    for (_, fp), (_, ep) in zip(fo, eo):
+        for a, b in zip(fp, ep):
+            torch.testing.assert_close(torch.from_numpy(a),
+                                       torch.from_numpy(b), rtol=2e-4,
+                                       atol=2e-5)
+    assert fs.pos == es.pos
+    torch.testing.assert_close(fs.last_logits, es.last_logits, rtol=2e-4,
+                               atol=2e-4)
+    torch.testing.assert_close(fnext, enext, rtol=0, atol=0)
+    m = eng.meter
+    assert m.decode_calls == 2 and eng.captures == 2
+    assert decode_attention.launches == \
+        eng.model.cfg.n_layers * m.decode_steps > 0
+    # at most ceil(budget / k) + 1 waits a call
+    assert m.decode_syncs <= (-(-37 // 8) + 1) + (-(-11 // 8) + 1)
+
+
+def test_fused_sessions_interleaved_on_card(dev):
+    """Two live sessions of one engine hold two KV pairs, so their graphs
+    differ; interleaved calls each give their own per-token run."""
+    eng = _base_engine(dev)
+    sp = SamplingParams()
+    prompts = [list(range(10, 25)), list(range(30, 38))]
+    want = []
+    for p in prompts:
+        s = eng.extend(eng.new_session(), p)
+        ids = []
+        for budget in (9, 6, 13):
+            got, s, _ = eng.generate_eager(s, budget, [], sp,
+                                           torch.Generator(device="cuda"))
+            ids.append(got)
+        want.append(ids)
+    sess = [eng.extend(eng.new_session(), p) for p in prompts]
+    assert sess[0].state.k.data_ptr() != sess[1].state.k.data_ptr()
+    got = [[], []]
+    for budget in (9, 6, 13):
+        for r in (0, 1):
+            ids, sess[r], _ = eng.generate_fused(
+                sess[r], budget, [], sp, torch.Generator(device="cuda"))
+            got[r].append(ids)
+    assert got == want
+
+
+def test_fused_captures_once_per_key_on_card(dev):
+    """Three sequential SpecReason requests: new sessions take the freed
+    KV pairs again, so each engine captures once per key, not once per
+    request."""
+    from repro_torch.core.controller import SpecReason, SpecReasonConfig
+    from repro_torch.core.policies import StaticThreshold
+    base = _base_engine(dev, max_len=512)
+    sm = Model(testbed.SMALL)
+    small = Engine(sm, sm.init(2, device=dev), max_len=512)
+    cfg = SpecReasonConfig(policy=StaticThreshold(4.5), token_budget=64,
+                           sampling=SamplingParams())
+    captures, calls = [], 0
+    for i in range(3):
+        res = SpecReason(base, small, cfg).run(
+            list(range(10 + i, 30)), torch.Generator(device="cuda"))
+        calls += sum(m["decode_calls"] for m in res.meters.values())
+        captures.append(base.captures + small.captures)
+    assert captures[-1] == len(base._loops) + len(small._loops) < calls
+    # every request's graphs run over one KV pair an engine
+    for eng in (base, small):
+        assert len({key[:2] for key in eng._loops}) == 1
+
+
+_CAPTURE_FAILS = """
+import sys, torch
+from repro_torch.configs import testbed
+from repro_torch.models.model import Model
+from repro_torch.sampling.sample import SamplingParams
+from repro_torch.serving import engine as engine_mod
+
+real = engine_mod.sample
+def syncing(logits, params, gen):
+    int(logits.argmax())            # a host read inside the body
+    return real(logits, params, gen)
+engine_mod.sample = syncing
+m = Model(testbed.MICRO)
+eng = engine_mod.Engine(m, m.init(0, device="cuda"), max_len=64)
+s = eng.extend(eng.new_session(), [5, 6, 7])
+try:
+    eng.generate(s, 8, [], SamplingParams(), torch.Generator(device="cuda"))
+except RuntimeError as e:
+    print("raised", eng.meter.decode_calls, eng.captures, type(e).__name__)
+    sys.exit(0)
+print("returned")
+sys.exit(1)
+"""
+
+
+def test_fused_capture_failure_raises_on_card(dev):
+    """A host sync inside the captured body makes the capture raise, and
+    nothing runs the per-token loop instead (in a child process: a failed
+    capture may leave the CUDA context unusable)."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "src")
+    out = subprocess.run([sys.executable, "-c", _CAPTURE_FAILS],
+                         capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": src})
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.split()[:3] == ["raised", "0", "0"], out.stdout

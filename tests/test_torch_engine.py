@@ -49,7 +49,8 @@ def _engines(name, seed=0, max_len=256):
     jp = jm.init(jax.random.PRNGKey(seed))
     tp = tckpt.params_from_numpy(jckpt._flatten(jp), device="cpu")
     return (JEngine(jm, jp, max_len=max_len, fused=False),
-            Engine(TModel(getattr(testbed, name)), tp, max_len=max_len))
+            Engine(TModel(getattr(testbed, name)), tp, max_len=max_len,
+                   fused=False))
 
 
 def _prompt(n=11, seed=0):

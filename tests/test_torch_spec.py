@@ -130,7 +130,8 @@ def pairs():
         jp = jm.init(jax.random.PRNGKey(seed))
         tp = tckpt.params_from_numpy(jckpt._flatten(jp), device="cpu")
         out.append((JEngine(jm, jp, max_len=1024, fused=False),
-                    Engine(Model(getattr(testbed, name)), tp, max_len=1024)))
+                    Engine(Model(getattr(testbed, name)), tp, max_len=1024,
+                           fused=False)))
     (jb, tb), (js, ts) = out
     return (jb, js), (tb, ts)
 

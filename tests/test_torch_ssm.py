@@ -345,7 +345,8 @@ def pairs(engines):
     js_p = js_m.init(jax.random.PRNGKey(4))
     ts_p = tckpt.params_from_numpy(jckpt._flatten(js_p), device="cpu")
     return ((je, JEngine(js_m, js_p, max_len=512, fused=False)),
-            (te, Engine(Model(testbed.MICRO_SMALL), ts_p, max_len=512)))
+            (te, Engine(Model(testbed.MICRO_SMALL), ts_p, max_len=512,
+                        fused=False)))
 
 
 def _run_both(pairs, i, **kw):
