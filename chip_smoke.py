@@ -54,7 +54,18 @@ from the root of a checkout.  Phases, each printing its lines:
    the minitron-4b base alone at its published vocabulary (256000), 128
    tokens from a 64-token prompt greedy and at 0.6 (probabilities
    collected), fused against eager in turns, and one such greedy call
-   profiled each way;
+   profiled each way.  fused rows: the batched engines' fused loop (CUDA
+   graphs with paged flash-decode inside) against their per-token loop,
+   in the same turns on one pair of batch engines: minitron-4b's base
+   and the SMALL drafter through the continuous scheduler, 8 requests
+   over 4 rows, greedy and at 0.6, the greedy requests profiled each
+   way; then the base alone at vocabulary 256000, a decode-only call of
+   4 rows at ragged lengths (64, 300, 700, 1000), 128 tokens each, greedy
+   and at 0.6 (probabilities collected), one greedy call profiled each
+   way; identical tokens in every turn, paged-decode launches ==
+   n_layers x decode steps, no capture in the second fused turn, at most
+   ceil(budget / k) + 1 waits and 2k - 1 wasted steps a fused call, and
+   the profiler's count of the paged-decode kernel == the counter;
 5. check: BASE and SMALL logits on the card against the same checkpoint
    on the CPU, over a prefill and decode steps, and over the batched
    path (one ``prefill_rows`` and one ``decode_rows`` on 3 ragged rows);
@@ -63,16 +74,20 @@ from the root of a checkout.  Phases, each printing its lines:
    64-token spans and one ``feed_rows``, card logits against the CPU's
    and paged launches against n_layers x the metered calls;
 6. main path, continuous: ``serve --scheduler continuous
-   --no-prefix-cache``, 8 requests over 4 rows, greedy and at 0.6, then
+   --no-prefix-cache`` (its default decode loop: the batched rows' fused
+   loop), 8 requests over 4 rows, greedy and at 0.6, then
    with ``--spec-decode --gamma 4``, then greedy under a KV budget that
    preempts; per request latency, TTFT and TPOT, and tokens/s, ticks,
    preemptions and acceptance per run.  Paged-decode launches must equal
-   n_layers x the batched engines' decode steps, paged-append launches
+   n_layers x the batched engines' decode steps (replayed, masked and
+   warm-up steps included), paged-append launches
    n_layers x their extend calls, the dense kernels must not launch, and
    the pressured greedy run must give the unpressured greedy tokens.
    For information, how many requests' continuous greedy tokens equal
    the sequential path's on the card (batch-size-dependent GEMMs may
-   move a logit by an ulp);
+   move a logit by an ulp).  Then ``[fused rows]`` on the testbed pair:
+   the same 8 requests greedy, at 0.6, and at 0.6 with spec decode (gamma
+   4), each in turns fused, eager, eager, fused on one scheduler;
 7. main path, ssm (per-token decode loop for both models): SpecReason
    with a mamba2-1.3b base at its published
    widths (48 layers, d_model 2048, 64 SSD heads of 64, state 128; random
@@ -124,6 +139,15 @@ SSD_STATE_TOL = 1e-4
 SSM_THRESHOLD = 4.5
 DENSE_ARCH = "minitron-4b"
 DENSE_DEPTH = 2        # minitron-4b's 32 layers cut to 2 for the rows check
+# the [fused rows] phases: the continuous path's 8 requests over 4 rows at
+# this budget; minitron-4b's KV partition in MB accounted (2 bytes an
+# element: 2 MiB a 16-token block, 400 blocks); the decode-only call's
+# ragged rows and tokens a row
+ROWS_REQUESTS = 8
+ROWS_BUDGET = 128
+DENSE_KV_MB = 1000
+DECODE_ROWS = (64, 300, 700, 1000)
+DECODE_TOKENS = 128
 
 
 def nvidia_smi() -> str:
@@ -835,9 +859,13 @@ def dense_rows_check_phase(torch, Model, BatchEngine, loader, kernels,
 
 
 def continuous_phase(torch, serve, kernels, ckpt):
-    """Serve the continuous path on the card; check the launch counters,
-    and that a pressured greedy run gives the unpressured greedy
-    tokens.  Returns (paged launches per kernel, greedy report)."""
+    """Serve the continuous path on the card through the CLI's default
+    decode loop (the batched rows' fused loop, CUDA graphs with #3
+    inside); check the launch counters (a graph's paged-decode launches
+    count on each replay, and the engines' decode steps count masked and
+    warm-up steps), and that a pressured greedy run gives the unpressured
+    greedy tokens.  Returns (paged launches per kernel, greedy
+    report)."""
     argv = ["--scheduler", "continuous", "--no-prefix-cache", "-n", "8",
             "--batch", "4", "--budget", "128", "--threshold", str(THRESHOLD),
             "--ckpt-dir", ckpt, "--device", "cuda"]
@@ -895,12 +923,16 @@ def continuous_phase(torch, serve, kernels, ckpt):
               + (f", spec mean accepted length "
                  f"{st['spec_mean_accepted_len']} (acceptance "
                  f"{st['spec_acceptance_rate']})" if 'spec_requests' in st
-                 else "") + f"; launches paged decode "
-              f"{got['paged_decode_attention']}, paged append "
+                 else "") + f"; decode loop {st['decode_loop']}; launches "
+              f"paged decode {got['paged_decode_attention']}, paged append "
               f"{got['paged_append_attention']} == n_layers x metered "
               f"steps/extends; dense 0; KV store bytes "
               f"{st['kv_store_bytes']} (accounted "
-              f"{st['kv_accounted_bytes']})", flush=True)
+              f"{st['kv_accounted_bytes']}; each store's bytes include its "
+              f"scratch page, where masked rows write: "
+              + ", ".join(str(be.store.scratch_bytes) for be in
+                          (sched.base_be, sched.small_be))
+              + " bytes)", flush=True)
         launches["paged_decode_attention"] += got["paged_decode_attention"]
         launches["paged_append_attention"] += got["paged_append_attention"]
         reports[label] = report
@@ -1043,15 +1075,19 @@ def ssm_main_phase(torch, serve, tasks, loader, kernels):
 
 
 def profile_request(torch, run, counter=None):
-    """Information: ``run()`` (one request, returning its result) run
-    unprofiled and then under torch.profiler.  Returns a dict: ``res``
-    the result, ``plain_wall`` and ``wall`` the unprofiled and profiled
-    wall s, ``busy`` the device's busy s, ``idle`` its idle share of the
-    unprofiled wall (the profiler's own host cost would inflate the
-    profiled wall time), ``rows`` (kernel, device us, count) and ``top``
-    the largest of them; with a kernel wrapper ``counter``, ``counted``
-    is its launch count's increase over the profiled run."""
-    from torch.profiler import ProfilerActivity, profile
+    """Information: ``run()`` (one request or call, returning its result)
+    run unprofiled and then under torch.profiler, inside one
+    ``record_function`` window that ends after a device synchronize.
+    Returns a dict: ``res`` the result, ``plain_wall`` the unprofiled
+    wall s, ``wall`` the profiled window's wall s (on the trace's clock),
+    ``busy`` the union of the device's intervals (kernels, copies, sets)
+    inside that window in s, ``idle`` = 1 - busy / wall, ``rows``
+    (kernel, device us, count) summed by name (a record of zero length
+    counted, its interval not) and ``top`` a note of the zero-length
+    records and the largest rows; with a kernel wrapper ``counter``,
+    ``counted`` is its launch count's increase over the profiled run."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    window = "chip_smoke profiled window"
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()
@@ -1060,22 +1096,48 @@ def profile_request(torch, run, counter=None):
     before = counter.launches if counter is not None else 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with record_function(window):
+            res = run()
+            torch.cuda.synchronize()
     counted = counter.launches - before if counter is not None else None
-    # the device-side rows only (a CPU op's row repeats its kernels' time)
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")
-            and e.self_device_time_total > 0]
-    busy = sum(t for _, t, _ in rows) / 1e6
-    rows.sort(key=lambda r: -r[1])
-    top = "; ".join(f"{k[:48]} {t / 1e3:.1f} ms x{n}" for k, t, n in rows[:8])
-    return dict(res=res, plain_wall=plain_wall, wall=wall, busy=busy,
-                idle=1 - busy / plain_wall, rows=rows, top=top,
-                counted=counted)
+    # the raw trace's events: the profiler's own averaging
+    # (``key_averages``) of a trace with 10^5 host operator events takes
+    # minutes; the window's own range on the device's row is no work
+    agg, spans, win, zero = {}, [], None, 0
+    for e in prof.profiler.kineto_results.events():
+        device = str(e.device_type())
+        span = (e.start_ns(), e.start_ns() + e.duration_ns())
+        if e.name() == window:
+            if device.endswith("CPU"):
+                win = span
+        elif device.endswith("CUDA"):
+            # a record without timestamps (zero length) still counts as
+            # a launch of its kernel
+            t, n = agg.get(e.name(), (0.0, 0))
+            agg[e.name()] = (t + e.duration_ns() / 1e3, n + 1)
+            if e.duration_ns() > 0:
+                spans.append(span)
+            else:
+                zero += 1
+    if win is None:
+        raise AssertionError("[profile] the trace holds no window event")
+    lo, hi = win
+    busy_ns, cur = 0, lo
+    for a, b in sorted(spans):
+        a, b = max(a, cur), min(b, hi)
+        if b > a:
+            busy_ns += b - a
+            cur = b
+    wall = (hi - lo) / 1e9
+    rows = sorted(((k, t, n) for k, (t, n) in agg.items()),
+                  key=lambda r: -r[1])
+    top = (f"{zero} of {sum(n for *_, n in rows)} device events of zero "
+           "length; top device time: "
+           + "; ".join(f"{k[:48]} {t / 1e3:.1f} ms x{n}"
+                       for k, t, n in rows[:8]))
+    return dict(res=res, plain_wall=plain_wall, wall=wall,
+                busy=busy_ns / 1e9, idle=1 - busy_ns / 1e9 / wall,
+                rows=rows, top=top, counted=counted)
 
 
 def traced(rows, kernel):
@@ -1098,7 +1160,7 @@ def ssm_profile(torch, serve, base, small, task):
     print(f"[profile] ssm greedy req2 ({n_out} tokens): wall "
           f"{p['plain_wall']:.4f} s unprofiled ({p['wall']:.4f} s profiled), "
           f"device busy {p['busy']:.4f} s, idle share {p['idle']:.4f} of the "
-          f"unprofiled wall; top device time: {p['top']}", flush=True)
+          f"profiled window; {p['top']}", flush=True)
 
 
 def mib(n):
@@ -1106,14 +1168,18 @@ def mib(n):
 
 
 def loop_bytes(eng):
-    """(device bytes, pinned host bytes) of an engine's fused-loop
-    buffers (the KV caches and the graphs' own pools excluded)."""
+    """(device bytes, pinned host bytes) of the tensors of an engine's
+    fused-loop buffers, sequential or batched (the KV caches, the graphs'
+    own pools and a batched engine's shared tables and logits
+    excluded)."""
+    import dataclasses
     dev = host = 0
     for loop in eng._loops.values():
-        for t in (loop.ctl, loop.logits, loop.toks, loop.stop, loop.probs):
-            dev += t.numel() * t.element_size() if t is not None else 0
-        for t in (loop.inp, loop.status, loop.toks_host, loop.probs_host):
-            host += t.numel() * t.element_size() if t is not None else 0
+        for f in dataclasses.fields(loop):
+            t = getattr(loop, f.name)
+            if hasattr(t, "is_cuda"):
+                n = t.numel() * t.element_size()
+                dev, host = (dev + n, host) if t.is_cuda else (dev, host + n)
     return dev, host
 
 
@@ -1145,11 +1211,15 @@ def memory_line(torch, engines, mark):
     parts = []
     for n, e in engines.items():
         dev, host = loop_bytes(e)
-        kv = sum(st.k.numel() * st.k.element_size() * 2
-                 for pairs in e._kv_pool.values() for st, _ in pairs)
+        if hasattr(e, "store"):
+            kv = f"KV pages {mib(e.store.nbytes)}"
+        else:
+            kv = "pooled KV pairs " + mib(sum(
+                st.k.numel() * st.k.element_size() * 2
+                for pairs in e._kv_pool.values() for st, _ in pairs))
         parts.append(f"{n} loop buffers {mib(dev)} on the card and "
                      f"{mib(host)} pinned on the host over {len(e._loops)} "
-                     f"keys, pooled KV pairs {mib(kv)}")
+                     f"keys, {kv}")
     return ("; ".join(parts) + "; graph pools "
             f"{'not measured' if pools is None else mib(pools - pools0)} "
             "and reserved "
@@ -1157,8 +1227,292 @@ def memory_line(torch, engines, mark):
             "before the first turn")
 
 
-def fused_phase(torch, serve, tasks, engine_mod, decode_kernel, base,
-                small, tag, threshold):
+def record_rows_calls(engines, calls):
+    """Wrap each batched engine's ``generate_rows_fused`` to record every
+    fused call as (engine, largest clamped budget, k, the longest row's
+    tokens, wasted steps, host waits); a capture's warm-up step is not
+    wasted."""
+    from repro_torch.serving.graph_loop import chunk_steps
+    for name, be in engines.items():
+        def fused(rows, max_tokens, *args, _be=be, _name=name,
+                  _inner=be.generate_rows_fused, **kw):
+            budgets = [max_tokens] * len(rows) \
+                if isinstance(max_tokens, int) else list(max_tokens)
+            top = max((min(m, _be.capacity - int(_be.pos[r]))
+                       for r, m in zip(rows, budgets)), default=0)
+            m = _be.meter
+            before = (m.decode_steps, m.decode_syncs, _be.captures)
+            out = _inner(rows, max_tokens, *args, **kw)
+            ids = out[0] if isinstance(out, tuple) else out
+            if top > 0:
+                k = chunk_steps(top)
+                longest = max(map(len, ids))
+                wasted = (m.decode_steps - before[0]
+                          - (_be.captures - before[2]) - longest)
+                calls.append((_name, top, k, longest, wasted,
+                              m.decode_syncs - before[1]))
+            return out
+        be.generate_rows_fused = fused
+
+
+def check_rows_calls(tag, calls):
+    """Every fused call waits at most ceil(budget / k) + 1 times and
+    wastes at most 2k - 1 steps; returns a summary for a line."""
+    bad = [c for c in calls if c[5] > -(-c[1] // c[2]) + 1
+           or c[4] > 2 * c[2] - 1]
+    if bad or not calls:
+        raise AssertionError(f"[fused rows] {tag}: calls beyond ceil(budget"
+                             f"/k) + 1 waits or 2k - 1 wasted steps: {bad}")
+    n = len(calls)
+    return (f"{n} fused calls: waits a call mean "
+            f"{sum(c[5] for c in calls) / n:.3f} max "
+            f"{max(c[5] for c in calls)}, wasted steps a call mean "
+            f"{sum(c[4] for c in calls) / n:.3f} max "
+            f"{max(c[4] for c in calls)}, longest row a call mean "
+            f"{sum(c[3] for c in calls) / n:.2f} tokens, k "
+            f"{sorted(set(c[2] for c in calls))}")
+
+
+def rows_phase(torch, serve, tasks, paged_kernel, base, small, tag, runs,
+               kv_mb, profile=False):
+    """The batched engines' fused decode loop against their per-token
+    loop on the continuous path, on the card: ``serve``'s continuous
+    scheduler over ``base`` and ``small``, ROWS_REQUESTS requests over 4
+    rows at ROWS_BUDGET, for each of ``runs`` (label, temperature, spec
+    decode) on one scheduler (one pair of batch engines), in turns fused,
+    eager, eager, fused.  Tokens must be identical in all four turns;
+    paged-decode launches == n_layers x the batch engines' decode steps
+    (replayed, masked and warm-up steps included); no capture in the
+    second fused turn; every fused call within ceil(budget / k) + 1 waits
+    and 2k - 1 wasted steps.  Prints tok/s, TPOT p50, decode tok/s inside
+    calls, waits and wasted steps a call, captures and capture seconds,
+    and the memory the loops hold; with ``profile``, the first run's
+    requests profiled each way (idle share, device time by kernel; the
+    profiler's count of #3's kernel must equal the wrapper's)."""
+    from repro_torch.serving.workload import run_workload, summarize
+    rng = random.Random(0)
+    reqs = [tasks.sample_task(rng) for _ in range(ROWS_REQUESTS)]
+    for label, temp, spec in runs:
+        args = serve.parse_args(
+            ["--scheduler", "continuous", "--no-prefix-cache", "-n",
+             str(ROWS_REQUESTS), "--batch", "4", "--budget",
+             str(ROWS_BUDGET), "--temperature", str(temp), "--threshold",
+             str(THRESHOLD), "--kv-budget-mb", str(kv_mb), "--device",
+             "cuda"] + (["--spec-decode", "--gamma", "4"] if spec else []))
+        sched = serve.continuous_scheduler(args, base, small)
+        engines = {"base": sched.base_be, "small": sched.small_be}
+        calls = []
+        record_rows_calls(engines, calls)
+
+        def run(loop):
+            for be in engines.values():
+                be.fused = loop == "fused"
+            gens = [torch.Generator(device="cuda").manual_seed(i)
+                    for i in range(ROWS_REQUESTS)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            handles = run_workload(sched, list(zip(reqs, gens)),
+                                   [0.0] * ROWS_REQUESTS)
+            torch.cuda.synchronize()
+            return handles, time.perf_counter() - t0
+
+        mark = memory_mark(torch)
+        first = None
+        for turn, loop in enumerate(("fused", "eager", "eager", "fused")):
+            paged_kernel.launches = 0
+            before = {n: (be.meter.decode_steps, be.meter.decode_tokens,
+                          be.meter.decode_time, be.captures,
+                          be.capture_time) for n, be in engines.items()}
+            n_calls = len(calls)
+            handles, wall = run(loop)
+            st = summarize(handles, wall)
+            toks = [h.result.thinking_ids + h.result.answer_ids
+                    for h in handles]
+            if any(h.status != "ok" for h in handles):
+                raise AssertionError(f"[fused rows] {tag} {label} {loop}: "
+                                     "a request did not finish")
+            want = sum(be.model.cfg.n_layers
+                       * (be.meter.decode_steps - before[n][0])
+                       for n, be in engines.items())
+            if paged_kernel.launches != want or not want:
+                raise AssertionError(
+                    f"[fused rows] {tag} {label} {loop}: paged decode "
+                    f"launches {paged_kernel.launches} != n_layers x decode"
+                    f" steps {want}")
+            if first is None:
+                first = toks
+            elif toks != first:
+                raise AssertionError(f"[fused rows] {tag} {label}: {loop} "
+                                     f"turn {turn} tokens differ from the "
+                                     "first turn's")
+            caps = {n: be.captures - before[n][3]
+                    for n, be in engines.items()}
+            if turn == 3 and any(caps.values()):
+                raise AssertionError(f"[fused rows] {tag} {label}: the "
+                                     f"second fused turn captured: {caps}")
+            made = {n: (be.meter.decode_tokens - before[n][1],
+                        be.meter.decode_time - before[n][2])
+                    for n, be in engines.items()}
+            inside = "; ".join(
+                f"{n} decode {t / max(s, 1e-9):.1f} tok/s inside calls "
+                f"({t} tokens)" for n, (t, s) in made.items())
+            note = check_rows_calls(f"{tag} {label}", calls[n_calls:]) \
+                if loop == "fused" else "per-token loop"
+            print(f"[fused rows] {tag} {label} turn {turn} ({loop}): "
+                  f"{st['tok_s']} tok/s, TPOT p50 {st.get('p50_tpot_s')} s "
+                  f"p95 {st.get('p95_tpot_s')} s, TTFT p50 "
+                  f"{st.get('p50_ttft_s')} s, wall {wall:.4f} s, "
+                  f"{sum(map(len, toks))} tokens; {inside}; {note}; "
+                  f"captures {caps} in "
+                  + ", ".join(f"{be.capture_time - before[n][4]:.3f}"
+                              for n, be in engines.items())
+                  + f" s; paged decode launches {want} == n_layers x decode"
+                  " steps", flush=True)
+        print(f"[fused rows] {tag} {label}: tokens identical in all four "
+              f"turns ({len(first)} requests); "
+              + "; ".join(f"{n} {be.captures} captures over "
+                          f"{len(be._loops)} keys" for n, be in
+                          engines.items())
+              + f"; memory: {memory_line(torch, engines, mark)}", flush=True)
+        if profile:
+            profile = False
+            for loop in ("fused", "eager"):
+                p = profile_request(torch, lambda: run(loop), paged_kernel)
+                handles, _ = p["res"]
+                n_out = sum(len(h.result.thinking_ids + h.result.answer_ids)
+                            for h in handles)
+                seen, dev_ms = traced(p["rows"], "paged_decode_kernel")
+                if seen != p["counted"] or not seen:
+                    raise AssertionError(
+                        f"[profile] {tag} continuous {loop}: the profiler "
+                        f"saw {seen} paged_decode_kernel launches, the "
+                        f"wrapper counted {p['counted']}; "
+                        f"{p['top'][:60]}")
+                print(f"[profile] {tag} continuous {label} ({loop}, "
+                      f"{ROWS_REQUESTS} requests over 4 rows, {n_out} "
+                      f"tokens): wall {p['plain_wall']:.4f} s unprofiled "
+                      f"({p['wall']:.4f} s profiled), "
+                      f"{n_out / p['plain_wall']:.1f} tok/s, device busy "
+                      f"{p['busy']:.4f} s, idle share {p['idle']:.4f} of the "
+                      f"profiled window; paged_decode_kernel {seen} "
+                      f"launches traced == "
+                      f"{p['counted']} counted, {dev_ms:.1f} ms; "
+                      f"{p['top']}", flush=True)
+
+
+def decode_rows_phase(torch, BatchEngine, SamplingParams, paged_kernel,
+                      model, params, tag):
+    """A decode-only call of the batched engine at ``model``'s vocabulary:
+    4 rows at the ragged lengths DECODE_ROWS decode DECODE_TOKENS tokens
+    each, greedy and at 0.6 with probabilities collected, in turns fused,
+    eager, eager, fused from the same committed context (each turn
+    restores the rows and truncates their tables): identical tokens,
+    probabilities within 2e-5, launches == n_layers x decode steps, no
+    capture in the second fused turn; then one greedy call profiled each
+    way (the profiler's count of #3's kernel against the wrapper's)."""
+    cfg = model.cfg
+    be = BatchEngine(model, params, batch=len(DECODE_ROWS),
+                     capacity=max(DECODE_ROWS) + DECODE_TOKENS)
+    gen = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in DECODE_ROWS]
+    rows = [be.alloc_row() for _ in prompts]
+    t0 = time.perf_counter()
+    for s0 in range(0, max(DECODE_ROWS), 256):
+        live = [i for i, n in enumerate(DECODE_ROWS) if s0 < n]
+        be.extend_rows([rows[i] for i in live],
+                       [prompts[i][s0:s0 + 256] for i in live])
+    snaps = [be.snapshot_row(r) for r in rows]
+    print(f"[fused rows] {tag} vocab {cfg.vocab_size} decode-only: rows at "
+          f"{list(DECODE_ROWS)} tokens committed in "
+          f"{time.perf_counter() - t0:.1f} s, {DECODE_TOKENS} tokens a row "
+          f"a call", flush=True)
+    calls = []
+    record_rows_calls({"base": be}, calls)
+
+    def call(loop, temp, probs):
+        for r, snap in zip(rows, snaps):
+            be.restore_row(r, snap)
+            be.truncate_seq(be.seqs[r], snap.pos)
+        gens = [torch.Generator(device="cuda").manual_seed(5 + i)
+                for i in range(len(rows))]
+        generate = be.generate_rows_fused if loop == "fused" \
+            else be.generate_rows_eager
+        out = generate(rows, DECODE_TOKENS, [],
+                       SamplingParams(temperature=temp), gens,
+                       collect_probs=probs)
+        return out if probs else (out, None)
+
+    mark = memory_mark(torch)
+    for label, temp, probs in (("greedy", 0.0, False),
+                               ("sampled", 0.6, True)):
+        first = None
+        for turn, loop in enumerate(("fused", "eager", "eager", "fused")):
+            launches, steps = paged_kernel.launches, be.meter.decode_steps
+            caps, syncs = be.captures, be.meter.decode_syncs
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids, ps = call(loop, temp, probs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            want = cfg.n_layers * (be.meter.decode_steps - steps)
+            if paged_kernel.launches - launches != want or \
+                    [len(i) for i in ids] != [DECODE_TOKENS] * len(rows):
+                raise AssertionError(
+                    f"[fused rows] {tag} decode-only {label} {loop}: "
+                    f"{[len(i) for i in ids]} tokens, paged decode launches "
+                    f"{paged_kernel.launches - launches} != {want}")
+            if turn == 3 and be.captures != caps:
+                raise AssertionError(f"[fused rows] {tag} decode-only "
+                                     f"{label}: the second fused turn "
+                                     "captured again")
+            if first is None:
+                first = (ids, ps)
+            else:
+                err = max((float((a - b).abs().max()) for a, b in
+                           zip(ps, first[1])), default=0.0) if probs else 0.0
+                if ids != first[0] or err > 2e-5:
+                    raise AssertionError(
+                        f"[fused rows] {tag} decode-only {label}: turn "
+                        f"{turn} ({loop}) tokens or probabilities differ "
+                        f"from the first turn's (probs max |diff| {err})")
+            n = len(rows) * DECODE_TOKENS
+            print(f"[fused rows] {tag} vocab {cfg.vocab_size} decode-only "
+                  f"{label} turn {turn} ({loop}): {n} tokens over "
+                  f"{len(rows)} rows in {wall:.4f} s, {n / wall:.1f} tok/s, "
+                  f"TPOT {wall / DECODE_TOKENS * 1e3:.3f} ms"
+                  + (", probabilities collected" if probs else "")
+                  + f"; captures {be.captures - caps}, waits "
+                  f"{be.meter.decode_syncs - syncs}, paged decode launches "
+                  f"{want} == n_layers x decode steps", flush=True)
+        print(f"[fused rows] {tag} vocab {cfg.vocab_size} decode-only "
+              f"{label}: tokens identical in all four turns", flush=True)
+    print(f"[fused rows] {tag} vocab {cfg.vocab_size} decode-only: "
+          f"{check_rows_calls(tag, calls)}; memory: "
+          f"{memory_line(torch, {'base': be}, mark)}", flush=True)
+    for loop in ("fused", "eager"):
+        p = profile_request(torch, lambda: call(loop, 0.0, False),
+                            paged_kernel)
+        seen, dev_ms = traced(p["rows"], "paged_decode_kernel")
+        if seen != p["counted"] or not seen:
+            raise AssertionError(f"[profile] {tag} decode-only {loop}: the "
+                                 f"profiler saw {seen} paged_decode_kernel "
+                                 f"launches, the wrapper counted "
+                                 f"{p['counted']}; {p['top'][:60]}")
+        n = len(rows) * DECODE_TOKENS
+        print(f"[profile] {tag} vocab {cfg.vocab_size} decode-only greedy, "
+              f"{len(rows)} rows x {DECODE_TOKENS} tokens ({loop}): wall "
+              f"{p['plain_wall']:.4f} s unprofiled ({p['wall']:.4f} s "
+              f"profiled), {n / p['plain_wall']:.1f} tok/s, device busy "
+              f"{p['busy']:.4f} s, idle share {p['idle']:.4f} of the "
+              f"profiled window; paged_decode_kernel {seen} launches traced "
+              f"== "
+              f"{p['counted']} counted, {dev_ms:.1f} ms; {p['top']}",
+              flush=True)
+
+
+def fused_phase(torch, serve, tasks, decode_kernel, base, small, tag,
+                threshold):
     """The dense pair's fused decode loop against its per-token loop on
     the card, on one pair of engines: the main path's 3 specreason
     requests, greedy and at temperature 0.6, in turns fused, eager,
@@ -1172,6 +1526,7 @@ def fused_phase(torch, serve, tasks, engine_mod, decode_kernel, base,
     the loops hold, and one greedy request profiled each way (idle share,
     device time by kernel), where the profiler's count of flash-decode
     launches must equal the wrapper's."""
+    from repro_torch.serving import graph_loop
     engines = {"base": base, "small": small}
     layers = {n: e.model.cfg.n_layers for n, e in engines.items()}
     rng = random.Random(0)
@@ -1187,8 +1542,7 @@ def fused_phase(torch, serve, tasks, engine_mod, decode_kernel, base,
             budget = min(max_tokens, session.state.capacity - session.pos)
             out = inner(session, max_tokens, *args, **kw)
             if budget > 0:
-                k = min(engine_mod.FUSED_CHUNK,
-                        1 << (budget - 1).bit_length())
+                k = graph_loop.chunk_steps(budget)
                 n = m.decode_tokens - before[0]
                 wasted = m.decode_steps - before[1] - n \
                     - (eng.captures - caps)     # a capture's warm-up step
@@ -1287,18 +1641,20 @@ def fused_phase(torch, serve, tasks, engine_mod, decode_kernel, base,
         if seen != p["counted"] or not seen:
             raise AssertionError(f"[profile] {tag} {loop}: the profiler saw "
                                  f"{seen} decode_kernel launches, the "
-                                 f"wrapper counted {p['counted']}")
+                                 f"wrapper counted {p['counted']}; "
+                                 f"{p['top'][:60]}")
         print(f"[profile] {tag} dense greedy req2 ({loop}, {n_out} tokens): "
               f"wall {p['plain_wall']:.4f} s unprofiled ({p['wall']:.4f} s "
               f"profiled), {n_out / p['plain_wall']:.1f} tok/s, device busy "
               f"{p['busy']:.4f} s, idle share {p['idle']:.4f} of the "
-              f"unprofiled wall; decode_kernel {seen} launches traced == "
-              f"{p['counted']} counted, {dev_ms:.1f} ms; top device time: "
-              f"{p['top']}", flush=True)
+              f"profiled window; decode_kernel {seen} launches traced == "
+              f"{p['counted']} counted, {dev_ms:.1f} ms; {p['top']}",
+              flush=True)
 
 
-def fused_dense_phase(torch, serve, tasks, loader, engine_mod, registry,
-                      Model, Engine, SamplingParams, decode_kernel):
+def fused_dense_phase(torch, serve, tasks, loader, registry,
+                      Model, Engine, BatchEngine, SamplingParams,
+                      decode_kernel, paged_kernel, lap):
     """The fused loop at a published dense width: minitron-4b (all 32
     layers, random init from a seed, vocabulary cut to the toy
     tokenizer's 64 as the ssm phase's base) with the testbed SMALL
@@ -1323,8 +1679,13 @@ def fused_dense_phase(torch, serve, tasks, loader, engine_mod, registry,
           f"(fp32), random init in {time.perf_counter() - t0:.1f} s; testbed "
           f"SMALL drafter; threshold {THRESHOLD}; loops {loader.decode_loops(base, small)}",
           flush=True)
-    fused_phase(torch, serve, tasks, engine_mod, decode_kernel, base, small,
+    fused_phase(torch, serve, tasks, decode_kernel, base, small,
                 DENSE_ARCH, THRESHOLD)
+    lap(f"fused, {DENSE_ARCH}")
+    rows_phase(torch, serve, tasks, paged_kernel, base, small, DENSE_ARCH,
+               (("greedy", 0.0, False), ("sampled", 0.6, False)),
+               DENSE_KV_MB, profile=True)
+    lap(f"fused rows, {DENSE_ARCH}")
 
     full = Model(registry.get(DENSE_ARCH))
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1339,6 +1700,9 @@ def fused_dense_phase(torch, serve, tasks, loader, engine_mod, registry,
             raise AssertionError(f"{key}: {params[key].shape} does not "
                                  f"match the spec's {spec.shape}")
     eng = Engine(full, params, name=DENSE_ARCH)
+    decode_rows_phase(torch, BatchEngine, SamplingParams, paged_kernel, full,
+                      params, DENSE_ARCH)
+    lap(f"fused rows, {DENSE_ARCH} decode-only")
     full = full.cfg
     prompt = torch.randint(0, full.vocab_size, (64,),
                            generator=torch.Generator().manual_seed(4)).tolist()
@@ -1405,14 +1769,16 @@ def fused_dense_phase(torch, serve, tasks, loader, engine_mod, registry,
             raise AssertionError(f"[profile] {DENSE_ARCH} vocab "
                                  f"{full.vocab_size} {loop}: the profiler "
                                  f"saw {seen} decode_kernel launches, the "
-                                 f"wrapper counted {p['counted']}")
+                                 f"wrapper counted {p['counted']}; "
+                                 f"{p['top'][:60]}")
         print(f"[profile] {DENSE_ARCH} vocab {full.vocab_size} greedy, a "
               f"64-token extend and 128 tokens ({loop}): wall "
               f"{p['plain_wall']:.4f} s unprofiled ({p['wall']:.4f} s "
               f"profiled), device busy {p['busy']:.4f} s, idle share "
-              f"{p['idle']:.4f}; decode_kernel {seen} launches traced == "
-              f"{p['counted']} counted, {dev_ms:.1f} ms; top device time: "
+              f"{p['idle']:.4f} of the profiled window; decode_kernel {seen} "
+              f"launches traced == {p['counted']} counted, {dev_ms:.1f} ms; "
               f"{p['top']}", flush=True)
+    lap(f"fused, {DENSE_ARCH} decode-only")
 
 
 def ssm_check_phase(torch, base):
@@ -1481,6 +1847,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    marks = [t_start]
+
+    def lap(phase):
+        """A [smoke] line with the phase's seconds and the total so far."""
+        now = time.perf_counter()
+        print(f"[smoke] {phase}: {now - marks[0]:.1f} s, "
+              f"{now - t_start:.1f} s in all", flush=True)
+        marks[0] = now
     card = nvidia_smi()
     print(f"[device] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)",
@@ -1495,6 +1869,7 @@ def main() -> int:
             in ptxas_variants(text)), flush=True)
     print(f"[build] {len(reports)} sources in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    lap("build")
 
     records = kernel_phase(torch, F, ref, decode_attention, flash_attention,
                            minitron_4b.CONFIG)
@@ -1503,6 +1878,7 @@ def main() -> int:
                                       minitron_4b.CONFIG))
     records.update(ssd_kernel_phase(torch, ref, mamba2, ssd_scan,
                                     mamba2_1_3b.CONFIG))
+    lap("kernels")
 
     ckpt = os.path.join(ROOT, "build", "smoke_ckpt")
     loader.save_random_testbed(ckpt, seed=0)
@@ -1514,18 +1890,21 @@ def main() -> int:
             or ssd_scan.launches:
         raise AssertionError("the sequential path launched a paged kernel "
                              "or the SSD scan")
+    lap("main path, sequential")
     base, small = loader.load_testbed_engines(ckpt, "cuda")
-    fused_phase(torch, serve, tasks, engine_mod, decode_attention, base,
+    fused_phase(torch, serve, tasks, decode_attention, base,
                 small, "testbed", THRESHOLD)
     del base, small
-    fused_dense_phase(torch, serve, tasks, loader, engine_mod, registry,
-                      Model, engine_mod.Engine, SamplingParams,
-                      decode_attention)
+    lap("fused, testbed")
+    fused_dense_phase(torch, serve, tasks, loader, registry,
+                      Model, engine_mod.Engine, BatchEngine, SamplingParams,
+                      decode_attention, paged_decode_attention, lap)
     torch.cuda.empty_cache()
     check_phase(torch, Model, load_checkpoint, testbed, serve, tasks, loader,
                 greedy, ckpt)
     rows_check_phase(torch, Model, BatchEngine, testbed, load_checkpoint,
                      loader, ckpt)
+    lap("check")
     kernels = {"decode_attention": decode_attention,
                "flash_attention": flash_attention,
                "paged_decode_attention": paged_decode_attention,
@@ -1533,14 +1912,24 @@ def main() -> int:
                "ssd_scan": ssd_scan}
     dense_rows_check_phase(torch, Model, BatchEngine, loader, kernels,
                            minitron_4b.CONFIG)
+    lap(f"check, {DENSE_ARCH} rows")
     paged, cont_greedy = continuous_phase(torch, serve, kernels, ckpt)
     launches.update(paged)
     batch_invariance_phase(torch, serve, tasks, Model, load_checkpoint,
                            testbed, loader, ckpt, cont_greedy)
+    lap("main path, continuous")
+    base, small = loader.load_testbed_engines(ckpt, "cuda")
+    rows_phase(torch, serve, tasks, paged_decode_attention, base, small,
+               "testbed", (("greedy", 0.0, False), ("sampled", 0.6, False),
+                           ("spec sampled", 0.6, True)), 64)
+    del base, small
+    lap("fused rows, testbed")
     ssm_launches, ssm_base = ssm_main_phase(torch, serve, tasks, loader,
                                             kernels)
     launches["ssd_scan"] = ssm_launches["ssd_scan"]
+    lap("main path, ssm")
     ssm_check_phase(torch, ssm_base)
+    lap("check, ssm")
 
     # one record per kernel at a representative serving-path shape (BASE
     # heads, fp32): decode at 128 cached tokens, a 16-token extend at 100;

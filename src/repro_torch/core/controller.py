@@ -57,9 +57,10 @@ class SpecReasonConfig:
     # future work); the sequential runtime measures the overlap-eligible
     # seconds in SpecReasonResult.overlapped_s
     overlapped: bool = False
-    # decode loop of every generate call: fused (one CUDA graph replay a
-    # chunk of tokens), eager (the per-token loop), or None for each
-    # engine's default (fused for dense, eager for ssm)
+    # decode loop of every generate call, and of the continuous
+    # scheduler's batched rows: fused (one CUDA graph replay a chunk of
+    # tokens), eager (the per-token loop), or None for each engine's
+    # default (fused for dense, eager for ssm)
     fused_decode: Optional[bool] = None
     sampling: SamplingParams = dataclasses.field(
         default_factory=lambda: SamplingParams(temperature=0.6))

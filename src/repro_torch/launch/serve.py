@@ -14,12 +14,12 @@ an error.  Request i samples from a ``torch.Generator`` seeded with
 ``1000 * seed + i``.
 
 ``--scheduler sequential`` (the default) serves one request at a time,
-schemes base, small, specdecode, specreason and specreason+decode.  Its
-engines decode through ``--decode-loop fused`` (the default: chunks of
-tokens replayed as CUDA graphs on the card, ``serving/engine.py``) or
-``eager`` (the per-token loop); the batched rows of the continuous
-scheduler decode one step a call either way (their fused loop is ROADMAP
-queue 1, item 1).
+schemes base, small, specdecode, specreason and specreason+decode.
+``--decode-loop`` picks the decode loop of both schedulers: ``fused``
+(the default: chunks of tokens replayed as CUDA graphs on the card,
+their body run eagerly on the CPU; ``serving/engine.py`` for the
+sequential engines, ``serving/batch_engine.py`` for the continuous
+scheduler's batched rows) or ``eager`` (the per-token loop).
 ``--scheduler continuous`` serves the specreason scheme through the
 continuous-batching scheduler over paged KV (``--batch`` rows,
 ``--kv-budget-mb`` for the static KV partition, chunked admission
@@ -141,20 +141,21 @@ class ServeReport:
     stats: Optional[dict] = None
 
 
-def serve_continuous(args, base: Engine, small: Engine, reqs,
-                     dev: torch.device) -> ServeReport:
-    """The continuous-batching path: paged-KV admission and per-tick
-    speculate / verify / fallback batching."""
+def continuous_scheduler(args, base: Engine,
+                         small: Engine) -> ContinuousScheduler:
+    """The continuous scheduler that ``args`` (``parse_args``) describe,
+    over the pair."""
     cfg = SpecReasonConfig(policy=StaticThreshold(args.threshold),
                            token_budget=args.budget,
                            sampling=SamplingParams(
                                temperature=args.temperature),
                            use_spec_decode=args.spec_decode,
-                           spec_gamma=args.gamma)
+                           spec_gamma=args.gamma,
+                           fused_decode=args.decode_loop == "fused")
     ctrl = SpecReason(base, small, cfg)
     kv = KVManager(base.model.cfg, small.model.cfg,
                    KVBudget(total_bytes=int(args.kv_budget_mb * (1 << 20))))
-    sched = ContinuousScheduler(
+    return ContinuousScheduler(
         ctrl, kv, max_batch=args.batch,
         context_capacity=min(base.max_len, args.budget + 64),
         prefix_cache=not args.no_prefix_cache,
@@ -162,6 +163,15 @@ def serve_continuous(args, base: Engine, small: Engine, reqs,
         max_prefill_tokens=args.max_prefill_tokens,
         on_event=(lambda e: print(f"[sched] {e}")) if args.verbose else None,
         seed=args.seed)
+
+
+def serve_continuous(args, base: Engine, small: Engine, reqs,
+                     dev: torch.device) -> ServeReport:
+    """The continuous-batching path: paged-KV admission and per-tick
+    speculate / verify / fallback batching."""
+    sched = continuous_scheduler(args, base, small)
+    print(f"[serve] decode loop: {sched.base_be.name} {args.decode_loop}, "
+          f"{sched.small_be.name} {args.decode_loop}", flush=True)
     rng = random.Random(args.seed)
     pairs = [(t, torch.Generator(device=dev).manual_seed(1000 * args.seed
                                                          + i))
@@ -171,7 +181,7 @@ def serve_continuous(args, base: Engine, small: Engine, reqs,
     handles = run_workload(sched, pairs, arrivals)
     wall = time.perf_counter() - t0
     tag = "hierspec" if args.spec_decode else "continuous"
-    report = ServeReport(base, small, [], "eager", sched, handles)
+    report = ServeReport(base, small, [], args.decode_loop, sched, handles)
     for i, h in enumerate(handles):
         res = h.result
         ok = is_correct(h.task, res.answer_ids)
@@ -187,7 +197,7 @@ def serve_continuous(args, base: Engine, small: Engine, reqs,
     stats = summarize(handles, wall)
     stats.update({
         "scheduler": "continuous", "device": str(dev), "batch": args.batch,
-        "decode_loop": "eager",
+        "decode_loop": args.decode_loop,
         "spec_decode": args.spec_decode, "gamma": args.gamma,
         "arrival_rate": args.arrival_rate, "ticks": sched.ticks,
         "preemptions": sched.preemptions, "prefix_cache": False,
@@ -199,7 +209,7 @@ def serve_continuous(args, base: Engine, small: Engine, reqs,
                         for h in handles) / max(len(handles), 1),
         "kv_store_bytes": sched.store_bytes(),
         "kv_accounted_bytes": {
-            w: p.num_blocks * kv.block_bytes(w)
+            w: p.num_blocks * sched.kv.block_bytes(w)
             for w, p in sched.pools.items()},
     })
     if "p95_ttft_s" in stats:
@@ -215,7 +225,8 @@ def serve_continuous(args, base: Engine, small: Engine, reqs,
     return report
 
 
-def main(argv: Optional[List[str]] = None) -> ServeReport:
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    """The CLI's flags, checked (a flag the port does not take raises)."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--scheme", choices=SCHEMES, default="specreason")
     ap.add_argument("-n", "--num-requests", type=int, default=8)
@@ -229,11 +240,10 @@ def main(argv: Optional[List[str]] = None) -> ServeReport:
                     help="print the per-engine meter breakdown per request")
     ap.add_argument("--decode-loop", choices=("fused", "eager"),
                     default="fused",
-                    help="sequential engines: fused = chunks of tokens a "
-                         "CUDA graph replay on the card (the body runs "
-                         "eagerly on the CPU), eager = the per-token loop; "
-                         "the continuous scheduler's rows decode per step "
-                         "either way")
+                    help="fused = chunks of tokens a CUDA graph replay "
+                         "on the card (the body runs eagerly on the CPU), "
+                         "eager = the per-token loop; for the sequential "
+                         "engines and the continuous scheduler's rows")
     ap.add_argument("--scheduler", choices=("sequential", "continuous"),
                     default="sequential",
                     help="sequential = one request start-to-finish; "
@@ -299,7 +309,11 @@ def main(argv: Optional[List[str]] = None) -> ServeReport:
                  "sequential regime has the specreason+decode scheme")
     if args.max_prefill_tokens < 1:
         ap.error("--max-prefill-tokens must be >= 1")
+    return args
 
+
+def main(argv: Optional[List[str]] = None) -> ServeReport:
+    args = parse_args(argv)
     dev = devices.resolve(args.device)
     base, small = load_testbed_engines(args.ckpt_dir, dev)
     rng = random.Random(args.seed)

@@ -18,8 +18,9 @@ pure-Python loop), so that drift of the shared host shows:
   phase (budget 128, threshold 4.5): wall time, tokens, tok/s, base
   extends;
 * the third again, unprofiled and under ``torch.profiler``: the device's
-  busy time and idle share of the unprofiled wall, as ``chip_smoke.py``
-  reads them;
+  busy time (its kernels' times summed by ``key_averages``) and its idle
+  share of the unprofiled wall (``chip_smoke.py`` reads the union of
+  the device's intervals over the profiled window instead);
 * the base's 37-token extend after a 64-token prompt (48 scans of one
   chunk): the median wall ms of 20, each synchronised;
 * the scan wrapper's host ms a call at that extend's shapes: the median

@@ -197,7 +197,9 @@ def _write_rows(rows: PagedRows, layer: int, k: torch.Tensor,
                 v: torch.Tensor) -> None:
     """Write the call's real tokens' K/V of one layer into the pages, one
     indexed write per array: (B, T, K, hd) -> the (page, slot) of each
-    real token.  Pads and uninvolved slots are never written."""
+    real token.  Pads and uninvolved rows write nothing into a row's
+    pages: ``paged_rows`` leaves them out, ``slot_rows`` sends a masked
+    row's write to the scratch page."""
     sel = (rows.write_rows, rows.write_cols)
     rows.k_pages[layer, rows.write_pages, :, rows.write_slots] = \
         k[sel].to(rows.k_pages.dtype)
@@ -228,9 +230,10 @@ def extend_rows_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
 def decode_rows_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
                           cfg: ModelConfig, layer: int, rows: PagedRows,
                           lengths: torch.Tensor) -> torch.Tensor:
-    """Batched one-token decode over a paged store: row b's token at
-    position ``ctx_lens[b]`` is written into its page first, then attends
-    over the row's ``lengths[b] = ctx_lens[b] + 1`` keys through
+    """Batched one-token decode over a paged store (a ``slot_rows``
+    view, or a ``paged_rows`` view of width 1): row b's token at
+    ``positions[b]`` is written into its page first, then attends over
+    the row's ``lengths[b] = ctx_lens[b] + 1`` keys through
     ``ops.paged_decode_attention``."""
     _paged_only(cfg)
     q, k, v = qkv(x, p)

@@ -1,5 +1,7 @@
 """Decode state of the dense and ssm families and its rollback rules, and
-the per-call view of batched rows over a paged KV store (``PagedRows``).
+the per-call view of batched rows over a paged KV store (``PagedRows``,
+built on the host by ``paged_rows`` for an extend, on the device by
+``slot_rows`` for a decode step).
 
 A :class:`DecodeState` holds the attention KV caches, stacked over layers
 as (L, B, C, K, hd) like the JAX package's (dense family), or the mamba2
@@ -161,3 +163,27 @@ def paged_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
         ctx_t.long()[:, None] + torch.arange(width, device=dev)[None, :],
         put(rows, torch.long), put(cols, torch.long), put(pages, torch.long),
         put(tok % bs, torch.long))
+
+
+def slot_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
+              tables: torch.Tensor, pos: torch.Tensor, active: torch.Tensor,
+              scratch: int) -> PagedRows:
+    """One-token decode step over every row slot of a batched engine,
+    built on the pages' device from static buffers with no host read
+    (the batched decode loops, which a CUDA graph records): ``tables``
+    (B, W) int32 block tables padded with the ``scratch`` page, ``pos``
+    (B,) int64 positions, ``active`` (B,) bool.  An active row's token at
+    ``pos[b]`` is written to page ``tables[b, pos // bs]``, slot
+    ``pos % bs``, and attends over ``pos + 1`` keys.  A masked row writes
+    into the scratch page, which the pool never hands out, so that no
+    page of a live row changes, and attends over one key; its output is
+    the caller's to throw away."""
+    bs = k_pages.shape[3]
+    b, width = tables.shape
+    col = (pos // bs).clamp(max=width - 1)
+    page = tables.gather(1, col[:, None])[:, 0].long()
+    ctx = torch.where(active, pos, 0).to(torch.int32)
+    return PagedRows(
+        k_pages, v_pages, tables, ctx, active.to(torch.int32), pos[:, None],
+        torch.arange(b, device=pos.device), torch.zeros_like(pos),
+        torch.where(active, page, scratch), torch.where(active, pos % bs, 0))

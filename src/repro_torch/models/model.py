@@ -266,7 +266,9 @@ class Model:
     def decode_rows(self, params, tokens: torch.Tensor,
                     rows: PagedRows) -> torch.Tensor:
         """Batched one-token decode over a paged store: tokens (B, 1) at
-        positions ``rows.ctx_lens``.  Returns logits (B, V)."""
+        positions ``rows.positions`` (a ``kvcache.slot_rows`` view, or a
+        ``kvcache.paged_rows`` view of width 1), row b attending over
+        ``rows.ctx_lens[b] + 1`` keys.  Returns logits (B, V)."""
         cfg = self.cfg
         x = self._embed(params, tokens, rows.positions)
         lengths = rows.ctx_lens + 1

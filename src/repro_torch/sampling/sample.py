@@ -8,10 +8,13 @@ so sampled tokens differ from the JAX package's, which draws from
 hold the sampling rule itself to the JAX package's by handing both the
 same noise (``categorical``).
 
-Nothing here reads a tensor back to the host, so the fused decode loop
-(``serving/engine.py``) records these functions into a CUDA graph:
-``SamplingParams`` (temperature, top-k, top-p) are host constants of the
-graph's key.
+Nothing here reads a tensor back to the host, so the fused decode loops
+(``serving/engine.py``, ``serving/batch_engine.py``) record these
+functions into a CUDA graph: ``SamplingParams`` (temperature, top-k,
+top-p) are host constants of the graph's key.  The batched loop samples
+every row slot with ``sample_rows``, slot r drawing from a generator of
+its own that the graph registers, and keeps the tokens of active rows
+only.
 """
 
 from __future__ import annotations

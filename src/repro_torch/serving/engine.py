@@ -22,13 +22,14 @@ Differences from the JAX package:
   * Caches are written in place and a snapshot shares them
     (``models/kvcache.py`` says why that is safe for linear caches).
   * ``generate_fused`` is the JAX package's one ``while_loop`` a call,
-    rebuilt for a CUDA graph.  One body of ``FUSED_CHUNK`` one-token
-    steps (sample, record, stop check, decode the token), each masked by
-    ``active = (i < n_max) & ~done``, reads and writes static buffers:
-    the position, counters, last logits, token and probability buffers
-    and the session's KV caches.  On the card it is captured once per
-    key and replayed chunk by chunk; the host reads ``i`` and ``done``
-    one chunk behind, through a pinned copy, so a call waits on the card
+    rebuilt for a CUDA graph.  One body of k one-token steps (sample,
+    record, stop check, decode the token), each masked by ``active = (i
+    < n_max) & ~done``, reads and writes static buffers: the position,
+    counters, last logits, token and probability buffers and the
+    session's KV caches.  On the card it is captured once per key and
+    replayed chunk by chunk (``serving/graph_loop.py``); the host reads
+    ``i`` and ``done`` one chunk behind, through a pinned copy, so a
+    call waits on the card
     at most ceil(budget / k) + 1 times and runs at most 2k - 1 masked
     steps.  On the CPU the same body runs eagerly.  A failed capture or
     replay raises; nothing falls back to the per-token loop.
@@ -55,19 +56,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..kernels import counts
 from ..models.kvcache import DecodeState
 from ..models.model import Model
 from ..sampling.sample import SamplingParams, gumbel, probs_from_logits, \
     sample
+from . import graph_loop
 
 DEFAULT_BUCKETS = (4, 8, 16, 32, 64, 128, 256)
-
-# Stop-id vectors are padded to a multiple of this, so that the number of
-# stop ids adds no capture key.
-_STOP_SLOTS = 4
-# one-token steps in a body of the fused loop (one graph replay)
-FUSED_CHUNK = 8
 
 _SSM_FUSED = ("the fused decode loop does not take SSM state yet (ROADMAP "
               "queue 1, item 1): a CUDA graph needs static buffers and an "
@@ -307,15 +302,6 @@ class Engine:
                 break
         return out, session, probs_list
 
-    @staticmethod
-    def _decode_buf(max_tokens: int) -> int:
-        """Token-buffer size of the fused loop: the next power of two, at
-        least 8, so that budgets share a few capture keys."""
-        b = 8
-        while b < max_tokens:
-            b *= 2
-        return b
-
     def generate_fused(self, session: Session, max_tokens: int,
                        stop_ids: Sequence[int], params: SamplingParams,
                        generator: torch.Generator,
@@ -338,11 +324,11 @@ class Engine:
         if n_budget <= 0:
             return [], session, []
         stop = sorted(set(int(s) for s in stop_ids))
-        n_slots = -(-max(len(stop), 1) // _STOP_SLOTS) * _STOP_SLOTS
-        k = min(FUSED_CHUNK, 1 << (n_budget - 1).bit_length())
+        n_slots = graph_loop.stop_slots(len(stop))
+        k = graph_loop.chunk_steps(n_budget)
         t0 = time.perf_counter()
         loop = self._fused_loop(state, params, collect_probs,
-                                self._decode_buf(n_budget), n_slots, k)
+                                graph_loop.decode_buf(n_budget), n_slots, k)
         loop.inp[:4] = torch.tensor([0, 0, n_budget, session.pos])
         loop.inp[4:] = torch.tensor(stop + [-1] * (n_slots - len(stop)))
         loop.ctl.copy_(loop.inp[:4], non_blocking=True)
@@ -443,26 +429,16 @@ class Engine:
             i.add_(active)
 
     def _capture(self, loop: _FusedLoop) -> None:
-        """Capture a body of ``loop.k`` steps into a CUDA graph.  A masked
-        warm-up step first runs on a side stream (the buffers are zero,
-        so n_max = 0), which builds the kernels and fills the plans'
-        caches; the capture runs in torch's ``global`` mode, so a host
-        sync in the body raises.  Nothing catches a failure."""
+        """Capture a body of ``loop.k`` steps (``graph_loop.capture``);
+        its masked warm-up step runs on the zero buffers (n_max = 0)."""
         t0 = time.perf_counter()
         if self._graph_gen is None:
             self._graph_gen = torch.Generator(device=self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._fused_steps(loop, self._graph_gen, 1)
-        torch.cuda.current_stream(self.device).wait_stream(side)
+        loop.graph, loop.launches = graph_loop.capture(
+            self.device, lambda n: self._fused_steps(loop, self._graph_gen,
+                                                     n),
+            loop.k, [self._graph_gen])
         self.meter.decode_steps += 1
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self._graph_gen)
-        with counts.capturing() as tally, torch.cuda.graph(graph):
-            self._fused_steps(loop, self._graph_gen, loop.k)
-        loop.launches = tally
-        loop.graph = graph
         loop.status = torch.zeros((2, 4), dtype=torch.long, pin_memory=True)
         loop.toks_host = torch.empty_like(loop.toks, device="cpu",
                                           pin_memory=True)
@@ -474,35 +450,17 @@ class Engine:
 
     def _replay(self, loop: _FusedLoop, n_budget: int
                 ) -> Tuple[int, torch.Tensor, Optional[torch.Tensor]]:
-        """Replay chunks until one reports done or the budget is spent.
-        Each chunk's ``i`` and ``done`` go to a pinned slot; the host
-        reads a chunk's slot while the next chunk runs.  Then one wait
-        reads the final counters, tokens and probabilities.  Returns
-        (chunks replayed, tokens, probabilities) on the host, with the
-        final counters in ``loop.status[0]``."""
-        stream = torch.cuda.current_stream(self.device)
-        max_chunks = -(-n_budget // loop.k)
-        events = []
-        while True:
-            loop.graph.replay()
-            counts.replayed(loop.launches)
-            loop.status[len(events) % 2].copy_(loop.ctl, non_blocking=True)
-            events.append(torch.cuda.Event())
-            events[-1].record(stream)
-            chunks = len(events)
-            if chunks == max_chunks:
-                break
-            if chunks >= 2:
-                events[chunks - 2].synchronize()
-                self.meter.decode_syncs += 1
-                if loop.status[chunks % 2, 1]:
-                    break
-        loop.toks_host.copy_(loop.toks, non_blocking=True)
+        """Replay chunks until one reports done or the budget is spent
+        (``graph_loop.replay``).  Returns (chunks replayed, tokens,
+        probabilities) on the host, with the final counters in
+        ``loop.status[0]``."""
+        finals = [(loop.toks_host, loop.toks), (loop.status[0], loop.ctl)]
         if loop.probs is not None:
-            loop.probs_host.copy_(loop.probs, non_blocking=True)
-        loop.status[0].copy_(loop.ctl, non_blocking=True)
-        stream.synchronize()
-        self.meter.decode_syncs += 1
+            finals.append((loop.probs_host, loop.probs))
+        chunks, waits = graph_loop.replay(
+            self.device, loop.graph, loop.launches, loop.ctl, loop.status,
+            -(-n_budget // loop.k), lambda st: bool(st[1]), finals)
+        self.meter.decode_syncs += waits
         return chunks, loop.toks_host, loop.probs_host
 
     # ---------------------------------------------------------------- util

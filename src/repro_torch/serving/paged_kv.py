@@ -276,21 +276,33 @@ class PagedKVStore:
     """Physical paged KV for one attention model: ``k`` and ``v`` pages of
     shape ``(L, P, K, block_size, head_dim)`` on one device, page ``p``
     of layer ``l`` being ``k[l, p]`` -- the layout the paged kernels read
-    through block tables.  Written in place."""
+    through block tables.  Written in place.
+
+    The arrays hold one page more than the pool's blocks, page
+    ``scratch_page`` (= ``pool.num_blocks``), which the pool never hands
+    out: a batched decode step over every row slot sends the writes of
+    its masked rows there (``models.kvcache.slot_rows``)."""
 
     def __init__(self, pool: PagedKVPool, n_layers: int, kv_heads: int,
                  head_dim: int, device, dtype=torch.float32):
         self.pool = pool
-        shape = (n_layers, pool.num_blocks, kv_heads, pool.block_size,
+        self.scratch_page = pool.num_blocks
+        shape = (n_layers, pool.num_blocks + 1, kv_heads, pool.block_size,
                  head_dim)
         self.k = torch.zeros(shape, dtype=dtype, device=device)
         self.v = torch.zeros_like(self.k)
 
     @property
     def nbytes(self) -> int:
-        """Real bytes of both page arrays (the KVManager's accounting
-        counts 2 bytes per element whatever the dtype)."""
+        """Real bytes of both page arrays, the scratch page included (the
+        KVManager's accounting counts 2 bytes per element whatever the
+        dtype, and no scratch page)."""
         return 2 * self.k.numel() * self.k.element_size()
+
+    @property
+    def scratch_bytes(self) -> int:
+        """Bytes of the scratch page in both arrays."""
+        return 2 * self.k[:, 0].numel() * self.k.element_size()
 
     def scatter(self, seq: PagedSeq, k_new: torch.Tensor,
                 v_new: torch.Tensor, start: int) -> None:

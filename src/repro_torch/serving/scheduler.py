@@ -241,16 +241,20 @@ class ContinuousScheduler:
             "small": PagedKVPool(max(kv.capacity_blocks("small"), 1),
                                  kv.block_size),
         }
+        # the batched decode loop follows the controller's
+        # ``fused_decode`` (None: the engines' default, fused)
         self.base_be = BatchEngine(controller.base.model,
                                    controller.base.params, max_batch,
                                    engine_capacity,
                                    name=f"cb-{controller.base.name}",
-                                   pool=self.pools["base"])
+                                   pool=self.pools["base"],
+                                   fused=cfg.fused_decode)
         self.small_be = BatchEngine(controller.small.model,
                                     controller.small.params, max_batch,
                                     engine_capacity,
                                     name=f"cb-{controller.small.name}",
-                                    pool=self.pools["small"])
+                                    pool=self.pools["small"],
+                                    fused=cfg.fused_decode)
         self.engines = {"base": self.base_be, "small": self.small_be}
         self.spec_be = BatchSpecEngine(self.base_be, self.small_be,
                                        self.gamma) if self.spec else None
@@ -736,5 +740,6 @@ class ContinuousScheduler:
     # ------------------------------------------------------------- stats
     def store_bytes(self):
         """Real bytes of each engine's page store (fp32 pages: twice the
-        KVManager's 2-byte accounting of the same blocks)."""
+        KVManager's 2-byte accounting of the same blocks, plus the
+        store's scratch page)."""
         return {w: be.store.nbytes for w, be in self.engines.items()}

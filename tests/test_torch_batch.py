@@ -102,7 +102,9 @@ def test_batch_engine_matches_jax(name):
     _assert_logits(te.last_logits, je.last_logits, **TOL)
     jm_, tm_ = je.meter.as_dict(), te.meter.as_dict()
     assert {k: tm_[k] for k in METER_KEYS} == {k: jm_[k] for k in METER_KEYS}
-    assert tm_["decode_steps"] == 9 + 7 + 1    # forwards: 9, 7, one feed
+    # the fused loop (the default) runs whole chunks of k = 8 steps: 2
+    # for budgets up to 9, 1 for up to 7; then one feed
+    assert tm_["decode_steps"] == 2 * 8 + 8 + 1
 
 
 def _engines(name="SMALL", seed=1):

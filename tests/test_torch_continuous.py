@@ -1,7 +1,8 @@
 """The port's continuous-batching scheduler over paged KV, inside the
 port: continuous == sequential controller (greedy and sampled, from the
 same generator seeds, spec decode off and on), a run preempted under
-pool pressure gives the tokens of an unpressured one, and a
+pool pressure gives the tokens of an unpressured one (each under the
+batched rows' fused loop and their per-token loop), and a
 reject-then-redraft across a copy-on-write tail block reads back the
 pre-snapshot K/V.  Also the serve CLI on the CPU against the JAX CLI
 with the same flags and checkpoints, and the features this slice leaves
@@ -72,12 +73,12 @@ def _tasks():
 
 
 def _port_sched(pairs, temperature=0.0, spec=False, kv_bytes=KV_BYTES,
-                **kw):
+                loop="fused", **kw):
     _, (tb, ts) = pairs
     cfg = controller.SpecReasonConfig(
         policy=StaticThreshold(THRESHOLD), token_budget=BUDGET,
         sampling=SamplingParams(temperature), use_spec_decode=spec,
-        spec_gamma=3)
+        spec_gamma=3, fused_decode=loop == "fused")
     ctrl = controller.SpecReason(tb, ts, cfg)
     kv = tkv.KVManager(tb.model.cfg, ts.model.cfg, tkv.KVBudget(kv_bytes))
     kw.setdefault("prefix_cache", False)
@@ -98,11 +99,14 @@ def _trace(res):
             res.spec_stats.as_dict())
 
 
+@pytest.mark.parametrize("loop", ["fused", "eager"])
 @pytest.mark.parametrize("temperature,spec", [(0.0, False), (0.8, False),
                                               (0.8, True)])
-def test_continuous_matches_sequential_controller(pairs, temperature, spec):
+def test_continuous_matches_sequential_controller(pairs, temperature, spec,
+                                                  loop):
     """Inside the port: every request of a continuous run takes the
-    sequential controller's tokens from the same generator seed."""
+    sequential controller's tokens from the same generator seed, under
+    either decode loop of the batched rows."""
     _, (tb, ts) = pairs
     cfg = controller.SpecReasonConfig(
         policy=StaticThreshold(THRESHOLD), token_budget=BUDGET,
@@ -111,7 +115,9 @@ def test_continuous_matches_sequential_controller(pairs, temperature, spec):
     seq = [controller.SpecReason(tb, ts, cfg).run(
         tasks.question_tokens(t), torch.Generator().manual_seed(i))
         for i, t in enumerate(_tasks())]
-    _, cont = _port_run(pairs, temperature=temperature, spec=spec)
+    sched, cont = _port_run(pairs, temperature=temperature, spec=spec,
+                            loop=loop)
+    assert sched.base_be.fused == sched.small_be.fused == (loop == "fused")
     for a, b in zip(cont, seq):
         assert _trace(a) == _trace(b)
         np.testing.assert_allclose([s.utility for s in a.steps],
@@ -119,16 +125,19 @@ def test_continuous_matches_sequential_controller(pairs, temperature, spec):
                                    atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("loop", ["fused", "eager"])
 @pytest.mark.parametrize("temperature,spec", [(0.0, False), (0.8, False),
                                               (0.8, True)])
-def test_preempted_run_matches_unpressured_run(pairs, temperature, spec):
+def test_preempted_run_matches_unpressured_run(pairs, temperature, spec,
+                                               loop):
     """A preempted request restarts from its generator's state at first
     admission, so the recompute gives the unpressured tokens, sampled
     too; with spec decode the reservations go through the ledger."""
     tight, tres = _port_run(pairs, temperature=temperature, spec=spec,
-                            kv_bytes=60_000, context_capacity=64)
+                            kv_bytes=60_000, context_capacity=64, loop=loop)
     assert tight.preemptions > 0
-    _, free = _port_run(pairs, temperature=temperature, spec=spec)
+    _, free = _port_run(pairs, temperature=temperature, spec=spec,
+                        loop=loop)
     assert [_trace(r) for r in tres] == [_trace(r) for r in free]
     assert all(p.num_used == 0 for p in tight.pools.values())
 
@@ -194,7 +203,12 @@ def test_serve_continuous_cli_on_cpu_matches_jax_cli(tmp_path, capsys):
     report = serve.main(argv + ["--device", "cpu", "--meters"])
     ours = capsys.readouterr().out
     assert report.sched.base_be.device.type == "cpu"
+    assert report.sched.base_be.fused and report.decode_loop == "fused"
+    # fp32 pages at the 2-byte accounting, and the batched decode step's
+    # scratch page
     assert report.stats["kv_store_bytes"]["base"] == \
+        2 * report.stats["kv_accounted_bytes"]["base"] \
+        + report.sched.base_be.store.scratch_bytes > \
         2 * report.stats["kv_accounted_bytes"]["base"]
     jserve.main(argv)
     theirs = capsys.readouterr().out

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain version,
 the wrappers' refusals, and the model and engine on CUDA against the CPU
 (the sequential engine, the batched paged path, and an ssm model whose
-extends go through the SSD scan kernel); the fused decode loop's CUDA
-graphs against the per-token loop on the card.
+extends go through the SSD scan kernel); the fused decode loops' CUDA
+graphs (the sequential engine's and the batched rows') against the
+per-token loops on the card.
 
 Needs an NVIDIA GPU and nvcc (the kernels build on first use); every test
 skips where CUDA is absent.  Imports no JAX, so it runs on a machine
@@ -461,7 +462,7 @@ def test_batch_engine_on_card_matches_cpu_and_counts_launches(dev, name):
     out = {}
     for d in ("cpu", "cuda"):
         p = params_from_numpy(params_to_numpy(params), d)
-        be = BatchEngine(m, p, batch=4, capacity=256)
+        be = BatchEngine(m, p, batch=4, capacity=256, fused=False)
         for k in (decode_attention, flash_attention, paged_decode_attention,
                   paged_append_attention):
             k.launches = 0
@@ -788,6 +789,123 @@ def test_fused_capture_failure_raises_on_card(dev):
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                        "src")
     out = subprocess.run([sys.executable, "-c", _CAPTURE_FAILS],
+                         capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": src})
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.split()[:3] == ["raised", "0", "0"], out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the batched rows' fused decode loop: CUDA graphs with paged flash-decode
+# ---------------------------------------------------------------------------
+
+def _rows_engine(dev, params=None, batch=4):
+    m = Model(testbed.BASE)
+    return BatchEngine(m, params or m.init(1, device=dev), batch=batch,
+                       capacity=256)
+
+
+def _rows_calls(be, fused, temperature):
+    """Three rows, then two calls with per-row budgets and stop sets, the
+    second on a subset; returns every observable."""
+    sp = SamplingParams(temperature=temperature)
+    generate = be.generate_rows_fused if fused else be.generate_rows_eager
+    rows = [be.alloc_row() for _ in range(3)]
+    be.extend_rows(rows, [list(range(10, 31)), list(range(5, 12)), [9, 8]])
+    gens = [torch.Generator(device="cuda").manual_seed(7 + i)
+            for i in range(3)]
+    out = [generate(rows, [37, 20, 9], [], sp, gens,
+                    stop_ids_rows=[[2], [], [5]], collect_probs=True),
+           generate([rows[2], rows[0]], [11, 6], [], sp, [gens[2], gens[0]],
+                    collect_probs=True)]
+    return (out, be.pos.copy(), be.last_logits.clone(),
+            [torch.rand(3, generator=g, device="cuda") for g in gens])
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.6])
+def test_fused_rows_graphs_match_eager_on_card(dev, temperature):
+    """The replayed graphs give the per-token loop's tokens, positions and
+    logits bit for bit (both launch every row slot at the same shapes),
+    its probabilities, and leave each row's generator where it does;
+    paged-decode launches follow the replays: n_layers x the decode
+    steps, masked and warm-up steps included."""
+    eager = _rows_engine(dev)
+    eo, epos, elog, enext = _rows_calls(eager, False, temperature)
+    be = _rows_engine(dev, eager.params)
+    paged_decode_attention.launches = 0
+    fo, fpos, flog, fnext = _rows_calls(be, True, temperature)
+    torch.cuda.synchronize()
+    for (fi, fp), (ei, ep) in zip(fo, eo):
+        assert fi == ei
+        for a, b in zip(fp, ep):
+            torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+    assert sum(len(i) for i in eo[0][0]) > 20
+    assert (fpos == epos).all() and torch.equal(flog, elog)
+    for a, b in zip(fnext, enext):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    m = be.meter
+    assert m.decode_calls == 2 and be.captures == 2
+    assert paged_decode_attention.launches == \
+        be.model.cfg.n_layers * m.decode_steps > 0
+    assert m.decode_syncs <= (-(-37 // 8) + 1) + (-(-11 // 8) + 1)
+
+
+def test_fused_rows_capture_once_per_key_on_card(dev):
+    """Calls on different row subsets, rows freed and allocated between
+    them, replay one graph a key."""
+    be = _rows_engine(dev)
+    sp = SamplingParams()
+    rows = [be.alloc_row() for _ in range(4)]
+    be.extend_rows(rows, [list(range(10, 10 + n)) for n in (3, 9, 17, 30)])
+    for subset in ([0, 1, 2, 3], [3], [1, 2], [2, 0]):
+        be.generate_rows([rows[i] for i in subset], 6, [], sp,
+                         [torch.Generator(device="cuda") for _ in subset])
+    be.free_row(rows[1])
+    r = be.alloc_row()
+    be.extend_rows([r], [[4, 5, 6]])
+    be.generate_rows([r, rows[3]], [5, 7], [], sp,
+                     [torch.Generator(device="cuda") for _ in range(2)])
+    assert be.captures == len(be._loops) == 1
+    assert be.meter.decode_calls == 5
+
+
+_ROWS_CAPTURE_FAILS = """
+import sys, torch
+from repro_torch.configs import testbed
+from repro_torch.models.model import Model
+from repro_torch.sampling.sample import SamplingParams
+from repro_torch.serving import batch_engine as be_mod
+
+real = be_mod.sample_rows
+def syncing(logits, params, gens):
+    int(logits.argmax())            # a host read inside the body
+    return real(logits, params, gens)
+be_mod.sample_rows = syncing
+m = Model(testbed.MICRO)
+be = be_mod.BatchEngine(m, m.init(0, device="cuda"), batch=2, capacity=64)
+r = be.alloc_row()
+be.extend_rows([r], [[5, 6, 7]])
+try:
+    be.generate_rows([r], 8, [], SamplingParams(),
+                     [torch.Generator(device="cuda")])
+except RuntimeError as e:
+    print("raised", be.meter.decode_calls, be.captures, type(e).__name__)
+    sys.exit(0)
+print("returned")
+sys.exit(1)
+"""
+
+
+def test_fused_rows_capture_failure_raises_on_card(dev):
+    """A host sync inside the rows loop's captured body makes the capture
+    raise, and nothing runs the per-token loop instead (in a child
+    process: a failed capture may leave the CUDA context unusable)."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "src")
+    out = subprocess.run([sys.executable, "-c", _ROWS_CAPTURE_FAILS],
                          capture_output=True, text=True, timeout=600,
                          env={**os.environ, "PYTHONPATH": src})
     assert out.returncode == 0, out.stdout + out.stderr

@@ -35,7 +35,7 @@ from repro_torch.core.policies import StaticThreshold
 from repro_torch.data import tasks
 from repro_torch.models.model import Model
 from repro_torch.sampling.sample import SamplingParams
-from repro_torch.serving import engine as engine_mod
+from repro_torch.serving import graph_loop
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.loader import arch_config
 from repro_torch.tokenizer import toy as tk
@@ -111,7 +111,7 @@ def test_fused_matches_eager(pair, which, sp):
     assert fm["decode_calls"] == len(calls)
     assert fm["decode_steps"] % 4 == 0
     assert 0 <= fm["decode_steps"] - fm["decode_tokens"] \
-        < len(calls) * engine_mod.FUSED_CHUNK
+        < len(calls) * graph_loop.FUSED_CHUNK
     # the generator stands where the per-token loop leaves it
     torch.testing.assert_close(fnext, enext, rtol=0, atol=0)
 
