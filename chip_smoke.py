@@ -41,7 +41,7 @@ from the root of a checkout.  Phases, each printing its lines:
    prefill calls, and the greedy run must see the verifier both accept
    and reject a drafted step;
    fused: the same 3 requests on one engine pair, greedy and at 0.6, in
-   turns fused, eager, eager, fused: identical tokens in every turn,
+   turns fused, eager, fused: identical tokens in every turn,
    decode launches == n_layers x decode steps, each engine's graphs over
    one KV pair (one capture per key, none in the second fused turn), at
    most ceil(budget / k) + 1 host waits and 2k wasted steps a fused
@@ -87,17 +87,29 @@ from the root of a checkout.  Phases, each printing its lines:
    the sequential path's on the card (batch-size-dependent GEMMs may
    move a logit by an ulp).  Then ``[fused rows]`` on the testbed pair:
    the same 8 requests greedy, at 0.6, and at 0.6 with spec decode (gamma
-   4), each in turns fused, eager, eager, fused on one scheduler;
-7. main path, ssm (per-token decode loop for both models): SpecReason
-   with a mamba2-1.3b base at its published
-   widths (48 layers, d_model 2048, 64 SSD heads of 64, state 128; random
-   init from a seed, vocabulary cut to the toy tokenizer's 64) and the
-   testbed SMALL drafter, through ``serve.run_scheme``: 3 requests greedy
-   and at temperature 0.6, then one greedy request with hierarchical
-   spec decode (gamma 4, the base rolls back by snapshot and replay).
-   SSD scan launches must equal 48 x the base's metered extends, the
-   dense kernels' SMALL's layers x its metered calls, and the greedy run
-   must see the verifier both accept and reject;
+   4), each in turns fused, eager, fused on one scheduler;
+7. main path, ssm (both engines on their default, the fused decode loop:
+   the base's CUDA graphs over its static conv/ssm pair, the drafter's
+   with flash-decode inside): SpecReason with a mamba2-1.3b base at its
+   published widths (48 layers, d_model 2048, 64 SSD heads of 64, state
+   128; random init from a seed, vocabulary cut to the toy tokenizer's
+   64) and the testbed SMALL drafter, through ``serve.run_scheme``: 3
+   requests greedy and at temperature 0.6, then one greedy request with
+   hierarchical spec decode (gamma 4, the base rolls back by snapshot
+   and replay), then the first greedy and the first sampled request
+   again on the per-token loop, whose tokens must equal the fused
+   turn's.  SSD scan launches must equal 48 x the base's metered
+   extends, the dense kernels' SMALL's layers x its metered decode
+   steps and prefill calls, and the greedy run must see the verifier
+   both accept and reject; one greedy request profiled each way (idle
+   share; the profiler's count of flash-decode launches == the
+   counter).  ``[fused ssm]``: the base alone, decode-only, at
+   vocabulary 64 and at its published 50280: a 64-token prompt, 128
+   tokens greedy and at 0.6 (probabilities collected), in turns fused,
+   eager, eager, fused: identical tokens, no capture in the second
+   fused turn, waits and wasted steps bounded; tok/s, TPOT, captures,
+   the static state's and the graph pools' bytes; one greedy call
+   profiled each way at 50280;
 8. check, ssm: the base's logits on the card against the same weights on
    the CPU over a 300-token prompt (three chunks, the last padded), a
    resumed 40-token extend and 3 decode steps;
@@ -105,6 +117,14 @@ then the card again, one JSON line of per-kernel numbers, and
 ``{"ok": true, "device": {...}}`` as the last line.  Any failure exits
 non-zero before that line; without CUDA, or outside a checkout, it exits
 non-zero at once.
+
+Every ``[profile]`` window is traced (CUDA activity only) with a margin
+of host sleep and ``spin_kernel`` pads before and after it, which take
+the records a trace loses at its start and after the card idles, and
+bound the window on the device's clock (``repro_torch.launch.
+trace_window``); each line says how many pads the trace holds before
+and after the window, and how much wall the trace added to the same
+call's last unprofiled turn.
 """
 
 import gc
@@ -148,6 +168,12 @@ ROWS_BUDGET = 128
 DENSE_KV_MB = 1000
 DECODE_ROWS = (64, 300, 700, 1000)
 DECODE_TOKENS = 128
+# the turns of the dense phases, sequential and batched: one eager turn
+# between two fused ones (each loop's tokens against the other's, and a
+# second fused turn that must capture nothing)
+TURNS = ("fused", "eager", "fused")
+# the ssm base's decode-only turns: two eager turns between two fused ones
+SSM_TURNS = ("fused", "eager", "eager", "fused")
 
 
 def nvidia_smi() -> str:
@@ -994,11 +1020,14 @@ def batch_invariance_phase(torch, serve, tasks, Model, load_checkpoint,
 
 
 def ssm_main_phase(torch, serve, tasks, loader, kernels):
-    """SpecReason with the mamba2-1.3b base on the card: 3 requests greedy
-    and sampled, one greedy request in hierarchical mode.  The SSD scan
-    must launch 48 x the base's metered extends and the dense kernels
-    SMALL's layers x its metered calls.  Returns (launches, base
-    engine)."""
+    """SpecReason with the mamba2-1.3b base on the card, both engines on
+    their default decode loop (the fused one): 3 requests greedy and
+    sampled, one greedy request in hierarchical mode; then one eager turn
+    of the first greedy and the first sampled request, whose tokens must
+    equal the fused turn's.  The SSD scan must launch 48 x the base's
+    metered extends and the dense kernels SMALL's layers x its metered
+    decode steps (masked and warm-up steps included) and prefill calls.
+    Returns (launches, base engine)."""
     t0 = time.perf_counter()
     base = loader.random_engine(SSM_ARCH, "cuda", seed=0)
     small = loader.random_engine("testbed-small", "cuda", seed=1)
@@ -1009,33 +1038,34 @@ def ssm_main_phase(torch, serve, tasks, loader, kernels):
           f", state {cfg.ssm_state}, vocab {cfg.vocab_size} (cut from 50280)"
           f", {sum(t.numel() for t in leaves(base.params))} "
           f"parameters, random init in {time.perf_counter() - t0:.1f} s; "
-          f"testbed SMALL drafter; threshold {SSM_THRESHOLD}; decode loop "
-          "eager for both (the ssm base has no fused loop; the drafter's "
-          "stays eager so that the readings compare with earlier runs)",
-          flush=True)
+          f"testbed SMALL drafter; threshold {SSM_THRESHOLD}; decode loops "
+          f"{loader.decode_loops(base, small)}", flush=True)
     rng = random.Random(0)
     reqs = [tasks.sample_task(rng) for _ in range(3)]
     layers = {"base": cfg.n_layers, "small": small.model.cfg.n_layers}
     launches = dict.fromkeys(kernels, 0)
-    outputs = {}
-    runs = (("greedy", "specreason", 0.0, 3),
-            ("sampled", "specreason", 0.6, 3),
-            ("hierarchical greedy", "specreason+decode", 0.0, 1))
-    for label, scheme, temp, n_req in runs:
+    outputs, walls = {}, {}
+    runs = (("greedy", "specreason", 0.0, 3, None),
+            ("sampled", "specreason", 0.6, 3, None),
+            ("hierarchical greedy", "specreason+decode", 0.0, 1, None),
+            ("greedy eager", "specreason", 0.0, 1, False),
+            ("sampled eager", "specreason", 0.6, 1, False))
+    for label, scheme, temp, n_req, fused in runs:
         for k in kernels.values():
             k.launches = 0
         want = {"ssd_scan": 0, "decode_attention": 0, "flash_attention": 0}
-        drafted, outputs[label] = [], []
+        drafted, outputs[label], walls[label] = [], [], []
         for i in range(n_req):
             gen = torch.Generator(device="cuda").manual_seed(i)
             res = serve.run_scheme(scheme, base, small, reqs[i], gen, 128,
-                                   SSM_THRESHOLD, temp, fused=False)
+                                   SSM_THRESHOLD, temp, fused=fused)
             mb, ms_ = res.meters["base"], res.meters["small"]
             want["ssd_scan"] += layers["base"] * mb["prefill_calls"]
             want["decode_attention"] += layers["small"] * ms_["decode_steps"]
             want["flash_attention"] += layers["small"] * ms_["prefill_calls"]
             toks = res.thinking_ids + res.answer_ids
             outputs[label].append(toks)
+            walls[label].append(res.wall_time)
             steps = [s for s in res.steps if s.source == "small"]
             drafted += steps
             n_acc = sum(s.accepted for s in steps)
@@ -1045,11 +1075,12 @@ def ssm_main_phase(torch, serve, tasks, loader, kernels):
                   f"tok/s, {len(res.steps)} steps ({n_acc} accepted / "
                   f"{len(steps)} drafted; utilities {utils}), base "
                   f"{mb['prefill_calls']} extends / {mb['decode_calls']} "
-                  f"decodes" + (f", spec {res.spec_stats.accepted}/"
-                                f"{res.spec_stats.proposed} over "
-                                f"{res.spec_stats.rounds} rounds"
-                                if res.spec_stats.rounds else ""),
-                  flush=True)
+                  f"decode calls of {mb['decode_tokens']} tokens in "
+                  f"{mb['decode_steps']} steps" + (
+                      f", spec {res.spec_stats.accepted}/"
+                      f"{res.spec_stats.proposed} over "
+                      f"{res.spec_stats.rounds} rounds"
+                      if res.spec_stats.rounds else ""), flush=True)
         got = {k: kernels[k].launches for k in want}
         if got != want or not want["ssd_scan"] or any(
                 kernels[k].launches for k in kernels if k not in want):
@@ -1059,85 +1090,68 @@ def ssm_main_phase(torch, serve, tasks, loader, kernels):
         if label == "greedy" and len({s.accepted for s in drafted}) < 2:
             raise AssertionError("ssm greedy run saw only one verifier "
                                  "decision; both paths must run")
-        print(f"[main] ssm {label} (decode loop eager): launches ssd_scan "
+        loop = "eager" if fused is False else "fused"
+        print(f"[main] ssm {label} (decode loops {loop}): launches ssd_scan "
               f"{got['ssd_scan']} == {layers['base']} x base extends; decode "
               f"{got['decode_attention']}, prefill {got['flash_attention']} =="
               f" {layers['small']} x SMALL's decode steps and prefill calls; "
               "paged 0", flush=True)
         for k in want:
             launches[k] += got[k]
+    for label in ("greedy", "sampled"):
+        if outputs[f"{label} eager"][0] != outputs[label][0]:
+            raise AssertionError(f"ssm {label} req0: the eager turn's tokens "
+                                 "differ from the fused turn's")
+    print("[main] ssm: the eager turn's tokens equal the fused turn's "
+          "(greedy req0 and sampled req0)", flush=True)
     same = outputs["hierarchical greedy"][0] == outputs["greedy"][0]
     print(f"[main] ssm (information): hierarchical greedy req0 tokens "
           f"{'equal' if same else 'differ from'} plain greedy req0's",
           flush=True)
-    ssm_profile(torch, serve, base, small, reqs[2])
+    ssm_profile(torch, serve, base, small, reqs[2], kernels,
+                walls["greedy"][2])
     return launches, base
 
 
-def profile_request(torch, run, counter=None):
+def profile_request(torch, run, counter=None, plain=None):
     """Information: ``run()`` (one request or call, returning its result)
-    run unprofiled and then under torch.profiler, inside one
-    ``record_function`` window that ends after a device synchronize.
-    Returns a dict: ``res`` the result, ``plain_wall`` the unprofiled
-    wall s, ``wall`` the profiled window's wall s (on the trace's clock),
-    ``busy`` the union of the device's intervals (kernels, copies, sets)
-    inside that window in s, ``idle`` = 1 - busy / wall, ``rows``
-    (kernel, device us, count) summed by name (a record of zero length
-    counted, its interval not) and ``top`` a note of the zero-length
-    records and the largest rows; with a kernel wrapper ``counter``,
-    ``counted`` is its launch count's increase over the profiled run."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-    window = "chip_smoke profiled window"
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
+    in a window of a trace bounded by pads on the device's clock
+    (``repro_torch.launch.trace_window.trace``, whose dict it returns).
+    The caller has run the same call unprofiled in its turns: ``plain``
+    is the last such turn's wall in s, or None where no turn ran it.
+    Adds ``counted``, with a kernel wrapper ``counter`` its launch
+    count's increase over the profiled run; ``top``, a note of the
+    zero-length records, the pads, the trace's stop and read seconds and
+    the largest rows; and ``window``, a note of the device's busy time,
+    the window's wall and idle share, and the wall the trace added to
+    the unprofiled call."""
+    from repro_torch.launch.trace_window import PAD, trace
     before = counter.launches if counter is not None else 0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        with record_function(window):
-            res = run()
-            torch.cuda.synchronize()
-    counted = counter.launches - before if counter is not None else None
-    # the raw trace's events: the profiler's own averaging
-    # (``key_averages``) of a trace with 10^5 host operator events takes
-    # minutes; the window's own range on the device's row is no work
-    agg, spans, win, zero = {}, [], None, 0
-    for e in prof.profiler.kineto_results.events():
-        device = str(e.device_type())
-        span = (e.start_ns(), e.start_ns() + e.duration_ns())
-        if e.name() == window:
-            if device.endswith("CPU"):
-                win = span
-        elif device.endswith("CUDA"):
-            # a record without timestamps (zero length) still counts as
-            # a launch of its kernel
-            t, n = agg.get(e.name(), (0.0, 0))
-            agg[e.name()] = (t + e.duration_ns() / 1e3, n + 1)
-            if e.duration_ns() > 0:
-                spans.append(span)
-            else:
-                zero += 1
-    if win is None:
-        raise AssertionError("[profile] the trace holds no window event")
-    lo, hi = win
-    busy_ns, cur = 0, lo
-    for a, b in sorted(spans):
-        a, b = max(a, cur), min(b, hi)
-        if b > a:
-            busy_ns += b - a
-            cur = b
-    wall = (hi - lo) / 1e9
-    rows = sorted(((k, t, n) for k, (t, n) in agg.items()),
-                  key=lambda r: -r[1])
-    top = (f"{zero} of {sum(n for *_, n in rows)} device events of zero "
-           "length; top device time: "
-           + "; ".join(f"{k[:48]} {t / 1e3:.1f} ms x{n}"
-                       for k, t, n in rows[:8]))
-    return dict(res=res, plain_wall=plain_wall, wall=wall,
-                busy=busy_ns / 1e9, idle=1 - busy_ns / 1e9 / wall,
-                rows=rows, top=top, counted=counted)
+    p = trace(run)
+    p["counted"] = counter.launches - before if counter is not None \
+        else None
+    p["top"] = (f"{p['zero']} of {p['records']} device records of zero "
+                f"length; pads {p['pads'][0]}+{p['pads'][1]}/{2 * PAD}; "
+                f"trace stopped in {p['stop_s']:.1f} s and read in "
+                f"{p['read_s']:.1f} s; top device time: "
+                + "; ".join(f"{k[:48]} {t / 1e3:.1f} ms x{n}"
+                            for k, t, n in p["rows"][:8]))
+    p["window"] = (
+        f"device busy {p['busy']:.4f} s in a profiled window of "
+        f"{p['wall']:.4f} s, idle share {p['idle']:.4f} of it; "
+        + ("not run alone unprofiled" if plain is None else
+           f"unprofiled {plain:.4f} s (its last turn): the trace added "
+           f"{p['wall'] - plain:+.4f} s"))
+    return p
+
+
+def gate(p, seen, tag, kernel):
+    """The profiler gate: the trace's count of ``kernel`` (``traced``)
+    equals the wrapper's counter over the profiled run, and is not 0."""
+    if seen != p["counted"] or not seen:
+        raise AssertionError(
+            f"[profile] {tag}: the profiler saw {seen} {kernel} launches, "
+            f"the wrapper counted {p['counted']}; {p['top'][:160]}")
 
 
 def traced(rows, kernel):
@@ -1148,19 +1162,29 @@ def traced(rows, kernel):
     return sum(n for _, n in hits), sum(t for t, _ in hits) / 1e3
 
 
-def ssm_profile(torch, serve, base, small, task):
-    """Information: one greedy ssm request, device time by kernel and the
-    device's idle share (``profile_request``)."""
-    def run():
-        gen = torch.Generator(device="cuda").manual_seed(2)
-        return serve.run_scheme("specreason", base, small, task, gen, 128,
-                                SSM_THRESHOLD, 0.0, fused=False)
-    p = profile_request(torch, run)
-    n_out = len(p["res"].thinking_ids + p["res"].answer_ids)
-    print(f"[profile] ssm greedy req2 ({n_out} tokens): wall "
-          f"{p['plain_wall']:.4f} s unprofiled ({p['wall']:.4f} s profiled), "
-          f"device busy {p['busy']:.4f} s, idle share {p['idle']:.4f} of the "
-          f"profiled window; {p['top']}", flush=True)
+def ssm_profile(torch, serve, base, small, task, kernels, plain):
+    """One greedy ssm request profiled each way (``profile_request``):
+    idle share and device time by kernel; the profiler's count of the
+    drafter's flash-decode launches must equal the wrapper's.  ``plain``:
+    the request's unprofiled wall in the fused greedy turn (the eager
+    turns run req0 only)."""
+    for loop in ("fused", "eager"):
+        def run():
+            gen = torch.Generator(device="cuda").manual_seed(2)
+            return serve.run_scheme("specreason", base, small, task, gen,
+                                    128, SSM_THRESHOLD, 0.0,
+                                    fused=loop == "fused")
+        mine = plain if loop == "fused" else None
+        p = profile_request(torch, run, kernels["decode_attention"], mine)
+        n_out = len(p["res"].thinking_ids + p["res"].answer_ids)
+        seen, dev_ms = traced(p["rows"], "decode_kernel")
+        gate(p, seen, f"ssm greedy req2 {loop}", "decode_kernel")
+        rate = "" if mine is None else \
+            f", {n_out / mine:.1f} tok/s unprofiled"
+        print(f"[profile] ssm greedy req2 ({loop}, {n_out} tokens{rate}): "
+              f"{p['window']}; decode_kernel {seen} launches traced == "
+              f"{p['counted']} counted, {dev_ms:.1f} ms; {p['top']}",
+              flush=True)
 
 
 def mib(n):
@@ -1213,6 +1237,10 @@ def memory_line(torch, engines, mark):
         dev, host = loop_bytes(e)
         if hasattr(e, "store"):
             kv = f"KV pages {mib(e.store.nbytes)}"
+        elif e.model.cfg.has_ssm:
+            kv = "static conv/ssm state " + mib(sum(
+                t.numel() * t.element_size() for st in
+                e._ssm_static.values() for t in (st.conv, st.ssm)))
         else:
             kv = "pooled KV pairs " + mib(sum(
                 st.k.numel() * st.k.element_size() * 2
@@ -1280,7 +1308,7 @@ def rows_phase(torch, serve, tasks, paged_kernel, base, small, tag, runs,
     scheduler over ``base`` and ``small``, ROWS_REQUESTS requests over 4
     rows at ROWS_BUDGET, for each of ``runs`` (label, temperature, spec
     decode) on one scheduler (one pair of batch engines), in turns fused,
-    eager, eager, fused.  Tokens must be identical in all four turns;
+    eager, fused.  Tokens must be identical in every turn;
     paged-decode launches == n_layers x the batch engines' decode steps
     (replayed, masked and warm-up steps included); no capture in the
     second fused turn; every fused call within ceil(budget / k) + 1 waits
@@ -1317,14 +1345,15 @@ def rows_phase(torch, serve, tasks, paged_kernel, base, small, tag, runs,
             return handles, time.perf_counter() - t0
 
         mark = memory_mark(torch)
-        first = None
-        for turn, loop in enumerate(("fused", "eager", "eager", "fused")):
+        first, last = None, {}
+        for turn, loop in enumerate(TURNS):
             paged_kernel.launches = 0
             before = {n: (be.meter.decode_steps, be.meter.decode_tokens,
                           be.meter.decode_time, be.captures,
                           be.capture_time) for n, be in engines.items()}
             n_calls = len(calls)
             handles, wall = run(loop)
+            last[loop] = wall
             st = summarize(handles, wall)
             toks = [h.result.thinking_ids + h.result.answer_ids
                     for h in handles]
@@ -1347,7 +1376,7 @@ def rows_phase(torch, serve, tasks, paged_kernel, base, small, tag, runs,
                                      "first turn's")
             caps = {n: be.captures - before[n][3]
                     for n, be in engines.items()}
-            if turn == 3 and any(caps.values()):
+            if turn == len(TURNS) - 1 and any(caps.values()):
                 raise AssertionError(f"[fused rows] {tag} {label}: the "
                                      f"second fused turn captured: {caps}")
             made = {n: (be.meter.decode_tokens - before[n][1],
@@ -1368,8 +1397,8 @@ def rows_phase(torch, serve, tasks, paged_kernel, base, small, tag, runs,
                               for n, be in engines.items())
                   + f" s; paged decode launches {want} == n_layers x decode"
                   " steps", flush=True)
-        print(f"[fused rows] {tag} {label}: tokens identical in all four "
-              f"turns ({len(first)} requests); "
+        print(f"[fused rows] {tag} {label}: tokens identical in all "
+              f"{len(TURNS)} turns ({len(first)} requests); "
               + "; ".join(f"{n} {be.captures} captures over "
                           f"{len(be._loops)} keys" for n, be in
                           engines.items())
@@ -1377,26 +1406,19 @@ def rows_phase(torch, serve, tasks, paged_kernel, base, small, tag, runs,
         if profile:
             profile = False
             for loop in ("fused", "eager"):
-                p = profile_request(torch, lambda: run(loop), paged_kernel)
+                p = profile_request(torch, lambda: run(loop), paged_kernel,
+                                    last[loop])
                 handles, _ = p["res"]
                 n_out = sum(len(h.result.thinking_ids + h.result.answer_ids)
                             for h in handles)
                 seen, dev_ms = traced(p["rows"], "paged_decode_kernel")
-                if seen != p["counted"] or not seen:
-                    raise AssertionError(
-                        f"[profile] {tag} continuous {loop}: the profiler "
-                        f"saw {seen} paged_decode_kernel launches, the "
-                        f"wrapper counted {p['counted']}; "
-                        f"{p['top'][:60]}")
+                gate(p, seen, f"{tag} continuous {loop}",
+                     "paged_decode_kernel")
                 print(f"[profile] {tag} continuous {label} ({loop}, "
                       f"{ROWS_REQUESTS} requests over 4 rows, {n_out} "
-                      f"tokens): wall {p['plain_wall']:.4f} s unprofiled "
-                      f"({p['wall']:.4f} s profiled), "
-                      f"{n_out / p['plain_wall']:.1f} tok/s, device busy "
-                      f"{p['busy']:.4f} s, idle share {p['idle']:.4f} of the "
-                      f"profiled window; paged_decode_kernel {seen} "
-                      f"launches traced == "
-                      f"{p['counted']} counted, {dev_ms:.1f} ms; "
+                      f"tokens, {n_out / last[loop]:.1f} tok/s unprofiled):"
+                      f" {p['window']}; paged_decode_kernel {seen} launches "
+                      f"traced == {p['counted']} counted, {dev_ms:.1f} ms; "
                       f"{p['top']}", flush=True)
 
 
@@ -1405,7 +1427,7 @@ def decode_rows_phase(torch, BatchEngine, SamplingParams, paged_kernel,
     """A decode-only call of the batched engine at ``model``'s vocabulary:
     4 rows at the ragged lengths DECODE_ROWS decode DECODE_TOKENS tokens
     each, greedy and at 0.6 with probabilities collected, in turns fused,
-    eager, eager, fused from the same committed context (each turn
+    eager, fused from the same committed context (each turn
     restores the rows and truncates their tables): identical tokens,
     probabilities within 2e-5, launches == n_layers x decode steps, no
     capture in the second fused turn; then one greedy call profiled each
@@ -1444,10 +1466,11 @@ def decode_rows_phase(torch, BatchEngine, SamplingParams, paged_kernel,
         return out if probs else (out, None)
 
     mark = memory_mark(torch)
+    last = {}
     for label, temp, probs in (("greedy", 0.0, False),
                                ("sampled", 0.6, True)):
         first = None
-        for turn, loop in enumerate(("fused", "eager", "eager", "fused")):
+        for turn, loop in enumerate(TURNS):
             launches, steps = paged_kernel.launches, be.meter.decode_steps
             caps, syncs = be.captures, be.meter.decode_syncs
             torch.cuda.synchronize()
@@ -1455,6 +1478,7 @@ def decode_rows_phase(torch, BatchEngine, SamplingParams, paged_kernel,
             ids, ps = call(loop, temp, probs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            last[label, loop] = wall
             want = cfg.n_layers * (be.meter.decode_steps - steps)
             if paged_kernel.launches - launches != want or \
                     [len(i) for i in ids] != [DECODE_TOKENS] * len(rows):
@@ -1462,7 +1486,7 @@ def decode_rows_phase(torch, BatchEngine, SamplingParams, paged_kernel,
                     f"[fused rows] {tag} decode-only {label} {loop}: "
                     f"{[len(i) for i in ids]} tokens, paged decode launches "
                     f"{paged_kernel.launches - launches} != {want}")
-            if turn == 3 and be.captures != caps:
+            if turn == len(TURNS) - 1 and be.captures != caps:
                 raise AssertionError(f"[fused rows] {tag} decode-only "
                                      f"{label}: the second fused turn "
                                      "captured again")
@@ -1486,27 +1510,22 @@ def decode_rows_phase(torch, BatchEngine, SamplingParams, paged_kernel,
                   f"{be.meter.decode_syncs - syncs}, paged decode launches "
                   f"{want} == n_layers x decode steps", flush=True)
         print(f"[fused rows] {tag} vocab {cfg.vocab_size} decode-only "
-              f"{label}: tokens identical in all four turns", flush=True)
+              f"{label}: tokens identical in all {len(TURNS)} turns",
+              flush=True)
     print(f"[fused rows] {tag} vocab {cfg.vocab_size} decode-only: "
           f"{check_rows_calls(tag, calls)}; memory: "
           f"{memory_line(torch, {'base': be}, mark)}", flush=True)
     for loop in ("fused", "eager"):
+        plain = last["greedy", loop]
         p = profile_request(torch, lambda: call(loop, 0.0, False),
-                            paged_kernel)
+                            paged_kernel, plain)
         seen, dev_ms = traced(p["rows"], "paged_decode_kernel")
-        if seen != p["counted"] or not seen:
-            raise AssertionError(f"[profile] {tag} decode-only {loop}: the "
-                                 f"profiler saw {seen} paged_decode_kernel "
-                                 f"launches, the wrapper counted "
-                                 f"{p['counted']}; {p['top'][:60]}")
+        gate(p, seen, f"{tag} decode-only {loop}", "paged_decode_kernel")
         n = len(rows) * DECODE_TOKENS
         print(f"[profile] {tag} vocab {cfg.vocab_size} decode-only greedy, "
-              f"{len(rows)} rows x {DECODE_TOKENS} tokens ({loop}): wall "
-              f"{p['plain_wall']:.4f} s unprofiled ({p['wall']:.4f} s "
-              f"profiled), {n / p['plain_wall']:.1f} tok/s, device busy "
-              f"{p['busy']:.4f} s, idle share {p['idle']:.4f} of the "
-              f"profiled window; paged_decode_kernel {seen} launches traced "
-              f"== "
+              f"{len(rows)} rows x {DECODE_TOKENS} tokens ({loop}, "
+              f"{n / plain:.1f} tok/s unprofiled): {p['window']}; "
+              f"paged_decode_kernel {seen} launches traced == "
               f"{p['counted']} counted, {dev_ms:.1f} ms; {p['top']}",
               flush=True)
 
@@ -1516,7 +1535,7 @@ def fused_phase(torch, serve, tasks, decode_kernel, base, small, tag,
     """The dense pair's fused decode loop against its per-token loop on
     the card, on one pair of engines: the main path's 3 specreason
     requests, greedy and at temperature 0.6, in turns fused, eager,
-    eager, fused.  Tokens must be identical in every turn; decode launches
+    fused.  Tokens must be identical in every turn; decode launches
     must equal n_layers x the metered decode steps (masked and warm-up
     steps included); each engine's graphs must all run over one KV pair
     (one capture per key, none in the second fused turn); every fused
@@ -1559,12 +1578,14 @@ def fused_phase(torch, serve, tasks, decode_kernel, base, small, tag,
                                 threshold, temp, fused=loop == "fused")
 
     mark = memory_mark(torch)
+    last = {}           # greedy req2's wall in its loop's last turn
     for label, temp in (("greedy", 0.0), ("sampled", 0.6)):
         first = None
-        for turn, loop in enumerate(("fused", "eager", "eager", "fused")):
+        for turn, loop in enumerate(TURNS):
             decode_kernel.launches = 0
             caps = {n: e.captures for n, e in engines.items()}
             want, toks, rates, wall = 0, [], [], 0.0
+            walls = []
             meter = {n: dict.fromkeys(("decode_tokens", "decode_time",
                                        "prefill_time"), 0)
                      for n in engines}
@@ -1573,6 +1594,7 @@ def fused_phase(torch, serve, tasks, decode_kernel, base, small, tag,
                 out = res.thinking_ids + res.answer_ids
                 toks.append(out)
                 rates.append(len(out) / res.wall_time)
+                walls.append(res.wall_time)
                 wall += res.wall_time
                 want += sum(layers[n] * m["decode_steps"]
                             for n, m in res.meters.items())
@@ -1584,6 +1606,8 @@ def fused_phase(torch, serve, tasks, decode_kernel, base, small, tag,
                 raise AssertionError(f"[fused] {tag} {label} {loop}: decode "
                                      f"launches {decode_kernel.launches} != "
                                      f"n_layers x decode steps {want}")
+            if label == "greedy":
+                last[loop] = walls[2]
             if first is None:
                 first = toks
             elif toks != first:
@@ -1591,7 +1615,7 @@ def fused_phase(torch, serve, tasks, decode_kernel, base, small, tag,
                                      f"{turn} tokens differ from the first "
                                      "turn's")
             new = {n: e.captures - caps[n] for n, e in engines.items()}
-            if turn == 3 and any(new.values()):
+            if turn == len(TURNS) - 1 and any(new.values()):
                 raise AssertionError(f"[fused] {tag} {label}: the second "
                                      f"fused turn captured again: {new}")
             print(f"[fused] {tag} {label} turn {turn} ({loop}): "
@@ -1604,8 +1628,8 @@ def fused_phase(torch, serve, tasks, decode_kernel, base, small, tag,
                       f"{m['prefill_time']:.4f} s" for n, m in meter.items())
                   + f"; decode launches {want} == n_layers x decode steps; "
                   f"captures {new}", flush=True)
-        print(f"[fused] {tag} {label}: tokens identical in all four turns "
-              f"({len(first)} requests)", flush=True)
+        print(f"[fused] {tag} {label}: tokens identical in all "
+              f"{len(TURNS)} turns ({len(first)} requests)", flush=True)
     for name, eng in engines.items():
         pairs = {key[:2] for key in eng._loops}
         if eng.captures != len(eng._loops) or len(pairs) != 1:
@@ -1635,21 +1659,35 @@ def fused_phase(torch, serve, tasks, decode_kernel, base, small, tag,
     print(f"[fused] {tag} memory: {memory_line(torch, engines, mark)}",
           flush=True)
     for loop in ("fused", "eager"):
-        p = profile_request(torch, lambda: run(0.0, loop, 2), decode_kernel)
+        p = profile_request(torch, lambda: run(0.0, loop, 2), decode_kernel,
+                            last[loop])
         n_out = len(p["res"].thinking_ids + p["res"].answer_ids)
         seen, dev_ms = traced(p["rows"], "decode_kernel")
-        if seen != p["counted"] or not seen:
-            raise AssertionError(f"[profile] {tag} {loop}: the profiler saw "
-                                 f"{seen} decode_kernel launches, the "
-                                 f"wrapper counted {p['counted']}; "
-                                 f"{p['top'][:60]}")
-        print(f"[profile] {tag} dense greedy req2 ({loop}, {n_out} tokens): "
-              f"wall {p['plain_wall']:.4f} s unprofiled ({p['wall']:.4f} s "
-              f"profiled), {n_out / p['plain_wall']:.1f} tok/s, device busy "
-              f"{p['busy']:.4f} s, idle share {p['idle']:.4f} of the "
-              f"profiled window; decode_kernel {seen} launches traced == "
-              f"{p['counted']} counted, {dev_ms:.1f} ms; {p['top']}",
-              flush=True)
+        gate(p, seen, f"{tag} {loop}", "decode_kernel")
+        print(f"[profile] {tag} dense greedy req2 ({loop}, {n_out} tokens, "
+              f"{n_out / last[loop]:.1f} tok/s unprofiled): {p['window']}; "
+              f"decode_kernel {seen} launches traced == {p['counted']} "
+              f"counted, {dev_ms:.1f} ms; {p['top']}", flush=True)
+
+
+def published_vocab(torch, Model, registry, arch, layers_of):
+    """(model, params) of ``arch`` at its published vocabulary: the
+    layers and norms of the params ``layers_of`` (cut to the toy
+    vocabulary), the embeddings drawn on the card from seed 3, scaled as
+    the port's init draws them."""
+    full = Model(registry.get(arch))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = dict(layers_of)
+    for key, spec in full.spec().items():
+        if key in ("tok_embed", "unembed"):
+            std = spec.scale / (spec.shape[spec.fan_in_axis] ** 0.5
+                                if spec.init == "scaled" else 1.0)
+            params[key] = torch.randn(spec.shape, generator=gen,
+                                      device="cuda") * std
+        elif "/" not in key and params[key].shape != spec.shape:
+            raise AssertionError(f"{key}: {params[key].shape} does not "
+                                 f"match the spec's {spec.shape}")
+    return full, params
 
 
 def fused_dense_phase(torch, serve, tasks, loader, registry,
@@ -1660,12 +1698,10 @@ def fused_dense_phase(torch, serve, tasks, loader, registry,
     tokenizer's 64 as the ssm phase's base) with the testbed SMALL
     drafter through ``fused_phase``; then the base alone at its published
     vocabulary (256000; the same layers, embeddings drawn on the card
-    from a seed): a 64-token prompt, 128 tokens greedy and 128 sampled at
-    0.6 with probabilities collected, in turns fused, eager, eager,
-    fused, with identical tokens, probabilities within 2e-5, launches
-    == n_layers x decode steps, and the memory the loop holds; then one
-    greedy call profiled each way (idle share, device time by kernel,
-    the profiler's flash-decode launches against the wrapper's)."""
+    from a seed): from a 64-token prompt, ``decode_turns`` in turns
+    TURNS, with flash-decode launches == n_layers x decode steps and one
+    greedy call profiled each way (the profiler's flash-decode launches
+    against the wrapper's)."""
     t0 = time.perf_counter()
     base = loader.random_engine(DENSE_ARCH, "cuda", seed=0)
     small = loader.random_engine("testbed-small", "cuda", seed=1)
@@ -1687,98 +1723,150 @@ def fused_dense_phase(torch, serve, tasks, loader, registry,
                DENSE_KV_MB, profile=True)
     lap(f"fused rows, {DENSE_ARCH}")
 
-    full = Model(registry.get(DENSE_ARCH))
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    params = dict(base.params)
-    for key, spec in full.spec().items():
-        if key in ("tok_embed", "unembed"):     # as the port's init draws
-            std = spec.scale / (spec.shape[spec.fan_in_axis] ** 0.5
-                                if spec.init == "scaled" else 1.0)
-            params[key] = torch.randn(spec.shape, generator=gen,
-                                      device="cuda") * std
-        elif "/" not in key and params[key].shape != spec.shape:
-            raise AssertionError(f"{key}: {params[key].shape} does not "
-                                 f"match the spec's {spec.shape}")
+    full, params = published_vocab(torch, Model, registry, DENSE_ARCH,
+                                   base.params)
     eng = Engine(full, params, name=DENSE_ARCH)
     decode_rows_phase(torch, BatchEngine, SamplingParams, paged_kernel, full,
                       params, DENSE_ARCH)
     lap(f"fused rows, {DENSE_ARCH} decode-only")
-    full = full.cfg
-    prompt = torch.randint(0, full.vocab_size, (64,),
+    prompt = torch.randint(0, full.cfg.vocab_size, (64,),
                            generator=torch.Generator().manual_seed(4)).tolist()
+    decode_turns(torch, eng, SamplingParams, "[fused]",
+                 f"{DENSE_ARCH} vocab {full.cfg.vocab_size}",
+                 lambda: eng.extend(eng.new_session(), prompt), TURNS,
+                 profile=True, counter=decode_kernel, kernel="decode_kernel")
+    lap(f"fused, {DENSE_ARCH} decode-only")
+
+
+def decode_turns(torch, eng, SamplingParams, phase, name, start, turns,
+                 profile=False, counter=None, kernel=""):
+    """One engine's fused decode loop against its per-token loop on the
+    card, decode-only: each call decodes from ``start()`` (made before
+    the clock starts) DECODE_TOKENS tokens, greedy and at 0.6 with
+    probabilities collected, in ``turns``.  Tokens identical,
+    probabilities within 2e-5, DECODE_TOKENS tokens a call, no capture
+    in the last (fused) turn, at most ceil(DECODE_TOKENS / k) + 1 waits
+    and 2k - 1 wasted steps a fused call; with a kernel wrapper
+    ``counter``, its launches == n_layers x decode steps.  Prints decode
+    tok/s, TPOT, waits, wasted steps, captures and capture s each turn,
+    then the loop's memory; with ``profile``, one greedy call profiled
+    each way (``profile_request``: idle share, device time by kernel,
+    the profiler's count of ``kernel`` against ``counter``'s)."""
+    from repro_torch.serving.graph_loop import chunk_steps
+    k = chunk_steps(DECODE_TOKENS)
+    layers = eng.model.cfg.n_layers
+    tag = f"{phase} {name}"
+
+    def call(session, loop, temp, probs):
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        ids, _, ps = eng.generate(
+            session, DECODE_TOKENS, [], SamplingParams(temperature=temp),
+            gen, collect_probs=probs, fused=loop == "fused")
+        return ids, ps
     mark = memory_mark(torch)
+    last = {}
     for label, temp, probs in (("greedy", 0.0, False),
                                ("sampled", 0.6, True)):
         first = None
-        for turn, loop in enumerate(("fused", "eager", "eager", "fused")):
-            session = eng.extend(eng.new_session(), prompt)
-            gen = torch.Generator(device="cuda").manual_seed(5)
-            launches, steps = decode_kernel.launches, eng.meter.decode_steps
-            caps, syncs = eng.captures, eng.meter.decode_syncs
+        for turn, loop in enumerate(turns):
+            session = start()
+            m = eng.meter
+            caps, cap_s = eng.captures, eng.capture_time
+            syncs, steps = m.decode_syncs, m.decode_steps
+            launches = counter.launches if counter is not None else 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            ids, session, ps = eng.generate(
-                session, 128, [], SamplingParams(temperature=temp), gen,
-                collect_probs=probs, fused=loop == "fused")
+            ids, ps = call(session, loop, temp, probs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            want = cfg.n_layers * (eng.meter.decode_steps - steps)
-            if decode_kernel.launches - launches != want or len(ids) != 128:
-                raise AssertionError(
-                    f"[fused] {DENSE_ARCH} vocab {full.vocab_size} {label} "
-                    f"{loop}: {len(ids)} tokens, decode launches "
-                    f"{decode_kernel.launches - launches} != {want}")
-            del session         # its KV pair goes back to the pool
-            if turn == 3 and eng.captures != caps:
-                raise AssertionError(f"[fused] {DENSE_ARCH} vocab "
-                                     f"{full.vocab_size} {label}: the second"
-                                     " fused turn captured again")
+            del session         # a dense session's KV pair goes back
+            last[label, loop] = wall
+            new = eng.captures - caps
+            waits = m.decode_syncs - syncs
+            wasted = m.decode_steps - steps - len(ids) - new
+            want = layers * (m.decode_steps - steps)
+            if len(ids) != DECODE_TOKENS:
+                raise AssertionError(f"{tag} {label} {loop}: {len(ids)} "
+                                     f"tokens, not {DECODE_TOKENS}")
+            if counter is not None and counter.launches - launches != want:
+                raise AssertionError(f"{tag} {label} {loop}: {kernel} "
+                                     f"launches {counter.launches - launches}"
+                                     f" != n_layers x decode steps {want}")
+            if turn == len(turns) - 1 and new:
+                raise AssertionError(f"{tag} {label}: the second fused "
+                                     "turn captured again")
+            if loop == "fused" and (waits > -(-DECODE_TOKENS // k) + 1
+                                    or wasted > 2 * k - 1):
+                raise AssertionError(f"{tag} {label}: {waits} waits, "
+                                     f"{wasted} wasted steps (k {k})")
             if first is None:
                 first = (ids, ps)
             else:
                 err = max((abs(a - b).max() for a, b in zip(ps, first[1])),
                           default=0.0)
-                if ids != first[0] or len(ps) != len(first[1]) or err > 2e-5:
+                if ids != first[0] or len(ps) != len(first[1]) or \
+                        err > 2e-5:
                     raise AssertionError(
-                        f"[fused] {DENSE_ARCH} vocab {full.vocab_size} "
-                        f"{label}: turn {turn} ({loop}) tokens or "
-                        f"probabilities differ from the first turn's "
+                        f"{tag} {label}: turn {turn} ({loop}) tokens or "
+                        "probabilities differ from the first turn's "
                         f"(probs max |diff| {err})")
-            print(f"[fused] {DENSE_ARCH} vocab {full.vocab_size} {label} "
-                  f"turn {turn} ({loop}): {len(ids)} tokens in {wall:.4f} s,"
-                  f" {len(ids) / wall:.1f} tok/s"
-                  + (f", probabilities collected" if probs else "")
-                  + f"; captures {eng.captures - caps}, syncs "
-                  f"{eng.meter.decode_syncs - syncs}, decode launches {want}"
-                  " == n_layers x decode steps", flush=True)
-        print(f"[fused] {DENSE_ARCH} vocab {full.vocab_size} {label}: tokens "
-              "identical in all four turns", flush=True)
-    print(f"[fused] {DENSE_ARCH} vocab {full.vocab_size} memory: "
+            note = (f"waits {waits}, wasted steps {wasted}"
+                    if loop == "fused" else "per-token loop")
+            print(f"{tag} {label} turn {turn} ({loop}): {len(ids)} tokens "
+                  f"in {wall:.4f} s, {len(ids) / wall:.1f} tok/s, TPOT "
+                  f"{wall / len(ids) * 1e3:.3f} ms"
+                  + (", probabilities collected" if probs else "")
+                  + f"; {note}; captures {new} in "
+                  f"{eng.capture_time - cap_s:.3f} s"
+                  + (f"; {kernel} launches {want} == n_layers x decode "
+                     "steps" if counter is not None else ""), flush=True)
+        print(f"{tag} {label}: tokens identical in all {len(turns)} turns"
+              + (" (probabilities within 2e-5)" if probs else ""),
+              flush=True)
+    print(f"{tag}: {eng.captures} captures in {eng.capture_time:.3f} s "
+          f"over {len(eng._loops)} keys; memory: "
           f"{memory_line(torch, {'base': eng}, mark)}", flush=True)
-
-    def call(loop):
-        gen = torch.Generator(device="cuda").manual_seed(5)
-        ids, _, _ = eng.generate(eng.extend(eng.new_session(), prompt), 128,
-                                 [], SamplingParams(temperature=0.0), gen,
-                                 fused=loop == "fused")
-        return ids
+    if not profile:
+        return
     for loop in ("fused", "eager"):
-        p = profile_request(torch, lambda: call(loop), decode_kernel)
-        seen, dev_ms = traced(p["rows"], "decode_kernel")
-        if seen != p["counted"] or not seen:
-            raise AssertionError(f"[profile] {DENSE_ARCH} vocab "
-                                 f"{full.vocab_size} {loop}: the profiler "
-                                 f"saw {seen} decode_kernel launches, the "
-                                 f"wrapper counted {p['counted']}; "
-                                 f"{p['top'][:60]}")
-        print(f"[profile] {DENSE_ARCH} vocab {full.vocab_size} greedy, a "
-              f"64-token extend and 128 tokens ({loop}): wall "
-              f"{p['plain_wall']:.4f} s unprofiled ({p['wall']:.4f} s "
-              f"profiled), device busy {p['busy']:.4f} s, idle share "
-              f"{p['idle']:.4f} of the profiled window; decode_kernel {seen} "
-              f"launches traced == {p['counted']} counted, {dev_ms:.1f} ms; "
-              f"{p['top']}", flush=True)
-    lap(f"fused, {DENSE_ARCH} decode-only")
+        session, plain = start(), last["greedy", loop]
+        p = profile_request(torch, lambda: call(session, loop, 0.0, False),
+                            counter, plain)
+        del session
+        gated = ""
+        if counter is not None:
+            seen, dev_ms = traced(p["rows"], kernel)
+            gate(p, seen, f"{name} {loop}", kernel)
+            gated = (f"; {kernel} {seen} launches traced == "
+                     f"{p['counted']} counted, {dev_ms:.1f} ms")
+        print(f"[profile] {name} decode-only greedy, {DECODE_TOKENS} tokens "
+              f"({loop}, {DECODE_TOKENS / plain:.1f} tok/s unprofiled): "
+              f"{p['window']}{gated}; {p['top']}", flush=True)
+
+
+def fused_ssm_phase(torch, Model, registry, Engine, SamplingParams, base,
+                    lap):
+    """The ssm base's fused decode loop (CUDA graphs over the engine's
+    static conv/ssm pair) against its per-token loop on the card
+    (``decode_turns``, turns SSM_TURNS): the mamba2-1.3b base alone, 48
+    layers at published widths (the main phase's engine), first at the
+    toy vocabulary of 64 and then at its published vocabulary of 50280
+    (the same layers, the embedding drawn on the card), decode-only from
+    one committed 64-token prompt; at 50280 one greedy call profiled
+    each way."""
+    full, params = published_vocab(torch, Model, registry, SSM_ARCH,
+                                   base.params)
+    for eng in (base, Engine(full, params, name=SSM_ARCH)):
+        vocab = eng.model.cfg.vocab_size
+        prompt = torch.randint(0, vocab, (64,), generator=torch.Generator()
+                               .manual_seed(4)).tolist()
+        # an ssm session's tensors are never written again: every turn
+        # decodes from this one
+        committed = eng.extend(eng.new_session(), prompt)
+        decode_turns(torch, eng, SamplingParams, "[fused ssm]",
+                     f"{SSM_ARCH} vocab {vocab}", lambda: committed,
+                     SSM_TURNS, profile=eng is not base)
+        lap(f"fused ssm, vocab {vocab}")
 
 
 def ssm_check_phase(torch, base):
@@ -1928,6 +2016,8 @@ def main() -> int:
                                             kernels)
     launches["ssd_scan"] = ssm_launches["ssd_scan"]
     lap("main path, ssm")
+    fused_ssm_phase(torch, Model, registry, engine_mod.Engine,
+                    SamplingParams, ssm_base, lap)
     ssm_check_phase(torch, ssm_base)
     lap("check, ssm")
 

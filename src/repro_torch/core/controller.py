@@ -60,7 +60,7 @@ class SpecReasonConfig:
     # decode loop of every generate call, and of the continuous
     # scheduler's batched rows: fused (one CUDA graph replay a chunk of
     # tokens), eager (the per-token loop), or None for each engine's
-    # default (fused for dense, eager for ssm)
+    # default (fused, for the dense and ssm families)
     fused_decode: Optional[bool] = None
     sampling: SamplingParams = dataclasses.field(
         default_factory=lambda: SamplingParams(temperature=0.6))

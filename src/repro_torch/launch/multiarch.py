@@ -6,7 +6,7 @@ The port's twin of the JAX package's ``examples/multiarch_smoke.py``,
 over the port's registry (minitron-4b, dense; mamba2-1.3b, ssm); the
 registry refuses the JAX package's other architectures, and a model of
 a family not yet ported raises ``NotImplementedError``.  Each engine
-decodes by its default loop (fused for dense, per-token for ssm), and
+decodes by its default loop (the fused one, for both families), and
 each line names it.
 
   PYTHONPATH=src python -m repro_torch.launch.multiarch --device cpu

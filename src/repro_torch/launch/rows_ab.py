@@ -16,7 +16,8 @@ tok/s, TPOT p50 and p95, TTFT p50, the batch engines' decode calls,
 steps and host waits, and the tokens' hash.  Each checkout's kernels
 are built first, by its own build module, outside the turns.  Turns run
 A, B, B, A, each after a reading of the host's speed (ms of a fixed
-pure-Python loop), so that drift of the shared host shows.
+pure-Python loop), so that drift of the shared host shows (``turns``,
+which ``ssm_loop_ab.py`` shares).
 
 Prints the card's name and power limit first, then one JSON line per
 turn (also appended to ``--out``), then the median of each case's
@@ -33,6 +34,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Dict, List, Optional
 
 ORDER = ("A", "B", "B", "A")
 REPS = 2
@@ -72,7 +74,6 @@ def _child(root: str) -> None:
     assert os.path.dirname(os.path.dirname(repro_torch.__file__)) == \
         os.path.join(root, "src"), repro_torch.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
-    host_ms = _host_speed_ms()
     t0 = time.perf_counter()
     base = loader.random_engine("minitron-4b", "cuda", seed=0)
     small = loader.random_engine("testbed-small", "cuda", seed=1)
@@ -80,7 +81,7 @@ def _child(root: str) -> None:
     init_s = time.perf_counter() - t0
     rng = random.Random(0)
     reqs = [tasks.sample_task(rng) for _ in range(REQUESTS)]
-    out = dict(root=root, host_ms=host_ms, init_s=init_s, cases={})
+    out = dict(root=root, init_s=init_s, cases={})
     for name, spec in CASES:
         cfg = SpecReasonConfig(policy=StaticThreshold(THRESHOLD),
                                token_budget=BUDGET,
@@ -142,6 +143,52 @@ def _build(root: str) -> subprocess.Popen:
                             stdout=subprocess.DEVNULL)
 
 
+def turns(script: str, tag: str, a: str, b: str,
+          out: Optional[str]) -> Dict[str, List[dict]]:
+    """Print the card, build both checkouts' kernels, then run each turn
+    of ORDER: a reading of the host's speed, then ``script --child
+    <checkout>`` in a child process that runs that checkout's code and
+    prints one line, ``TAG <JSON>`` (``tag`` in capitals).  Returns each
+    checkout's records (the JSON, the turn, the checkout, the card, the
+    host's speed and the child's seconds), each also printed and
+    appended to ``out``."""
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+    print(f"[{tag}] {card}", flush=True)
+    roots = {"A": os.path.abspath(a), "B": os.path.abspath(b)}
+    t0 = time.perf_counter()
+    builds = [_build(r) for r in roots.values()]
+    if any(p.wait(timeout=900) for p in builds):
+        raise RuntimeError("a kernel build failed")
+    print(f"[{tag}] kernels of both checkouts built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    marker = tag.upper() + " "
+    readings = {k: [] for k in roots}
+    for turn, key in enumerate(ORDER):
+        host_ms = _host_speed_ms()
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, os.path.abspath(script),
+                              "--child", roots[key]], cwd=roots[key],
+                             env={**os.environ, "PYTHONPATH": ""},
+                             capture_output=True, text=True, timeout=900)
+        line = next((x for x in res.stdout.splitlines()
+                     if x.startswith(marker)), None)
+        if res.returncode or line is None:
+            sys.stderr.write(res.stdout[-4000:] + res.stderr[-4000:])
+            raise RuntimeError(f"turn {turn} ({key}) failed")
+        rec = dict(turn=turn, checkout=key, card=card, host_ms=host_ms,
+                   process_s=time.perf_counter() - t0,
+                   **json.loads(line[len(marker):]))
+        readings[key].append(rec)
+        text = json.dumps(rec)
+        print(text, flush=True)
+        if out:
+            with open(out, "a") as f:
+                f.write(text + "\n")
+    return readings
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--a", help="checkout A (e.g. parent)")
@@ -154,38 +201,7 @@ def main(argv=None) -> int:
         return 0
     if not (args.a and args.b):
         ap.error("--a and --b are required")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60, check=True).stdout.strip()
-    print(f"[rows_ab] {card}", flush=True)
-    roots = {"A": os.path.abspath(args.a), "B": os.path.abspath(args.b)}
-    t0 = time.perf_counter()
-    builds = [_build(r) for r in roots.values()]
-    if any(p.wait(timeout=900) for p in builds):
-        raise RuntimeError("a kernel build failed")
-    print(f"[rows_ab] kernels of both checkouts built in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    readings = {k: [] for k in roots}
-    for turn, key in enumerate(ORDER):
-        t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--child", roots[key]], cwd=roots[key],
-                             env={**os.environ, "PYTHONPATH": ""},
-                             capture_output=True, text=True, timeout=900)
-        line = next((x for x in res.stdout.splitlines()
-                     if x.startswith("ROWS_AB ")), None)
-        if res.returncode or line is None:
-            sys.stderr.write(res.stdout[-4000:] + res.stderr[-4000:])
-            raise RuntimeError(f"turn {turn} ({key}) failed")
-        rec = dict(turn=turn, checkout=key, card=card,
-                   process_s=time.perf_counter() - t0,
-                   **json.loads(line[len("ROWS_AB "):]))
-        readings[key].append(rec)
-        text = json.dumps(rec)
-        print(text, flush=True)
-        if args.out:
-            with open(args.out, "a") as f:
-                f.write(text + "\n")
+    readings = turns(__file__, "rows_ab", args.a, args.b, args.out)
     for name, _ in CASES:
         for key, recs in readings.items():
             runs = [r for rec in recs for r in rec["cases"][name]["runs"]]

@@ -29,15 +29,21 @@ rolls the context back with no copy.  A ring-buffered cache wraps, so a
 later write can land on a slot the snapshot still sees: ``snapshot``
 therefore copies ring caches.
 
-**Recurrent states are never written in place.**  Every call folds each
-token into the whole conv and ssm state, so a shared state written in
-place would let a snapshot see later tokens.  ``prefill`` and
+**A session's recurrent state is never written in place.**  Every call
+folds each token into the whole conv and ssm state, so a shared state
+written in place would let a snapshot see later tokens.  ``prefill`` and
 ``decode_step`` of the ssm family therefore build *new* conv and ssm
 tensors and hand back a state over them; the old tensors are untouched.
 A snapshot shares them and stays O(1), as in the JAX package (no 103 MB
 copy per snapshot at mamba2-1.3b); a call costs one fresh state's
-allocation instead.  SSM state cannot be rolled back by position:
-``truncate`` raises, and rollback restores a snapshot (and replays).
+allocation instead.  The one exception is the fused decode loop
+(``Engine.generate_fused``), whose CUDA graph needs static buffers: its
+step (``decode_step`` with ``active``) writes into a conv/ssm pair that
+the engine owns and no session holds.  The call copies the session's
+state into that pair first and copies the pair out into fresh tensors
+for the session it returns, so a state a snapshot holds is still never
+written.  SSM state cannot be rolled back by position: ``truncate``
+raises, and rollback restores a snapshot (and replays).
 """
 
 from __future__ import annotations

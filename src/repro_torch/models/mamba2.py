@@ -229,11 +229,17 @@ def apply_mamba(x: torch.Tensor, p: Dict[str, torch.Tensor],
 
 def apply_mamba_decode(x: torch.Tensor, p: Dict[str, torch.Tensor],
                        cfg: ModelConfig,
-                       state: Tuple[torch.Tensor, torch.Tensor]
+                       state: Tuple[torch.Tensor, torch.Tensor],
+                       active: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor,
                                   Tuple[torch.Tensor, torch.Tensor]]:
     """One-token decode.  x: (B, 1, d); state = (conv_state, ssm_state).
-    Returns (y (B, 1, d), new state), the new state's tensors new."""
+    Returns (y (B, 1, d), new state), the new state's tensors new.
+
+    With a 0-d bool ``active`` (the fused decode loop's static buffers)
+    the new states are written into ``state``'s own tensors instead, and
+    ``state`` is returned: an active step writes what the new tensors
+    would hold, a masked one leaves both tensors exactly as they were."""
     bsz = x.shape[0]
     di, n, g, h = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_n_groups,
                    cfg.ssm_n_heads)
@@ -260,4 +266,9 @@ def apply_mamba_decode(x: torch.Tensor, p: Dict[str, torch.Tensor],
     y = y.reshape(bsz, 1, di)
     y = gated_rmsnorm(y, z[:, None, :], p["norm_scale"], cfg.rmsnorm_eps)
     out = (y @ p["w_out"]).to(x.dtype)
-    return out, (new_conv_state, new_ssm.to(ssm_state.dtype))
+    new_ssm = new_ssm.to(ssm_state.dtype)
+    if active is None:
+        return out, (new_conv_state, new_ssm)
+    torch.where(active, new_conv_state, conv_state, out=conv_state)
+    torch.where(active, new_ssm, ssm_state, out=ssm_state)
+    return out, state

@@ -190,28 +190,33 @@ class Model:
         """One-token decode.  tokens: (B, 1).  Returns (logits (B, V), the
         state advanced by one).
 
-        ``state.pos`` is a host int, or (dense family, the fused decode
-        loop) a 0-d integer tensor on the device: then the rope positions,
-        ``lengths`` and the cache slot are built on the device with no
-        host read, and a 0-d bool ``active`` may mask the step (its K/V
-        write puts back what the slot held, and the returned position
-        advances by ``active``)."""
+        ``state.pos`` is a host int, or (the fused decode loop) a 0-d
+        integer tensor on the device: then the positions, ``lengths`` and
+        the cache slot are built on the device with no host read, and a
+        0-d bool ``active`` may mask the step: the returned position
+        advances by ``active``; a dense step's K/V write puts back what
+        the slot held; an ssm step writes its conv and ssm states into
+        ``state``'s tensors in place, a masked one leaving them as they
+        were (without ``active`` it returns new tensors)."""
         cfg = self.cfg
         pos = state.pos
         x = self._embed(params, tokens, pos)
+        if isinstance(pos, torch.Tensor):
+            new_pos = pos + (1 if active is None else active.to(pos.dtype))
+        else:
+            new_pos = pos + 1
         if cfg.family == "ssm":
             logits, new_state = self._ssm_layers(params, x, state,
-                                                 decode=True)
-            return logits[:, 0, :], new_state
+                                                 decode=True, active=active)
+            return logits[:, 0, :], dataclasses.replace(new_state,
+                                                        pos=new_pos)
         b = tokens.shape[0]
         if isinstance(pos, torch.Tensor):
             lengths = (pos + 1).clamp(max=state.capacity).to(
                 torch.int32).reshape(1).expand(b).contiguous()
-            new_pos = pos + (1 if active is None else active.to(pos.dtype))
         else:
             lengths = torch.full((b,), min(pos + 1, state.capacity),
                                  dtype=torch.int32, device=x.device)
-            new_pos = pos + 1
         for i in range(cfg.n_layers):
             lp = _layer(params["layers"], i)
             h = apply_norm(x, lp["ln1"], cfg.norm_type, cfg.rmsnorm_eps)
@@ -223,11 +228,14 @@ class Model:
         return logits, dataclasses.replace(state, pos=new_pos)
 
     def _ssm_layers(self, params, x: torch.Tensor, state: DecodeState,
-                    decode: bool) -> Tuple[torch.Tensor, DecodeState]:
+                    decode: bool, active: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, DecodeState]:
         """The mixer stack over the (B, S, d) embedded tokens from
         ``state``: the chunked scan for an extend, the recurrent step for
         a decoded token.  The conv and ssm states come back as new
-        tensors (``models/kvcache.py`` says why)."""
+        tensors (``models/kvcache.py`` says why), except in the fused
+        decode loop's step (``active`` given), which writes them into
+        ``state``'s tensors, masked by ``active``."""
         cfg = self.cfg
         convs, ssms = [], []
         for i in range(cfg.n_layers):
@@ -235,18 +243,19 @@ class Model:
             h = apply_norm(x, lp["ln1"], cfg.norm_type, cfg.rmsnorm_eps)
             st = (state.conv[i], state.ssm[i])
             if decode:
-                y, (conv, ssm) = mamba2.apply_mamba_decode(h, lp["mixer"],
-                                                           cfg, st)
+                y, (conv, ssm) = mamba2.apply_mamba_decode(
+                    h, lp["mixer"], cfg, st, active)
             else:
                 y, (conv, ssm) = mamba2.apply_mamba(h, lp["mixer"], cfg, st,
                                                     return_state=True)
             x = x + y
             convs.append(conv)
             ssms.append(ssm)
-        new_state = dataclasses.replace(
-            state, conv=torch.stack(convs), ssm=torch.stack(ssms),
-            pos=state.pos + x.shape[1])
-        return self._final(params, x), new_state
+        if active is None:
+            state = dataclasses.replace(
+                state, conv=torch.stack(convs), ssm=torch.stack(ssms),
+                pos=state.pos + x.shape[1])
+        return self._final(params, x), state
 
     # ------------------------------------------------------- paged rows --
     def prefill_rows(self, params, tokens: torch.Tensor,

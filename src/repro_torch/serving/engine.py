@@ -25,19 +25,24 @@ Differences from the JAX package:
     rebuilt for a CUDA graph.  One body of k one-token steps (sample,
     record, stop check, decode the token), each masked by ``active = (i
     < n_max) & ~done``, reads and writes static buffers: the position,
-    counters, last logits, token and probability buffers and the
-    session's KV caches.  On the card it is captured once per key and
-    replayed chunk by chunk (``serving/graph_loop.py``); the host reads
-    ``i`` and ``done`` one chunk behind, through a pinned copy, so a
-    call waits on the card
-    at most ceil(budget / k) + 1 times and runs at most 2k - 1 masked
+    counters, last logits, token and probability buffers, and the
+    session's KV caches or the engine's static SSM state.  On the card
+    it is captured once per key and replayed chunk by chunk
+    (``serving/graph_loop.py``); the host reads ``i`` and ``done`` one
+    chunk behind, through a pinned copy, so a call waits on the card at
+    most ceil(budget / k) + 1 times and runs at most 2k - 1 masked
     steps.  On the CPU the same body runs eagerly.  A failed capture or
     replay raises; nothing falls back to the per-token loop.
-  * The fused loop is the default for the dense family only.  An ssm
-    call builds new state tensors (``models/kvcache.py``), so a graph
-    over it would copy about 103 MB in and out per call at mamba2-1.3b,
-    or need another snapshot rule (ROADMAP queue 1, item 1): ssm engines
-    decode with ``generate_eager``, and ask for ``fused=True`` raises.
+  * The fused loop is the default of both families, as in the JAX
+    package, except with a sliding window, whose ring slots the device
+    position does not take.  A session's SSM state is never written in
+    place (``models/kvcache.py``), so an ssm engine keeps one static
+    conv/ssm pair per batch size, shared by all its capture keys: a call
+    copies the session's state into it, the loop writes it in place
+    (masked steps leave it as it was), and the call copies it out into
+    fresh tensors for the session it returns (about 103 MB each way at
+    mamba2-1.3b).  A snapshot's state is never written, and snapshots
+    stay O(1).
   * ``generate_eager`` is the JAX package's: one decode call, one host
     sync and one sample per token, metered per token.
   * Sampling draws from a ``torch.Generator`` (``sampling/sample.py``).
@@ -63,11 +68,6 @@ from ..sampling.sample import SamplingParams, gumbel, probs_from_logits, \
 from . import graph_loop
 
 DEFAULT_BUCKETS = (4, 8, 16, 32, 64, 128, 256)
-
-_SSM_FUSED = ("the fused decode loop does not take SSM state yet (ROADMAP "
-              "queue 1, item 1): a CUDA graph needs static buffers and an "
-              "ssm call builds new ones; decode with fused=False")
-
 
 @dataclasses.dataclass
 class Session:
@@ -121,7 +121,9 @@ class _Lease:
 class _FusedLoop:
     """The static buffers of one capture key and, on the card, the graph
     that reads and writes them."""
-    state: DecodeState     # the KV caches (no lease), pos a view of ctl
+    # the KV caches (no lease) or the engine's static conv/ssm pair, pos
+    # a view of ctl
+    state: DecodeState
     sp: SamplingParams
     k: int                 # one-token steps a body
     ctl: torch.Tensor      # int64 (4,): i, done, n_max, pos
@@ -145,10 +147,8 @@ class Engine:
                  buckets: Sequence[int] = DEFAULT_BUCKETS, name: str = "",
                  pad_id: int = 0, fused: Optional[bool] = None):
         """``fused``: the default decode loop of ``generate``.  None means
-        fused for the dense family and per-token for ssm, whose state a
-        graph cannot hold in place (module docstring), and for a sliding
-        window, which the device position does not take; True on an ssm
-        model raises."""
+        fused, except per-token for a sliding window, which the device
+        position does not take."""
         self.model = model
         self.params = params
         self.device = params["tok_embed"].device
@@ -159,15 +159,15 @@ class Engine:
         # trailing pads are invisible to attention caches (position-masked)
         # but would enter an SSM's recurrent state: exact-length extends
         self.exact_lengths = model.cfg.has_ssm
-        if fused and model.cfg.has_ssm:
-            raise NotImplementedError(_SSM_FUSED)
-        self.fused = (not model.cfg.has_ssm and not model.cfg.sliding_window
-                      if fused is None else fused)
+        self.fused = not model.cfg.sliding_window if fused is None \
+            else fused
         self.meter = Meter()
         # (batch, capacity) -> [(state over a KV pair, weakref to the
         # lease of the states that hold it)]
         self._kv_pool: Dict[Tuple[int, int], list] = {}
         self._loops: Dict[tuple, _FusedLoop] = {}
+        # batch -> the static conv/ssm pair of an ssm engine's fused loops
+        self._ssm_static: Dict[int, DecodeState] = {}
         self._graph_gen: Optional[torch.Generator] = None
         self.captures = 0          # CUDA graphs captured
         self.capture_time = 0.0    # seconds spent capturing them
@@ -310,17 +310,18 @@ class Engine:
         """The fused loop (module docstring): the tokens, session and
         probabilities ``generate_eager`` gives, from chunks of masked
         one-token steps over static buffers, replayed as a CUDA graph on
-        the card.  The budget is clamped to the cache's free slots.
-        Metered as one decode call of n tokens; ``decode_steps`` counts
-        every step run, masked ones included."""
-        if self.model.cfg.has_ssm:
-            raise NotImplementedError(_SSM_FUSED)
+        the card.  An attention cache clamps the budget to its free slots
+        (SSM state has none).  Metered as one decode call of n tokens;
+        ``decode_steps`` counts every step run, masked ones included."""
         if session.last_logits is None:
             raise ValueError("prefill before generate")
         state = session.state
-        if state.k.shape[1] != 1:
+        ssm = state.ssm is not None
+        if (state.ssm if ssm else state.k).shape[1] != 1:
             raise ValueError("the fused loop decodes one row")
-        n_budget = min(max_tokens, state.capacity - session.pos)
+        n_budget = max_tokens
+        if state.k is not None:
+            n_budget = min(n_budget, state.capacity - session.pos)
         if n_budget <= 0:
             return [], session, []
         stop = sorted(set(int(s) for s in stop_ids))
@@ -335,6 +336,9 @@ class Engine:
         loop.stop.copy_(loop.inp[4:], non_blocking=True)
         loop.logits.copy_(session.last_logits)
         loop.toks.fill_(-1)
+        if ssm:
+            loop.state.conv.copy_(state.conv)
+            loop.state.ssm.copy_(state.ssm)
         sampled = params.temperature > 0.0
         if loop.graph is None:         # the CPU: the body, eagerly
             saved = generator.get_state() if sampled else None
@@ -370,6 +374,10 @@ class Engine:
         out = toks[:n].tolist()
         probs_list = [] if probs is None else list(probs[:n].numpy().copy())
         new_state = dataclasses.replace(state, pos=session.pos + n)
+        if ssm:     # fresh tensors: the next call writes the static pair
+            new_state = dataclasses.replace(
+                new_state, conv=loop.state.conv.clone(),
+                ssm=loop.state.ssm.clone())
         return out, Session(new_state, loop.logits.clone(),
                             session.pos + n), probs_list
 
@@ -378,8 +386,20 @@ class Engine:
                     k: int) -> _FusedLoop:
         """The static buffers (and on the card the captured graph) of one
         key.  A graph holds the addresses it was captured on, so the key
-        includes the KV pair's; ``new_session`` hands pairs out again."""
-        key = (state.k.data_ptr(), state.v.data_ptr(), state.k.shape, sp,
+        includes the state's: the KV pair's, which ``new_session`` hands
+        out again, or the engine's static conv/ssm pair of this batch
+        size (a new ssm session allocates new tensors)."""
+        if state.ssm is None:
+            st, bufs = DecodeState(state.k, state.v, pos=0), (state.k,
+                                                              state.v)
+        else:
+            batch = state.ssm.shape[1]
+            if batch not in self._ssm_static:
+                self._ssm_static[batch] = self.model.init_state(
+                    batch, 0, self.device, state.conv.dtype)
+            st = self._ssm_static[batch]
+            bufs = (st.conv, st.ssm)
+        key = (bufs[0].data_ptr(), bufs[1].data_ptr(), bufs[1].shape, sp,
                collect_probs, buf, n_slots, k)
         loop = self._loops.get(key)
         if loop is not None:
@@ -388,7 +408,7 @@ class Engine:
         cuda = dev.type == "cuda"
         ctl = torch.zeros(4, dtype=torch.long, device=dev)
         loop = _FusedLoop(
-            state=DecodeState(state.k, state.v, pos=ctl[3]), sp=sp, k=k,
+            state=dataclasses.replace(st, pos=ctl[3]), sp=sp, k=k,
             ctl=ctl, logits=torch.zeros((1, vocab), device=dev,
                                         dtype=self.params["tok_embed"].dtype),
             toks=torch.full((buf,), -1, dtype=torch.long, device=dev),
@@ -430,7 +450,8 @@ class Engine:
 
     def _capture(self, loop: _FusedLoop) -> None:
         """Capture a body of ``loop.k`` steps (``graph_loop.capture``);
-        its masked warm-up step runs on the zero buffers (n_max = 0)."""
+        its masked warm-up step runs on the zero buffers (n_max = 0) and
+        leaves the state's buffers as they were."""
         t0 = time.perf_counter()
         if self._graph_gen is None:
             self._graph_gen = torch.Generator(device=self.device)

@@ -6,8 +6,7 @@ come from the JAX package's trainer or, for driving the machinery with
 random weights, from ``save_random_testbed``.  ``random_engine`` draws a
 registry architecture's weights from a seed, for driving the machinery
 at an architecture's published widths.  Engines take ``Engine``'s
-decode-loop default: the fused loop for a dense model, the per-token
-loop for an ssm model.
+decode-loop default: the fused loop, for the dense and ssm families.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 the wrappers' refusals, and the model and engine on CUDA against the CPU
 (the sequential engine, the batched paged path, and an ssm model whose
 extends go through the SSD scan kernel); the fused decode loops' CUDA
-graphs (the sequential engine's and the batched rows') against the
-per-token loops on the card.
+graphs (the sequential engine's, dense and ssm, and the batched rows')
+against the per-token loops on the card.
 
 Needs an NVIDIA GPU and nvcc (the kernels build on first use); every test
 skips where CUDA is absent.  Imports no JAX, so it runs on a machine
@@ -793,6 +793,87 @@ def test_fused_capture_failure_raises_on_card(dev):
                          env={**os.environ, "PYTHONPATH": src})
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.split()[:3] == ["raised", "0", "0"], out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the fused decode loop on an ssm model: CUDA graphs over the engine's
+# static conv/ssm pair
+# ---------------------------------------------------------------------------
+
+def _ssm_engine(dev, seed=2):
+    m = Model(arch_config("mamba2-1.3b", reduced=True))
+    return Engine(m, m.init(seed, device=dev), max_len=256)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.6])
+def test_ssm_fused_graphs_match_eager_on_card(dev, temperature):
+    """The reduced mamba2: the replayed graphs give the per-token loop's
+    tokens, probabilities, logits, conv/ssm state and position, and leave
+    the generator where it does; the SSD scan launches only in extends."""
+    eng = _ssm_engine(dev)
+    assert eng.fused
+    eo, es, enext = _two_calls(eng, False, temperature)
+    eng.meter.reset()
+    ssd_scan.launches = 0
+    fo, fs, fnext = _two_calls(eng, True, temperature)
+    assert [i for i, _ in fo] == [i for i, _ in eo]
+    for (_, fp), (_, ep) in zip(fo, eo):
+        for a, b in zip(fp, ep):
+            torch.testing.assert_close(torch.from_numpy(a),
+                                       torch.from_numpy(b), rtol=2e-4,
+                                       atol=2e-5)
+    assert fs.pos == es.pos
+    torch.testing.assert_close(fs.last_logits, es.last_logits, rtol=2e-4,
+                               atol=2e-4)
+    torch.testing.assert_close((fs.state.conv, fs.state.ssm),
+                               (es.state.conv, es.state.ssm), rtol=2e-4,
+                               atol=2e-4)
+    torch.testing.assert_close(fnext, enext, rtol=0, atol=0)
+    m = eng.meter
+    assert m.decode_calls == 2 and eng.captures == 2
+    assert ssd_scan.launches == eng.model.cfg.n_layers * m.prefill_calls
+    assert m.decode_syncs <= (-(-37 // 8) + 1) + (-(-11 // 8) + 1)
+
+
+def test_ssm_fused_second_request_does_not_capture_on_card(dev):
+    """Each ssm request allocates new state, but the graphs run over the
+    engine's static pair: a second request replays the first's graphs."""
+    eng = _ssm_engine(dev)
+    sp = SamplingParams()
+    got = []
+    for _ in range(2):
+        s = eng.extend(eng.new_session(), list(range(10, 31)))
+        ids, s, _ = eng.generate(s, 19, [], sp,
+                                 torch.Generator(device="cuda"))
+        got.append((ids, eng.captures, len(eng._loops)))
+    assert got[0] == got[1] and got[0][1] == got[0][2] == 1
+
+
+def test_ssm_masked_step_leaves_state_bitwise_on_card(dev):
+    """A masked step (``decode_step`` with ``active`` false) keeps every
+    bit of the conv and ssm state on the card; and a fused call of 3
+    tokens, one chunk of 4 steps whose last is masked, ends on the
+    per-token loop's state bit for bit."""
+    eng = _ssm_engine(dev)
+    m, p = eng.model, eng.params
+    s = eng.extend(eng.new_session(), list(range(10, 31)))
+    st = dataclasses.replace(s.state, conv=s.state.conv.clone(),
+                             ssm=s.state.ssm.clone(),
+                             pos=torch.tensor(s.pos, device="cuda"))
+    _, got = m.decode_step(p, st, torch.tensor([[17]], device="cuda"),
+                           active=torch.tensor(False, device="cuda"))
+    assert torch.equal(got.conv, s.state.conv) and \
+        torch.equal(got.ssm, s.state.ssm) and int(got.pos) == s.pos
+    sp = SamplingParams()
+    eng.meter.reset()
+    fids, fs, _ = eng.generate(s, 3, [], sp, torch.Generator(device="cuda"),
+                               fused=True)
+    assert eng.meter.decode_steps == 4 + eng.captures     # + the warm-up
+    eids, es, _ = eng.generate(s, 3, [], sp, torch.Generator(device="cuda"),
+                               fused=False)
+    assert fids == eids
+    assert torch.equal(fs.state.conv, es.state.conv) and \
+        torch.equal(fs.state.ssm, es.state.ssm)
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,7 @@ pooled KV pairs.  Held to the JAX package's ``generate_fused`` and to
 its SpecReason controller with ``fused_decode=True`` from the same
 parameters, greedy: tokens, step trace and decisions, logits at 5e-5 and
 utilities at 1e-4 (tests/test_torch_engine.py, test_torch_controller.py).
+The loop on an ssm model: tests/test_torch_fused_ssm.py.
 """
 
 import random
@@ -37,7 +38,6 @@ from repro_torch.models.model import Model
 from repro_torch.sampling.sample import SamplingParams
 from repro_torch.serving import graph_loop
 from repro_torch.serving.engine import Engine
-from repro_torch.serving.loader import arch_config
 from repro_torch.tokenizer import toy as tk
 
 LOOP_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -245,21 +245,6 @@ def test_specreason_trace_fused_eager_and_jax(pair, i):
             assert calls == sum(s.source == "small" for s in tr.steps)
         assert tr.meters["small"]["decode_tokens"] == \
             jr.meters["small"]["decode_tokens"]
-
-
-def test_fused_refused_for_ssm():
-    model = Model(arch_config("mamba2-1.3b", reduced=True))
-    params = model.init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 1"):
-        Engine(model, params, fused=True)
-    eng = Engine(model, params)
-    assert not eng.fused
-    s = eng.extend(eng.new_session(), [tk.BOS, tk.THINK])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 1"):
-        eng.generate(s, 4, [], SamplingParams(), torch.Generator(),
-                     fused=True)
-    ids, _, _ = eng.generate(s, 2, [], SamplingParams(), torch.Generator())
-    assert len(ids) == 2
 
 
 def test_launch_counts_follow_captures(monkeypatch):

@@ -243,9 +243,12 @@ def _prompt(n=11, seed=0):
 
 @pytest.fixture(scope="module")
 def engines(models):
+    """Both packages' per-token loops (tests/test_torch_fused_ssm.py
+    holds the port's fused loop to its per-token one and to the JAX
+    package's fused loop)."""
     jm, jp, tm, tp = models
     return (JEngine(jm, jp, max_len=256, fused=False),
-            Engine(tm, tp, max_len=256))
+            Engine(tm, tp, max_len=256, fused=False))
 
 
 def test_engine_greedy_tokens_and_meters_match_jax(engines):
@@ -416,7 +419,7 @@ def self_pairs(models, engines):
     jm, jp, tm, tp = models
     je, te = engines
     return ((je, JEngine(jm, jp, max_len=256, fused=False)),
-            (te, Engine(tm, tp, max_len=256)))
+            (te, Engine(tm, tp, max_len=256, fused=False)))
 
 
 def test_hierarchical_ssm_self_draft_accepts_and_replays(self_pairs):
