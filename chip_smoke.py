@@ -32,6 +32,9 @@ from the root of a checkout.  Phases, each printing its lines:
      with span_len < T, and minitron-4b's shape: B=8 over 4096 tokens
      (256 pages a row), T = 5 (gamma + 1) and a 64-query chunk; the
      yardstick is SDPA over the pre-gathered dense K/V (gather excluded);
+   * the causal attention backward (2b) in fp32 at BASE's and SMALL's
+     training shapes and minitron-4b's heads over S = 256 to 2048, with
+     SDPA's autograd backward as the yardstick;
 4. main path, sequential: random-init BASE/SMALL checkpoints written by
    the port, served by ``repro_torch.launch.serve --scheme specreason``
    on the card through its default fused decode loop (CUDA graphs with
@@ -113,6 +116,20 @@ from the root of a checkout.  Phases, each printing its lines:
 8. check, ssm: the base's logits on the card against the same weights on
    the CPU over a 300-token prompt (three chunks, the last padded), a
    resumed 40-token extend and 3 decode steps;
+9. train: one BASE and one SMALL step's loss and every gradient on the
+   card against the CPU (rtol 1e-4, atol that times each gradient's
+   largest magnitude), at launch/train.py's batches; 20 BASE steps run twice from one seed with identical
+   losses; ``launch.train.train_testbed_model`` trains BASE 500 steps and
+   SMALL 400 into a temporary directory (loss every 50 steps, seconds,
+   steps/s, training tokens/s; the backward kernel's launches must equal
+   n_layers x the backward passes, each final loss at most half the
+   first, and nothing but #2 and 2b may launch); then
+   ``load_testbed_engines`` loads the pair and the base alone and
+   SpecReason serve 16 tasks greedy through the fused loops at the serve
+   CLI's budget and threshold, after one untimed pass over the same tasks
+   (accuracy, mean and p50 latency, tok/s; for
+   SpecReason the small-model steps accepted and the thinking tokens by
+   source);
 then the card again, one JSON line of per-kernel numbers, and
 ``{"ok": true, "device": {...}}`` as the last line.  Any failure exits
 non-zero before that line; without CUDA, or outside a checkout, it exits
@@ -174,6 +191,21 @@ DECODE_TOKENS = 128
 TURNS = ("fused", "eager", "fused")
 # the ssm base's decode-only turns: two eager turns between two fused ones
 SSM_TURNS = ("fused", "eager", "eager", "fused")
+# the attention backward (2b): BASE's and SMALL's training shapes, and
+# minitron-4b's heads from S=256 to 2048, where 2b falls behind the plain
+# backward (model, B, S); atol = rtol = the tolerance x the gradient's
+# largest magnitude, against the plain backward on the card
+BWD_CASES = (("base", 16, 112, 2e-5), ("small", 16, 96, 2e-5),
+             ("minitron", 1, 256, 1e-4), ("minitron", 1, 512, 1e-4),
+             ("minitron", 1, 1024, 1e-4), ("minitron", 1, 2048, 1e-4))
+# [train]: card gradients against CPU gradients (rtol, and atol this times
+# the tensor's largest gradient); the pair's steps (launch/train.py's
+# settings: 16 rows of 112 and 96 tokens); the trained pair served greedy
+# over this many tasks at the serve CLI's budget and threshold
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_STEPS = (("base", 500, 112), ("small", 400, 96))
+TRAIN_REPEAT_STEPS = 20
+TRAIN_TASKS = 16
 
 
 def nvidia_smi() -> str:
@@ -392,6 +424,242 @@ def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron):
                   f"{slots} blocks at once, {smem} bytes of shared memory "
                   "a block", flush=True)
     return records
+
+
+def bwd_kernel_phase(torch, F, ref, flash_kernel, bwd_kernel, minitron):
+    """The attention backward (2b) against its plain version in fp32 at
+    BASE's and SMALL's training shapes and minitron-4b's heads over S=256
+    to 2048, with the autograd backward of fp32 SDPA as the yardstick (its
+    forward outside the timed window).  Returns the records for the JSON
+    line."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    heads = {"base": (8, 4, 28), "small": (4, 2, 32),
+             "minitron": (minitron.n_heads, minitron.n_kv_heads,
+                          minitron.resolved_head_dim)}
+    records = []
+    for model, b, s, tol in BWD_CASES:
+        h, kh, hd = heads[model]
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device=dev)
+        # the training forward's layout: (B, S, heads, hd) permuted
+        q = randn(b, s, h, hd).permute(0, 2, 1, 3)
+        k = randn(b, s, kh, hd).permute(0, 2, 1, 3)
+        v = randn(b, s, kh, hd).permute(0, 2, 1, 3)
+        do = randn(b, h, s, hd)
+        o = flash_kernel(q, k, v)
+        got = bwd_kernel(q, k, v, o, do)
+        want = ref.mha_backward_reference(q, k, v, do)
+        label = f"{model} float32 B={b} S={s} H={h} K={kh} hd={hd}"
+        if not all(torch.equal(a, g) for a, g in zip(
+                bwd_kernel(q, k, v, o, do), got)):
+            raise AssertionError(f"flash_attention_bwd {label}: a second "
+                                 "call gave other bits")
+        err, scale = 0.0, 0.0
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            top = w.abs().max().item()
+            e = (g - w).abs().max().item()
+            if not torch.allclose(g, w, rtol=tol, atol=tol * top):
+                raise AssertionError(f"flash_attention_bwd {label} {name}: "
+                                     f"max |err| {e} beyond rtol {tol}, atol "
+                                     f"{tol} x max |{name}| {top}")
+            err, scale = max(err, e), max(scale, top)
+        ms = time_ms(torch, lambda: bwd_kernel(q, k, v, o, do))
+        plain_ms = time_ms(torch, lambda: ref.mha_backward_reference(
+            q, k, v, do), reps=5 if s >= 2048 else 30)
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                             enable_gqa=True)
+        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do, retain_graph=True),
+            reps=5 if s >= 2048 else 30)
+        del out
+        # least work: five causal products (Q K^T, dP, dV, dK, dQ) of 2 hd
+        # flops a visible pair; bytes: q, k, v, o, do read, dq, dk, dv
+        # written, once each
+        pairs = b * h * s * (s + 1) // 2
+        nbytes = 4 * (4 * b * h * s * hd + 4 * b * kh * s * hd)
+        bound_ms, by = bound(nbytes, 5 * 2 * hd * pairs, "float32")
+        records.append(dict(shape=label, dtype="float32", max_abs_err=err,
+                            max_abs_grad=scale, tolerance=tol, ms=ms,
+                            plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=bound_ms, bound_by=by))
+        print(f"[kernels] flash_attention_bwd {label}: err {err:.3g} at max "
+              f"|grad| {scale:.3g} (rtol {tol}, atol {tol} x the largest "
+              f"|grad| of each of dq, dk, dv) | kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({by}); a second call gives the same "
+              "bits", flush=True)
+    return records
+
+
+def train_phase(torch, kernels):
+    """Training on the card, then SpecReason on the pair it trained.
+    (1) one BASE and one SMALL step's loss and every gradient against the
+    CPU's from the same parameters and batch; (2) twenty BASE steps twice from one
+    seed: identical losses; (3) ``train_testbed_model`` trains BASE and
+    SMALL (``TRAIN_STEPS``) into a temporary directory: the attention
+    backward must launch n_layers x the backward passes, and each final
+    loss be at most half its step-0 loss; (4) ``load_testbed_engines``
+    loads the pair; (5) the base alone and SpecReason serve
+    ``TRAIN_TASKS`` tasks greedy through the fused loops, timed after one
+    untimed pass over the same tasks (the fresh engines' captures).
+    Returns the
+    launches of the pair's training (3)."""
+    import tempfile
+
+    from repro_torch.configs import testbed
+    from repro_torch.data import pipeline, tasks
+    from repro_torch.data.evaluate import is_correct
+    from repro_torch.launch import serve
+    from repro_torch.launch.train import train_testbed_model
+    from repro_torch.models.model import Model, flatten, unflatten
+    from repro_torch.serving import loader
+    from repro_torch.training import loss as tloss
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import TrainConfig, train
+
+    # (1) card against CPU, at launch/train.py's batches
+    for cfg, seq, kind, mix, frac in (
+            (testbed.BASE, 112, "mixed", (0.85, 0.1), 0.3),
+            (testbed.SMALL, 96, "cot", (0.0, 0.0), 0.35)):
+        m = Model(cfg)
+        params = m.init(0, device="cpu")
+        inp, tgt, wgt = next(pipeline.batch_iterator(
+            pipeline.BatchSpec(16, seq), 0, kind, mix, frac))
+        res = {}
+        for dev in ("cuda", "cpu"):
+            p = {k: t.to(dev, copy=True).requires_grad_()
+                 for k, t in flatten(params).items()}
+            loss, _ = tloss.loss_fn(m, unflatten(p), {
+                "tokens": torch.from_numpy(inp).to(dev),
+                "targets": torch.from_numpy(tgt).to(dev),
+                "weights": torch.from_numpy(wgt).to(dev)})
+            grads = torch.autograd.grad(loss, list(p.values()))
+            res[dev] = (loss.detach().cpu(),
+                        {k: g.cpu() for k, g in zip(p, grads)})
+        pairs = [("loss", res["cuda"][0], res["cpu"][0])] + [
+            (k, res["cuda"][1][k], g) for k, g in res["cpu"][1].items()]
+        worst, where = 0.0, ""
+        for name, card, cpu in pairs:
+            top = cpu.abs().max().item()
+            rel = (card - cpu).abs().max().item() / top
+            if not torch.allclose(card, cpu, rtol=TRAIN_GRAD_TOL,
+                                  atol=TRAIN_GRAD_TOL * top):
+                raise AssertionError(f"[train] {cfg.name} {name}: card vs "
+                                     f"CPU |diff| / max {rel} (> "
+                                     f"{TRAIN_GRAD_TOL})")
+            if rel >= worst:
+                worst, where = rel, name
+        print(f"[train] one {cfg.name} step (16 x {seq}, remat), card vs "
+              f"CPU: loss {res['cuda'][0].item():.6f} / "
+              f"{res['cpu'][0].item():.6f}, loss and all "
+              f"{len(res['cpu'][1])} gradients within rtol {TRAIN_GRAD_TOL}"
+              f" and atol {TRAIN_GRAD_TOL} x each one's largest magnitude "
+              f"(worst |diff| / max {worst:.3g}, {where})", flush=True)
+
+    # (2) the same steps twice
+    tcfg = TrainConfig(steps=TRAIN_REPEAT_STEPS, batch_size=16, seq_len=112,
+                       kind="mixed", style_mix=(0.85, 0.1), score_frac=0.3,
+                       log_every=1, opt=AdamWConfig(lr=1.5e-3,
+                                                    warmup_steps=40))
+    runs = [[h["loss"] for h in train(testbed.BASE, tcfg,
+                                       log=lambda s: None)["history"]]
+            for _ in range(2)]
+    if runs[0] != runs[1]:
+        raise AssertionError(f"[train] two runs from one seed differ: "
+                             f"{runs[0]} / {runs[1]}")
+    print(f"[train] {TRAIN_REPEAT_STEPS} BASE steps twice from seed 0: "
+          f"identical losses, {runs[0][0]:.6f} -> {runs[0][-1]:.6f}",
+          flush=True)
+
+    # (3) the pair
+    bwd = kernels["flash_attention_bwd"]
+    with tempfile.TemporaryDirectory() as ckpt:
+        for k in kernels.values():
+            k.launches = 0
+        for which, steps, seq in TRAIN_STEPS:
+            before = bwd.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = train_testbed_model(which, steps, ckpt,
+                                      log=lambda s: print(s, flush=True))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            cfg, hist = out["model"].cfg, out["history"]
+            first, last = hist[0]["loss"], hist[-1]["loss"]
+            n_bwd = bwd.launches - before
+            if n_bwd != cfg.n_layers * steps:
+                raise AssertionError(f"[train] {cfg.name}: {n_bwd} backward "
+                                     f"launches != {cfg.n_layers} x {steps}")
+            if not last <= first / 2:
+                raise AssertionError(f"[train] {cfg.name}: loss {first} -> "
+                                     f"{last}, not halved")
+            print(f"[train] {cfg.name}: {steps} steps in {dt:.2f} s, "
+                  f"{steps / dt:.2f} steps/s, {steps * 16 * seq / dt:.0f} "
+                  f"training tokens/s (16 x {seq} a step); loss {first:.4f}"
+                  f" -> {last:.4f}; flash_attention_bwd launches {n_bwd} == "
+                  f"{cfg.n_layers} layers x {steps} backward passes",
+                  flush=True)
+        launches = {name: k.launches for name, k in kernels.items()}
+        if not launches["flash_attention"] or any(
+                launches[n] for n in launches
+                if n not in ("flash_attention", "flash_attention_bwd")):
+            raise AssertionError(f"[train] launches {launches}: want #2 and "
+                                 "2b only")
+        print(f"[train] the pair's training launched flash_attention "
+              f"{launches['flash_attention']} (forward and remat), "
+              f"flash_attention_bwd {launches['flash_attention_bwd']}, no "
+              "other kernel", flush=True)
+
+        # (4), (5) SpecReason on the trained pair
+        base, small = loader.load_testbed_engines(ckpt, "cuda")
+    cli = serve.parse_args([])
+    rng = random.Random(cli.seed)
+    reqs = [tasks.sample_task(rng) for _ in range(TRAIN_TASKS)]
+    print(f"[train] serving {TRAIN_TASKS} tasks (seed {cli.seed}) greedy, "
+          f"budget {cli.budget}, threshold {cli.threshold}, decode loops "
+          f"{loader.decode_loops(base, small)}; timed after one untimed "
+          "pass", flush=True)
+    def run(scheme, i, task):
+        gen = torch.Generator(device="cuda").manual_seed(1000 * cli.seed + i)
+        return serve.run_scheme(scheme, base, small, task, gen, cli.budget,
+                                cli.threshold, 0.0)
+
+    for scheme in ("base", "specreason"):
+        for i, task in enumerate(reqs):     # untimed: the captures
+            run(scheme, i, task)
+        lat, ok, n_out, utils = [], 0, 0, []
+        accepted = by_small = by_base = 0
+        for i, task in enumerate(reqs):
+            r = run(scheme, i, task)
+            lat.append(r.wall_time)
+            ok += is_correct(task, r.answer_ids)
+            n_out += r.n_thinking_tokens + len(r.answer_ids)
+            for st in r.steps:
+                if st.source == "small":
+                    utils.append(st.utility)
+                    accepted += st.accepted
+                    by_small += len(st.tokens) if st.accepted else 0
+                else:
+                    by_base += len(st.tokens)
+        lat_s = sorted(lat)
+        line = (f"[train] serve {scheme} on the trained pair: accuracy "
+                f"{ok}/{TRAIN_TASKS} = {ok / TRAIN_TASKS:.3f}, latency mean "
+                f"{sum(lat) / len(lat) * 1e3:.1f} ms, p50 "
+                f"{lat_s[len(lat_s) // 2] * 1e3:.1f} ms, {n_out} output "
+                f"tokens, {n_out / sum(lat):.1f} tok/s")
+        if scheme == "specreason":
+            line += (f"; small-model steps accepted {accepted}/{len(utils)} "
+                     f"= {accepted / max(len(utils), 1):.3f} (utilities "
+                     f"{min(utils, default=0):.2f}-{max(utils, default=0):.2f}"
+                     f", mean {sum(utils) / max(len(utils), 1):.2f}); "
+                     f"thinking tokens from accepted small steps {by_small},"
+                     f" from base steps {by_base}")
+        print(line, flush=True)
+    del base, small
+    return launches
 
 
 def ssd_device_ms(torch, fn, reps=10):
@@ -1919,6 +2187,7 @@ def main() -> int:
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
     from repro_torch.kernels.paged_append_attention import \
         paged_append_attention
     from repro_torch.kernels.paged_decode_attention import \
@@ -1961,6 +2230,9 @@ def main() -> int:
 
     records = kernel_phase(torch, F, ref, decode_attention, flash_attention,
                            minitron_4b.CONFIG)
+    records["flash_attention_bwd"] = bwd_kernel_phase(
+        torch, F, ref, flash_attention, flash_attention_bwd,
+        minitron_4b.CONFIG)
     records.update(paged_kernel_phase(torch, F, ref, paged_decode_attention,
                                       paged_append_attention,
                                       minitron_4b.CONFIG))
@@ -1995,6 +2267,7 @@ def main() -> int:
     lap("check")
     kernels = {"decode_attention": decode_attention,
                "flash_attention": flash_attention,
+               "flash_attention_bwd": flash_attention_bwd,
                "paged_decode_attention": paged_decode_attention,
                "paged_append_attention": paged_append_attention,
                "ssd_scan": ssd_scan}
@@ -2020,11 +2293,17 @@ def main() -> int:
                     SamplingParams, ssm_base, lap)
     ssm_check_phase(torch, ssm_base)
     lap("check, ssm")
+    del ssm_base
+    torch.cuda.empty_cache()
+    launches["flash_attention_bwd"] = train_phase(
+        torch, kernels)["flash_attention_bwd"]
+    lap("train")
 
     # one record per kernel at a representative serving-path shape (BASE
     # heads, fp32): decode at 128 cached tokens, a 16-token extend at 100;
     # a paged decode step of 4 ragged rows, a 16-token paged extend; a
-    # 37-token mamba2-1.3b extend (one chunk)
+    # 37-token mamba2-1.3b extend (one chunk); the attention backward at
+    # BASE's training shape
     rep = {"decode_attention": "base float32 B=1 cache=1024 lengths=[128]",
            "flash_attention": "base float32 S=16 q_offset=100 kv=1024 "
                               "causal=True window=0",
@@ -2033,14 +2312,18 @@ def main() -> int:
            "paged_append_attention": "base float32 T=16 B=2 ctx=[1, 100] "
                                      "span=[16, 11]",
            "ssd_scan": "mamba2 float32 B=1 L=37 H=64 P=64 G=1 N=128 "
-                       "chunk=37"}
+                       "chunk=37",
+           "flash_attention_bwd": "base float32 B=16 S=112 H=8 K=4 hd=28"}
     sources = {"decode_attention": "src/repro/kernels/decode_attention.py:83",
                "flash_attention": "src/repro/kernels/flash_attention.py:90",
                "paged_decode_attention":
                    "src/repro/kernels/paged_decode_attention.py:89",
                "paged_append_attention":
                    "src/repro/kernels/paged_append_attention.py:118",
-               "ssd_scan": "src/repro/kernels/ssd_scan.py:88"}
+               "ssd_scan": "src/repro/kernels/ssd_scan.py:88",
+               # no TPU kernel: JAX differentiates XLA attention
+               "flash_attention_bwd":
+                   "src/repro/kernels/flash_attention.py:90 (its gradient)"}
     kernels_json = []
     for name, recs in records.items():
         r = next(x for x in recs if x["shape"] == rep[name])
@@ -2050,8 +2333,9 @@ def main() -> int:
             replaces=sources[name], launches=launches[name],
             max_abs_err=max(x["max_abs_err"] for x in recs
                             if x["dtype"] == "float32"),
-            max_abs_err_bf16=max(x["max_abs_err"] for x in recs
-                                 if x["dtype"] == "bfloat16"),
+            max_abs_err_bf16=max((x["max_abs_err"] for x in recs
+                                  if x["dtype"] == "bfloat16"),
+                                 default=None),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"], shapes=recs))

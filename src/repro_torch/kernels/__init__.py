@@ -6,6 +6,9 @@ flash_attention   causal GQA prefill / verification attention with a
                   query offset, a kv length and a window, on the tensor
                   cores (3xTF32 mma.sync; port of the Pallas
                   ``flash_attention``)
+flash_attention_bwd  dQ, dK and dV of causal GQA attention, the gradient
+                  of flash_attention on the training forward (no TPU
+                  kernel: the JAX package differentiates XLA attention)
 paged_decode_attention  flash-decode over a page pool through per-row block
                   tables (port of the Pallas ``paged_decode_attention``)
 paged_append_attention  span attention: T queries per row over its pages
@@ -24,5 +27,6 @@ of the attention kernels and the SSD scan's sequential oracle (the scan's
 plain version is ``models.mamba2.ssd_chunked``), ``counts`` the
 wrappers' launch counts (launches recorded into a CUDA graph count on
 each replay), and ``ops`` dispatches: CPU tensors to the plain versions,
-CUDA tensors to the kernels.
+CUDA tensors to the kernels (under autograd, causal attention through a
+``torch.autograd.Function`` whose backward is ``flash_attention_bwd``).
 """

@@ -23,8 +23,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("decode_attention", "flash_attention", "paged_decode_attention",
-           "paged_append_attention", "ssd_scan")
+SOURCES = ("decode_attention", "flash_attention", "flash_attention_bwd",
+           "paged_decode_attention", "paged_append_attention", "ssd_scan")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600

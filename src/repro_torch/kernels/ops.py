@@ -6,6 +6,15 @@ a CPU tensor runs the plain PyTorch version; a CUDA tensor launches the
 hand-written kernel, whose wrapper raises on anything it does not take.
 There is no fallback from the kernel to the plain version and no
 override.
+
+Gradients: on the CPU torch autograd differentiates the plain versions.
+On the card a kernel's output has no autograd history, so causal
+attention under autograd (grad enabled and an input that requires grad:
+the training forward) goes through ``FlashAttention``, whose forward is
+kernel #2's launch unchanged and whose backward is the hand-written
+``flash_attention_bwd``; with grad disabled or no input requiring grad
+(every serving path) the call is #2's launch alone, as before.  The other
+kernels have no backward and raise under autograd on the card.
 """
 
 from __future__ import annotations
@@ -17,6 +26,8 @@ import torch
 from . import ref
 from .decode_attention import decode_attention as decode_kernel
 from .flash_attention import flash_attention as flash_kernel
+from .flash_attention_bwd import check_contract as check_bwd_contract
+from .flash_attention_bwd import flash_attention_bwd as flash_bwd_kernel
 from .paged_append_attention import paged_append_attention as append_kernel
 from .paged_decode_attention import paged_decode_attention as paged_kernel
 from .ssd_scan import ssd_scan as ssd_kernel
@@ -30,12 +41,43 @@ def _on_cpu(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel path for device {t.device}")
 
 
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in tensors)
+
+
+def _no_grad_on_card(name: str, *tensors: torch.Tensor) -> None:
+    """A kernel without a backward must not run where autograd would need
+    one: its output would silently drop the gradient."""
+    if _needs_grad(*tensors):
+        raise NotImplementedError(f"{name} has no backward kernel; on the "
+                                  "card only causal attention from position "
+                                  "0 trains")
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal attention from position 0 on the card, differentiable:
+    forward = kernel #2, backward = ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o = flash_kernel(q, k, v, True, 0, None, 0)
+        ctx.save_for_backward(q, k, v, o)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        return flash_bwd_kernel(q, k, v, o, do)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     """(B,H,hd) x (B,K,S,hd)^2 + lengths (B,) -> (B,H,hd)."""
     if _on_cpu(q):
         return ref.decode_reference(q, k_cache, v_cache, lengths)
+    _no_grad_on_card("decode_attention", q, k_cache, v_cache)
     return decode_kernel(q, k_cache, v_cache, lengths)
 
 
@@ -44,9 +86,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_len: Optional[int] = None,
                     window: int = 0) -> torch.Tensor:
     """(B,H,S,hd) x (B,K,Skv,hd)^2 -> (B,H,S,hd); masks as in
-    ``ref.attention_mask``."""
+    ``ref.attention_mask``.  Differentiable on the card in the training
+    forward's case only (``flash_attention_bwd.check_contract``)."""
     if _on_cpu(q):
         return ref.mha_reference(q, k, v, causal, q_offset, kv_len, window)
+    if _needs_grad(q, k, v):
+        check_bwd_contract(q, k, v, causal, q_offset, kv_len, window)
+        return FlashAttention.apply(q, k, v)
     return flash_kernel(q, k, v, causal, q_offset, kv_len, window)
 
 
@@ -58,6 +104,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if _on_cpu(q):
         return ref.paged_decode_reference(q, k_pages, v_pages, block_tables,
                                           lengths)
+    _no_grad_on_card("paged_decode_attention", q, k_pages, v_pages)
     return paged_kernel(q, k_pages, v_pages, block_tables, lengths)
 
 
@@ -71,6 +118,8 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
     if _on_cpu(q):
         return ref.paged_append_reference(q, k_new, v_new, k_pages, v_pages,
                                           block_tables, ctx_lens, span_lens)
+    _no_grad_on_card("paged_append_attention", q, k_new, v_new, k_pages,
+                     v_pages)
     return append_kernel(q, k_new, v_new, k_pages, v_pages, block_tables,
                          ctx_lens, span_lens)
 
@@ -88,5 +137,6 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         # imported here: models.mamba2 imports this module
         from ..models.mamba2 import ssd_chunked
         return ssd_chunked(x, dt, a, b, c, chunk, init_state)
+    _no_grad_on_card("ssd_scan", x, dt, a, b, c)
     init = None if init_state is None else init_state.float().contiguous()
     return ssd_kernel(x, dt.float(), a.float(), b, c, chunk, init)

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the attention kernels, and the SSD scan's
-sequential oracle.
+"""Plain PyTorch versions of the attention kernels (and of the causal
+attention backward), and the SSD scan's sequential oracle.
 
 Counterparts of the JAX package's ``kernels/ref.py`` oracles, written in
 the most direct way: repeat the kv heads, form the whole score matrix in
@@ -60,6 +60,37 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+
+
+def mha_backward_reference(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, do: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """(dq, dk, dv) of causal ``mha_reference`` from position 0 over Skv ==
+    S keys, by the explicit formulas in float32: P = softmax(S), dV =
+    P^T dO, dP = dO V^T, D = rowsum(dO * O), dS = P * (dP - D), dQ = dS K /
+    sqrt(hd), dK = dS^T Q / sqrt(hd); dk and dv summed over the G query
+    heads of each kv head.  The plain version of
+    ``flash_attention_bwd``."""
+    b, h, s, hd = q.shape
+    kh = k.shape[1]
+    group = h // kh
+    qf, dof = q.float(), do.float()
+    kr = _repeat_kv_heads(k, group).float()
+    vr = _repeat_kv_heads(v, group).float()
+    scale = 1.0 / math.sqrt(hd)
+    scores = torch.einsum("bhqd,bhkd->bhqk", qf, kr) * scale
+    mask = attention_mask(s, s, True, device=q.device)
+    p = torch.softmax(scores.masked_fill(~mask, NEG_INF), dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vr)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vr)
+    ds = p * (dp - (dof * o).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dk = dk.reshape(b, kh, group, s, hd).sum(2)
+    dv = dv.reshape(b, kh, group, s, hd).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_reference(q: torch.Tensor, k_cache: torch.Tensor,

@@ -9,9 +9,9 @@ answers and a summary.
       --ckpt-dir exp/ckpt --device cuda
 
 The pair is read from ``--ckpt-dir`` (``testbed-base.npz``,
-``testbed-small.npz``); the port cannot train, so a missing checkpoint is
-an error.  Request i samples from a ``torch.Generator`` seeded with
-``1000 * seed + i``.
+``testbed-small.npz``); a missing checkpoint is first trained there for
+500 steps on ``--device`` (``serving/loader.py``).  Request i samples
+from a ``torch.Generator`` seeded with ``1000 * seed + i``.
 
 ``--scheduler sequential`` (the default) serves one request at a time,
 schemes base, small, specdecode, specreason and specreason+decode.

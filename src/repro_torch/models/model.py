@@ -9,7 +9,9 @@ Other families raise ``NotImplementedError``.
 
 Public surface:
   Model.init         -- random parameters from a seed, on a device
-  Model.forward      -- full-sequence causal forward -> logits (B, S, V)
+  Model.forward      -- full-sequence causal forward -> logits (B, S, V),
+                        differentiable (the training path; each layer
+                        checkpointed when ``cfg.remat``)
   Model.prefill      -- chunked prefill / extend from state.pos
                         -> (logits (B, S, V), new state)
   Model.decode_step  -- one-token decode -> (logits (B, V), new state),
@@ -28,6 +30,7 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import device as devices
 from . import attention as attn
@@ -101,7 +104,8 @@ class Model:
     def init(self, seed: int = 0, device="cuda",
              dtype=torch.float32) -> Params:
         """Random parameters drawn on the CPU from ``seed`` (the same on
-        every device), moved to ``device``."""
+        every device), moved to ``device``: leaf tensors, so a trainer
+        may set ``requires_grad`` on them."""
         dev = devices.resolve(device)
         gen = torch.Generator().manual_seed(seed)
         return unflatten(init_params(self.spec(), gen, dev, dtype))
@@ -143,21 +147,37 @@ class Model:
 
     # -------------------------------------------------------------- forward --
     def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        """Full-sequence causal forward from position 0.  tokens: (B, S)
-        int; returns logits (B, S, V)."""
+        """Full-sequence causal forward from position 0 (the training
+        path).  tokens: (B, S) int; returns logits (B, S, V).
+
+        Under autograd with ``cfg.remat`` each layer is checkpointed, as
+        the JAX package wraps each layer in ``jax.checkpoint``: its
+        backward recomputes the layer's forward instead of keeping its
+        internals."""
         cfg = self.cfg
         x = self._embed(params, tokens, 0)
         positions = torch.arange(tokens.shape[1], device=x.device)
+        remat = cfg.remat and torch.is_grad_enabled()
         for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
-            h = apply_norm(x, lp["ln1"], cfg.norm_type, cfg.rmsnorm_eps)
-            if cfg.family == "ssm":
-                x = x + mamba2.apply_mamba(h, lp["mixer"], cfg)
-                continue
-            x = x + attn.self_attention(h, lp["attn"], cfg, positions,
-                                        window=cfg.sliding_window)
-            x = self._mlp_block(x, lp)
+            if remat:
+                x = checkpoint(self._block, x, params["layers"], i,
+                               positions, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = self._block(x, params["layers"], i, positions)
         return self._final(params, x)
+
+    def _block(self, x: torch.Tensor, layers: Dict, i: int,
+               positions: torch.Tensor) -> torch.Tensor:
+        """Layer i of the full-sequence forward."""
+        cfg = self.cfg
+        lp = _layer(layers, i)
+        h = apply_norm(x, lp["ln1"], cfg.norm_type, cfg.rmsnorm_eps)
+        if cfg.family == "ssm":
+            return x + mamba2.apply_mamba(h, lp["mixer"], cfg)
+        x = x + attn.self_attention(h, lp["attn"], cfg, positions,
+                                    window=cfg.sliding_window)
+        return self._mlp_block(x, lp)
 
     # ----------------------------------------------------- prefill / extend --
     def prefill(self, params, tokens: torch.Tensor, state: DecodeState

@@ -1,12 +1,15 @@
-"""Load the testbed engine pair from npz checkpoints, or build a
-random-init engine for a registry architecture.
+"""Load (or lazily train) the testbed engine pair from npz checkpoints,
+or build a random-init engine for a registry architecture.
 
-The port cannot train: a missing checkpoint is an error.  Checkpoints
-come from the JAX package's trainer or, for driving the machinery with
-random weights, from ``save_random_testbed``.  ``random_engine`` draws a
-registry architecture's weights from a seed, for driving the machinery
-at an architecture's published widths.  Engines take ``Engine``'s
-decode-loop default: the fused loop, for the dense and ssm families.
+A missing checkpoint is trained, as the JAX package's loader does: the
+port's trainer (``launch/train.py``) runs ``auto_train_steps`` steps on
+the loader's device and writes the npz that the loader then reads.
+Checkpoints from the JAX package's trainer load as they are;
+``save_random_testbed`` writes a random-init pair for driving the
+machinery without training.  ``random_engine`` draws a registry
+architecture's weights from a seed, for driving the machinery at an
+architecture's published widths.  Engines take ``Engine``'s decode-loop
+default: the fused loop, for the dense and ssm families.
 """
 
 from __future__ import annotations
@@ -31,17 +34,21 @@ def checkpoint_path(ckpt_dir: str, cfg) -> str:
 
 
 def load_testbed_engines(ckpt_dir: str = "exp/ckpt", device="cuda",
-                         max_len: int = 1024) -> Tuple[Engine, Engine]:
+                         max_len: int = 1024, auto_train_steps: int = 500
+                         ) -> Tuple[Engine, Engine]:
+    """The (base, small) engines from ``ckpt_dir``; a missing model is
+    first trained for ``auto_train_steps`` steps on ``device`` and
+    written there."""
     dev = devices.resolve(device)
     engines = []
     for which, cfg in PAIR:
         path = checkpoint_path(ckpt_dir, cfg)
         if not os.path.exists(path):
-            raise FileNotFoundError(
-                f"{path} is missing and the PyTorch port cannot train: "
-                "write the pair with the JAX package's trainer "
-                "(python -m repro.launch.train) or random weights with "
-                "repro_torch.serving.loader.save_random_testbed")
+            from ..launch.train import train_testbed_model
+            print(f"[loader] {path} missing: training {which} "
+                  f"({auto_train_steps} steps on {dev})", flush=True)
+            train_testbed_model(which, auto_train_steps, ckpt_dir,
+                                device=dev)
         model = Model(cfg)
         shapes = {k: s.shape for k, s in model.spec().items()}
         params = load_checkpoint(path, dev, expect=shapes)

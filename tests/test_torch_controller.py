@@ -35,7 +35,7 @@ from repro_torch.core import baselines, controller
 from repro_torch.core.policies import StaticThreshold
 from repro_torch.data import tasks
 from repro_torch.launch import serve
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, flatten
 from repro_torch.sampling.sample import SamplingParams
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.kv_manager import KVBudget, KVManager
@@ -181,6 +181,18 @@ def test_serve_cli_on_cpu_matches_jax_cli(tmp_path, capsys):
     assert line(ours) == line(theirs)
 
 
-def test_missing_checkpoint_is_an_error(tmp_path):
-    with pytest.raises(FileNotFoundError, match="cannot train"):
-        load_testbed_engines(str(tmp_path), device="cpu")
+def test_missing_checkpoint_is_an_error(tmp_path, capsys):
+    """A missing checkpoint is no longer an error: as the JAX loader does,
+    the port's loader trains it (here 2 steps on the CPU), writes it and
+    loads it."""
+    base, small = load_testbed_engines(str(tmp_path), device="cpu",
+                                       auto_train_steps=2)
+    assert capsys.readouterr().out.count("missing: training") == 2
+    for eng, cfg in ((base, testbed.BASE), (small, testbed.SMALL)):
+        path = tmp_path / f"{cfg.name}.npz"
+        assert eng.model.cfg.name == cfg.name and path.exists()
+        assert tckpt.load_meta(str(path))["steps"] == 2
+        written = tckpt.load_checkpoint(str(path), "cpu")
+        for k, t in flatten(eng.params).items():
+            assert not t.requires_grad
+            assert torch.equal(t, flatten(written)[k])

@@ -3,7 +3,9 @@ the wrappers' refusals, and the model and engine on CUDA against the CPU
 (the sequential engine, the batched paged path, and an ssm model whose
 extends go through the SSD scan kernel); the fused decode loops' CUDA
 graphs (the sequential engine's, dense and ssm, and the batched rows')
-against the per-token loops on the card.
+against the per-token loops on the card; the attention backward kernel
+against its plain version, and training gradients on the card against
+the CPU.
 
 Needs an NVIDIA GPU and nvcc (the kernels build on first use); every test
 skips where CUDA is absent.  Imports no JAX, so it runs on a machine
@@ -14,7 +16,10 @@ without it:
 Tolerances: attention kernels fp32 atol = rtol = 2e-5, bf16 2e-2, the
 SSD scan fp32 1e-4, bf16 y 3e-2 and its final state 1e-4 (as
 tests/test_kernels.py); model logits card vs CPU atol = rtol = 1e-4
-(fp32 GEMMs on both sides with TF32 off, summed in different orders).
+(fp32 GEMMs on both sides with TF32 off, summed in different orders);
+the attention backward atol = rtol = 2e-5 up to S = 128 and 1e-4 beyond,
+training gradients rtol 1e-4, the atol of both that tolerance times the
+largest magnitude of the compared gradient.
 """
 
 import dataclasses
@@ -29,18 +34,23 @@ from repro_torch.kernels import decode_attention as dense_mod
 from repro_torch.kernels import paged_decode_attention as paged_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.data import pipeline
+from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 from repro_torch.kernels.paged_append_attention import \
     paged_append_attention
 from repro_torch.kernels.paged_decode_attention import \
     paged_decode_attention
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import mamba2
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, flatten, unflatten
 from repro_torch.sampling.sample import SamplingParams
 from repro_torch.serving.batch_engine import BatchEngine
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.loader import arch_config
+from repro_torch.training import loss as tloss
+from repro_torch.training.train_loop import TrainConfig, train
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -991,3 +1001,110 @@ def test_fused_rows_capture_failure_raises_on_card(dev):
                          env={**os.environ, "PYTHONPATH": src})
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.split()[:3] == ["raised", "0", "0"], out.stdout
+
+
+# ---------------------------------------------------------------------------
+# training: the attention backward kernel and gradients on the card
+# ---------------------------------------------------------------------------
+
+def _bwd_tol(s):
+    return 2e-5 if s <= 128 else 1e-4
+
+
+def _close_to_max(got, want, tol, what=""):
+    torch.testing.assert_close(got, want, rtol=tol,
+                               atol=tol * want.abs().max().item(),
+                               msg=lambda m: f"{what}: {m}")
+
+
+@pytest.mark.parametrize("b,h,kh,s,hd", [
+    (16, 8, 4, 112, 28),     # BASE's training shape
+    (16, 4, 2, 96, 32),      # SMALL's
+    (2, 24, 8, 256, 128),    # minitron-4b's heads
+    (3, 6, 6, 77, 64),       # G = 1, a ragged last tile
+    (1, 16, 1, 40, 16),      # G = 16
+    (2, 2, 2, 3, 8),         # a few positions (row 0's dq is exactly 0)
+])
+def test_flash_bwd_kernel_matches_plain(dev, b, h, kh, s, hd):
+    gen = torch.Generator(device=dev).manual_seed(s)
+    # the training forward's layout: (B, S, heads, hd) permuted
+    q = _randn(gen, b, s, h, hd).permute(0, 2, 1, 3)
+    k = _randn(gen, b, s, kh, hd).permute(0, 2, 1, 3)
+    v = _randn(gen, b, s, kh, hd).permute(0, 2, 1, 3)
+    do = _randn(gen, b, h, s, hd)
+    o = flash_attention(q, k, v)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = ref.mha_backward_reference(q, k, v, do)
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.shape == x.shape and g.stride() == x.stride()
+        _close_to_max(g, w, _bwd_tol(s), name)
+    again = flash_attention_bwd(q, k, v, o, do)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_attention_grad_on_card_runs_the_kernels(dev):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    leaves = [_randn(gen, 2, n, 40, 32).requires_grad_() for n in (4, 2, 2)]
+    do = _randn(gen, 2, 4, 40, 32)
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    o = ops.flash_attention(*leaves)
+    grads = torch.autograd.grad(o, leaves, do)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == \
+        (fwd + 1, bwd + 1)
+    want = ref.mha_backward_reference(*(t.detach() for t in leaves), do)
+    for g, w in zip(grads, want):
+        _close_to_max(g, w, _bwd_tol(40))
+    # without autograd: #2's launch alone, no history
+    with torch.no_grad():
+        assert ops.flash_attention(*leaves).grad_fn is None
+    assert ops.flash_attention(*(t.detach() for t in leaves)).grad_fn is None
+    assert flash_attention_bwd.launches == bwd + 1
+    # outside the backward's contract under autograd: refused, not dropped
+    with pytest.raises(ValueError, match="training forward"):
+        ops.flash_attention(*leaves, window=8)
+    lens = torch.full((2,), 40, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.decode_attention(leaves[0][:, :, 0], leaves[1], leaves[2], lens)
+
+
+def _loss_and_grads(m, params, batch, d):
+    p = {k: t.to(d, copy=True).requires_grad_()
+         for k, t in flatten(params).items()}
+    loss, _ = tloss.loss_fn(m, unflatten(p),
+                            {k: torch.from_numpy(x).to(d)
+                             for k, x in batch.items()})
+    return loss.detach().cpu(), dict(zip(p, (
+        g.cpu() for g in torch.autograd.grad(loss, list(p.values())))))
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_training_grads_on_card_match_cpu(dev, remat):
+    m = Model(dataclasses.replace(testbed.BASE, remat=remat))
+    params = m.init(3, device="cpu")
+    inp, tgt, wgt = next(pipeline.batch_iterator(
+        pipeline.BatchSpec(4, 112), 0, "mixed"))
+    batch = {"tokens": inp, "targets": tgt, "weights": wgt}
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    card = _loss_and_grads(m, params, batch, dev)
+    n = m.cfg.n_layers
+    assert flash_attention_bwd.launches - bwd == n
+    assert flash_attention.launches - fwd == n * (2 if remat else 1)
+    cpu = _loss_and_grads(m, params, batch, "cpu")
+    _close_to_max(card[0], cpu[0], 1e-4, "loss")
+    for k, g in cpu[1].items():
+        _close_to_max(card[1][k], g, 1e-4, k)
+
+
+def test_train_on_card_is_deterministic(dev):
+    tcfg = TrainConfig(steps=6, batch_size=16, seq_len=96, kind="cot",
+                       style_mix=(0.0, 0.0), log_every=1)
+    runs = [train(testbed.SMALL, tcfg, log=lambda s: None, device=dev)
+            for _ in range(2)]
+    assert [h["loss"] for h in runs[0]["history"]] == \
+        [h["loss"] for h in runs[1]["history"]]
+    for k, t in flatten(runs[0]["params"]).items():
+        assert t.is_cuda and not t.requires_grad
+        assert torch.equal(t, flatten(runs[1]["params"])[k]), k

@@ -33,7 +33,10 @@ def test_every_module_imports_without_jax_or_repro():
            "repro_torch.kernels.paged_append_attention",
            "repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
            "repro_torch.configs.registry", "repro_torch.configs.mamba2_1_3b",
-           "repro_torch.launch.multiarch"} <= set(mods)
+           "repro_torch.launch.multiarch", "repro_torch.data.pipeline",
+           "repro_torch.training.loss", "repro_torch.training.optimizer",
+           "repro_torch.training.train_loop", "repro_torch.launch.train",
+           "repro_torch.kernels.flash_attention_bwd"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
