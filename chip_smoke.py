@@ -33,7 +33,7 @@ from the root of a checkout.  Phases, each printing its lines:
      (256 pages a row), T = 5 (gamma + 1) and a 64-query chunk; the
      yardstick is SDPA over the pre-gathered dense K/V (gather excluded);
    * the causal attention backward (2b) in fp32 at BASE's and SMALL's
-     training shapes and minitron-4b's heads over S = 256 to 2048, with
+     training shapes and minitron-4b's heads over S = 256 to 4096, with
      SDPA's autograd backward as the yardstick;
 4. main path, sequential: random-init BASE/SMALL checkpoints written by
    the port, served by ``repro_torch.launch.serve --scheme specreason``
@@ -192,12 +192,15 @@ TURNS = ("fused", "eager", "fused")
 # the ssm base's decode-only turns: two eager turns between two fused ones
 SSM_TURNS = ("fused", "eager", "eager", "fused")
 # the attention backward (2b): BASE's and SMALL's training shapes, and
-# minitron-4b's heads from S=256 to 2048, where 2b falls behind the plain
-# backward (model, B, S); atol = rtol = the tolerance x the gradient's
-# largest magnitude, against the plain backward on the card
+# minitron-4b's heads from S=256 to 2048, where 2b's first version fell
+# behind the plain backward, and at 4096, its context, where the sums are
+# longest (model, B, S); atol = rtol = the tolerance x the gradient's
+# largest magnitude, against the plain backward on the card.
+# launch/append_ab.py times the same cases.
 BWD_CASES = (("base", 16, 112, 2e-5), ("small", 16, 96, 2e-5),
              ("minitron", 1, 256, 1e-4), ("minitron", 1, 512, 1e-4),
-             ("minitron", 1, 1024, 1e-4), ("minitron", 1, 2048, 1e-4))
+             ("minitron", 1, 1024, 1e-4), ("minitron", 1, 2048, 1e-4),
+             ("minitron", 1, 4096, 1e-4))
 # [train]: card gradients against CPU gradients (rtol, and atol this times
 # the tensor's largest gradient); the pair's steps (launch/train.py's
 # settings: 16 rows of 112 and 96 tokens); the trained pair served greedy
@@ -426,20 +429,27 @@ def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron):
     return records
 
 
+def bwd_heads(model, minitron):
+    """(query heads, kv heads, head_dim) of a ``BWD_CASES`` model."""
+    return {"base": (8, 4, 28), "small": (4, 2, 32),
+            "minitron": (minitron.n_heads, minitron.n_kv_heads,
+                         minitron.resolved_head_dim)}[model]
+
+
 def bwd_kernel_phase(torch, F, ref, flash_kernel, bwd_kernel, minitron):
     """The attention backward (2b) against its plain version in fp32 at
     BASE's and SMALL's training shapes and minitron-4b's heads over S=256
-    to 2048, with the autograd backward of fp32 SDPA as the yardstick (its
-    forward outside the timed window).  Returns the records for the JSON
-    line."""
+    to 4096, with the autograd backward of fp32 SDPA as the yardstick (its
+    forward outside the timed window), and the plan the wrapper launched
+    (``tile_plan.bwd_plan``: grids, shared memory, the scratch, and the
+    longest and mean dK/dV walk that plan makes).  Returns the records for
+    the JSON line."""
+    from repro_torch.kernels import tile_plan
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    heads = {"base": (8, 4, 28), "small": (4, 2, 32),
-             "minitron": (minitron.n_heads, minitron.n_kv_heads,
-                          minitron.resolved_head_dim)}
     records = []
     for model, b, s, tol in BWD_CASES:
-        h, kh, hd = heads[model]
+        h, kh, hd = bwd_heads(model, minitron)
 
         def randn(*shape):
             return torch.randn(*shape, generator=gen, device=dev)
@@ -456,7 +466,7 @@ def bwd_kernel_phase(torch, F, ref, flash_kernel, bwd_kernel, minitron):
                 bwd_kernel(q, k, v, o, do), got)):
             raise AssertionError(f"flash_attention_bwd {label}: a second "
                                  "call gave other bits")
-        err, scale = 0.0, 0.0
+        err, scale, each = 0.0, 0.0, []
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
             top = w.abs().max().item()
             e = (g - w).abs().max().item()
@@ -465,6 +475,7 @@ def bwd_kernel_phase(torch, F, ref, flash_kernel, bwd_kernel, minitron):
                                      f"max |err| {e} beyond rtol {tol}, atol "
                                      f"{tol} x max |{name}| {top}")
             err, scale = max(err, e), max(scale, top)
+            each.append(f"{name} {e:.3g} of {top:.3g}")
         ms = time_ms(torch, lambda: bwd_kernel(q, k, v, o, do))
         plain_ms = time_ms(torch, lambda: ref.mha_backward_reference(
             q, k, v, do), reps=5 if s >= 2048 else 30)
@@ -486,11 +497,19 @@ def bwd_kernel_phase(torch, F, ref, flash_kernel, bwd_kernel, minitron):
                             plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=bound_ms, bound_by=by))
         print(f"[kernels] flash_attention_bwd {label}: err {err:.3g} at max "
-              f"|grad| {scale:.3g} (rtol {tol}, atol {tol} x the largest "
-              f"|grad| of each of dq, dk, dv) | kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, bound "
+              f"|grad| {scale:.3g} ({', '.join(each)}; rtol {tol}, atol "
+              f"{tol} x the largest |grad| of each) | kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, bound "
               f"{bound_ms:.5f} ms ({by}); a second call gives the same "
               "bits", flush=True)
+        pl = tile_plan.bwd_plan(b, h, kh, s, hd)
+        print(f"[kernels] flash_attention_bwd {label} plan (tile_plan, as "
+              "launched): " + ", ".join(
+                  f"{x['name']} grid {x['grid']} x {x['threads']} threads, "
+                  f"{x['smem_bytes']} B shared" for x in pl["launches"])
+              + f"; scratch {pl['scratch_bytes']} B; the plan's dK/dV walk "
+              f"longest {pl['dkv_longest']} / mean {pl['dkv_mean']:.1f} of "
+              f"{pl['n_tiles']} tiles", flush=True)
     return records
 
 

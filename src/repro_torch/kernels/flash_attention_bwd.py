@@ -2,16 +2,21 @@
 ``csrc/flash_attention_bwd.cu``.
 
 The gradient of kernel #2 (``flash_attention``) on the training forward:
-given q, k, v, #2's output o and the output's gradient do, three launches
-(row logsumexp and D = rowsum(do * o); dK and dV a key tile; dQ a query
-tile) write dq, dk and dv, deterministically (no atomics).  The JAX
+given q, k, v, #2's output o and the output's gradient do, up to three
+launches (dQ, the row logsumexp and D = rowsum(do * o) a query tile; dK
+and dV a key tile of one query head, both with their products on the
+tensor cores; with G > 1 the G heads' partials summed) write dq, dk and
+dv, deterministically (no atomics).  The launches' grids, threads and
+shared memory come from ``tile_plan.bwd_launch``, which the C entry checks
+against its kernels and launches; the scratch (``scratch``) from
+``tile_plan.bwd_scratch``.  The JAX
 package has no such kernel: it differentiates XLA attention.  Its
 contract is the training forward's case, ``check_contract``: causal from
 position 0 over S keys, no window, float32, head_dim up to 128.
 ``ops.flash_attention`` checks it once, before kernel #2's forward
 launches; this wrapper checks only what it alone sees (o and do),
-launches the three kernels on the current stream and counts one launch
-a call (the C entry also rejects head_dim > 128 and H % K != 0); it
+launches the kernels on the current stream and counts one launch a
+call (the C entry also rejects head_dim > 128 and H % K != 0); it
 never computes on the CPU (the CPU path differentiates ``ref.mha_reference`` with torch
 autograd, and ``ref.mha_backward_reference`` is the plain version of this
 kernel).
@@ -25,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import build, counts
+from . import build, counts, tile_plan
 
 MAX_HEAD_DIM = 128
 
@@ -36,8 +41,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _lib():
     lib = build.load("flash_attention_bwd")
     fn = lib.flash_attention_bwd_launch
-    fn.argtypes = [_P] * 10 + [_I] * 5 + [ctypes.POINTER(ctypes.c_longlong),
-                                          _P]
+    fn.argtypes = [_P] * 11 + [_I] * 5 + [ctypes.POINTER(ctypes.c_longlong),
+                                          ctypes.POINTER(_I), _P]
     fn.restype = _I
     return lib
 
@@ -71,6 +76,17 @@ def check_contract(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{k.dtype}/{v.dtype}")
 
 
+def scratch(b: int, h: int, kh: int, s: int, hd: int,
+            device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernels' float32 scratch, one allocation: (lse (b, h, s), D (b,
+    h, s), dK and dV partials (2 * b * h * s * hd floats with G > 1, else
+    empty)), sized by ``tile_plan.bwd_scratch``."""
+    n_stats, n_part = tile_plan.bwd_scratch(b, h, kh, s, hd)
+    buf = torch.empty(n_stats + n_part, dtype=torch.float32, device=device)
+    stats = buf[:n_stats].view(2, b, h, s)
+    return stats[0], stats[1], buf[n_stats:]
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -97,17 +113,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (q, k, v, o)):
         raise ValueError("q, k, v and o need a unit stride over hd")
     b, h, s, hd = q.shape
+    kh = k.shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
-    stats = torch.empty((2, b, h, s), dtype=torch.float32, device=q.device)
+    lse, dsum, part = scratch(b, h, kh, s, hd, q.device)
     tensors = (q, k, v, o, do, dq, dk, dv)
     strides = (ctypes.c_longlong * 24)(*(x for t in tensors
                                          for x in t.stride()[:3]))
+    plan = (_I * 6)(*tile_plan.bwd_launch(b, h, kh, s, hd))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _lib().flash_attention_bwd_launch(
-            *(t.data_ptr() for t in tensors), stats[0].data_ptr(),
-            stats[1].data_ptr(), b, h, k.shape[1], s, hd, strides, stream)
+            *(t.data_ptr() for t in tensors), lse.data_ptr(),
+            dsum.data_ptr(), part.data_ptr() if part.numel() else None, b,
+            h, kh, s, hd, strides, plan, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {rc}")

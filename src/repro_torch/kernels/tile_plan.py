@@ -10,7 +10,10 @@ less than the card runs at once, the keys are split over more blocks.
 ``card_occupancy`` asks a kernel's C entry ``<name>_slots`` how many
 blocks that is; ``split_plan`` picks the split against it, and
 ``decode_split`` does both for a decode launch.  ``vector_bytes`` mirrors
-the decode kernels' choice of copy width.
+the decode kernels' choice of copy width.  ``bwd_launch`` is the
+attention backward's launch plan (``csrc/flash_attention_bwd.cu``), which
+its wrapper passes the C entry and the C entry checks and launches;
+``bwd_plan`` adds each block's tile steps and the scratch.
 """
 
 from __future__ import annotations
@@ -188,3 +191,79 @@ def ssd_plan(b: int, l: int, h: int, p: int, g: int, n: int,
     return dict(route="one chunk" if nc == 1 else "chunks", chunks=nc,
                 launches=launches, scratch_floats=scratch,
                 scratch_bytes=4 * sum(scratch.values()))
+
+
+# the attention backward's blocks (csrc/flash_attention_bwd.cu, whose
+# launch refuses any other plan): BWD_ROWS query rows a dq block and keys a
+# dkv block (16 a warp), streamed tiles of BWD_STEP rows, BWD_THREADS
+# threads; the G-partial sum in blocks of BWD_SUM_THREADS, at most
+# BWD_SUM_BLOCKS of them (any count covers every element)
+BWD_ROWS = 64
+BWD_STEP = 32
+BWD_THREADS = 128
+BWD_SUM_THREADS = 256
+BWD_SUM_BLOCKS = 4096
+
+
+def bwd_smem(hd: int) -> Tuple[int, int]:
+    """Dynamic shared memory bytes of a dq and a dkv block at this
+    head_dim (padded to 32, 64 or 128): resident rows at a stride of HD +
+    8 floats, streamed rows read down their columns at HD + 4."""
+    pad = 32 if hd <= 32 else 64 if hd <= 64 else 128
+    la, lb = pad + 8, pad + 4
+    dq = 4 * (2 * BWD_ROWS * la + BWD_STEP * lb + BWD_STEP * la + BWD_ROWS)
+    dkv = 4 * (2 * BWD_ROWS * la + 2 * BWD_STEP * lb + 2 * BWD_STEP)
+    return dq, dkv
+
+
+def bwd_scratch(b: int, h: int, kh: int, s: int, hd: int) -> Tuple[int, int]:
+    """Float32 scratch of a backward call: (lse and D, b * h * s each; the
+    dK and dV partials of the G query heads of each kv head, 2 * b * h * s
+    * hd, or 0 when G = 1)."""
+    return 2 * b * h * s, 2 * b * h * s * hd if h > kh else 0
+
+
+@functools.lru_cache(maxsize=1024)
+def bwd_launch(b: int, h: int, kh: int, s: int,
+               hd: int) -> Tuple[int, int, int, int, int, int]:
+    """The plan the wrapper passes ``flash_attention_bwd_launch`` for q (b,
+    h, s, hd) over k, v (b, kh, s, hd): (tiles of BWD_ROWS rows, the z
+    extent of the dq and dkv grids (h, b, tiles); their threads; the dq
+    and the dkv block's dynamic shared memory bytes; sum_kernel's blocks,
+    0 when G = 1; its threads)."""
+    dq_smem, dkv_smem = bwd_smem(hd)
+    n = b * kh * s * hd
+    sum_blocks = min(-(-n // BWD_SUM_THREADS), BWD_SUM_BLOCKS) \
+        if h > kh else 0
+    return (-(-s // BWD_ROWS), BWD_THREADS, dq_smem, dkv_smem, sum_blocks,
+            BWD_SUM_THREADS)
+
+
+def bwd_plan(b: int, h: int, kh: int, s: int, hd: int) -> dict:
+    """``bwd_launch`` as launches (dq_kernel, dkv_kernel, and sum_kernel
+    when G > 1: each one's grid, threads and dynamic shared memory), with
+    the tile steps of each block in launch order (a dq block walks the key
+    tiles at or before its rows once, from the last query tile; a dkv
+    block walks the query tiles of one head at or after its keys, from
+    the first key tile), the longest and mean dkv walk against ``n_tiles``
+    = ceil(s / BWD_STEP), and the scratch floats."""
+    tiles, threads, dq_smem, dkv_smem, sum_blocks, sum_threads = \
+        bwd_launch(b, h, kh, s, hd)
+    launches = [
+        dict(name="dq_kernel", grid=(h, b, tiles), threads=threads,
+             smem_bytes=dq_smem),
+        dict(name="dkv_kernel", grid=(h, b, tiles), threads=threads,
+             smem_bytes=dkv_smem)]
+    if sum_blocks:
+        launches.append(dict(name="sum_kernel", grid=(sum_blocks, 1, 1),
+                             threads=sum_threads, smem_bytes=0))
+    dq_steps = [-(-min(s, BWD_ROWS * (t + 1)) // BWD_STEP)
+                for t in reversed(range(tiles))]
+    dkv_steps = [-(-(s - BWD_ROWS * t) // BWD_STEP) for t in range(tiles)]
+    n_stats, n_part = bwd_scratch(b, h, kh, s, hd)
+    return dict(launches=launches, n_tiles=-(-s // BWD_STEP),
+                dq_steps=dq_steps, dkv_steps=dkv_steps,
+                dkv_longest=max(dkv_steps),
+                dkv_mean=sum(dkv_steps) / len(dkv_steps),
+                scratch_floats=dict(stats=n_stats, partials=n_part),
+                scratch_bytes=4 * (n_stats + n_part))

@@ -7,10 +7,12 @@
         --a <parent checkout> --b .
     python -m repro_torch.launch.append_ab --kernel ssd_scan \
         --a <parent checkout> --b .
+    python -m repro_torch.launch.append_ab --kernel flash_attention_bwd \
+        --a <parent checkout> --b .
 
 Runs each checkout's own ``repro_torch`` in a fresh process, in turns
 A, B, B, A, on the same inputs (made on the card from a seed), in fp32
-and bf16:
+and bf16 (the attention backward: fp32 only):
 
 * ``paged_append_attention`` (#4, the default): B=8 rows of minitron-4b's
   attention shape (24 query heads over 8 kv heads, hd 128) over 4096
@@ -32,7 +34,14 @@ and bf16:
   over a 37-token extend (one chunk) and a 2048-token prompt (16 chunks
   of 128), with an initial state and B and C sliced from one conv output
   as ``apply_mamba`` passes them; the device time is also given per
-  kernel name.  No single PyTorch call computes the scan.
+  kernel name.  No single PyTorch call computes the scan;
+* ``flash_attention_bwd`` (2b): the backward cases of the
+  ``chip_smoke.py`` beside this file (``BWD_CASES``, for both checkouts):
+  the training shapes of BASE (16 x 112, 8 over 4 heads, hd 28) and SMALL
+  (16 x 96, 4 over 2, hd 32) and minitron-4b's heads at S = 256 to 4096,
+  in the training forward's layout, o from the checkout's own #2; the
+  device time also per kernel name; the yardstick is the autograd
+  backward of fp32 SDPA (its forward outside the timed calls).
 
 For each it prints the time per call from CUDA events over back-to-back
 calls (the median of five windows of 30, the wrapper's host cost
@@ -72,7 +81,7 @@ PAGED_DECODE_CASES = [("minitron", 24, 8, 128, 4096, [4096] * 8),
 SSD_CASES = [("mamba2", 37, 37), ("mamba2", 2048, 128)]
 SSD_HEADS = (64, 64, 1, 128)    # H, P, G, N
 KERNELS = ("paged_append_attention", "flash_attention", "decode_attention",
-           "paged_decode_attention", "ssd_scan")
+           "paged_decode_attention", "ssd_scan", "flash_attention_bwd")
 BLOCK = 16
 REPS = 30
 WINDOWS = 5
@@ -224,11 +233,42 @@ def _ssd_cases(torch, F, ref, kernel, dt, gen, dev):
                lambda args=args: kernel(*args), None)
 
 
+def _bwd_cases(torch, F, ref, kernel, dt, gen, dev):
+    """(row, call, SDPA backward call) for each of 2b's cases."""
+    import importlib.util
+
+    from repro_torch.configs import minitron_4b
+    from repro_torch.kernels.flash_attention import flash_attention
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "..", "..", "..",
+        "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for label, b, s, _ in smoke.BWD_CASES:
+        h, kh, hd = smoke.bwd_heads(label, minitron_4b.CONFIG)
+        q, k, v = (torch.randn(b, s, n, hd, generator=gen, device=dev)
+                   .to(dt).permute(0, 2, 1, 3) for n in (h, kh, kh))
+        do = torch.randn(b, h, s, hd, generator=gen, device=dev).to(dt)
+        o = flash_attention(q, k, v)
+        args = (q, k, v, o, do)
+        err = max((g - w).abs().max().item() for g, w in zip(
+            kernel(*args), ref.mha_backward_reference(q, k, v, do)))
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=True)
+        yield (dict(shape=f"{label} B={b} S={s} H={h} K={kh} hd={hd}",
+                    max_abs_err=err),
+               lambda args=args: kernel(*args),
+               lambda out=out, leaves=leaves, do=do: torch.autograd.grad(
+                   out, leaves, do, retain_graph=True))
+
+
 CASES = {"paged_append_attention": _append_cases,
          "flash_attention": _flash_cases,
          "decode_attention": _decode_cases,
          "paged_decode_attention": _paged_decode_cases,
-         "ssd_scan": _ssd_cases}
+         "ssd_scan": _ssd_cases,
+         "flash_attention_bwd": _bwd_cases}
 
 
 def _child(root: str, name: str) -> None:
@@ -241,14 +281,18 @@ def _child(root: str, name: str) -> None:
 
     from repro_torch.kernels import build, ref
 
-    build.build([name])
+    # 2b's inputs come from the checkout's own forward (#2)
+    build.build([name] + (["flash_attention"]
+                          if name == "flash_attention_bwd" else []))
     kernel = getattr(importlib.import_module(f"repro_torch.kernels.{name}"),
                      name)
     cases = CASES[name]
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = []
-    for dt in (torch.float32, torch.bfloat16):
+    dtypes = (torch.float32,) if name == "flash_attention_bwd" else (
+        torch.float32, torch.bfloat16)
+    for dt in dtypes:
         gen = torch.Generator(device=dev).manual_seed(0)
         for row, call, sdpa in cases(torch, F, ref, kernel, dt, gen, dev):
             ms, windows = _events(torch, call)
@@ -262,7 +306,7 @@ def _child(root: str, name: str) -> None:
                         for e in prof.key_averages()
                         if e.self_device_time_total > 0]
             row["device_ms"] = sum(t for _, t in dev_rows)
-            if name == "ssd_scan":
+            if name in ("ssd_scan", "flash_attention_bwd"):
                 row["device_ms_by_kernel"] = {k[:40]: t for k, t in dev_rows}
             if sdpa is not None:
                 row["sdpa_ms"] = _events(torch, sdpa)[0]

@@ -1024,6 +1024,11 @@ def _close_to_max(got, want, tol, what=""):
     (3, 6, 6, 77, 64),       # G = 1, a ragged last tile
     (1, 16, 1, 40, 16),      # G = 16
     (2, 2, 2, 3, 8),         # a few positions (row 0's dq is exactly 0)
+    (1, 24, 8, 1024, 128),   # minitron-4b's heads at S=1024: 16 dkv blocks
+    (1, 24, 8, 4096, 128),   # at minitron-4b's context: the longest sums
+    (2, 16, 1, 77, 64),      # G = 16, a ragged last tile of 64 and of 32
+    (3, 4, 2, 50, 28),       # hd 28 padded to 32, S not a whole tile
+    (2, 4, 2, 33, 15),       # hd 15: element copies, not cp.async
 ])
 def test_flash_bwd_kernel_matches_plain(dev, b, h, kh, s, hd):
     gen = torch.Generator(device=dev).manual_seed(s)
@@ -1043,6 +1048,50 @@ def test_flash_bwd_kernel_matches_plain(dev, b, h, kh, s, hd):
         _close_to_max(g, w, _bwd_tol(s), name)
     again = flash_attention_bwd(q, k, v, o, do)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("hd", [15, 28, 32, 64, 100, 128])
+def test_flash_bwd_launch_takes_only_its_plan(dev, hd):
+    """The C entry launches ``tile_plan.bwd_launch``'s plan (the wrapper's
+    bits) at each head_dim bucket, and refuses with cudaErrorInvalidValue,
+    launching nothing, a plan one step off it anywhere; two blocks of the
+    plan fit in an H100 SM's 228 KB (1 KB of it reserved a block)."""
+    import ctypes
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import tile_plan
+    b, h, kh, s = 1, 4, 2, 100
+    gen = torch.Generator(device=dev).manual_seed(hd)
+    q, do = _randn(gen, b, h, s, hd), _randn(gen, b, h, s, hd)
+    k, v = _randn(gen, b, kh, s, hd), _randn(gen, b, kh, s, hd)
+    o = flash_attention(q, k, v)
+
+    def launch(plan):
+        grads = [torch.zeros_like(t) for t in (q, k, v)]
+        lse, dsum, part = fb.scratch(b, h, kh, s, hd, q.device)
+        tensors = (q, k, v, o, do, *grads)
+        strides = (ctypes.c_longlong * 24)(*(x for t in tensors
+                                             for x in t.stride()[:3]))
+        rc = fb._lib().flash_attention_bwd_launch(
+            *(t.data_ptr() for t in tensors), lse.data_ptr(),
+            dsum.data_ptr(), part.data_ptr(), b, h, kh, s, hd, strides,
+            (ctypes.c_int * 6)(*plan),
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        return rc, grads
+
+    plan = tile_plan.bwd_launch(b, h, kh, s, hd)
+    rc, grads = launch(plan)
+    assert rc == 0
+    want = flash_attention_bwd(q, k, v, o, do)
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
+    for i, step in ((0, -1), (0, 1), (1, 32), (2, -4), (3, 4), (4, -plan[4]),
+                    (5, -32)):
+        off = list(plan)
+        off[i] += step
+        rc, grads = launch(off)
+        assert rc == 1, (i, step)
+        assert not any(g.any() for g in grads)
+    assert 2 * (max(plan[2], plan[3]) + 1024) <= 228 * 1024
 
 
 def test_attention_grad_on_card_runs_the_kernels(dev):

@@ -526,6 +526,222 @@ def test_ssd_scan_needs_the_3xtf32_split_for_fp32():
     assert not np.allclose(f1, fe, **tol)
 
 
+# ---------------------------------------------------------------------------
+# the attention backward (2b): the precision plan of its five products and
+# its block plan
+# ---------------------------------------------------------------------------
+
+def _tf32_cut(x):
+    """x as TF32 by truncation: its low 13 bits cleared."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _three_tf32_cut(a, b):
+    """3xTF32 as the attention backward splits (csrc/flash_attention_bwd.cu
+    ``split_fast``): hi = x with its low 13 bits cleared, lo = x - hi,
+    which the tensor core reads as TF32 by dropping its low 13 bits too;
+    lo.hi' + hi.lo' + hi.hi'."""
+    def split(x):
+        hi = _tf32_cut(x)
+        return hi.astype(np.float64), _tf32_cut(x - hi).astype(np.float64)
+    ah, al = split(a)
+    bh, bl = split(b)
+    return (al @ bh + ah @ bl + ah @ bh).astype(np.float32)
+
+
+def _bwd_exact(q, k, v, do):
+    """dq, dk, dv and o of causal attention in float64 for one kv head:
+    q, do (G, S, hd); k, v (S, hd); dk and dv summed over the G heads."""
+    q, k, v, do = (x.astype(np.float64) for x in (q, k, v, do))
+    seen = np.tri(q.shape[1], dtype=bool)
+    scale = 1 / np.sqrt(q.shape[2])
+    dq, o = np.zeros_like(q), np.zeros_like(q)
+    dk, dv = np.zeros_like(k), np.zeros_like(v)
+    for h in range(q.shape[0]):
+        x = np.where(seen, q[h] @ k.T * scale, -np.inf)
+        p = np.exp(x - x.max(1, keepdims=True))
+        p /= p.sum(1, keepdims=True)
+        o[h] = p @ v
+        ds = p * (do[h] @ v.T - (do[h] * o[h]).sum(1, keepdims=True))
+        dq[h] = ds @ k * scale
+        dk += ds.T @ q[h] * scale
+        dv += p.T @ do[h]
+    return dq, dk, dv, o
+
+
+def _bwd_emulated(prod, q, k, v, do, o):
+    """The backward kernels' arithmetic (csrc/flash_attention_bwd.cu) for
+    one kv head, the five products (and the logsumexp's recomputed Q K^T)
+    through ``prod``, everything else in float32; o is the forward's fp32
+    output.  The kv head's partials are summed in head order."""
+    f32 = np.float32
+    seen = np.tri(q.shape[1], dtype=bool)
+    scale = f32(1 / np.sqrt(q.shape[2]))
+    dq, dk, dv = np.zeros_like(q), np.zeros_like(k), np.zeros_like(v)
+    for h in range(q.shape[0]):
+        x = np.where(seen, prod(q[h], k.T) * scale, -np.inf).astype(f32)
+        m = x.max(1, keepdims=True)
+        lse = m + np.log(np.exp(x - m).sum(1, keepdims=True, dtype=f32))
+        p = np.where(seen, np.exp(x - lse), 0).astype(f32)
+        dsum = (do[h] * o[h]).sum(1, keepdims=True, dtype=f32)
+        ds = (p * (prod(do[h], v.T) - dsum)).astype(f32)
+        dv += prod(p.T, do[h])
+        dk += prod(ds.T, q[h]) * scale
+        dq[h] = prod(ds, k) * scale
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("s", [256, 2048])
+def test_attention_bwd_needs_the_3xtf32_split_for_fp32(s):
+    """At hd 128, one kv head's G = 3 query heads over S = 256 and 2048
+    (minitron-4b's heads, the ends of the card's backward cases): dQ, dK
+    and dV with every product as the kernel's 3xTF32 (split by truncation)
+    stay within 1e-4 x each gradient's largest magnitude of float64 (rtol
+    1e-4; found: 3.1e-7 to 1.2e-6 of the largest, where the rounding split
+    of tf32_mma.cuh gives 1.1e-7 to 3.7e-7).  With one TF32 product none
+    of the three does (found: 2.8e-4 to 7.5e-4 of the largest): measured
+    against the largest gradient the error does not grow from S = 256 to
+    2048, and one TF32 product misses by 3-7x at both.  The sums here are
+    exact; the tensor cores' fp32 accumulation adds its own error on the
+    card."""
+    rng = np.random.default_rng(0)
+    q, do = _rand(rng, (3, s, 128)), _rand(rng, (3, s, 128))
+    k, v = _rand(rng, (s, 128)), _rand(rng, (s, 128))
+    *exact, o = _bwd_exact(q, k, v, do)
+    o = o.astype(np.float32)
+    for prod in (_three_tf32_cut, _three_tf32):
+        for got, want in zip(_bwd_emulated(prod, q, k, v, do, o), exact):
+            np.testing.assert_allclose(got, want, rtol=1e-4,
+                                       atol=1e-4 * np.abs(want).max())
+    for got, want in zip(_bwd_emulated(_one_tf32, q, k, v, do, o), exact):
+        top = np.abs(want).max()
+        assert not np.allclose(got, want, rtol=1e-4, atol=1e-4 * top)
+        assert np.abs(got - want).max() > 2e-4 * top
+
+
+def _round_to_zero(x):
+    """float64 x to float32, rounded toward zero."""
+    y = x.astype(np.float32)
+    over = np.abs(y.astype(np.float64)) > np.abs(x)
+    y[over] = np.nextafter(y[over], np.float32(0))
+    return y
+
+
+def _mma_sum(a, b, tile):
+    """a @ b as the attention backward's dV and dK accumulate it on the
+    tensor cores, under a model of mma.sync's fp32 accumulation: each
+    m16n8k8 step adds its eight exact TF32 products (the 3xTF32 split by
+    truncation, three steps) to the accumulator and rounds the sum toward
+    zero.  tile=None: one running accumulator for the whole sum (the
+    kernel before its dot_tile); tile=32: a fresh accumulator a 32-row
+    tile, added to the sum in float32 (dot_tile)."""
+    def split(x):
+        hi = _tf32_cut(x)
+        return hi.astype(np.float64), _tf32_cut(x - hi).astype(np.float64)
+    ah, al = split(a)
+    bh, bl = split(b)
+    total = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    n = a.shape[1]
+    for t0 in range(0, n, tile or n):
+        acc = np.zeros_like(total)
+        for t in range(t0, min(t0 + (tile or n), n), 8):
+            for x, y in ((al, bh), (ah, bl), (ah, bh)):
+                acc = _round_to_zero(acc + x[:, t:t + 8] @ y[t:t + 8])
+        total = total + acc
+    return total
+
+
+def test_attention_bwd_error_grows_with_a_running_tensor_core_sum():
+    """Why the card's dK and dV error grew with S before the kernel summed
+    each tile apart (H100: 2.8e-5 / 6.0e-5 / 1.2e-4 / 2.0e-4 at S = 256 /
+    512 / 1024 / 2048, minitron-4b's heads; 2.2e-5 of the largest gradient
+    at 2048): under a model of the tensor cores' fp32 accumulation (each
+    mma.sync step rounds toward zero, ``_mma_sum``), one running
+    accumulator loses up to an ulp of itself at each of 3 S / 8 steps.  At
+    hd 128 over the first 64 keys of one head (the longest sums), found,
+    of the largest dK or dV: 7.5e-6 / 3.3e-5 / 7.4e-5 at S = 512 / 2048 /
+    4096, growing with S toward the 1e-4 tolerance; with a fresh
+    accumulator a 32-query tile, added in float32, 6.4e-7 to 1.0e-6 at
+    every S."""
+    rng = np.random.default_rng(0)
+    hd, keys = 128, 64
+    found = {}
+    for s in (512, 2048, 4096):
+        q, k, v, do = (rng.standard_normal((s, hd)).astype(np.float32)
+                       for _ in range(4))
+        _, dk, dv, _ = _bwd_exact(q[None], k, v, do[None])
+        x = np.where(np.tri(s, dtype=bool),
+                     q.astype(np.float64) @ k.T.astype(np.float64), -np.inf)
+        x /= np.sqrt(hd)
+        p = np.exp(x - x.max(1, keepdims=True))
+        p /= p.sum(1, keepdims=True)
+        o = p @ v.astype(np.float64)
+        ds = p * (do @ v.T.astype(np.float64)
+                  - (do * o).sum(1, keepdims=True))
+        pt, dst = (m.T[:keys].astype(np.float32) for m in (p, ds))
+        scale = np.float32(1 / np.sqrt(hd))
+        for tile in (None, 32):
+            got_v = _mma_sum(pt, do, tile)
+            got_k = _mma_sum(dst, q, tile) * scale
+            found[s, tile] = max(
+                np.abs(got_v - dv[:keys]).max() / np.abs(dv[:keys]).max(),
+                np.abs(got_k - dk[:keys]).max() / np.abs(dk[:keys]).max())
+    print({key: f"{e:.2g}" for key, e in found.items()})
+    assert found[2048, None] > 4 * found[512, None]
+    assert found[4096, None] > 1.5 * found[2048, None]
+    assert found[4096, None] > 1e-5
+    for s in (512, 2048, 4096):
+        assert found[s, 32] < 2e-6
+        assert found[s, 32] < found[s, None] / 5
+    assert found[4096, 32] < 2 * found[512, 32]
+
+
+@pytest.mark.parametrize("b,h,kh,s,hd,longest,mean", [
+    (1, 24, 8, 2048, 128, 64, 33.0),   # minitron-4b's heads, S=2048
+    (16, 8, 4, 112, 28, 4, 3.0),       # BASE's training shape
+    (16, 4, 2, 96, 32, 3, 2.0),        # SMALL's
+    (1, 24, 8, 512, 128, 16, 9.0),
+])
+def test_attention_bwd_plan_balances_dkv(b, h, kh, s, hd, longest, mean):
+    """``tile_plan.bwd_plan``, the launches the wrapper passes
+    csrc/flash_attention_bwd.cu's C entry (``bwd_launch``; the entry
+    refuses any other plan, tests/test_torch_cuda.py) with their walks: a
+    dK/dV block per (64 keys, query head) walks the 32-query tiles of its
+    own head at or after its keys, so the longest walk is n_tiles =
+    ceil(S / 32) at most (64 at S=2048, where a block per (32 keys, kv
+    head) walks G x 64 = 192); blocks run heaviest first; two blocks fit
+    in an SM's 228 KB of shared memory (1 KB of it reserved a block); the
+    scratch is what the wrapper allocates: lse and D, and with G > 1 the
+    partials."""
+    from repro_torch.kernels import flash_attention_bwd as bwd
+    from repro_torch.kernels import tile_plan as tp
+    pl = tp.bwd_plan(b, h, kh, s, hd)
+    print(f"dkv walk at b={b} h={h} kh={kh} s={s} hd={hd}: longest "
+          f"{pl['dkv_longest']}, mean {pl['dkv_mean']:.2f} of "
+          f"{pl['n_tiles']} tiles")
+    assert pl["n_tiles"] == -(-s // 32)
+    assert pl["dkv_longest"] == longest <= pl["n_tiles"] + 1
+    assert pl["dkv_mean"] == mean
+    assert pl["dkv_steps"] == sorted(pl["dkv_steps"], reverse=True)
+    assert pl["dq_steps"] == sorted(pl["dq_steps"], reverse=True)
+    names = [x["name"] for x in pl["launches"]]
+    assert names == ["dq_kernel", "dkv_kernel"] + (
+        ["sum_kernel"] if h > kh else [])
+    assert pl["launches"][1]["grid"] == (h, b, -(-s // 64))
+    assert tp.bwd_launch(b, h, kh, s, hd)[0] == -(-s // 64)
+    for x in pl["launches"]:
+        assert 2 * (x["smem_bytes"] + 1024) <= 228 * 1024
+    lse, dsum, part = bwd.scratch(b, h, kh, s, hd, "cpu")
+    assert lse.shape == dsum.shape == (b, h, s)
+    assert part.numel() == pl["scratch_floats"]["partials"] == (
+        2 * b * h * s * hd if h > kh else 0)
+    assert lse.numel() + dsum.numel() == pl["scratch_floats"]["stats"]
+    assert pl["scratch_bytes"] == 4 * (lse.numel() + dsum.numel()
+                                       + part.numel())
+    assert lse.untyped_storage().nbytes() == pl["scratch_bytes"]
+
+
 @pytest.mark.parametrize("b,l,h,p,g,n,q,route,blocks", [
     (1, 37, 64, 64, 1, 128, 37, "one chunk", (67, 0, 64)),
     (1, 2048, 64, 64, 1, 128, 128, "chunks", (1152, 512, 1024)),
