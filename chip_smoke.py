@@ -68,7 +68,21 @@ from the root of a checkout.  Phases, each printing its lines:
    way; identical tokens in every turn, paged-decode launches ==
    n_layers x decode steps, no capture in the second fused turn, at most
    ceil(budget / k) + 1 waits and 2k - 1 wasted steps a fused call, and
-   the profiler's count of the paged-decode kernel == the counter;
+   the profiler's count of the paged-decode kernel == the counter.
+   ``[main] prefix``, on the same minitron-4b base and SMALL drafter:
+   the radix prefix cache (zero-copy: a hit adopts cached pool blocks
+   into the row's table) on a template family of 2 tasks expanded
+   best-of-N 4 over 4 rows at budget 128, one scheduler a run: cache
+   on greedy, off greedy, on at 0.6 with the majority vote, on greedy
+   under a KV budget that evicts and preempts; in every run paged-decode
+   launches == n_layers x decode steps, paged-append launches ==
+   n_layers x extends and no dense or SSD launch; hits in every cache-on
+   run, the base's lookups == requests + preemptions, empty pools after
+   ``clear_prefix_cache()``, the paged-append query tokens with the cache
+   on at most those with it off less the hit tokens; a hit's last logits
+   against a cold prefill's (LOGIT_TOL); hit rate, prefill tokens saved,
+   TTFT, tok/s and evictions on against off, and as information whether
+   the greedy tokens agree;
 5. check: BASE and SMALL logits on the card against the same checkpoint
    on the CPU, over a prefill and decode steps, and over the batched
    path (one ``prefill_rows`` and one ``decode_rows`` on 3 ragged rows);
@@ -80,12 +94,15 @@ from the root of a checkout.  Phases, each printing its lines:
    --no-prefix-cache`` (its default decode loop: the batched rows' fused
    loop), 8 requests over 4 rows, greedy and at 0.6, then
    with ``--spec-decode --gamma 4``, then greedy under a KV budget that
-   preempts; per request latency, TTFT and TPOT, and tokens/s, ticks,
-   preemptions and acceptance per run.  Paged-decode launches must equal
-   n_layers x the batched engines' decode steps (replayed, masked and
-   warm-up steps included), paged-append launches
-   n_layers x their extend calls, the dense kernels must not launch, and
-   the pressured greedy run must give the unpressured greedy tokens.
+   preempts, then greedy with the prefix cache on (the CLI's default)
+   and ``--num-samples 2``; per request latency, TTFT and TPOT, and
+   tokens/s, ticks, preemptions and acceptance per run.  Paged-decode
+   launches must equal n_layers x the batched engines' decode steps
+   (replayed, masked and warm-up steps included), paged-append launches
+   n_layers x their extend calls, the dense kernels must not launch, the
+   pressured greedy run must give the unpressured greedy tokens, and
+   both cache-on samples of each request its cache-off greedy tokens,
+   with cache hits.
    For information, how many requests' continuous greedy tokens equal
    the sequential path's on the card (batch-size-dependent GEMMs may
    move a logit by an ulp).  Then ``[fused rows]`` on the testbed pair:
@@ -141,7 +158,8 @@ the records a trace loses at its start and after the card idles, and
 bound the window on the device's clock (``repro_torch.launch.
 trace_window``); each line says how many pads the trace holds before
 and after the window, and how much wall the trace added to the same
-call's last unprofiled turn.
+call's last unprofiled turn.  A trace that lost its end (fewer than all
+pads after the window) is taken again, at most TRACE_TRIES times.
 """
 
 import gc
@@ -155,6 +173,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12                        # H100 SXM, data sheet
+# traces of one profiled call before the window's lost end fails the run
+TRACE_TRIES = 3
 # the least time for fp32-accurate products: 3xTF32 on the tensor cores at
 # 495 / 3 TFLOP/s (dense TF32, data sheet), above the CUDA cores' 67
 PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
@@ -185,6 +205,15 @@ ROWS_BUDGET = 128
 DENSE_KV_MB = 1000
 DECODE_ROWS = (64, 300, 700, 1000)
 DECODE_TOKENS = 128
+# [main] prefix at minitron-4b: a template family of PREFIX_TASKS tasks
+# (4 shared ops, then 4-6 of their own: 39-47 prompt tokens, the first
+# 16-token block shared by all, the second by a task's samples), each
+# sampled PREFIX_N times over 4 rows at ROWS_BUDGET; the pressured run's
+# KV partition: 40 MB accounted, 16 base blocks of 2 MiB (a request may
+# need 12), where 60 MB (24 blocks) gave one preemption and one eviction
+PREFIX_TASKS = 2
+PREFIX_N = 4
+PREFIX_PRESSURE_MB = 40
 # the turns of the dense phases, sequential and batched: one eager turn
 # between two fused ones (each loop's tokens against the other's, and a
 # second fused turn that must capture nothing)
@@ -1176,20 +1205,25 @@ def continuous_phase(torch, serve, kernels, ckpt):
     decode loop (the batched rows' fused loop, CUDA graphs with #3
     inside); check the launch counters (a graph's paged-decode launches
     count on each replay, and the engines' decode steps count masked and
-    warm-up steps), and that a pressured greedy run gives the unpressured
+    warm-up steps), that a pressured greedy run gives the unpressured
+    greedy tokens, and that a greedy run with the prefix cache on (the
+    CLI's default), each request sampled twice so that the second
+    sample's prompt is a cache hit, gives each request the cache-off
     greedy tokens.  Returns (paged launches per kernel, greedy
     report)."""
-    argv = ["--scheduler", "continuous", "--no-prefix-cache", "-n", "8",
+    argv = ["--scheduler", "continuous", "-n", "8",
             "--batch", "4", "--budget", "128", "--threshold", str(THRESHOLD),
             "--ckpt-dir", ckpt, "--device", "cuda"]
-    runs = [("greedy", ["--temperature", "0"]),
-            ("sampled", ["--temperature", "0.6"]),
-            ("spec greedy", ["--temperature", "0", "--spec-decode",
-                             "--gamma", "4"]),
-            ("spec sampled", ["--temperature", "0.6", "--spec-decode",
-                              "--gamma", "4"]),
-            ("pressured greedy", ["--temperature", "0", "--kv-budget-mb",
-                                  str(PRESSURE_MB)])]
+    off = ["--no-prefix-cache"]
+    runs = [("greedy", off + ["--temperature", "0"]),
+            ("sampled", off + ["--temperature", "0.6"]),
+            ("spec greedy", off + ["--temperature", "0", "--spec-decode",
+                                   "--gamma", "4"]),
+            ("spec sampled", off + ["--temperature", "0.6", "--spec-decode",
+                                    "--gamma", "4"]),
+            ("pressured greedy", off + ["--temperature", "0",
+                                        "--kv-budget-mb", str(PRESSURE_MB)]),
+            ("cache greedy", ["--temperature", "0", "--num-samples", "2"])]
     launches = {"paged_decode_attention": 0, "paged_append_attention": 0}
     reports = {}
     for label, extra in runs:
@@ -1261,6 +1295,18 @@ def continuous_phase(torch, serve, kernels, ckpt):
                              "unpressured run's")
     print(f"[main] continuous: the pressured run ({press.sched.preemptions} "
           "preemptions) gives the unpressured greedy tokens", flush=True)
+    cached = reports["cache greedy"]
+    stats = cached.sched.cache_stats()
+    if stats["base"]["hit_tokens"] <= 0:
+        raise AssertionError(f"cache greedy: no cache hit ({stats})")
+    # request i's two samples (2i, 2i + 1) against the cache-off request i
+    if tokens(cached) != [t for t in tokens(reports["greedy"])
+                          for _ in range(2)]:
+        raise AssertionError("cache-on greedy tokens differ from the "
+                             "cache-off run's")
+    print(f"[main] continuous: with the prefix cache on (the CLI's default;"
+          f" base {stats['base']}) both samples of each request give its "
+          "cache-off greedy tokens", flush=True)
     spec, plain = tokens(reports["spec greedy"]), tokens(reports["greedy"])
     same = sum(a == b for a, b in zip(spec, plain))
     print(f"[main] continuous (information): spec-decode greedy tokens equal"
@@ -1400,25 +1446,42 @@ def ssm_main_phase(torch, serve, tasks, loader, kernels):
     return launches, base
 
 
-def profile_request(torch, run, counter=None, plain=None):
+def profile_request(torch, run, counter=None, plain=None, reset=None):
     """Information: ``run()`` (one request or call, returning its result)
     in a window of a trace bounded by pads on the device's clock
     (``repro_torch.launch.trace_window.trace``, whose dict it returns).
     The caller has run the same call unprofiled in its turns: ``plain``
     is the last such turn's wall in s, or None where no turn ran it.
-    Adds ``counted``, with a kernel wrapper ``counter`` its launch
-    count's increase over the profiled run; ``top``, a note of the
-    zero-length records, the pads, the trace's stop and read seconds and
-    the largest rows; and ``window``, a note of the device's busy time,
-    the window's wall and idle share, and the wall the trace added to
-    the unprofiled call."""
+    A trace that holds fewer than all PAD pads after the window lost its
+    end (the pads follow the run's last record and a synchronize, so
+    only the profiler can have dropped them): the call is traced again,
+    after ``reset()`` where given, up to TRACE_TRIES traces, and raises
+    if every trace lost its end.  Adds ``counted``, with a kernel
+    wrapper ``counter`` its launch count's increase over the kept
+    trace's run; ``top``, a note of the zero-length records, the pads,
+    the traces taken, the trace's stop and read seconds and the largest
+    rows; and ``window``, a note of the device's busy time, the window's
+    wall and idle share, and the wall the trace added to the unprofiled
+    call."""
     from repro_torch.launch.trace_window import PAD, trace
-    before = counter.launches if counter is not None else 0
-    p = trace(run)
+    for tries in range(1, TRACE_TRIES + 1):
+        if tries > 1 and reset is not None:
+            reset()
+        before = counter.launches if counter is not None else 0
+        p = trace(run)
+        if p["pads"][1] == PAD:
+            break
+        print(f"[profile] trace {tries} of at most {TRACE_TRIES} lost its "
+              f"end: pads {p['pads'][0]}+{p['pads'][1]}/{2 * PAD}, "
+              f"{p['records']} device records", flush=True)
+    else:
+        raise AssertionError(f"[profile] all {TRACE_TRIES} traces lost "
+                             "their end")
     p["counted"] = counter.launches - before if counter is not None \
         else None
     p["top"] = (f"{p['zero']} of {p['records']} device records of zero "
-                f"length; pads {p['pads'][0]}+{p['pads'][1]}/{2 * PAD}; "
+                f"length; pads {p['pads'][0]}+{p['pads'][1]}/{2 * PAD}"
+                f" (trace {tries}); "
                 f"trace stopped in {p['stop_s']:.1f} s and read in "
                 f"{p['read_s']:.1f} s; top device time: "
                 + "; ".join(f"{k[:48]} {t / 1e3:.1f} ms x{n}"
@@ -1709,6 +1772,237 @@ def rows_phase(torch, serve, tasks, paged_kernel, base, small, tag, runs,
                       f"{p['top']}", flush=True)
 
 
+def count_queries(be, q):
+    """Wrap ``be``'s extends to add the real query tokens each runs
+    through #4: ``q[0]`` those of prompt prefills, ``q[1]`` all."""
+    inner_extend, inner_prefill = be.extend_rows, be.prefill_rows
+
+    def extend(rows, token_lists, *args, **kw):
+        q[1] += sum(map(len, token_lists))
+        return inner_extend(rows, token_lists, *args, **kw)
+
+    def prefill(rows, chunks, *args, **kw):
+        q[0] += sum(map(len, chunks))
+        return inner_prefill(rows, chunks, *args, **kw)
+    be.extend_rows, be.prefill_rows = extend, prefill
+
+
+def first_difference(a, b):
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def prefix_phase(torch, serve, kernels, base, small):
+    """[main] prefix: the radix prefix cache on the continuous path at
+    minitron-4b's widths (the base and drafter ``fused_dense_phase``
+    loaded): a template family of PREFIX_TASKS tasks expanded best-of-N
+    PREFIX_N over 4 rows at ROWS_BUDGET, through ``serve``'s continuous
+    scheduler, one scheduler a run: cache on greedy, cache off greedy,
+    cache on at 0.6 with the majority vote, and cache on greedy under a
+    KV budget that evicts and preempts.  Each run serves the workload
+    twice from the same seeds: an untimed pass that captures the rows'
+    graphs, then, with the cache cleared and the counters zeroed, the
+    pass that is timed and checked.  Every run: #4's launches ==
+    n_layers x the metered extends, #3's == n_layers x the decode steps,
+    no dense or SSD launch.  Cache-on runs: hit tokens > 0, the base's
+    lookups == requests + preemptions, the pools empty after
+    ``clear_prefix_cache()``; #4's query tokens on <= off - the hit
+    tokens, an engine at a time (all of them when the greedy tokens
+    agree, else those of prompt prefills).  Then a hit's suffix prefill
+    over adopted pages against a cold prefill of the same prompt: last
+    logits within LOGIT_TOL.  Prints, on against off, the hit rate,
+    prefill tokens saved, TTFT p50 and p95, tok/s and evictions, and as
+    information whether the greedy tokens agree.  Returns the paged
+    launches."""
+    from repro_torch.data import tasks
+    from repro_torch.serving.batch_engine import BatchEngine
+    from repro_torch.serving.paged_kv import PagedSeq
+    from repro_torch.serving.prefix_cache import CacheStats, RadixCache
+    from repro_torch.serving.workload import (expand_best_of_n,
+                                              majority_vote, run_workload,
+                                              summarize,
+                                              template_task_family)
+    fam = template_task_family(random.Random(0), PREFIX_TASKS, shared_ops=4,
+                               extra_min=4, extra_max=6)
+    n_req = PREFIX_TASKS * PREFIX_N
+    runs = (("on greedy", 0.0, True, DENSE_KV_MB),
+            ("off greedy", 0.0, False, DENSE_KV_MB),
+            ("on vote", 0.6, True, DENSE_KV_MB),
+            ("on pressured", 0.0, True, PREFIX_PRESSURE_MB))
+    launches = {"paged_decode_attention": 0, "paged_append_attention": 0}
+    out = {}
+    for label, temp, cache, mb in runs:
+        args = serve.parse_args(
+            ["--scheduler", "continuous", "-n", str(PREFIX_TASKS),
+             "--num-samples", str(PREFIX_N), "--batch", "4", "--budget",
+             str(ROWS_BUDGET), "--temperature", str(temp), "--threshold",
+             str(THRESHOLD), "--kv-budget-mb", str(mb), "--device", "cuda"]
+            + ([] if cache else ["--no-prefix-cache"])
+            + (["--vote"] if temp else []))
+        sched = serve.continuous_scheduler(args, base, small)
+        engines = {"base": sched.base_be, "small": sched.small_be}
+
+        def pairs():
+            return expand_best_of_n(
+                [(t, torch.Generator(device="cuda").manual_seed(i))
+                 for i, t in enumerate(fam)], PREFIX_N)
+        run_workload(sched, pairs(), [0.0] * n_req)
+        sched.clear_prefix_cache()
+        for be in engines.values():
+            be.meter.reset()
+        for c in (sched.caches or {}).values():
+            c.stats = CacheStats()
+        ticks, preempted = sched.ticks, sched.preemptions
+        captures = {n: be.captures for n, be in engines.items()}
+        q = {n: [0, 0] for n in engines}
+        for n, be in engines.items():
+            count_queries(be, q[n])
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handles = run_workload(sched, pairs(), [0.0] * n_req)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ticks, preempted = sched.ticks - ticks, sched.preemptions - preempted
+        captures = {n: be.captures - captures[n] for n, be in engines.items()}
+        got = {n: k.launches for n, k in kernels.items()}
+        want_decode = sum(be.model.cfg.n_layers * be.meter.decode_steps
+                          for be in engines.values())
+        want_append = sum(be.model.cfg.n_layers * be.meter.prefill_calls
+                          for be in engines.values())
+        if (got["paged_decode_attention"], got["paged_append_attention"]) \
+                != (want_decode, want_append) or not want_decode \
+                or got["decode_attention"] or got["flash_attention"] \
+                or got["ssd_scan"]:
+            raise AssertionError(
+                f"prefix {label}: launches {got} != paged decode "
+                f"{want_decode}, paged append {want_append}, dense and "
+                "SSD 0")
+        if any(h.status != "ok" for h in handles):
+            raise AssertionError(f"prefix {label}: a request did not finish")
+        st = summarize(handles, wall)
+        stats = sched.cache_stats()
+        if cache:
+            if any(s["hit_tokens"] <= 0 for s in stats.values()):
+                raise AssertionError(f"prefix {label}: no hit ({stats})")
+            if stats["base"]["lookups"] != n_req + preempted:
+                raise AssertionError(
+                    f"prefix {label}: base lookups {stats['base']['lookups']}"
+                    f" != {n_req} requests + {preempted} preemptions")
+            freed = sched.clear_prefix_cache()
+        else:
+            freed = 0
+        if any(sched.pool_utilization().values()):
+            raise AssertionError(f"prefix {label}: pools not empty after "
+                                 f"clearing: {sched.pool_utilization()}")
+        evictions = sum(s["evicted_blocks"] for s in stats.values())
+        out[label] = dict(
+            tokens=[h.result.thinking_ids + h.result.answer_ids
+                    for h in handles], st=st, stats=stats, q=q,
+            preemptions=preempted, evictions=evictions,
+            hits={n: s["hit_tokens"] for n, s in stats.items()})
+        print(f"[main] prefix {label}: {n_req} requests ({PREFIX_TASKS} "
+              f"tasks x {PREFIX_N}), {st['tok_s']} tok/s, wall "
+              f"{wall:.4f} s, TTFT p50 {st.get('p50_ttft_s')} s p95 "
+              f"{st.get('p95_ttft_s')} s, TPOT p50 {st.get('p50_tpot_s')} "
+              f"s, ticks {ticks}, preemptions {preempted}, captures "
+              f"{captures} (the untimed pass captured); "
+              f"cache {stats.get('base', 'off')}, evictions {evictions}, "
+              f"{freed} blocks freed by clearing, pools then empty; #4 "
+              "query tokens (prompt prefill / all) "
+              + ", ".join(f"{n} {a} / {b}" for n, (a, b) in q.items())
+              + f"; launches paged decode {got['paged_decode_attention']}, "
+              f"paged append {got['paged_append_attention']} == n_layers x "
+              "metered steps/extends; dense 0, SSD 0", flush=True)
+        if temp:
+            for i, v in enumerate(majority_vote(handles, PREFIX_N)):
+                print(f"[main] prefix {label} task{i}: agreement "
+                      f"{v.agreement:.2f} over {v.survivors} answers, "
+                      f"{len(v.counts)} distinct", flush=True)
+        launches["paged_decode_attention"] += got["paged_decode_attention"]
+        launches["paged_append_attention"] += got["paged_append_attention"]
+        del sched, engines
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    on, off = out["on greedy"], out["off greedy"]
+    same = on["tokens"] == off["tokens"]
+    for n in on["q"]:
+        part = 1 if same else 0
+        if on["q"][n][part] > off["q"][n][part] - on["hits"][n]:
+            raise AssertionError(
+                f"prefix: {n} #4 query tokens cache on {on['q'][n]} > off "
+                f"{off['q'][n]} - hits {on['hits'][n]}")
+    press = out["on pressured"]
+    if press["preemptions"] < 1 or press["evictions"] < 1:
+        raise AssertionError(
+            f"prefix: --kv-budget-mb {PREFIX_PRESSURE_MB} gave "
+            f"{press['preemptions']} preemptions and {press['evictions']} "
+            "evictions; both must be >= 1")
+    for label in ("on greedy", "on vote", "on pressured"):
+        r = out[label]
+        print(f"[main] prefix {label} against off greedy: hit rate "
+              f"{r['st']['cache_hit_rate']} (base "
+              f"{r['stats']['base']['hit_rate']}), prefill tokens saved "
+              + ", ".join(f"{n} {off['q'][n][0] - r['q'][n][0]}"
+                          for n in r["q"])
+              + f", TTFT p50 {r['st'].get('p50_ttft_s')} against "
+              f"{off['st'].get('p50_ttft_s')} s, p95 "
+              f"{r['st'].get('p95_ttft_s')} against "
+              f"{off['st'].get('p95_ttft_s')} s, {r['st']['tok_s']} against "
+              f"{off['st']['tok_s']} tok/s, evictions {r['evictions']} "
+              f"against 0", flush=True)
+    for label in ("on greedy", "on pressured"):
+        diffs = [(i, first_difference(a, b)) for i, (a, b) in
+                 enumerate(zip(out[label]["tokens"], off["tokens"]))
+                 if a != b]
+        print(f"[main] prefix (information): {label} tokens equal off "
+              f"greedy's for {n_req - len(diffs)} of {n_req} requests"
+              + "".join(f"; req{i} first differs at output token {k}"
+                        for i, k in diffs), flush=True)
+
+    # a hit's suffix prefill over adopted pages against a cold prefill.
+    # The cold prompt is prefilled beside a sibling in one 2-row call, as
+    # the scheduler batches admissions, and the hit's suffix as a 1-row
+    # call: the cached K/V were projected at another row count than the
+    # hit's own tokens
+    be = BatchEngine(base.model, base.params, batch=3, capacity=256,
+                     name="prefix-check")
+    cache = RadixCache(be.pool, 8)
+    prompt = tasks.question_tokens(fam[0])
+    sibling = tasks.question_tokens(fam[1])
+    cold, sib = PagedSeq(be.pool), PagedSeq(be.pool)
+    r0, r2 = be.alloc_row(cold), be.alloc_row(sib)
+    be.append_seq(cold, len(prompt))
+    be.append_seq(sib, len(sibling))
+    be.prefill_rows([r0, r2], [prompt, sibling], [0, 0])
+    cache.insert(prompt, cold.blocks)
+    blocks, hit = cache.match(prompt)
+    seq = PagedSeq(be.pool)
+    seq.adopt(blocks, hit)
+    r1 = be.adopt_row(seq)
+    be.append_seq(seq, len(prompt) - hit)
+    be.prefill_rows([r1], [prompt[hit:]], [hit])
+    a, b = be.last_logits[r1], be.last_logits[r0]
+    err = (a - b).abs().max().item()
+    if not hit or not torch.allclose(a, b, rtol=LOGIT_TOL, atol=LOGIT_TOL):
+        raise AssertionError(f"prefix: hit logits ({hit} cached tokens) "
+                             f"differ from cold by {err:.3g}")
+    print(f"[main] prefix: a {len(prompt)}-token prompt's last logits after"
+          f" a hit ({hit} tokens on adopted pages, a {len(prompt) - hit}-"
+          f"token 1-row suffix prefill) against a cold prefill (2 rows, "
+          f"beside a {len(sibling)}-token sibling): max |diff| "
+          f"{err:.3g} (tolerance {LOGIT_TOL}, |logit| max "
+          f"{b.abs().max().item():.3g}); the hit's table holds the cold "
+          f"row's pages {seq.blocks[:len(blocks)] == cold.blocks[:len(blocks)]}",
+          flush=True)
+    del be
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def decode_rows_phase(torch, BatchEngine, SamplingParams, paged_kernel,
                       model, params, tag):
     """A decode-only call of the batched engine at ``model``'s vocabulary:
@@ -1979,7 +2273,7 @@ def published_vocab(torch, Model, registry, arch, layers_of):
 
 def fused_dense_phase(torch, serve, tasks, loader, registry,
                       Model, Engine, BatchEngine, SamplingParams,
-                      decode_kernel, paged_kernel, lap):
+                      kernels, lap):
     """The fused loop at a published dense width: minitron-4b (all 32
     layers, random init from a seed, vocabulary cut to the toy
     tokenizer's 64 as the ssm phase's base) with the testbed SMALL
@@ -1988,7 +2282,10 @@ def fused_dense_phase(torch, serve, tasks, loader, registry,
     from a seed): from a 64-token prompt, ``decode_turns`` in turns
     TURNS, with flash-decode launches == n_layers x decode steps and one
     greedy call profiled each way (the profiler's flash-decode launches
-    against the wrapper's)."""
+    against the wrapper's).  ``prefix_phase`` runs on the same pair
+    after the ``[fused rows]`` turns; returns its paged launches."""
+    decode_kernel = kernels["decode_attention"]
+    paged_kernel = kernels["paged_decode_attention"]
     t0 = time.perf_counter()
     base = loader.random_engine(DENSE_ARCH, "cuda", seed=0)
     small = loader.random_engine("testbed-small", "cuda", seed=1)
@@ -2009,6 +2306,8 @@ def fused_dense_phase(torch, serve, tasks, loader, registry,
                (("greedy", 0.0, False), ("sampled", 0.6, False)),
                DENSE_KV_MB, profile=True)
     lap(f"fused rows, {DENSE_ARCH}")
+    prefix_launches = prefix_phase(torch, serve, kernels, base, small)
+    lap(f"prefix, {DENSE_ARCH}")
 
     full, params = published_vocab(torch, Model, registry, DENSE_ARCH,
                                    base.params)
@@ -2023,6 +2322,7 @@ def fused_dense_phase(torch, serve, tasks, loader, registry,
                  lambda: eng.extend(eng.new_session(), prompt), TURNS,
                  profile=True, counter=decode_kernel, kernel="decode_kernel")
     lap(f"fused, {DENSE_ARCH} decode-only")
+    return prefix_launches
 
 
 def decode_turns(torch, eng, SamplingParams, phase, name, start, turns,
@@ -2116,10 +2416,15 @@ def decode_turns(torch, eng, SamplingParams, phase, name, start, turns,
     if not profile:
         return
     for loop in ("fused", "eager"):
-        session, plain = start(), last["greedy", loop]
-        p = profile_request(torch, lambda: call(session, loop, 0.0, False),
-                            counter, plain)
-        del session
+        plain, box = last["greedy", loop], [start()]
+
+        def fresh():
+            box.clear()         # the spent session's KV pair goes back
+            box.append(start())
+
+        p = profile_request(torch, lambda: call(box[0], loop, 0.0, False),
+                            counter, plain, fresh)
+        del box
         gated = ""
         if counter is not None:
             seen, dev_ms = traced(p["rows"], kernel)
@@ -2275,26 +2580,28 @@ def main() -> int:
                 small, "testbed", THRESHOLD)
     del base, small
     lap("fused, testbed")
-    fused_dense_phase(torch, serve, tasks, loader, registry,
-                      Model, engine_mod.Engine, BatchEngine, SamplingParams,
-                      decode_attention, paged_decode_attention, lap)
-    torch.cuda.empty_cache()
-    check_phase(torch, Model, load_checkpoint, testbed, serve, tasks, loader,
-                greedy, ckpt)
-    rows_check_phase(torch, Model, BatchEngine, testbed, load_checkpoint,
-                     loader, ckpt)
-    lap("check")
     kernels = {"decode_attention": decode_attention,
                "flash_attention": flash_attention,
                "flash_attention_bwd": flash_attention_bwd,
                "paged_decode_attention": paged_decode_attention,
                "paged_append_attention": paged_append_attention,
                "ssd_scan": ssd_scan}
+    prefix = fused_dense_phase(torch, serve, tasks, loader, registry,
+                               Model, engine_mod.Engine, BatchEngine,
+                               SamplingParams, kernels, lap)
+    torch.cuda.empty_cache()
+    check_phase(torch, Model, load_checkpoint, testbed, serve, tasks, loader,
+                greedy, ckpt)
+    rows_check_phase(torch, Model, BatchEngine, testbed, load_checkpoint,
+                     loader, ckpt)
+    lap("check")
     dense_rows_check_phase(torch, Model, BatchEngine, loader, kernels,
                            minitron_4b.CONFIG)
     lap(f"check, {DENSE_ARCH} rows")
     paged, cont_greedy = continuous_phase(torch, serve, kernels, ckpt)
     launches.update(paged)
+    for name, n in prefix.items():
+        launches[name] += n
     batch_invariance_phase(torch, serve, tasks, Model, load_checkpoint,
                            testbed, loader, ckpt, cont_greedy)
     lap("main path, continuous")

@@ -5,8 +5,10 @@ answers and a summary.
   PYTHONPATH=src python -m repro_torch.launch.serve --scheme specreason \\
       -n 3 --budget 128 --ckpt-dir exp/ckpt --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --scheduler continuous \\
-      --no-prefix-cache --batch 4 -n 8 --kv-budget-mb 64 [--spec-decode] \\
+      --batch 4 -n 8 --kv-budget-mb 64 [--spec-decode] \\
       --ckpt-dir exp/ckpt --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --scheduler continuous \\
+      --num-samples 4 --vote -n 4 --ckpt-dir exp/ckpt --device cuda
 
 The pair is read from ``--ckpt-dir`` (``testbed-base.npz``,
 ``testbed-small.npz``); a missing checkpoint is first trained there for
@@ -25,13 +27,17 @@ continuous-batching scheduler over paged KV (``--batch`` rows,
 ``--kv-budget-mb`` for the static KV partition, chunked admission
 prefill, ``--spec-decode --gamma`` for hierarchical speculation,
 ``--arrival-rate`` for Poisson arrivals, ``--verbose`` for scheduler
-events).  The reference's prefix cache is its default; here it is not
-ported, so the continuous scheduler needs ``--no-prefix-cache``.  The
-reference's ``--num-samples``, ``--vote``, ``--tp``, ``--deadline``,
-``--slo-tpot``, ``--shed-policy``, ``--degrade``, ``--inject-faults``,
-``--audit``, ``--trace``, ``--metrics-out``, ``--admin-port``,
-``--snapshot-every`` and ``--xla-profile-dir`` are accepted and raise
-``NotImplementedError`` naming their ROADMAP item.
+events).  Its radix prefix cache over the paged pools is on by default
+(``--no-prefix-cache`` turns it off): prompts sharing a block-aligned
+prefix prefill only their suffix, the rest read from shared cached
+blocks; each request line shows ``cache[hit=H/P]``.  ``--num-samples N
+--vote`` serves every prompt N times (best-of-N self-consistency; the
+N-1 repeated prefills are cache hits) and majority-votes the answers,
+printing a ``[vote]`` line a task.  The reference's ``--tp``,
+``--deadline``, ``--slo-tpot``, ``--shed-policy``, ``--degrade``,
+``--inject-faults``, ``--audit``, ``--trace``, ``--metrics-out``,
+``--admin-port``, ``--snapshot-every`` and ``--xla-profile-dir`` are
+accepted and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -56,7 +62,8 @@ from ..serving.engine import Engine
 from ..serving.kv_manager import KVBudget, KVManager
 from ..serving.loader import decode_loops, load_testbed_engines
 from ..serving.scheduler import ContinuousScheduler
-from ..serving.workload import poisson_arrivals, run_workload, summarize
+from ..serving.workload import (expand_best_of_n, majority_vote,
+                                poisson_arrivals, run_workload, summarize)
 from ..tokenizer import toy as tk
 
 SCHEMES = ("base", "small", "specdecode", "specreason", "specreason+decode")
@@ -64,8 +71,6 @@ SCHEMES = ("base", "small", "specdecode", "specreason", "specreason+decode")
 # the reference CLI's flags this slice leaves out, with the ROADMAP item
 # that brings each (queue 1)
 NOT_PORTED = {
-    "num_samples": ("--num-samples", "item 4 (best-of-N)"),
-    "vote": ("--vote", "item 4 (best-of-N)"),
     "tp": ("--tp", "item 8 (tensor parallelism)"),
     "deadline": ("--deadline", "item 6 (resilience)"),
     "slo_tpot": ("--slo-tpot", "item 6 (resilience)"),
@@ -115,6 +120,10 @@ def _meter_line(name: str, m: dict) -> str:
     if m.get("spec_rounds"):
         line += (f", spec {m['spec_accepted']}/{m['spec_proposed']} "
                  f"accepted over {m['spec_rounds']} rounds")
+    if m.get("cache_lookup_tokens"):
+        line += (f", cache {m['cache_hit_tokens']}"
+                 f"/{m['cache_lookup_tokens']} prompt tok "
+                 f"({m.get('cache_evictions', 0)} evictions)")
     return line
 
 
@@ -127,11 +136,19 @@ def _spec_suffix(res: SpecReasonResult) -> str:
             f"len={s.mean_accepted_len:.1f}/{s.rounds}r]")
 
 
+def _cache_suffix(h) -> str:
+    """Per-request prefix-cache note: cached / all prompt tokens."""
+    if not h.prompt_tokens:
+        return ""
+    return f" cache[hit={h.cache_hit_tokens}/{h.prompt_tokens}]"
+
+
 @dataclasses.dataclass
 class ServeReport:
     """What a run served: the engines, the decode loop and, per request,
     (scheme, request index, task, result); a continuous run also keeps
-    its scheduler, the request handles and the summary."""
+    its scheduler, the request handles, the summary and, with ``--vote``,
+    the votes."""
     base: Engine
     small: Engine
     runs: List[Tuple[str, int, tasks.Task, SpecReasonResult]]
@@ -139,6 +156,7 @@ class ServeReport:
     sched: Optional[ContinuousScheduler] = None
     handles: Optional[list] = None
     stats: Optional[dict] = None
+    votes: Optional[list] = None
 
 
 def continuous_scheduler(args, base: Engine,
@@ -176,6 +194,10 @@ def serve_continuous(args, base: Engine, small: Engine, reqs,
     pairs = [(t, torch.Generator(device=dev).manual_seed(1000 * args.seed
                                                          + i))
              for i, t in enumerate(reqs)]
+    if args.num_samples > 1:
+        # best-of-N: every prompt becomes N sampled reasoning chains whose
+        # prefills share one set of cached blocks
+        pairs = expand_best_of_n(pairs, args.num_samples)
     arrivals = poisson_arrivals(len(pairs), args.arrival_rate, rng)
     t0 = time.perf_counter()
     handles = run_workload(sched, pairs, arrivals)
@@ -189,24 +211,38 @@ def serve_continuous(args, base: Engine, small: Engine, reqs,
         print(f"[{tag}] req{i}: {'OK ' if ok else 'BAD'} "
               f"status={h.status} "
               f"lat={h.e2e_latency:.2f}s think={res.n_thinking_tokens}"
-              f"{_spec_suffix(res)} answer={tk.detok(res.answer_ids)}",
-              flush=True)
+              f"{_spec_suffix(res)}{_cache_suffix(h)} "
+              f"answer={tk.detok(res.answer_ids)}", flush=True)
         if args.meters:
             for name, m in res.meters.items():
                 print(_meter_line(name, m))
     stats = summarize(handles, wall)
+    accuracy = sum(is_correct(h.task, h.result.answer_ids)
+                   for h in handles) / max(len(handles), 1)
+    if args.vote:
+        report.votes = majority_vote(handles, args.num_samples)
+        for i, v in enumerate(report.votes):
+            ok = is_correct(v.task, v.winner_ids)
+            breakdown = ", ".join(
+                f"{tk.detok(list(a))}x{c}"
+                for a, c in sorted(v.counts.items(), key=lambda kv: -kv[1]))
+            print(f"[vote] task{i}: {'OK ' if ok else 'BAD'} "
+                  f"agree={v.agreement:.2f} [{breakdown}] "
+                  f"-> {tk.detok(v.winner_ids)}", flush=True)
+        accuracy = sum(is_correct(v.task, v.winner_ids)
+                       for v in report.votes) / max(len(report.votes), 1)
     stats.update({
         "scheduler": "continuous", "device": str(dev), "batch": args.batch,
         "decode_loop": args.decode_loop,
         "spec_decode": args.spec_decode, "gamma": args.gamma,
         "arrival_rate": args.arrival_rate, "ticks": sched.ticks,
-        "preemptions": sched.preemptions, "prefix_cache": False,
+        "preemptions": sched.preemptions,
+        "prefix_cache": not args.no_prefix_cache,
         "chunked_prefill": args.chunked_prefill,
         "max_prefill_tokens": args.max_prefill_tokens,
         "prefill_chunks": sched.prefill_chunks,
-        "num_samples": 1, "vote": False,
-        "accuracy": sum(is_correct(h.task, h.result.answer_ids)
-                        for h in handles) / max(len(handles), 1),
+        "num_samples": args.num_samples, "vote": args.vote,
+        "accuracy": accuracy,
         "kv_store_bytes": sched.store_bytes(),
         "kv_accounted_bytes": {
             w: p.num_blocks * sched.kv.block_bytes(w)
@@ -263,9 +299,18 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "regenerations and final answers (§4.2)")
     ap.add_argument("--gamma", type=int, default=4,
                     help="spec decode: draft tokens per verification round")
+    ap.add_argument("--num-samples", type=int, default=1,
+                    help="best-of-N / self-consistency: sample N "
+                         "reasoning chains per prompt (continuous "
+                         "scheduler; the prefix cache makes the N-1 "
+                         "extra prefills cache hits)")
+    ap.add_argument("--vote", action="store_true",
+                    help="majority-vote the N sampled answers per prompt "
+                         "(accuracy is then per task, over the voted "
+                         "answers)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="continuous scheduler: serve without the radix "
-                         "prefix cache (required: the cache is not ported)")
+                         "prefix cache over the paged KV pools")
     ap.add_argument("--chunked-prefill", default=True,
                     action=argparse.BooleanOptionalAction,
                     help="continuous scheduler: chunk admission prefill to "
@@ -276,8 +321,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="log admission / chunk-progress / preemption "
                          "events (continuous scheduler)")
     # the reference's flags that are not ported: accepted, then refused
-    ap.add_argument("--num-samples", type=int, default=1)
-    ap.add_argument("--vote", action="store_true")
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--deadline", type=float, default=None)
     ap.add_argument("--slo-tpot", type=float, default=None)
@@ -300,13 +343,17 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         if args.scheme != "specreason":
             ap.error("--scheduler continuous serves the specreason scheme "
                      "only")
-        if not args.no_prefix_cache:
-            raise NotImplementedError(
-                "the continuous scheduler's prefix cache is not ported yet "
-                "(ROADMAP queue 1, item 4); pass --no-prefix-cache")
     elif args.spec_decode:
         ap.error("--spec-decode rides on the continuous scheduler; the "
                  "sequential regime has the specreason+decode scheme")
+    if args.num_samples < 1:
+        ap.error("--num-samples must be >= 1")
+    if args.num_samples > 1 and args.scheduler != "continuous":
+        ap.error("--num-samples rides on the continuous scheduler (the "
+                 "prefix cache that makes best-of-N cheap lives there); "
+                 "add --scheduler continuous")
+    if args.vote and args.num_samples < 2:
+        ap.error("--vote needs --num-samples >= 2")
     if args.max_prefill_tokens < 1:
         ap.error("--max-prefill-tokens must be >= 1")
     return args

@@ -209,6 +209,22 @@ class BatchEngine:
         self.seqs[r] = seq
         return r
 
+    def adopt_row(self, seq: PagedSeq) -> Optional[int]:
+        """Claim a fresh row bound to ``seq``, whose table already holds
+        ``seq.length`` tokens of cached KV (a radix prefix-cache hit:
+        ``PagedSeq.adopt`` put the cached pool blocks in it): the row
+        starts at that position, reading the cached pages through its
+        table, and nothing is copied or dispatched.  Its ``last_logits``
+        stay stale until the caller prefills the prompt's suffix (the
+        cache's match rule always leaves one token).  The port's
+        counterpart of the JAX package's ``load_prefix`` family, which
+        copies cached KV into a dense row.  None when all rows are
+        live."""
+        r = self.alloc_row(seq)
+        if r is not None:
+            self.pos[r] = seq.length
+        return r
+
     def free_row(self, row: int) -> None:
         """Return a live row to the free list; an engine that owns its
         pool also frees the row's blocks (a caller's pool is the

@@ -103,6 +103,18 @@ class Meter:
     spec_rounds: int = 0
     spec_proposed: int = 0
     spec_accepted: int = 0
+    # radix prefix cache (serving.prefix_cache) over THIS engine's paged
+    # pool: prompt tokens served from shared cached blocks instead of
+    # prefilled, prompt tokens looked up, and cached blocks evicted
+    cache_hit_tokens: int = 0
+    cache_lookup_tokens: int = 0
+    cache_evictions: int = 0
+
+    @property
+    def cache_hit_rate(self) -> float:
+        if not self.cache_lookup_tokens:
+            return 0.0
+        return self.cache_hit_tokens / self.cache_lookup_tokens
 
     def as_dict(self) -> Dict[str, float]:
         return dataclasses.asdict(self)

@@ -123,14 +123,13 @@ class KVManager:
 
     def prefix_cache_blocks(self, which: str, fraction: float = 0.25,
                             max_blocks: int = 256) -> int:
-        """Default physical sizing for ``which``'s radix prefix cache
-        (serving.prefix_cache.PrefixKVStore): a fraction of the
-        partition's block capacity, capped — cached pages are a
-        *secondary* copy of prompt KV (the dense rows hold the working
-        copies), so the store must never rival the partition itself.
-        The cache's POOL accounting needs no separate budget: cached
-        blocks are ordinary refcounted pool blocks and eviction yields
-        them back under admission pressure."""
+        """Default cap on ``which``'s radix prefix cache
+        (``serving.prefix_cache.RadixCache``, in cached blocks): a
+        fraction of the partition's block capacity, capped, the JAX
+        package's sizing of its cache's page store.  The cache's pool
+        accounting needs no separate budget: cached blocks are ordinary
+        refcounted pool blocks and eviction yields them back under
+        admission pressure."""
         return max(1, min(int(self.capacity_blocks(which) * fraction),
                           max_blocks))
 

@@ -38,14 +38,31 @@ engines' KV (``PagedKVStore``).  So:
   * every copy-on-write copy a table emits runs on the store
     (``BatchEngine.append_seq`` / ``truncate_seq``): a step snapshot
     shares the row's partial tail block, and the draft written after it
-    lands in a copy, so a rejection reads back the pre-snapshot K/V.
+    lands in a copy, so a rejection reads back the pre-snapshot K/V;
+  * the radix prefix cache (``serving/prefix_cache.py``, on by default
+    as in the JAX package) is zero-copy: a cached block is a pool block
+    the cache holds a reference on.  A hit adopts the cached blocks into
+    the new row's table (``PagedSeq.adopt``, ``BatchEngine.adopt_row``)
+    and the row's prefill starts at the cached length, its suffix's span
+    attention reading the cached pages; an insert retains the row's own
+    freshly prefilled full prompt blocks.  The JAX package copies cached
+    KV into a page store of its own and back into the dense rows.
 
-Not ported yet, each raising ``NotImplementedError``: the radix prefix
-cache (``prefix_cache=False`` is required; ROADMAP queue 1, item 4),
-deadlines, shedding and the degradation ladder, fault injection and
-audits, tracing, metrics, monitors and the admin plane, the compile and
-memory watches (item 6), tensor parallelism (item 8), and overlapped
-mode.
+Admission is cached-prefix-aware as in the JAX package: the common
+block-aligned hit of both engines' caches is adopted and only the suffix
+is prefilled; a queued request whose prefix an in-flight prefill is
+about to insert defers a tick (``defer`` event) and admits as a hit;
+each chunk's full prompt blocks are inserted as it lands, so best-of-N
+siblings and preempted requests (whose prompt blocks survive in the
+cache) skip the repeated prefill.  Under pool pressure idle cached
+blocks are evicted LRU-first, before an admission is declared blocked
+and before a live request is preempted.
+
+Not ported yet, each raising ``NotImplementedError``: deadlines,
+shedding and the degradation ladder, fault injection and audits,
+tracing, metrics, monitors and the admin plane, the compile and memory
+watches (ROADMAP queue 1, item 6), tensor parallelism (item 8), and
+overlapped mode.
 """
 
 from __future__ import annotations
@@ -54,7 +71,7 @@ import dataclasses
 import time
 import uuid
 from collections import deque
-from typing import Callable, Deque, List, Optional, Tuple
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import torch
 
@@ -67,6 +84,7 @@ from .batch_engine import BatchEngine, RowSnapshot
 from .kv_manager import KVManager
 from .paged_kv import (BlockTableSnapshot, PagedKVPool, PagedSeq,
                        PoolExhausted)
+from .prefix_cache import RadixCache
 from .resilience import (STATUS_OK, TERMINAL_STATUSES, OverloadController,
                          ResilienceConfig, TickConfig)
 from .spec_engine import BatchSpecEngine, SpecLedger, SpecRow
@@ -101,6 +119,11 @@ class Request:
     priority: int = 0
     arrival_idx: int = -1
     blocked_reason: Optional[str] = None
+    # radix prefix cache: prompt length and how many of its tokens were
+    # served from cached blocks (set at admission, the last one for a
+    # preempted request; zero with the cache off)
+    prompt_tokens: int = 0
+    cache_hit_tokens: int = 0
     admitted_at: Optional[float] = None
     prefill_done_at: Optional[float] = None
     first_token_at: Optional[float] = None
@@ -198,8 +221,8 @@ class ContinuousScheduler:
     paged KV.  Per ``tick``: one bounded chunked-prefill batch, then
     every running request's current phase as per-phase batched calls.
     Outputs are token-identical per request to the sequential
-    controller (greedy, and sampled with the same generators), and
-    chunked prefill to unchunked.
+    controller (greedy, and sampled with the same generators), chunked
+    prefill to unchunked, and the prefix cache on to off.
 
     ``on_event`` receives admission / chunk-progress / preemption events
     as :class:`telemetry.SchedEvent` (the serve CLI's ``--verbose``)."""
@@ -221,10 +244,6 @@ class ContinuousScheduler:
                 "continuous batching covers the speculate/verify/fallback "
                 "pipeline with optional hierarchical spec decode; use the "
                 "sequential controller for overlapped mode")
-        if prefix_cache:
-            raise _not_ported("the radix prefix cache over paged rows "
-                              "(pass prefix_cache=False, --no-prefix-cache)",
-                              4)
         self.controller = controller
         self.kv = kv
         self.spec = cfg.use_spec_decode if spec_decode is None \
@@ -258,6 +277,16 @@ class ContinuousScheduler:
         self.engines = {"base": self.base_be, "small": self.small_be}
         self.spec_be = BatchSpecEngine(self.base_be, self.small_be,
                                        self.gamma) if self.spec else None
+        # one radix prefix cache per engine pool, its cached blocks pool
+        # blocks (zero-copy), capped by KVManager.prefix_cache_blocks as
+        # the JAX package caps its store
+        self.caches: Optional[Dict[str, RadixCache]] = None
+        if prefix_cache:
+            self.caches = {
+                which: RadixCache(self.pools[which],
+                                  kv.prefix_cache_blocks(which),
+                                  meter=be.meter)
+                for which, be in self.engines.items()}
         if max_prefill_tokens < 1:
             raise ValueError("max_prefill_tokens must be >= 1")
         self.chunked = chunked_prefill
@@ -274,7 +303,7 @@ class ContinuousScheduler:
             resilience if resilience is not None else ResilienceConfig(),
             TickConfig(gamma=self.gamma, spec_decode=self.spec,
                        max_prefill_tokens=max_prefill_tokens,
-                       cache_insert=False))
+                       cache_insert=prefix_cache))
         self._submitted = 0
 
     # ------------------------------------------------------------- intake
@@ -307,12 +336,41 @@ class ContinuousScheduler:
         return (prompt_len + cfg.token_budget + 2 * seg.max_step_tokens
                 + cfg.answer_max_tokens + 2 + 32 + spec_slack)
 
+    def _common_block_prefix(self, p: List[int], q: List[int]) -> int:
+        """Longest block-aligned common prefix of two prompts that the
+        cache could serve ``p`` from once ``q`` is inserted: whole equal
+        blocks only, at most ``p``'s cacheable length."""
+        bs = self.kv.block_size
+        limit = min(self._cacheable_len(len(p)), (len(q) // bs) * bs)
+        n = 0
+        while n + bs <= limit and p[n:n + bs] == q[n:n + bs]:
+            n += bs
+        return n
+
+    def _cacheable_len(self, prompt_len: int) -> int:
+        """Longest prefix of a prompt the cache could ever serve: whole
+        blocks, never the entire prompt (one token is always
+        prefilled)."""
+        nb = prompt_len // self.kv.block_size
+        if nb * self.kv.block_size == prompt_len:
+            nb -= 1
+        return max(nb, 0) * self.kv.block_size
+
     def _emit(self, kind: str, msg: str, **fields) -> None:
         if self.on_event is not None:
             self.on_event(SchedEvent(kind, msg, fields))
 
     def _admit(self, tc: TickConfig) -> None:
         admitted: List[_Active] = []
+        # wait-for-prefix: prompts whose prefill will insert new cached
+        # blocks (chunked prefills in flight, then this round's cold
+        # admissions).  A queued request whose cacheable prefix one of
+        # them extends defers a tick and admits as a deeper hit instead
+        # of duplicating the prefill (keyed on real block overlap)
+        fresh_prompts: List[List[int]] = [
+            a.prompt for a in self.active
+            if a.state.phase == "prefill"] if self.caches is not None \
+            else []
         # highest priority first, FIFO within a priority class; a blocked
         # candidate stops the loop so nothing jumps it
         order = [r for _, r in sorted(
@@ -328,10 +386,29 @@ class ContinuousScheduler:
                     f"worst-case context {worst} tokens exceeds the "
                     f"engine capacity {self.base_be.capacity}; raise "
                     f"engine_capacity or lower the token budget")
-            first = len(prompt)
+            # the common block-aligned hit of both engines' caches, so one
+            # suffix drives both prefills
+            cached = 0
+            cacheable = self._cacheable_len(len(prompt))
+            if self.caches is not None and cacheable:
+                cached = min(c.peek(prompt) for c in self.caches.values())
+                if cached < cacheable and any(
+                        self._common_block_prefix(prompt, q) > cached
+                        for q in fresh_prompts):
+                    req.blocked_reason = ("deferred: waiting for shared "
+                                          "prefix insert")
+                    self._emit("defer",
+                               f"defer {req.request_id}: waiting for "
+                               f"shared prefix insert (hit {cached}"
+                               f"/{cacheable} cacheable tokens)",
+                               request=req.request_id, hit=cached,
+                               cacheable=cacheable)
+                    continue
+            first = len(prompt) - cached
             if self.chunked:
                 first = min(first, tc.max_prefill_tokens)
-            need = self.kv.chunk_blocks(0, first) + self._headroom_blocks()
+            need = self.kv.chunk_blocks(cached, first) \
+                + self._headroom_blocks()
             min_blocks = max(
                 self.pools["base"].blocks_for_tokens(len(prompt))
                 + self._headroom_blocks(),
@@ -346,9 +423,24 @@ class ContinuousScheduler:
                     f"{[self.pools[w].num_blocks for w in too_big]}; "
                     f"provision a larger KV budget or lower "
                     f"context_capacity")
-            short = [w for w in ("base", "small")
-                     if self.pools[w].num_free < need]
+            seqs = {w: PagedSeq(self.pools[w]) for w in ("base", "small")}
+            if cached:
+                # adopt the shared chain before any eviction below: its
+                # blocks are then in flight (refcount >= 2), so pressure
+                # eviction cannot take the chain this admission rests on
+                for w, c in self.caches.items():
+                    seqs[w].adopt(c.acquire(prompt, cached), cached)
+            short = []
+            for w in ("base", "small"):
+                if self.pools[w].num_free < need and self.caches:
+                    # idle cached blocks are reclaimable: evict LRU-first
+                    # before declaring the pool short
+                    self.caches[w].evict(need - self.pools[w].num_free)
+                if self.pools[w].num_free < need:
+                    short.append(w)
             if short:
+                for seq in seqs.values():
+                    seq.free()
                 req.blocked_reason = "; ".join(
                     f"blocked: need {need} {w} blocks, have "
                     f"{self.pools[w].num_free}" for w in short)
@@ -363,31 +455,41 @@ class ContinuousScheduler:
                 req.generator.set_state(req.generator_state)
             st = SpecReasonStepState(generator=req.generator)
             st.started_at = time.perf_counter()
-            base_seq = PagedSeq(self.pools["base"])
-            small_seq = PagedSeq(self.pools["small"])
+            # a hit's rows start at the cached length over the adopted
+            # pages; nothing is copied
             a = _Active(req=req, state=st,
-                        base_row=self.base_be.alloc_row(base_seq),
-                        small_row=self.small_be.alloc_row(small_seq),
-                        base_seq=base_seq, small_seq=small_seq)
+                        base_row=self.base_be.adopt_row(seqs["base"]),
+                        small_row=self.small_be.adopt_row(seqs["small"]),
+                        base_seq=seqs["base"], small_seq=seqs["small"])
             self.queue.remove(req)
             req.blocked_reason = None
             req.status = "running"
             req.admitted_at = time.perf_counter()
             req.prefill_done_at = None
             a.prompt = list(prompt)
+            a.cursor = cached
+            if self.caches is not None:
+                req.prompt_tokens = len(prompt)
+                req.cache_hit_tokens = cached
+                for c in self.caches.values():
+                    c.record(len(prompt), cached)
+                if cached < cacheable:
+                    fresh_prompts.append(prompt)
             # reserve the first chunk's blocks now (the `need` check above
             # guaranteed them); later chunks grow at their prefill ticks
-            self.base_be.append_seq(base_seq, first)
-            self.small_be.append_seq(small_seq, first)
+            self.base_be.append_seq(a.base_seq, first)
+            self.small_be.append_seq(a.small_seq, first)
             admitted.append(a)
             self._emit("admit",
                        f"admit {req.request_id}: prompt={len(prompt)} "
-                       f"cached=0 first_chunk={first}"
-                       + ("" if first >= len(prompt) else
-                          f" (chunked, {len(prompt)} suffix tokens over >= "
-                          f"{-(-len(prompt) // max(first, 1))} ticks)"),
+                       f"cached={cached} first_chunk={first}"
+                       + ("" if first >= len(prompt) - cached else
+                          f" (chunked, {len(prompt) - cached} suffix "
+                          f"tokens over >= "
+                          f"{-(-(len(prompt) - cached) // max(first, 1))} "
+                          f"ticks)"),
                        request=req.request_id, prompt=len(prompt),
-                       cached=0, first_chunk=first)
+                       cached=cached, first_chunk=first)
         for a in admitted:
             a.state.phase = "prefill"
             self.active.append(a)
@@ -428,8 +530,18 @@ class ContinuousScheduler:
                             [a.cursor for a, _ in chunks])
         self.prefill_chunks += 1
         spent = sum(t for _, t in chunks)
+        bs = self.kv.block_size
         for a, take in chunks:
             a.cursor += take
+            if self.caches is not None:
+                # cache every full prompt block not cached yet: the cache
+                # retains the row's own freshly written pool blocks, so a
+                # preempted request and waiting siblings find them
+                nb_full = a.cursor // bs
+                if nb_full:
+                    for w, c in self.caches.items():
+                        c.insert(a.prompt[:nb_full * bs],
+                                 self._seq(a, w).blocks[:nb_full])
             if a.cursor == len(a.prompt):
                 a.req.prefill_done_at = time.perf_counter()
                 a.state.phase = self.controller.think_phase(a.state)
@@ -463,6 +575,11 @@ class ContinuousScheduler:
                 self.engines[which].append_seq(seq, n_tokens)
                 return
             except PoolExhausted:
+                # cheapest relief first: evict idle cached blocks (only
+                # the cache holds them) before preempting a live request
+                if self.caches is not None and self.caches[which].evict(
+                        self.pools[which].blocks_for_tokens(n_tokens) + 1):
+                    continue
                 victim = next((v for v in reversed(self.active)
                                if v is not a and v.alive), None)
                 if victim is None:
@@ -505,8 +622,10 @@ class ContinuousScheduler:
 
     def _release(self, a: _Active) -> None:
         """Release everything an admitted request holds: its block-table
-        snapshots, both sequences and both engine rows.  Idempotent
-        (``alive`` is the exactly-once latch)."""
+        snapshots, both sequences (their own references only: a hit's
+        adopted cached blocks drop the row's reference exactly once, the
+        cache's survives) and both engine rows.  Idempotent (``alive`` is
+        the exactly-once latch)."""
         if not a.alive:
             return
         a.alive = False
@@ -743,3 +862,22 @@ class ContinuousScheduler:
         KVManager's 2-byte accounting of the same blocks, plus the
         store's scratch page)."""
         return {w: be.store.nbytes for w, be in self.engines.items()}
+
+    def pool_utilization(self) -> Dict[str, float]:
+        """Fraction of each engine's block pool claimed (live sequences,
+        snapshots and cached prefixes)."""
+        return {w: p.num_used / p.num_blocks for w, p in self.pools.items()}
+
+    def cache_stats(self) -> Dict[str, Dict[str, float]]:
+        """Per-engine prefix-cache counters (empty with the cache off)."""
+        if self.caches is None:
+            return {}
+        return {w: c.stats.as_dict() for w, c in self.caches.items()}
+
+    def clear_prefix_cache(self) -> int:
+        """Drop every idle cached prefix (entries adopted by live rows
+        survive); returns the blocks freed.  After a drain the pools are
+        then empty: the cache's references were the last ones."""
+        if self.caches is None:
+            return 0
+        return sum(c.clear() for c in self.caches.values())

@@ -2,14 +2,17 @@
 through the continuous scheduler, plus summary statistics (req/s, tok/s,
 latency, TTFT and TPOT percentiles, spec-decode acceptance).
 
-The port of the JAX package's ``serving/workload.py`` (its best-of-N
-expansion, majority vote and template families wait for the prefix
-cache, ROADMAP queue 1, item 4).  Requests carry ``torch.Generator``s in
-place of PRNG keys.
+The port of the JAX package's ``serving/workload.py``, with best-of-N
+expansion, the majority vote and prompt-template task families.
+Requests carry ``torch.Generator``s in place of PRNG keys: a best-of-N
+sample's generator is seeded from its task generator's seed and the
+sample index (``sample_seed``), where the JAX package folds the index
+into the task's key.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import random
 import time
 from collections import Counter
@@ -17,7 +20,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..data.tasks import Task
+from ..data.tasks import Task, sample_task
 from .scheduler import ContinuousScheduler, Request
 
 
@@ -65,6 +68,88 @@ def run_workload(sched: ContinuousScheduler,
                        if not h.terminal and h.blocked_reason]
             raise RuntimeError(
                 f"scheduler stalled: {blocked or 'unknown reason'}")
+
+
+def sample_seed(task_seed: int, j: int) -> int:
+    """The seed of best-of-N sample ``j`` of a task whose generator was
+    seeded with ``task_seed``: distinct for every sample, the same on
+    every run."""
+    return (1000003 * task_seed + j + 1) % (1 << 63)
+
+
+def expand_best_of_n(pairs: Sequence[Tuple[Task, torch.Generator]],
+                     n: int) -> List[Tuple[Task, torch.Generator]]:
+    """Self-consistency expansion: each (task, generator) becomes ``n``
+    requests, sample ``j`` drawing from a new generator on the task
+    generator's device, seeded ``sample_seed(generator.initial_seed(),
+    j)``.  The ``n`` samples of one task are adjacent in the returned
+    list (and so in arrival order), which lets the scheduler's
+    wait-for-prefix admission turn them into one cold prefill plus n-1
+    cache hits."""
+    if n < 1:
+        raise ValueError("best-of-N needs n >= 1")
+    return [(task, torch.Generator(device=gen.device).manual_seed(
+        sample_seed(gen.initial_seed(), j)))
+        for task, gen in pairs for j in range(n)]
+
+
+@dataclasses.dataclass
+class VoteResult:
+    """Majority vote over one task's N sampled answers."""
+    task: Task
+    samples: List[Request]
+    winner_ids: List[int]              # the most-voted answer token ids
+    counts: Dict[Tuple[int, ...], int]
+
+    @property
+    def n(self) -> int:
+        return len(self.samples)
+
+    @property
+    def survivors(self) -> int:
+        """Samples that produced an answer."""
+        return sum(c for c in self.counts.values())
+
+    @property
+    def agreement(self) -> float:
+        """Fraction of samples that voted for the winner (0.0 when no
+        sample voted)."""
+        return self.counts.get(tuple(self.winner_ids), 0) / max(self.n, 1)
+
+
+def majority_vote(handles: Sequence[Request], n: int) -> List[VoteResult]:
+    """Group ``expand_best_of_n``-ordered handles back into their tasks
+    and majority-vote each group's answer token sequences; a tie goes to
+    the earliest sample.  A sample without a result does not vote, and a
+    group with no vote has an empty winner."""
+    assert len(handles) % n == 0, (len(handles), n)
+    out = []
+    for i in range(0, len(handles), n):
+        group = list(handles[i:i + n])
+        answers = [tuple(h.result.answer_ids) for h in group
+                   if h.result is not None]
+        counts = Counter(answers)
+        winner = max(answers,
+                     key=lambda a: (counts[a], -answers.index(a))) \
+            if answers else ()
+        out.append(VoteResult(task=group[0].task, samples=group,
+                              winner_ids=list(winner), counts=dict(counts)))
+    return out
+
+
+def template_task_family(rng: random.Random, n: int, shared_ops: int = 8,
+                         extra_min: int = 1, extra_max: int = 3
+                         ) -> List[Task]:
+    """``n`` tasks sharing one op-chain prefix (requests that share a
+    prompt template): their question tokens agree for ``5 + 4 *
+    shared_ops`` tokens (``data.tasks.question_tokens``), so the prefix
+    cache serves every request after the first from shared blocks."""
+    proto = sample_task(rng, min_steps=shared_ops, max_steps=shared_ops)
+    out = []
+    for _ in range(n):
+        tail = sample_task(rng, min_steps=extra_min, max_steps=extra_max)
+        out.append(Task(start=proto.start, ops=proto.ops + tail.ops))
+    return out
 
 
 def percentile(sorted_vals: List[float], p: float) -> float:
@@ -129,4 +214,16 @@ def summarize(handles: Sequence[Request], wall_s: float) -> Dict[str, float]:
             sum(s.acceptance_rate for s in spec) / len(spec), 4)
         out["spec_mean_accepted_len"] = round(
             sum(s.mean_accepted_len for s in spec) / len(spec), 4)
+    # prefix cache: the prompt-token hit rate over the requests' last
+    # admissions, and the engines' evictions (monotone counters: the
+    # largest of the meter snapshots the results carry)
+    prompt_toks = sum(h.prompt_tokens for h in handles)
+    if prompt_toks:
+        hit_toks = sum(h.cache_hit_tokens for h in handles)
+        out["cache_hit_tokens"] = hit_toks
+        out["cache_hit_rate"] = round(hit_toks / prompt_toks, 4)
+        out["cache_evictions"] = max(
+            (int(sum(m.get("cache_evictions", 0)
+                     for m in h.result.meters.values()))
+             for h in handles if h.result is not None), default=0)
     return out

@@ -176,20 +176,15 @@ def test_reject_then_redraft_reads_pre_snapshot_kv():
 
 
 def test_left_out_features_raise(pairs, tmp_path):
-    with pytest.raises(NotImplementedError, match="prefix cache"):
-        _port_sched(pairs, prefix_cache=True)
     with pytest.raises(NotImplementedError, match="deadlines"):
         _port_sched(pairs).submit(_tasks()[0], deadline_s=1.0)
     ckpt = str(tmp_path / "ckpt")
     base = ["--scheduler", "continuous", "--device", "cpu", "--ckpt-dir",
             ckpt]
-    for extra, match in ((["--no-prefix-cache", "--num-samples", "2"],
-                          "num-samples"),
-                         (["--no-prefix-cache", "--tp", "2"], "tp"),
-                         (["--no-prefix-cache", "--trace", "t.json"],
-                          "trace"),
-                         (["--no-prefix-cache", "--degrade"], "degrade"),
-                         ([], "prefix cache")):
+    for extra, match in ((["--tp", "2"], "tp"),
+                         (["--trace", "t.json"], "trace"),
+                         (["--degrade"], "degrade"),
+                         (["--deadline", "5"], "deadline")):
         with pytest.raises(NotImplementedError, match=match):
             serve.main(base + extra)
 

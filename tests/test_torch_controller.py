@@ -145,9 +145,10 @@ def test_vanilla_reason_matches_jax(pairs, which):
 
 def test_spec_decode_raises(pairs):
     """SpecReason+Decode is ported (tests/test_torch_spec.py holds it to
-    the JAX package): the sequential controller runs it.  What still
-    raises is its continuous form over the prefix cache, the continuous
-    scheduler's default, which is not ported yet."""
+    the JAX package): the sequential controller runs it, and so does its
+    continuous form over the prefix cache, the continuous scheduler's
+    default (it raised until the cache was ported), with the sequential
+    run's tokens."""
     _, (tb, ts) = pairs
     cfg = controller.SpecReasonConfig(use_spec_decode=True, token_budget=8,
                                       sampling=SamplingParams(0.0))
@@ -155,9 +156,14 @@ def test_spec_decode_raises(pairs):
         tasks.question_tokens(_tasks()[0]), torch.Generator())
     assert res.spec_stats.rounds > 0
     kv = KVManager(tb.model.cfg, ts.model.cfg, KVBudget(1 << 20))
-    with pytest.raises(NotImplementedError, match="prefix cache"):
-        ContinuousScheduler(controller.SpecReason(tb, ts, cfg), kv,
-                            spec_decode=True)
+    sched = ContinuousScheduler(controller.SpecReason(tb, ts, cfg), kv,
+                                spec_decode=True)
+    assert sched.caches is not None
+    h = sched.submit(_tasks()[0], generator=torch.Generator())
+    sched.drain()
+    assert h.result.thinking_ids == res.thinking_ids
+    assert h.result.answer_ids == res.answer_ids
+    assert sched.cache_stats()["base"]["lookups"] == 1
 
 
 def test_serve_cli_on_cpu_matches_jax_cli(tmp_path, capsys):
