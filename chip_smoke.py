@@ -17,9 +17,17 @@ from the root of a checkout.  Phases, each printing its lines:
      and at minitron-4b's attention shape (24 query heads over 8 kv
      heads, hd 128: prefill S=2048, a 256-query chunk at 1792 over 2048
      keys, decode B=8 over 4096), with #2's split over keys;
-   * the SSD scan (the ssm path) at mamba2-1.3b's heads (H 64, P 64,
-     N 128, one group) over one ragged chunk (L 7 and 37), one full chunk,
-     300 tokens padded to 384 and 2048 tokens, against its plain version
+   * flash-decode with a sliding window (``decode_attention window``) at
+     hymba-1.5b's heads (25 over 5, hd 64; B=8 over 4096, window 2048),
+     starcoder2-7b's (36 over 4, hd 128; B=8 over 8192, window 4096) and
+     a ragged batch whose lengths fall below, at and above the window,
+     beside the unwindowed launch of the same cache, SDPA with the same
+     boolean mask and the byte bound of the window's keys;
+   * the SSD scan (the ssm and hybrid paths) at mamba2-1.3b's heads (H
+     64, P 64, N 128, one group) over one ragged chunk (L 7 and 37), one
+     full chunk, 300 tokens padded to 384 and 2048 tokens, and at
+     hymba-1.5b's mixer heads (H 50, P 64, N 16) at L 37 and 2048, against
+     its plain version
      and the sequential oracle, with a state-resume case and the reduced
      G > 1 shapes of tests/test_kernels.py; at L 37 and 2048 also a scan's
      device time (torch.profiler, its launches summed) and its plan
@@ -133,7 +141,26 @@ from the root of a checkout.  Phases, each printing its lines:
 8. check, ssm: the base's logits on the card against the same weights on
    the CPU over a 300-token prompt (three chunks, the last padded), a
    resumed 40-token extend and 3 decode steps;
-9. train: one BASE and one SMALL step's loss and every gradient on the
+9. main path, hybrid (both engines on the fused loop: the base's CUDA
+   graphs over a pooled K/V pair and its static conv/ssm pair, with
+   windowed flash-decode and the mamba2 step inside): SpecReason with a
+   hymba-1.5b base at its published widths and depth (32 layers,
+   d_model 1600, 25 heads over 5 with window 2048 beside 50 SSD heads of
+   64 with state 16; random init, vocabulary cut to 64) and the testbed
+   SMALL drafter: 3 requests greedy and at 0.6, then greedy req0 and
+   sampled req0 on the per-token loop, whose tokens must equal the fused
+   turn's; #2 and #5 launches == 32 x the base's extends (#2 plus
+   SMALL's layers x its prefill calls), #1 == 32 x the base's decode
+   steps + SMALL's layers x its steps, no paged launch; one capture per
+   loop key after every request; each greedy request profiled (idle
+   share; the profiler's flash-decode count == the counter).  ``[main]
+   window``: hymba at 2 layers of its widths, max_len 4096, a 2100-token
+   prompt then 48 tokens fused and eager (equal), so the window masks
+   keys; card logits at the last prefill position and after decodes 1
+   and 48 against the CPU's.  phi3-mini-3.8b and starcoder2-7b at 2
+   layers of their widths: prefill 64 tokens, decode 16 fused, card
+   logits against the CPU's over every step;
+10. train: one BASE and one SMALL step's loss and every gradient on the
    card against the CPU (rtol 1e-4, atol that times each gradient's
    largest magnitude), at launch/train.py's batches; 20 BASE steps run twice from one seed with identical
    losses; ``launch.train.train_testbed_model`` trains BASE 500 steps and
@@ -194,6 +221,22 @@ SSM_ARCH = "mamba2-1.3b"
 SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 SSD_STATE_TOL = 1e-4
 SSM_THRESHOLD = 4.5
+# [main] hybrid: hymba-1.5b at published widths and depth, the SMALL
+# drafter, the ssm phase's threshold; [main] window: hymba at WINDOW_DEPTH
+# layers of its widths, a WINDOW_PREFILL-token prompt in a WINDOW_CACHE
+# cache, so that its window of 2048 masks keys, then WINDOW_DECODE tokens
+# each way; phi3-mini-3.8b and starcoder2-7b at ARCH_DEPTH layers of their
+# widths, an ARCH_PREFILL-token prompt, ARCH_DECODE tokens
+HYBRID_ARCH = "hymba-1.5b"
+HYBRID_THRESHOLD = 4.5
+WINDOW_DEPTH = 2
+WINDOW_CACHE = 4096
+WINDOW_PREFILL = 2100
+WINDOW_DECODE = 48
+ARCH_CHECKS = ("phi3-mini-3.8b", "starcoder2-7b")
+ARCH_DEPTH = 2
+ARCH_PREFILL = 64
+ARCH_DECODE = 16
 DENSE_ARCH = "minitron-4b"
 DENSE_DEPTH = 2        # minitron-4b's 32 layers cut to 2 for the rows check
 # the [fused rows] phases: the continuous path's 8 requests over 4 rows at
@@ -710,18 +753,24 @@ def train_phase(torch, kernels):
     return launches
 
 
-def ssd_device_ms(torch, fn, reps=10):
+def device_ms(torch, fn, reps=10):
     """Device ms of one call of fn: torch.profiler's device time of its
-    kernels, summed over a run of ``reps`` calls, over reps."""
+    kernels, summed over a run of ``reps`` calls, over reps.  A trace
+    that holds no device record lost them (it happened once in PR 28's
+    runs) and is taken again, at most TRACE_TRIES traces."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.self_device_time_total > 0) / 1e3 / reps
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.self_device_time_total > 0)
+        if total > 0:
+            return total / 1e3 / reps
+    raise AssertionError(f"{TRACE_TRIES} traces held no device time")
 
 
 def ssd_plan_note(plan, label):
@@ -741,22 +790,27 @@ def ssd_plan_note(plan, label):
         f"; scratch {plan['scratch_bytes']} bytes"
 
 
-def ssd_kernel_phase(torch, ref, mamba2, ssd_scan, mamba):
+def ssd_kernel_phase(torch, ref, mamba2, ssd_scan, mamba, hybrid):
     """The SSD scan kernel against its plain version (``ssd_chunked``) and
-    the sequential oracle (``ssd_reference``) at mamba2-1.3b's heads and
-    the reduced G > 1 shapes; at L = 37 and 2048 also a scan's device time
-    and its plan.  Returns its records for the JSON line."""
+    the sequential oracle (``ssd_reference``) at mamba2-1.3b's heads, at
+    hymba-1.5b's mixer heads (50 x 64, state 16: a partial pass of state
+    rows) and the reduced G > 1 shapes; at L = 37 and 2048 also a scan's
+    device time and its plan.  Returns its records for the JSON line."""
     from repro_torch.kernels import ssd_scan as ssd_mod
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     h, p, n = mamba.ssm_n_heads, mamba.ssm_head_dim, mamba.ssm_state
     g = mamba.ssm_n_groups
+    hh, hp, hn = hybrid.ssm_n_heads, hybrid.ssm_head_dim, hybrid.ssm_state
+    hg = hybrid.ssm_n_groups
     # (label, B, L, H, P, G, N, chunk, real positions before the pad)
     cases = [("mamba2", 1, 7, h, p, g, n, 7, 7),
              ("mamba2", 1, 37, h, p, g, n, 37, 37),
              ("mamba2", 1, 128, h, p, g, n, 128, 128),
              ("mamba2", 1, 384, h, p, g, n, 128, 300),
              ("mamba2", 1, 2048, h, p, g, n, 128, 2048),
+             ("hymba", 1, 37, hh, hp, hg, hn, 37, 37),
+             ("hymba", 1, 2048, hh, hp, hg, hn, hybrid.ssm_chunk, 2048),
              ("sweep", 1, 128, 2, 16, 1, 16, 32, 128),
              ("sweep", 2, 256, 4, 16, 2, 32, 64, 256),
              ("sweep", 1, 256, 4, 32, 1, 64, 128, 256)]
@@ -817,8 +871,8 @@ def ssd_kernel_phase(torch, ref, mamba2, ssd_scan, mamba):
                        state_err=state_err, ms=ms, plain_ms=plain_ms,
                        library_ms=None, bound_ms=bound_ms, bound_by=by)
             note = ""
-            if kind == "mamba2" and l in (37, 2048):
-                rec["device_ms"] = ssd_device_ms(
+            if kind in ("mamba2", "hymba") and l in (37, 2048):
+                rec["device_ms"] = device_ms(
                     torch, lambda: ssd_scan(x, dt, a, bb, cc, chunk, init))
                 rec["plan"] = ssd_mod.plan(x, dt, a, bb, cc, chunk, init)
                 note = (f" | device {rec['device_ms']:.4f} ms a scan "
@@ -2496,6 +2550,370 @@ def ssm_check_phase(torch, base):
           "other orders)", flush=True)
 
 
+def window_kernel_phase(torch, F, ref, decode_kernel, hybrid, windowed):
+    """Flash-decode (#1) with a sliding window against its plain version
+    (``ref.decode_reference`` with the window), fp32 (atol 1e-5, rtol
+    2e-5) and bf16 (2e-2): hymba-1.5b's heads (25 over 5, hd 64), B=8
+    over 4096 with its window 2048; starcoder2-7b's (36 over 4, hd 128),
+    B=8 over 8192 with its window 4096; and a ragged batch at hymba's
+    heads whose lengths fall below, at and above the window.  Beside the
+    windowed time (CUDA events, host cost included, and the profiler's
+    device time): the unwindowed kernel's at the same capacity and
+    lengths, the plain version, SDPA with the same boolean mask, and the
+    byte bound of the window's keys alone.  Returns the records."""
+    from repro_torch.kernels import decode_attention as decode_mod
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tol = {"float32": (1e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
+
+    def heads(c):
+        return c.n_heads, c.n_kv_heads, c.resolved_head_dim
+
+    h_win, s_win = hybrid.sliding_window, windowed.sliding_window
+    cases = [("hymba", heads(hybrid), 4096, h_win, [4096] * 8),
+             ("starcoder2", heads(windowed), 8192, s_win, [8192] * 8),
+             ("hymba", heads(hybrid), 4096, h_win,
+              [1, 700, h_win, h_win + 1, 3000, 4096])]
+    records = []
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        esize = torch.tensor([], dtype=dt).element_size()
+        for model, (h, kh, hd), cap, window, lens in cases:
+            b = len(lens)
+            kc = torch.randn(b, cap, kh, hd, generator=gen, device=dev).to(
+                dt).permute(0, 2, 1, 3)
+            vc = torch.randn(b, cap, kh, hd, generator=gen, device=dev).to(
+                dt).permute(0, 2, 1, 3)
+            q = torch.randn(b, h, hd, generator=gen, device=dev).to(dt)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            label = (f"{model} {dname} B={b} cache={cap} window={window} "
+                     f"lengths={lens if len(set(lens)) > 1 else lens[0]}")
+            out = decode_kernel(q, kc, vc, lengths, window)
+            exp = ref.decode_reference(q, kc, vc, lengths, window)
+            err = (out.float() - exp.float()).abs().max().item()
+            atol, rtol = tol[dname]
+            if not torch.allclose(out.float(), exp.float(), atol=atol,
+                                  rtol=rtol):
+                raise AssertionError(f"decode_attention {label}: max |err| "
+                                     f"{err} beyond atol {atol}, rtol "
+                                     f"{rtol}")
+            j = torch.arange(cap, device=dev)[None, :]
+            mask = ((j < lengths[:, None]) &
+                    (j >= lengths[:, None] - window))[:, None, None, :]
+            q4 = q[:, :, None, :]
+            ms = time_ms(torch, lambda: decode_kernel(q, kc, vc, lengths,
+                                                      window))
+            full_ms = time_ms(torch, lambda: decode_kernel(q, kc, vc,
+                                                           lengths))
+            # the wrapper's host cost (~0.04 ms) hides the kernels at
+            # hymba's heads: the device times compare the two launches
+            dev_ms = device_ms(torch, lambda: decode_kernel(q, kc, vc,
+                                                            lengths, window))
+            full_dev_ms = device_ms(torch, lambda: decode_kernel(
+                q, kc, vc, lengths))
+            plain_ms = time_ms(torch, lambda: ref.decode_reference(
+                q, kc, vc, lengths, window), reps=5)
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, kc, vc, attn_mask=mask, enable_gqa=True))
+            keys = sum(min(n, window) for n in lens)
+            nbytes = (2 * q.numel() + 2 * keys * kh * hd) * esize + 4 * b
+            bound_ms, by = bound(nbytes, 4 * hd * h * keys, dname)
+            plan = decode_mod.plan(q, kc, vc, window)
+            full = decode_mod.plan(q, kc, vc)
+            records.append(dict(
+                shape=label, dtype=dname, max_abs_err=err, ms=ms,
+                unwindowed_ms=full_ms, device_ms=dev_ms,
+                unwindowed_device_ms=full_dev_ms, plain_ms=plain_ms,
+                library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=by,
+                split=[plan["n_split"], plan["split_keys"]],
+                vector_bytes=plan["vector_bytes"]))
+            print(f"[kernels] decode_attention window {label}: err "
+                  f"{err:.3g} | kernel {ms:.4f} ms windowed, {full_ms:.4f} "
+                  f"ms unwindowed (x{ms / full_ms:.3f}); device "
+                  f"{dev_ms:.4f} ms windowed, {full_dev_ms:.4f} ms "
+                  f"unwindowed (x{dev_ms / full_dev_ms:.3f}); plain "
+                  f"{plain_ms:.4f} ms, sdpa (same mask) {lib_ms:.4f} ms, "
+                  f"bound {bound_ms:.5f} ms ({by}; the window's {keys} "
+                  f"keys) | " + decode_plan_note(plan, label)
+                  + f" (unwindowed: split {full['n_split']} x "
+                  f"{full['split_keys']} keys)", flush=True)
+    return records
+
+
+def hybrid_main_phase(torch, serve, tasks, loader, kernels):
+    """SpecReason with the hymba-1.5b base at its published widths and
+    depth (32 layers, d_model 1600, 25 heads over 5 of 64 with window
+    2048 beside 50 SSD heads of 64 with state 16, d_ff 5504; random init
+    from a seed, vocabulary cut to 64) and the testbed SMALL drafter,
+    both on their default decode loop (the fused one): 3 requests greedy
+    and at 0.6, then greedy req0 and sampled req0 on the per-token loop,
+    whose tokens must equal the fused turn's.  Per run, #2 must launch 32
+    x the base's metered extends + SMALL's layers x its prefill calls, #5
+    32 x the base's extends, #1 32 x the base's metered decode steps +
+    SMALL's layers x its steps (masked and warm-up steps included), the
+    paged kernels 0 times; after every request each engine has captured
+    once per loop key, and the base's keys share one pooled K/V pair and
+    the static conv/ssm pair.  Then each greedy request profiled (fused):
+    its idle share, and the profiler's flash-decode count == the
+    counter.  Returns (launches, base engine)."""
+    t0 = time.perf_counter()
+    base = loader.random_engine(HYBRID_ARCH, "cuda", seed=0)
+    small = loader.random_engine("testbed-small", "cuda", seed=1)
+    torch.cuda.synchronize()
+    cfg = base.model.cfg
+    print(f"[main] hybrid: {HYBRID_ARCH} base, {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} of {cfg.resolved_head_dim} (window "
+          f"{cfg.sliding_window}) beside {cfg.ssm_n_heads} SSD heads of "
+          f"{cfg.ssm_head_dim} (state {cfg.ssm_state}), d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size} (cut from 32001), "
+          f"{sum(t.numel() for t in leaves(base.params))} parameters, "
+          f"random init in {time.perf_counter() - t0:.1f} s; testbed SMALL "
+          f"drafter; threshold {HYBRID_THRESHOLD}; decode loops "
+          f"{loader.decode_loops(base, small)}", flush=True)
+    rng = random.Random(0)
+    reqs = [tasks.sample_task(rng) for _ in range(3)]
+    layers = {"base": cfg.n_layers, "small": small.model.cfg.n_layers}
+    launches = dict.fromkeys(kernels, 0)
+    outputs, walls = {}, {}
+    runs = (("greedy", 0.0, 3, None), ("sampled", 0.6, 3, None),
+            ("greedy eager", 0.0, 1, False), ("sampled eager", 0.6, 1, False))
+    for label, temp, n_req, fused in runs:
+        for k in kernels.values():
+            k.launches = 0
+        want = {"ssd_scan": 0, "decode_attention": 0, "flash_attention": 0}
+        outputs[label], walls[label] = [], []
+        for i in range(n_req):
+            gen = torch.Generator(device="cuda").manual_seed(i)
+            res = serve.run_scheme("specreason", base, small, reqs[i], gen,
+                                   128, HYBRID_THRESHOLD, temp, fused=fused)
+            mb, ms_ = res.meters["base"], res.meters["small"]
+            want["ssd_scan"] += layers["base"] * mb["prefill_calls"]
+            want["flash_attention"] += layers["base"] * mb["prefill_calls"] \
+                + layers["small"] * ms_["prefill_calls"]
+            want["decode_attention"] += layers["base"] * mb["decode_steps"] \
+                + layers["small"] * ms_["decode_steps"]
+            for eng in (base, small):
+                if eng.captures != len(eng._loops):
+                    raise AssertionError(
+                        f"hybrid {label} req{i}: {eng.name} captured "
+                        f"{eng.captures} graphs for {len(eng._loops)} keys")
+            toks = res.thinking_ids + res.answer_ids
+            outputs[label].append(toks)
+            walls[label].append(res.wall_time)
+            steps = [s for s in res.steps if s.source == "small"]
+            n_acc = sum(s.accepted for s in steps)
+            print(f"[main] hybrid {label} req{i}: {res.wall_time * 1e3:.1f} "
+                  f"ms, {len(toks)} tokens, {len(toks) / res.wall_time:.1f} "
+                  f"tok/s, {len(res.steps)} steps ({n_acc} accepted / "
+                  f"{len(steps)} drafted; utilities "
+                  f"{[round(s.utility, 4) for s in steps]}), base "
+                  f"{mb['prefill_calls']} extends / {mb['decode_calls']} "
+                  f"decode calls of {mb['decode_tokens']} tokens in "
+                  f"{mb['decode_steps']} steps; captures base "
+                  f"{base.captures}, small {small.captures}", flush=True)
+        got = {k: kernels[k].launches for k in want}
+        if got != want or not all(want.values()) or any(
+                kernels[k].launches for k in kernels if k not in want):
+            now = {k: v.launches for k, v in kernels.items()}
+            raise AssertionError(f"hybrid {label}: launches {now} != {want} "
+                                 "(paged kernels 0)")
+        loop = "eager" if fused is False else "fused"
+        print(f"[main] hybrid {label} (decode loops {loop}): launches "
+              f"ssd_scan {got['ssd_scan']} == {layers['base']} x base "
+              f"extends; flash {got['flash_attention']} == {layers['base']} x"
+              f" base extends + {layers['small']} x SMALL's prefill calls; "
+              f"decode {got['decode_attention']} == {layers['base']} x base "
+              f"decode steps + {layers['small']} x SMALL's; paged 0",
+              flush=True)
+        for k in want:
+            launches[k] += got[k]
+    for label in ("greedy", "sampled"):
+        if outputs[f"{label} eager"][0] != outputs[label][0]:
+            raise AssertionError(f"hybrid {label} req0: the eager turn's "
+                                 "tokens differ from the fused turn's")
+    keys = list(base._loops)
+    static = base._ssm_static[1]
+    if len({k[:2] for k in keys}) != 1 or {k[-2:] for k in keys} != {
+            (static.conv.data_ptr(), static.ssm.data_ptr())}:
+        raise AssertionError("hybrid: the base's loop keys do not share one "
+                             "pooled K/V pair and the static conv/ssm pair")
+    print(f"[main] hybrid: the eager turn's tokens equal the fused turn's "
+          f"(greedy req0 and sampled req0); base {base.captures} captures "
+          f"for {len(keys)} keys over one pooled K/V pair and the static "
+          f"conv/ssm pair, small {small.captures} for {len(small._loops)}",
+          flush=True)
+    for i, task in enumerate(reqs):
+        def run(task=task, i=i):
+            gen = torch.Generator(device="cuda").manual_seed(i)
+            return serve.run_scheme("specreason", base, small, task, gen,
+                                    128, HYBRID_THRESHOLD, 0.0)
+        p = profile_request(torch, run, kernels["decode_attention"],
+                            walls["greedy"][i])
+        n_out = len(p["res"].thinking_ids + p["res"].answer_ids)
+        seen, dev_ms = traced(p["rows"], "decode_kernel")
+        gate(p, seen, f"hybrid greedy req{i}", "decode_kernel")
+        print(f"[profile] hybrid greedy req{i} (fused, {n_out} tokens, "
+              f"{walls['greedy'][i] * 1e3:.1f} ms and "
+              f"{n_out / walls['greedy'][i]:.1f} tok/s unprofiled): "
+              f"{p['window']}; decode_kernel {seen} launches traced == "
+              f"{p['counted']} counted, {dev_ms:.1f} ms; {p['top']}",
+              flush=True)
+    return launches, base
+
+
+def card_and_cpu_logits(torch, Engine, model, params, prompt, tokens,
+                        max_len, at):
+    """The last prefill position's logits of ``prompt`` and the logits
+    after feeding ``tokens`` one by one (``decode_one``), at the decode
+    steps listed in ``at`` (1-based), on the card and on the CPU from
+    the same parameters: {"cuda": (rows, V), "cpu": (rows, V)} and the
+    CPU's seconds."""
+    out, cpu_s = {}, 0.0
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        p = params if dev == "cuda" else tree_map(lambda t: t.cpu(), params)
+        eng = Engine(model, p, max_len=max_len)
+        with torch.no_grad():
+            s = eng.extend(eng.new_session(), prompt)
+            rows = [s.last_logits[0]]
+            for n, tok in enumerate(tokens, 1):
+                s = eng.decode_one(s, tok)
+                if n in at:
+                    rows.append(s.last_logits[0])
+        out[dev] = torch.stack(rows).float().cpu()
+        cpu_s = time.perf_counter() - t0
+    return out, cpu_s
+
+
+def logits_close(torch, tag, logits):
+    err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    scale = logits["cpu"].abs().max().item()
+    if not torch.allclose(logits["cuda"], logits["cpu"], atol=LOGIT_TOL,
+                          rtol=LOGIT_TOL):
+        raise AssertionError(f"{tag}: card vs CPU logits differ by {err} "
+                             f"(> {LOGIT_TOL})")
+    return f"max |diff| {err:.3g} at max |logit| {scale:.3g}"
+
+
+def window_main_phase(torch, loader, Model, Engine, SamplingParams,
+                      kernels):
+    """hymba-1.5b at WINDOW_DEPTH layers of its published widths (random
+    init, vocabulary 64) with max_len WINDOW_CACHE, so that its window
+    of 2048 masks keys: prefill WINDOW_PREFILL tokens, then WINDOW_DECODE
+    tokens greedy fused and the same eager from the same prefill (equal
+    tokens; #1, #2 and #5 launches == layers x the metered steps and
+    extends); then the card's logits at the last prefill position and
+    after decodes 1 and WINDOW_DECODE against the same model's on the
+    CPU (atol = rtol = LOGIT_TOL).  Returns the launches."""
+    import dataclasses
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(loader.arch_config(HYBRID_ARCH),
+                              n_layers=WINDOW_DEPTH)
+    model = Model(cfg)
+    params = model.init(2, device="cuda")
+    eng = Engine(model, params, max_len=WINDOW_CACHE, name=HYBRID_ARCH)
+    prompt = torch.randint(0, cfg.vocab_size, (WINDOW_PREFILL,),
+                           generator=torch.Generator().manual_seed(6)
+                           ).tolist()
+    for k in kernels.values():
+        k.launches = 0
+    eng.meter.reset()
+    s0 = eng.extend(eng.new_session(), prompt)
+    out = {}
+    for loop in ("fused", "eager"):
+        ids, _, _ = eng.generate(s0, WINDOW_DECODE, [], SamplingParams(),
+                                 torch.Generator(device="cuda"),
+                                 fused=loop == "fused")
+        out[loop] = ids
+    torch.cuda.synchronize()
+    m, n = eng.meter, cfg.n_layers
+    want = {"flash_attention": n * m.prefill_calls,
+            "ssd_scan": n * m.prefill_calls,
+            "decode_attention": n * m.decode_steps}
+    got = {k: kernels[k].launches for k in want}
+    if got != want or any(kernels[k].launches for k in kernels
+                          if k not in want):
+        raise AssertionError(f"window: launches "
+                             f"{ {k: v.launches for k, v in kernels.items()} }"
+                             f" != {want} (others 0)")
+    if out["fused"] != out["eager"] or len(out["fused"]) != WINDOW_DECODE:
+        raise AssertionError("window: the fused turn's tokens differ from "
+                             "the eager turn's")
+    logits, cpu_s = card_and_cpu_logits(
+        torch, Engine, model, params, prompt, out["fused"], WINDOW_CACHE,
+        (1, WINDOW_DECODE))
+    note = logits_close(torch, f"{HYBRID_ARCH} window", logits)
+    last = WINDOW_PREFILL + WINDOW_DECODE - 1
+    print(f"[main] window: {HYBRID_ARCH} at {n} of 32 layers (published "
+          f"widths, window {cfg.sliding_window}, max_len {WINDOW_CACHE}): "
+          f"prefill {WINDOW_PREFILL} tokens, {WINDOW_DECODE} tokens fused "
+          f"== eager ({m.decode_steps} decode steps); the last query "
+          f"(position {last}) masks the {last + 1 - cfg.sliding_window} "
+          f"oldest keys; launches {got} == {n} x the metered calls; card "
+          f"vs CPU logits at the last prefill position and after decodes 1 "
+          f"and {WINDOW_DECODE}: {note} (tolerance {LOGIT_TOL}); CPU "
+          f"{cpu_s:.1f} s, {time.perf_counter() - t0:.1f} s in all",
+          flush=True)
+    return got
+
+
+def arch_check_phase(torch, loader, Model, Engine, SamplingParams, arch,
+                     kernels):
+    """``arch`` (dense) at ARCH_DEPTH layers of its published widths
+    (random init, vocabulary 64) on the sequential path: prefill
+    ARCH_PREFILL tokens and decode ARCH_DECODE greedy through the fused
+    loop (#2 and #1 launches == layers x the metered calls); then the
+    card's logits at the last prefill position and after every decode
+    against the CPU's (atol = rtol = LOGIT_TOL), and the card's greedy
+    picks over them equal to the fused loop's tokens."""
+    import dataclasses
+    t0 = time.perf_counter()
+    published = loader.arch_config(arch).n_layers
+    cfg = dataclasses.replace(loader.arch_config(arch), n_layers=ARCH_DEPTH)
+    model = Model(cfg)
+    params = model.init(4, device="cuda")
+    eng = Engine(model, params, name=arch)
+    prompt = torch.randint(0, cfg.vocab_size, (ARCH_PREFILL,),
+                           generator=torch.Generator().manual_seed(7)
+                           ).tolist()
+    for k in kernels.values():
+        k.launches = 0
+    eng.meter.reset()
+    s = eng.extend(eng.new_session(), prompt)
+    ids, _, _ = eng.generate(s, ARCH_DECODE, [], SamplingParams(),
+                             torch.Generator(device="cuda"))
+    torch.cuda.synchronize()
+    m, n = eng.meter, cfg.n_layers
+    want = {"flash_attention": n * m.prefill_calls,
+            "decode_attention": n * m.decode_steps}
+    got = {k: kernels[k].launches for k in want}
+    if got != want or len(ids) != ARCH_DECODE or any(
+            kernels[k].launches for k in kernels if k not in want):
+        raise AssertionError(f"{arch}: launches "
+                             f"{ {k: v.launches for k, v in kernels.items()} }"
+                             f" != {want} (others 0), or {len(ids)} tokens")
+    logits, cpu_s = card_and_cpu_logits(
+        torch, Engine, model, params, prompt, ids, eng.max_len,
+        range(1, ARCH_DECODE + 1))
+    note = logits_close(torch, arch, logits)
+    picks = logits["cuda"][:-1].argmax(-1).tolist()
+    if picks != ids:
+        raise AssertionError(f"{arch}: the card's greedy picks {picks} "
+                             f"differ from the fused loop's tokens {ids}")
+    print(f"[check] {arch} at {n} of {published} layers "
+          f"(published widths: d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"over {cfg.n_kv_heads} of {cfg.resolved_head_dim}, d_ff "
+          f"{cfg.d_ff}, {cfg.act}, window {cfg.sliding_window}; vocabulary "
+          f"64): prefill {ARCH_PREFILL}, {ARCH_DECODE} tokens fused == the "
+          f"card's greedy picks; launches {got} == {n} x the metered calls; "
+          f"card vs CPU logits over the prefill's last position and "
+          f"{ARCH_DECODE} decodes: {note} (tolerance {LOGIT_TOL}); CPU "
+          f"{cpu_s:.1f} s, {time.perf_counter() - t0:.1f} s in all",
+          flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2505,8 +2923,8 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.checkpoint.checkpoint import load_checkpoint
-    from repro_torch.configs import mamba2_1_3b, minitron_4b, registry, \
-        testbed
+    from repro_torch.configs import hymba_1_5b, mamba2_1_3b, minitron_4b, \
+        registry, starcoder2_7b, testbed
     from repro_torch.data import tasks
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.decode_attention import decode_attention
@@ -2554,6 +2972,9 @@ def main() -> int:
 
     records = kernel_phase(torch, F, ref, decode_attention, flash_attention,
                            minitron_4b.CONFIG)
+    records["decode_attention"] += window_kernel_phase(
+        torch, F, ref, decode_attention, hymba_1_5b.CONFIG,
+        starcoder2_7b.CONFIG)
     records["flash_attention_bwd"] = bwd_kernel_phase(
         torch, F, ref, flash_attention, flash_attention_bwd,
         minitron_4b.CONFIG)
@@ -2561,7 +2982,7 @@ def main() -> int:
                                       paged_append_attention,
                                       minitron_4b.CONFIG))
     records.update(ssd_kernel_phase(torch, ref, mamba2, ssd_scan,
-                                    mamba2_1_3b.CONFIG))
+                                    mamba2_1_3b.CONFIG, hymba_1_5b.CONFIG))
     lap("kernels")
 
     ckpt = os.path.join(ROOT, "build", "smoke_ckpt")
@@ -2621,6 +3042,23 @@ def main() -> int:
     lap("check, ssm")
     del ssm_base
     torch.cuda.empty_cache()
+    hybrid_launches, hybrid_base = hybrid_main_phase(torch, serve, tasks,
+                                                     loader, kernels)
+    del hybrid_base
+    torch.cuda.empty_cache()
+    lap("main path, hybrid")
+    window_launches = window_main_phase(torch, loader, Model,
+                                        engine_mod.Engine, SamplingParams,
+                                        kernels)
+    for launched in (hybrid_launches, window_launches):
+        for name, n in launched.items():
+            launches[name] = launches.get(name, 0) + n
+    lap("main path, window")
+    for arch in ARCH_CHECKS:
+        arch_check_phase(torch, loader, Model, engine_mod.Engine,
+                         SamplingParams, arch, kernels)
+        torch.cuda.empty_cache()
+        lap(f"check, {arch}")
     launches["flash_attention_bwd"] = train_phase(
         torch, kernels)["flash_attention_bwd"]
     lap("train")

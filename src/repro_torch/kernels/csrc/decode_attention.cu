@@ -28,6 +28,12 @@
 //    read on the host); combine_kernel merges the partial (max, sum, acc)
 //    triples.  Splits past a row's length exit at once, so the cache's
 //    capacity costs no reads.
+//  * A window starts a row's splits at its first key in the window,
+//    lengths[b] - window, and the split is planned over min(capacity,
+//    window) keys: a windowed row reads its window's keys only, in as
+//    many blocks as a cache of that size would take.  The plan still
+//    comes from host constants (capacity and window), never from the
+//    lengths, so the launch stays safe to record into a graph.
 //
 // Plain C interface for ctypes; the launch returns cudaGetLastError().
 
@@ -61,6 +67,7 @@ struct Args {
   void* out;
   float* part;
   int H, KH, S, hd, n_hg, n_split, split_keys;
+  int window;  // 0: every key below the length; else the last `window`
   long long q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh;
   float scale_log2;  // log2(e) / sqrt(hd): scores in base 2
 };
@@ -73,7 +80,8 @@ decode_kernel(const Args a) {
   const int split = blockIdx.x, b = blockIdx.z;
   const int kh = blockIdx.y / a.n_hg, hg = blockIdx.y % a.n_hg;
   const int len = min(max(a.lengths[b], 0), a.S);
-  const int lo = split * a.split_keys;
+  const int lo = (a.window > 0 ? max(len - a.window, 0) : 0) +
+                 split * a.split_keys;
   const int hi = min(lo + a.split_keys, len);
   const int G = a.H / a.KH;
   const DenseKeys<T> keys{
@@ -97,24 +105,28 @@ struct Dense {
 // dtype: 0 = float32, 1 = bfloat16.  q: (B, H, hd), H % KH == 0; k, v:
 // (B, KH, S, hd); out: (B, H, hd); strides: the 10 element strides q_sb,
 // q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh (unit stride over hd
-// everywhere); lengths: (B,) int32.  Split i covers the keys [i *
-// split_keys, (i + 1) * split_keys), n_split * split_keys >= S; part is fp32
-// scratch of B * H * n_split * (hd + 2) floats when n_split > 1.
+// everywhere); lengths: (B,) int32; window: 0, or a sliding window: row b
+// attends over the keys [w, lengths[b]), w = max(0, lengths[b] - window).
+// Split i covers the keys [w + i * split_keys, w + (i + 1) * split_keys)
+// (w = 0 without a window), n_split * split_keys >= S, or >= min(S,
+// window) with one; part is fp32 scratch of B * H * n_split * (hd + 2)
+// floats when n_split > 1.
 extern "C" int decode_attention_launch(int dtype, const void* q, const void* k,
                                        const void* v, const void* lengths,
                                        void* out, void* part, int B, int H,
                                        int KH, int S, int hd, int n_split,
-                                       int split_keys,
+                                       int split_keys, int window,
                                        const long long* strides,
                                        void* stream) {
   const int n_hg = head_groups(H, KH);
   if (n_hg == 0 || B <= 0 || B > 65535 || S <= 0 || hd <= 0 || hd > 128 ||
-      n_split <= 0 || split_keys <= 0 || (long long)n_split * split_keys < S)
+      n_split <= 0 || split_keys <= 0 || window < 0 ||
+      (long long)n_split * split_keys < (window > 0 ? min(S, window) : S))
     return (int)cudaErrorInvalidValue;
   const long long* s = strides;
   const Args a{q, k, v, (const int*)lengths, out, (float*)part, H, KH, S, hd,
-               n_hg, n_split, split_keys, s[0], s[1], s[2], s[3], s[4], s[5],
-               s[6], s[7], s[8], s[9],
+               n_hg, n_split, split_keys, window, s[0], s[1], s[2], s[3],
+               s[4], s[5], s[6], s[7], s[8], s[9],
                1.4426950408889634f / sqrtf((float)hd)};
   return decode_run<Dense>(dtype, a, B, k, v, strides, (cudaStream_t)stream);
 }

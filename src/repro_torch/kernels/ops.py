@@ -73,12 +73,13 @@ class FlashAttention(torch.autograd.Function):
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
-    """(B,H,hd) x (B,K,S,hd)^2 + lengths (B,) -> (B,H,hd)."""
+                     lengths: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """(B,H,hd) x (B,K,S,hd)^2 + lengths (B,) -> (B,H,hd); with a
+    ``window``, row b sees only its last ``window`` keys."""
     if _on_cpu(q):
-        return ref.decode_reference(q, k_cache, v_cache, lengths)
+        return ref.decode_reference(q, k_cache, v_cache, lengths, window)
     _no_grad_on_card("decode_attention", q, k_cache, v_cache)
-    return decode_kernel(q, k_cache, v_cache, lengths)
+    return decode_kernel(q, k_cache, v_cache, lengths, window)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -95,8 +95,10 @@ def mha_backward_reference(q: torch.Tensor, k: torch.Tensor,
 
 def decode_reference(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
-    """q: (B,H,hd); k_cache/v_cache: (B,K,S,hd); lengths: (B,)."""
+                     lengths: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """q: (B,H,hd); k_cache/v_cache: (B,K,S,hd); lengths: (B,); row b
+    attends over the keys j < lengths[b] and, with a window,
+    j >= lengths[b] - window."""
     b, h, hd = q.shape
     kh, s = k_cache.shape[1], k_cache.shape[2]
     group = h // kh
@@ -104,8 +106,11 @@ def decode_reference(q: torch.Tensor, k_cache: torch.Tensor,
     v = _repeat_kv_heads(v_cache, group)
     scores = torch.einsum("bhd,bhkd->bhk", q.float(),
                           k.float()) / math.sqrt(hd)
-    valid = (torch.arange(s, device=q.device)[None, None, :]
-             < lengths.to(q.device)[:, None, None])
+    j = torch.arange(s, device=q.device)[None, None, :]
+    lens = lengths.to(q.device)[:, None, None]
+    valid = j < lens
+    if window:
+        valid = valid & (j >= lens - window)
     scores = scores.masked_fill(~valid, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhk,bhkd->bhd", probs, v.float()).to(q.dtype)

@@ -1,13 +1,16 @@
 """Run the SpecReason controller with a base model of every architecture
-family the port has, at the registry's reduced sizes: one small dense
-speculator drafts for each base, and each base rolls back its own way
-(an attention cache by truncation, SSM state by snapshot and replay).
-The port's twin of the JAX package's ``examples/multiarch_smoke.py``,
-over the port's registry (minitron-4b, dense; mamba2-1.3b, ssm); the
-registry refuses the JAX package's other architectures, and a model of
-a family not yet ported raises ``NotImplementedError``.  Each engine
-decodes by its default loop (the fused one, for both families), and
-each line names it.
+the port's registry has, at the registry's reduced sizes: one small
+dense speculator drafts for each base, and each base rolls back its own
+way (an attention cache by truncation; SSM state, and a hybrid's K/V
+and SSM state together, by snapshot and replay).  The port's twin of
+the JAX package's ``examples/multiarch_smoke.py``, over the port's
+registry: phi3-mini-3.8b, starcoder2-7b (sliding window) and minitron-4b
+(dense), mamba2-1.3b (ssm) and hymba-1.5b (hybrid: windowed attention
+and a mamba2 mixer in each layer).  The registry refuses the JAX
+package's other architectures (the moe, encdec and vlm families, and
+yi-34b).  Each engine decodes by its default loop (the fused one, for
+every family), and each line names the base's family, its rollback and
+both engines' loops.
 
   PYTHONPATH=src python -m repro_torch.launch.multiarch --device cpu
 """

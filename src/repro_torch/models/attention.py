@@ -116,17 +116,21 @@ def decode_self_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
     at the slot, so a masked step at ``pos == C`` leaves slot C - 1, which
     is in the context, as it was.
 
-    Linear caches run the decode kernel (``ops.decode_attention``).  Ring
-    buffers and sliding windows run a plain masked path on the CPU with a
-    host ``pos`` and raise on CUDA until a kernel covers them."""
+    Linear caches run the decode kernel (``ops.decode_attention``), with
+    ``cfg.sliding_window`` as its window: slot j holds position j, so
+    the last ``window`` of the ``lengths`` slots are the JAX package's
+    ``j > pos - window``.  A ring buffer runs a plain masked path on the
+    CPU with a host ``pos`` and raises on CUDA: the JAX package's
+    dry-run (its ``launch/specs.py``) is the only user of ring caches,
+    and the port does not serve them."""
     b = x.shape[0]
     cap = k_cache.shape[1]
     q, k, v = qkv(x, p)
     on_device = isinstance(pos, torch.Tensor)
-    if on_device and (ring or cfg.sliding_window):
+    if ring and (on_device or x.is_cuda):
         raise NotImplementedError(
-            "a device position (the fused decode loop) takes linear caches "
-            "without a window")
+            "ring-buffer decode runs on the CPU with a host position only "
+            "(the JAX package's dry-run is its one user)")
     if cfg.use_rope:
         posv = pos.reshape(1, 1).expand(b, 1) if on_device else \
             torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
@@ -140,16 +144,12 @@ def decode_self_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
         slot = pos % cap if ring else min(pos, cap - 1)
         k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
         v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
-    if ring or cfg.sliding_window:
-        if x.is_cuda:
-            raise NotImplementedError(
-                "ring-buffer and sliding-window decode have no CUDA kernel "
-                "yet; run them with device='cpu'")
-        o = _masked_decode(q[:, 0], k_cache, v_cache, pos, ring,
-                           cfg.sliding_window)
+    if ring:
+        o = _ring_decode(q[:, 0], k_cache, v_cache, pos)
     else:
         o = ops.decode_attention(q[:, 0], _heads_first(k_cache),
-                                 _heads_first(v_cache), lengths)
+                                 _heads_first(v_cache), lengths,
+                                 cfg.sliding_window)
     return out_proj(o[:, None], p)
 
 
@@ -164,22 +164,18 @@ def _write_slot(cache: torch.Tensor, slot: torch.Tensor, new: torch.Tensor,
     cache.index_copy_(1, slot, new)
 
 
-def _masked_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                   v_cache: torch.Tensor, pos: int, ring: bool,
-                   window: int) -> torch.Tensor:
-    """Plain decode attention with the ring / sliding-window masks of the
-    JAX package's ``decode_self_attention``.  q: (B, H, hd)."""
+def _ring_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+    """Plain decode attention over a ring buffer with the JAX package's
+    ring mask (every slot written so far: the buffer is the window).
+    q: (B, H, hd)."""
     b, h, hd = q.shape
     cap, kh = k_cache.shape[1], k_cache.shape[2]
     g = h // kh
     qg = q.reshape(b, kh, g, hd).float()
     scores = torch.einsum("bkgd,bskd->bkgs", qg,
                           k_cache.float()) / math.sqrt(hd)
-    j = torch.arange(cap, device=q.device)
-    if ring:
-        mask = j < min(pos + 1, cap)
-    else:
-        mask = (j <= pos) & (j > pos - window)
+    mask = torch.arange(cap, device=q.device) < min(pos + 1, cap)
     scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs, v_cache.float())
@@ -190,7 +186,8 @@ def _paged_only(cfg: ModelConfig) -> None:
     if cfg.sliding_window:
         raise NotImplementedError(
             "sliding-window attention over paged rows has no kernel and no "
-            "plain version yet; the batched path serves full attention")
+            "plain version yet (ROADMAP queue 2 A, its paged half); the "
+            "batched path serves full attention")
 
 
 def _write_rows(rows: PagedRows, layer: int, k: torch.Tensor,

@@ -1,13 +1,14 @@
-"""Decode state of the dense and ssm families and its rollback rules, and
-the per-call view of batched rows over a paged KV store (``PagedRows``,
-built on the host by ``paged_rows`` for an extend, on the device by
-``slot_rows`` for a decode step).
+"""Decode state of the dense, ssm and hybrid families and its rollback
+rules, and the per-call view of batched rows over a paged KV store
+(``PagedRows``, built on the host by ``paged_rows`` for an extend, on
+the device by ``slot_rows`` for a decode step).
 
 A :class:`DecodeState` holds the attention KV caches, stacked over layers
 as (L, B, C, K, hd) like the JAX package's (dense family), or the mamba2
-states, conv (L, B, W-1, C) and ssm (L, B, H, P, N) (ssm family), and the
-absolute position (the number of tokens already in context) as a host
-integer.
+states, conv (L, B, W-1, C) and ssm (L, B, H, P, N) (ssm family), or both
+(hybrid family: each layer runs attention and a mamba2 mixer side by
+side), and the absolute position (the number of tokens already in
+context) as a host integer.
 
 **Caches are written in place.**  JAX arrays are immutable, so there a
 snapshot is the state object itself.  Here ``prefill`` and
@@ -44,12 +45,20 @@ state into that pair first and copies the pair out into fresh tensors
 for the session it returns, so a state a snapshot holds is still never
 written.  SSM state cannot be rolled back by position: ``truncate``
 raises, and rollback restores a snapshot (and replays).
+
+A hybrid state follows both rules at once: its K/V caches are written in
+place and masked by position, as a dense model's, and its conv/ssm
+states are new tensors after every call, as an ssm model's.  Its
+``truncate`` raises (the ssm rule), and its snapshot shares all four
+tensors and stays O(1): restoring it is correct because the K/V slots
+below its position are never written again, which holds for linear
+caches only.  A hybrid state is therefore always linear.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,25 +107,40 @@ class DecodeState:
         return dataclasses.replace(self)
 
 
+def make_ssm_state(cfg, batch: int, device, dtype=torch.float32
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zeroed mamba2 states of an ssm or hybrid ``cfg``: conv (L, B, W-1,
+    C) in ``dtype`` and ssm (L, B, H, P, N) in float32."""
+    ch = cfg.ssm_d_inner + 2 * cfg.ssm_n_groups * cfg.ssm_state
+    conv = torch.zeros((cfg.n_layers, batch, cfg.ssm_conv_width - 1, ch),
+                       dtype=dtype, device=device)
+    ssm = torch.zeros((cfg.n_layers, batch, cfg.ssm_n_heads,
+                       cfg.ssm_head_dim, cfg.ssm_state),
+                      dtype=torch.float32, device=device)
+    return conv, ssm
+
+
 def make_decode_state(cfg, batch: int, capacity: int, device,
                       dtype=torch.float32, ring: bool = False) -> DecodeState:
-    """A zeroed decode state for a dense or ssm ``cfg`` on ``device``
-    (``capacity`` and ``ring`` are unused for ssm)."""
-    if cfg.family == "ssm":
-        ch = cfg.ssm_d_inner + 2 * cfg.ssm_n_groups * cfg.ssm_state
-        conv = torch.zeros((cfg.n_layers, batch, cfg.ssm_conv_width - 1, ch),
-                           dtype=dtype, device=device)
-        ssm = torch.zeros((cfg.n_layers, batch, cfg.ssm_n_heads,
-                           cfg.ssm_head_dim, cfg.ssm_state),
-                          dtype=torch.float32, device=device)
-        return DecodeState(k=None, v=None, pos=0, conv=conv, ssm=ssm)
-    if cfg.family != "dense":
+    """A zeroed decode state for a dense, ssm or hybrid ``cfg`` on
+    ``device`` (``capacity`` and ``ring`` are unused for ssm; a hybrid
+    state takes linear caches only, as the module docstring says)."""
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(f"decode state for family {cfg.family!r} "
                                   "is not ported yet")
+    conv = ssm = None
+    if cfg.has_ssm:
+        conv, ssm = make_ssm_state(cfg, batch, device, dtype)
+        if cfg.family == "ssm":
+            return DecodeState(k=None, v=None, pos=0, conv=conv, ssm=ssm)
+        if ring:
+            raise ValueError("a hybrid state takes linear caches only: a "
+                             "snapshot must never see its slots rewritten")
     shape = (cfg.n_layers, batch, capacity, cfg.n_kv_heads,
              cfg.resolved_head_dim)
     k = torch.zeros(shape, dtype=dtype, device=device)
-    return DecodeState(k=k, v=torch.zeros_like(k), pos=0, ring=ring)
+    return DecodeState(k=k, v=torch.zeros_like(k), pos=0, ring=ring,
+                       conv=conv, ssm=ssm)
 
 
 @dataclasses.dataclass

@@ -1,11 +1,14 @@
-"""Model assembly for the dense and ssm families.
+"""Model assembly for the dense, ssm and hybrid families.
 
 Functions over a params dict, as in the JAX package: parameters are
 nested dicts of tensors stacked over layers (``params["layers"]["attn"]
 ["wq"]`` is (L, d, H, hd)), and the layers run as a Python loop over
 that stacked dimension.  A dense layer is pre-norm attention plus an MLP;
-an ssm layer is a pre-norm mamba2 mixer (``layers/mixer/*``) and no MLP.
-Other families raise ``NotImplementedError``.
+an ssm layer is a pre-norm mamba2 mixer (``layers/mixer/*``) and no MLP;
+a hybrid layer (hymba) runs attention (``layers/attn/*``, with the
+config's sliding window) and a mamba2 mixer (``layers/mamba/*``) side by
+side on the same normed input, adds their mean, then an MLP.  Other
+families raise ``NotImplementedError``.
 
 Public surface:
   Model.init         -- random parameters from a seed, on a device
@@ -76,10 +79,10 @@ def _layer(stacked: Dict, i: int) -> Dict:
 class Model:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg.validate()
-        if cfg.family not in ("dense", "ssm"):
+        if cfg.family not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(f"family {cfg.family!r} is not ported "
-                                      "yet; the port runs the dense and ssm "
-                                      "families")
+                                      "yet; the port runs the dense, ssm and "
+                                      "hybrid families")
 
     # ------------------------------------------------------------- params --
     def spec(self) -> Dict[str, ParamSpec]:
@@ -90,9 +93,11 @@ class Model:
         if cfg.family == "ssm":
             layer = {"ln1": norm_spec(d, nt), "mixer": mamba2.mamba_spec(cfg)}
         else:
-            layer = {"ln1": norm_spec(d, nt), "attn": attn.attn_spec(cfg),
-                     "ln2": norm_spec(d, nt),
-                     "mlp": mlp_spec(d, cfg.d_ff, cfg.act)}
+            layer = {"ln1": norm_spec(d, nt), "attn": attn.attn_spec(cfg)}
+            if cfg.family == "hybrid":
+                layer["mamba"] = mamba2.mamba_spec(cfg)
+            layer.update(ln2=norm_spec(d, nt),
+                         mlp=mlp_spec(d, cfg.d_ff, cfg.act))
         tree = {"tok_embed": embed_spec(cfg.vocab_size, d),
                 "final_norm": norm_spec(d, nt),
                 "layers": {k: s.stacked(cfg.n_layers)
@@ -175,32 +180,50 @@ class Model:
         h = apply_norm(x, lp["ln1"], cfg.norm_type, cfg.rmsnorm_eps)
         if cfg.family == "ssm":
             return x + mamba2.apply_mamba(h, lp["mixer"], cfg)
-        x = x + attn.self_attention(h, lp["attn"], cfg, positions,
-                                    window=cfg.sliding_window)
+        a = attn.self_attention(h, lp["attn"], cfg, positions,
+                                window=cfg.sliding_window)
+        if cfg.family == "hybrid":
+            x = x + 0.5 * (a + mamba2.apply_mamba(h, lp["mamba"], cfg))
+        else:
+            x = x + a
         return self._mlp_block(x, lp)
 
     # ----------------------------------------------------- prefill / extend --
     def prefill(self, params, tokens: torch.Tensor, state: DecodeState
                 ) -> Tuple[torch.Tensor, DecodeState]:
         """Process S tokens starting at ``state.pos``: writes their keys and
-        values into the state's caches in place (an ssm model resumes
-        from the state's conv and ssm tensors and returns new ones) and
-        returns (logits (B, S, V), the state advanced by S).  Prompts,
-        step extends and SpecReason verification passes all come through
-        here."""
+        values into the state's caches in place (an ssm or hybrid model
+        resumes from the state's conv and ssm tensors and returns new
+        ones) and returns (logits (B, S, V), the state advanced by S).
+        Prompts, step extends and SpecReason verification passes all come
+        through here."""
         cfg = self.cfg
         start = state.pos
         x = self._embed(params, tokens, start)
         if cfg.family == "ssm":
             return self._ssm_layers(params, x, state, decode=False)
+        convs, ssms = [], []
         for i in range(cfg.n_layers):
             lp = _layer(params["layers"], i)
             h = apply_norm(x, lp["ln1"], cfg.norm_type, cfg.rmsnorm_eps)
-            x = x + attn.prefill_self_attention(
+            a = attn.prefill_self_attention(
                 h, lp["attn"], cfg, state.k[i], state.v[i], start,
                 cfg.sliding_window)
+            if cfg.family == "hybrid":
+                m, (conv, ssm) = mamba2.apply_mamba(
+                    h, lp["mamba"], cfg, (state.conv[i], state.ssm[i]),
+                    return_state=True)
+                convs.append(conv)
+                ssms.append(ssm)
+                x = x + 0.5 * (a + m)
+            else:
+                x = x + a
             x = self._mlp_block(x, lp)
         new_state = dataclasses.replace(state, pos=start + tokens.shape[1])
+        if convs:
+            new_state = dataclasses.replace(new_state,
+                                            conv=torch.stack(convs),
+                                            ssm=torch.stack(ssms))
         return self._final(params, x), new_state
 
     # --------------------------------------------------------------- decode --
@@ -217,7 +240,8 @@ class Model:
         advances by ``active``; a dense step's K/V write puts back what
         the slot held; an ssm step writes its conv and ssm states into
         ``state``'s tensors in place, a masked one leaving them as they
-        were (without ``active`` it returns new tensors)."""
+        were (without ``active`` it returns new tensors).  A hybrid step
+        does both."""
         cfg = self.cfg
         pos = state.pos
         x = self._embed(params, tokens, pos)
@@ -237,15 +261,30 @@ class Model:
         else:
             lengths = torch.full((b,), min(pos + 1, state.capacity),
                                  dtype=torch.int32, device=x.device)
+        convs, ssms = [], []
         for i in range(cfg.n_layers):
             lp = _layer(params["layers"], i)
             h = apply_norm(x, lp["ln1"], cfg.norm_type, cfg.rmsnorm_eps)
-            x = x + attn.decode_self_attention(
+            a = attn.decode_self_attention(
                 h, lp["attn"], cfg, state.k[i], state.v[i], pos, lengths,
                 ring=state.ring, active=active)
+            if cfg.family == "hybrid":
+                m, (conv, ssm) = mamba2.apply_mamba_decode(
+                    h, lp["mamba"], cfg, (state.conv[i], state.ssm[i]),
+                    active)
+                convs.append(conv)
+                ssms.append(ssm)
+                x = x + 0.5 * (a + m)
+            else:
+                x = x + a
             x = self._mlp_block(x, lp)
         logits = self._final(params, x)[:, 0, :]
-        return logits, dataclasses.replace(state, pos=new_pos)
+        new_state = dataclasses.replace(state, pos=new_pos)
+        if convs and active is None:
+            new_state = dataclasses.replace(new_state,
+                                            conv=torch.stack(convs),
+                                            ssm=torch.stack(ssms))
+        return logits, new_state
 
     def _ssm_layers(self, params, x: torch.Tensor, state: DecodeState,
                     decode: bool, active: Optional[torch.Tensor] = None

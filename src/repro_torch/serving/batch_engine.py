@@ -148,6 +148,11 @@ class BatchEngine:
         if cfg.family != "dense":
             raise NotImplementedError(f"family {cfg.family!r}: the batched "
                                       "engine serves the dense family")
+        if cfg.sliding_window:
+            raise NotImplementedError(
+                f"{cfg.name}: sliding window {cfg.sliding_window} over paged "
+                "rows has no kernel (ROADMAP queue 2 A, its paged half); "
+                "serve windowed models through the sequential Engine")
         self.model = model
         self.params = params
         self.device = params["tok_embed"].device

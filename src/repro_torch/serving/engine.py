@@ -33,16 +33,18 @@ Differences from the JAX package:
     most ceil(budget / k) + 1 times and runs at most 2k - 1 masked
     steps.  On the CPU the same body runs eagerly.  A failed capture or
     replay raises; nothing falls back to the per-token loop.
-  * The fused loop is the default of both families, as in the JAX
-    package, except with a sliding window, whose ring slots the device
-    position does not take.  A session's SSM state is never written in
-    place (``models/kvcache.py``), so an ssm engine keeps one static
+  * The fused loop is the default of every family the engine serves
+    (dense, with or without a sliding window, ssm and hybrid), as in the
+    JAX package.  A session's SSM state is never written in place
+    (``models/kvcache.py``), so an ssm or hybrid engine keeps one static
     conv/ssm pair per batch size, shared by all its capture keys: a call
     copies the session's state into it, the loop writes it in place
     (masked steps leave it as it was), and the call copies it out into
     fresh tensors for the session it returns (about 103 MB each way at
     mamba2-1.3b).  A snapshot's state is never written, and snapshots
-    stay O(1).
+    stay O(1).  A hybrid session's K/V pair comes from the engine's pool,
+    as a dense session's does, so a hybrid loop is keyed by the pooled
+    pair and the static conv/ssm pair, and is captured once.
   * ``generate_eager`` is the JAX package's: one decode call, one host
     sync and one sample per token, metered per token.
   * Sampling draws from a ``torch.Generator`` (``sampling/sample.py``).
@@ -61,7 +63,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models.kvcache import DecodeState
+from ..models.kvcache import DecodeState, make_ssm_state
 from ..models.model import Model
 from ..sampling.sample import SamplingParams, gumbel, probs_from_logits, \
     sample
@@ -133,8 +135,8 @@ class _Lease:
 class _FusedLoop:
     """The static buffers of one capture key and, on the card, the graph
     that reads and writes them."""
-    # the KV caches (no lease) or the engine's static conv/ssm pair, pos
-    # a view of ctl
+    # the KV caches (no lease) and/or the engine's static conv/ssm pair,
+    # pos a view of ctl
     state: DecodeState
     sp: SamplingParams
     k: int                 # one-token steps a body
@@ -158,9 +160,8 @@ class Engine:
     def __init__(self, model: Model, params, max_len: int = 1024,
                  buckets: Sequence[int] = DEFAULT_BUCKETS, name: str = "",
                  pad_id: int = 0, fused: Optional[bool] = None):
-        """``fused``: the default decode loop of ``generate``.  None means
-        fused, except per-token for a sliding window, which the device
-        position does not take."""
+        """``fused``: the default decode loop of ``generate``; None means
+        the fused loop, for every family."""
         self.model = model
         self.params = params
         self.device = params["tok_embed"].device
@@ -171,14 +172,14 @@ class Engine:
         # trailing pads are invisible to attention caches (position-masked)
         # but would enter an SSM's recurrent state: exact-length extends
         self.exact_lengths = model.cfg.has_ssm
-        self.fused = not model.cfg.sliding_window if fused is None \
-            else fused
+        self.fused = True if fused is None else fused
         self.meter = Meter()
         # (batch, capacity) -> [(state over a KV pair, weakref to the
         # lease of the states that hold it)]
         self._kv_pool: Dict[Tuple[int, int], list] = {}
         self._loops: Dict[tuple, _FusedLoop] = {}
-        # batch -> the static conv/ssm pair of an ssm engine's fused loops
+        # batch -> the static conv/ssm pair of an ssm or hybrid engine's
+        # fused loops
         self._ssm_static: Dict[int, DecodeState] = {}
         self._graph_gen: Optional[torch.Generator] = None
         self.captures = 0          # CUDA graphs captured
@@ -191,13 +192,15 @@ class Engine:
     # ------------------------------------------------------------------ api
     def new_session(self, batch: int = 1,
                     capacity: Optional[int] = None) -> Session:
-        """An empty context.  A dense engine hands out a KV pair of this
-        (batch, capacity) again, zeroed, once no live state holds it, so
-        a fused loop's graph keyed by the pair's addresses is replayed
-        across requests; it allocates a pair only while every pooled one
-        is held."""
+        """An empty context.  A dense or hybrid engine hands out a KV pair
+        of this (batch, capacity) again, zeroed, once no live state holds
+        it, so a fused loop's graph keyed by the pair's addresses is
+        replayed across requests; it allocates a pair only while every
+        pooled one is held.  SSM state (ssm and hybrid) is allocated
+        anew for every session."""
+        cfg = self.model.cfg
         cap = capacity or self.max_len
-        if self.model.cfg.has_ssm:
+        if cfg.family == "ssm":
             return Session(self.model.init_state(batch, cap, self.device),
                            None, 0)
         pairs = self._kv_pool.setdefault((batch, cap), [])
@@ -207,10 +210,17 @@ class Engine:
                 st.k.zero_()
                 st.v.zero_()
                 pairs[n] = (st, weakref.ref(lease))
-                return Session(dataclasses.replace(st, lease=lease), None, 0)
-        st = self.model.init_state(batch, cap, self.device)
-        pairs.append((st, weakref.ref(lease)))
-        return Session(dataclasses.replace(st, lease=lease), None, 0)
+                break
+        else:
+            st = self.model.init_state(batch, cap, self.device)
+            st = dataclasses.replace(st, conv=None, ssm=None)
+            pairs.append((st, weakref.ref(lease)))
+        st = dataclasses.replace(st, lease=lease)
+        if cfg.has_ssm:
+            conv, ssm = make_ssm_state(cfg, batch, self.device,
+                                       st.k.dtype)
+            st = dataclasses.replace(st, conv=conv, ssm=ssm)
+        return Session(st, None, 0)
 
     def _bucket(self, n: int) -> int:
         if self.exact_lengths:
@@ -399,20 +409,25 @@ class Engine:
         """The static buffers (and on the card the captured graph) of one
         key.  A graph holds the addresses it was captured on, so the key
         includes the state's: the KV pair's, which ``new_session`` hands
-        out again, or the engine's static conv/ssm pair of this batch
-        size (a new ssm session allocates new tensors)."""
-        if state.ssm is None:
-            st, bufs = DecodeState(state.k, state.v, pos=0), (state.k,
-                                                              state.v)
-        else:
+        out again, and the engine's static conv/ssm pair of this batch
+        size (a new ssm or hybrid session allocates new conv/ssm
+        tensors).  Key entries 0 and 1 are the KV pair's addresses, or
+        an ssm engine's static pair's; a hybrid key ends with its static
+        pair's."""
+        st = DecodeState(state.k, state.v, pos=0)
+        if state.ssm is not None:
             batch = state.ssm.shape[1]
             if batch not in self._ssm_static:
-                self._ssm_static[batch] = self.model.init_state(
-                    batch, 0, self.device, state.conv.dtype)
-            st = self._ssm_static[batch]
-            bufs = (st.conv, st.ssm)
+                conv, ssm = make_ssm_state(self.model.cfg, batch,
+                                           self.device, state.conv.dtype)
+                self._ssm_static[batch] = DecodeState(None, None, pos=0,
+                                                      conv=conv, ssm=ssm)
+            static = self._ssm_static[batch]
+            st = dataclasses.replace(st, conv=static.conv, ssm=static.ssm)
+        bufs = [t for t in (st.k, st.v, st.conv, st.ssm) if t is not None]
         key = (bufs[0].data_ptr(), bufs[1].data_ptr(), bufs[1].shape, sp,
-               collect_probs, buf, n_slots, k)
+               collect_probs, buf, n_slots, k) + tuple(
+                   t.data_ptr() for t in bufs[2:])
         loop = self._loops.get(key)
         if loop is not None:
             return loop

@@ -495,13 +495,114 @@ def test_batch_engine_on_card_matches_cpu_and_counts_launches(dev, name):
 
 
 def test_sliding_window_decode_on_card_raises(dev):
+    """A ring-buffered (sliding-window) cache has no kernel: decoding it on
+    the card raises.  A linear windowed cache runs #1 with its window
+    (``test_windowed_decode_kernel_matches_plain``)."""
     cfg = dataclasses.replace(testbed.MICRO, sliding_window=8)
     m = Model(cfg)
     p = m.init(0, device=dev)
-    st = m.init_state(1, 16, device=dev)
-    with pytest.raises(NotImplementedError, match="CUDA kernel"):
+    st = m.init_state(1, 8, device=dev, ring=True)
+    with pytest.raises(NotImplementedError, match="ring"):
         m.decode_step(p, st, torch.zeros(1, 1, dtype=torch.long,
                                          device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kh,cap,hd,window,lens", [
+    (8, 25, 5, 4096, 64, 2048, [4096] * 8),        # hymba-1.5b's heads
+    (2, 36, 4, 8192, 128, 4096, [8192, 5000]),     # starcoder2-7b's
+    (6, 25, 5, 4096, 64, 2048, [0, 1, 700, 2048, 2049, 4096]),
+    (3, 4, 4, 300, 32, 8, [300, 9, 3]),            # G = 1
+    (2, 18, 2, 1000, 96, 100, [999, 64]),          # G = 9, hd 96
+    (40, 8, 8, 512, 32, 37, [512, 1, 300, 0] * 10),  # no split
+])
+def test_windowed_decode_kernel_matches_plain(dev, dtype, b, h, kh, cap, hd,
+                                              window, lens):
+    """#1 with a window against ``ref.decode_reference(..., window)``:
+    rows below, at and above the window, split and unsplit plans; the
+    unwindowed launch of the same cache is unchanged."""
+    gen = torch.Generator(device=dev).manual_seed(cap + hd + window)
+    kc = _randn(gen, b, cap, kh, hd, dtype=dtype).permute(0, 2, 1, 3)
+    vc = _randn(gen, b, cap, kh, hd, dtype=dtype).permute(0, 2, 1, 3)
+    q = _randn(gen, b, h, hd, dtype=dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = decode_attention.launches
+    out = decode_attention(q, kc, vc, lengths, window)
+    full = decode_attention(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2
+    live = lengths > 0
+    for got, w in ((out, window), (full, 0)):
+        exp = ref.decode_reference(q, kc, vc, lengths, w)
+        torch.testing.assert_close(got[live].float(), exp[live].float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.all(out[~live] == 0)
+    with pytest.raises(ValueError, match="window"):
+        decode_attention(q, kc, vc, lengths, -1)
+
+
+def _hybrid_engine(dev, seed=2, window=8):
+    cfg = dataclasses.replace(arch_config("hymba-1.5b", reduced=True),
+                              sliding_window=window)
+    m = Model(cfg)
+    return Engine(m, m.init(seed, device=dev), max_len=96)
+
+
+def test_hybrid_model_on_card_matches_cpu(dev):
+    """The reduced hymba with window 8: a 21-token prefill, a 7-token
+    extend and 12 decodes past the window, card logits and conv/ssm
+    against the CPU's; #2 and #5 launch once a layer an extend, #1 once a
+    layer a decode."""
+    eng = _hybrid_engine(dev)
+    m, n = eng.model, eng.model.cfg.n_layers
+    toks = torch.randint(0, 64, (1, 40), generator=torch.Generator()
+                         .manual_seed(1))
+    out = {}
+    for d in ("cuda", "cpu"):
+        p = eng.params if d == "cuda" else \
+            unflatten({k: t.cpu() for k, t in flatten(eng.params).items()})
+        counts = (flash_attention.launches, ssd_scan.launches,
+                  decode_attention.launches)
+        st = m.init_state(1, 64, device=d)
+        a, st = m.prefill(p, toks[:, :21].to(d), st)
+        b, st = m.prefill(p, toks[:, 21:28].to(d), st)
+        rows = [a[0], b[0]]
+        for t in range(28, 40):
+            c, st = m.decode_step(p, st, toks[:, t:t + 1].to(d))
+            rows.append(c)
+        out[d] = (torch.cat(rows).cpu(), st.conv.cpu(), st.ssm.cpu())
+        if d == "cuda":
+            torch.cuda.synchronize()
+            assert (flash_attention.launches - counts[0],
+                    ssd_scan.launches - counts[1],
+                    decode_attention.launches - counts[2]) == \
+                (2 * n, 2 * n, 12 * n)
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=LOGIT_TOL,
+                               rtol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.6])
+def test_hybrid_fused_graphs_match_eager_on_card(dev, temperature):
+    """The reduced hymba with window 8: the replayed graphs give the
+    per-token loop's tokens, logits, K/V and conv/ssm; a second request
+    captures nothing (its K/V pair comes from the pool, its conv/ssm go
+    through the static pair)."""
+    eng = _hybrid_engine(dev)
+    assert eng.fused
+    eo, es, enext = _two_calls(eng, False, temperature)
+    want = (es.pos, es.last_logits, es.state.conv, es.state.ssm)
+    del es          # frees its pooled K/V pair for the fused calls
+    fo, fs, fnext = _two_calls(eng, True, temperature)
+    assert [i for i, _ in fo] == [i for i, _ in eo]
+    assert fs.pos == want[0] > 21 + 8
+    torch.testing.assert_close((fs.last_logits, fs.state.conv, fs.state.ssm),
+                               want[1:], rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(fnext, enext, rtol=0, atol=0)
+    caps = eng.captures
+    assert caps == len(eng._loops) == 2
+    del fs
+    _two_calls(eng, True, temperature)
+    assert eng.captures == caps and len(eng._kv_pool[(1, 96)]) == 1
 
 
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}

@@ -34,6 +34,9 @@ def test_every_module_imports_without_jax_or_repro():
            "repro_torch.kernels.paged_append_attention",
            "repro_torch.kernels.ssd_scan", "repro_torch.models.mamba2",
            "repro_torch.configs.registry", "repro_torch.configs.mamba2_1_3b",
+           "repro_torch.configs.hymba_1_5b",
+           "repro_torch.configs.phi3_mini_3_8b",
+           "repro_torch.configs.starcoder2_7b",
            "repro_torch.launch.multiarch", "repro_torch.data.pipeline",
            "repro_torch.training.loss", "repro_torch.training.optimizer",
            "repro_torch.training.train_loop", "repro_torch.launch.train",

@@ -120,8 +120,8 @@ def test_load_checkpoint_checks_keys_and_shapes(tmp_path):
 
 def test_other_families_raise():
     with pytest.raises(NotImplementedError):
-        TModel(dataclasses.replace(testbed.MICRO, family="hybrid",
-                                   ssm_state=16))
+        TModel(dataclasses.replace(testbed.MICRO, family="moe",
+                                   n_experts=4, top_k=2))
 
 
 # ---------------------------------------------------------------------------

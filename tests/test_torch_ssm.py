@@ -436,14 +436,17 @@ def test_hierarchical_ssm_self_draft_accepts_and_replays(self_pairs):
 # ---------------------------------------------------------------------------
 
 def test_registry_refuses_unported_archs():
-    assert set(registry.ASSIGNED) == {"minitron-4b", "mamba2-1.3b"}
+    assert set(registry.ASSIGNED) == {"minitron-4b", "mamba2-1.3b",
+                                      "phi3-mini-3.8b", "hymba-1.5b",
+                                      "starcoder2-7b"}
     assert dataclasses.asdict(registry.get(ARCH)) == \
         dataclasses.asdict(jregistry.get(ARCH))
-    for arch in ("hymba-1.5b", "yi-34b"):
+    for arch in ("granite-moe-1b-a400m", "yi-34b"):
         with pytest.raises(KeyError, match="not ported"):
             registry.get(arch)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        Model(dataclasses.replace(registry.reduced(ARCH), family="hybrid"))
+    with pytest.raises(NotImplementedError, match="moe"):
+        Model(dataclasses.replace(registry.reduced(ARCH), family="moe",
+                                  n_experts=4, top_k=2))
 
 
 def test_random_engine_and_multiarch_on_cpu(capsys):
@@ -461,4 +464,7 @@ def test_random_engine_and_multiarch_on_cpu(capsys):
     assert any(ln.startswith(ARCH) and "rollback=snapshot" in ln
                for ln in lines)
     assert any(ln.startswith("minitron-4b") and "kv-truncate" in ln
+               for ln in lines)
+    assert any(ln.startswith("hymba-1.5b") and "[hybrid" in ln and
+               "rollback=snapshot" in ln and "hymba-1.5b fused" in ln
                for ln in lines)
