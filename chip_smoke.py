@@ -40,6 +40,9 @@ from the root of a checkout.  Phases, each printing its lines:
      with span_len < T, and minitron-4b's shape: B=8 over 4096 tokens
      (256 pages a row), T = 5 (gamma + 1) and a 64-query chunk; the
      yardstick is SDPA over the pre-gathered dense K/V (gather excluded);
+   * ``paged_tp`` (#3 and #4 as one rank's launch at tp=2) at one
+     rank's share of minitron-4b's heads, 12 over 4: decode B=8 over
+     4096, spans T = 64 and 5 over the same context, fp32 and bf16;
    * the causal attention backward (2b) in fp32 at BASE's and SMALL's
      training shapes and minitron-4b's heads over S = 256 to 4096, with
      SDPA's autograd backward as the yardstick;
@@ -90,7 +93,21 @@ from the root of a checkout.  Phases, each printing its lines:
    on at most those with it off less the hit tokens; a hit's last logits
    against a cold prefill's (LOGIT_TOL); hit rate, prefill tokens saved,
    TTFT, tok/s and evictions on against off, and as information whether
-   the greedy tokens agree;
+   the greedy tokens agree.  ``[main] tp``: exact tensor parallelism
+   (``serve``'s continuous scheduler with a ``TPContext``) at
+   minitron-4b's widths and TP_DEPTH layers with the SMALL drafter, two
+   rank processes sharing the card over gloo (``serving.tp.run_ranks``;
+   each draws its slices of the same seeded parameters on the card, one
+   layer at a time), against tp=1 in this process, both on the per-token
+   rows loop: 4 greedy requests over 4 rows at budget 128; per rank #3
+   and #4 launches == n_layers x the metered decode steps and extends,
+   all through ``kernels/paged_tp.py`` (the base's over 12 query and 4 kv
+   heads), the ranks' tokens identical, tp=2's tokens tp=1's, one
+   64-token extend's last logits within LOGIT_TOL, each rank's peak
+   memory below the whole model's bytes; the backend, the gathers' host
+   time a forward and the phase's lap; then ``serve --scheduler
+   continuous --tp 2`` itself (its own rank processes) over the testbed
+   checkpoint, 3 greedy requests, tokens equal to ``--tp 1``'s;
 5. check: BASE and SMALL logits on the card against the same checkpoint
    on the CPU, over a prefill and decode steps, and over the batched
    path (one ``prefill_rows`` and one ``decode_rows`` on 3 ragged rows);
@@ -191,6 +208,7 @@ pads after the window) is taken again, at most TRACE_TRIES times.
 
 import gc
 import json
+import math
 import os
 import random
 import re
@@ -257,6 +275,16 @@ DECODE_TOKENS = 128
 PREFIX_TASKS = 2
 PREFIX_N = 4
 PREFIX_PRESSURE_MB = 40
+# [main] tp: minitron-4b (vocabulary 64, TP_DEPTH of its 32 layers) with
+# the SMALL drafter at tp=TP_SIZE, the rank processes sharing the card
+# over gloo, against tp=1 in this process: TP_REQUESTS greedy requests
+# over 4 rows at ROWS_BUDGET through the per-token rows loop both ways;
+# then one TP_PROMPT-token extend, its last logits within LOGIT_TOL
+TP_SIZE = 2
+TP_DEPTH = 32
+TP_REQUESTS = 4
+TP_PROMPT = 64
+TP_TIMEOUT_S = 600
 # the turns of the dense phases, sequential and batched: one eager turn
 # between two fused ones (each loop's tokens against the other's, and a
 # second fused turn that must capture nothing)
@@ -2914,6 +2942,344 @@ def arch_check_phase(torch, loader, Model, Engine, SamplingParams, arch,
           flush=True)
 
 
+def paged_tp_kernel_phase(torch, F, ref, minitron):
+    """``kernels/paged_tp.py`` at one rank's share of minitron-4b's heads
+    at tp=2 (12 query heads over 4 kv heads of 128): #3 over B=8 rows of
+    4096 tokens and #4 with T = 64 and 5 over the same context, fp32 and
+    bf16, each against the plain version, with its bound and SDPA over
+    the pre-gathered K/V.  The wrappers need no group for one rank's
+    launch.  Returns per-wrapper records."""
+    from repro_torch.kernels import paged_tp
+    from repro_torch.serving.tp import TPContext
+    dev = torch.device("cuda")
+    tp = TPContext(rank=0, tp_size=TP_SIZE, device=dev)
+    heads = (minitron.n_heads, minitron.n_kv_heads)
+    h, kh = heads[0] // TP_SIZE, heads[1] // TP_SIZE
+    hd, bs, b, n = minitron.resolved_head_dim, 16, 8, 4096
+    gen = torch.Generator(device=dev).manual_seed(5)
+    records = {"tp_paged_decode_attention": [],
+               "tp_paged_append_attention": []}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        esize = torch.tensor([], dtype=dt).element_size()
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device=dev).to(dt)
+        nb = n // bs
+        kp, vp = randn(b * nb + 3, kh, bs, hd), randn(b * nb + 3, kh, bs, hd)
+        tables = torch.randperm(b * nb + 3, generator=gen, device=dev)[
+            :b * nb].reshape(b, nb).to(torch.int32).contiguous()
+        kd = kp[tables.long()].transpose(1, 2).reshape(b, kh, n, hd)
+        vd = vp[tables.long()].transpose(1, 2).reshape(b, kh, n, hd)
+        lengths = torch.full((b,), n, dtype=torch.int32, device=dev)
+        q = randn(b, h, hd)
+        args = (tp, q, kp, vp, tables, lengths)
+        out = paged_tp.tp_paged_decode_attention(*args, heads=heads)
+        exp = ref.paged_decode_reference(*args[1:])
+        err = (out.float() - exp.float()).abs().max().item()
+        if not torch.allclose(out.float(), exp.float(), atol=TOL[dname],
+                              rtol=TOL[dname]):
+            raise AssertionError(f"tp_paged_decode_attention {dname}: max "
+                                 f"|err| {err}")
+        label = f"minitron-tp{TP_SIZE} {dname} B={b} over {n}, {h} over {kh}"
+        ms = time_ms(torch, lambda: paged_tp.tp_paged_decode_attention(
+            *args, heads=heads))
+        plain_ms = time_ms(torch, lambda: ref.paged_decode_reference(
+            *args[1:]), reps=5)
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kd, vd, enable_gqa=True))
+        nbytes = (2 * q.numel() + 2 * b * n * kh * hd) * esize \
+            + 4 * (b + b * nb)
+        bound_ms, by = bound(nbytes, 4 * hd * h * b * n, dname)
+        records["tp_paged_decode_attention"].append(dict(
+            shape=label, dtype=dname, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by=by))
+        print(f"[kernels] tp_paged_decode_attention {label}: err {err:.3g} "
+              f"| kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa over "
+              f"gathered K/V {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({by})",
+              flush=True)
+        for t in (64, 5):
+            ctx = n - t
+            cl = torch.full((b,), ctx, dtype=torch.int32, device=dev)
+            sl = torch.full((b,), t, dtype=torch.int32, device=dev)
+            qa, kn, vn = randn(b, t, h, hd), randn(b, t, kh, hd), \
+                randn(b, t, kh, hd)
+            args = (tp, qa, kn, vn, kp, vp, tables, cl, sl)
+            out = paged_tp.tp_paged_append_attention(*args, heads=heads)
+            exp = ref.paged_append_reference(*args[1:])
+            err = (out.float() - exp.float()).abs().max().item()
+            if not torch.allclose(out.float(), exp.float(), atol=TOL[dname],
+                                  rtol=TOL[dname]):
+                raise AssertionError(f"tp_paged_append_attention {dname} "
+                                     f"T={t}: max |err| {err}")
+            kc = torch.cat([kd[:, :, :ctx], kn.transpose(1, 2)], 2)
+            vc = torch.cat([vd[:, :, :ctx], vn.transpose(1, 2)], 2)
+            mask = torch.ones(t, ctx + t, dtype=torch.bool,
+                              device=dev).tril(ctx)
+            qh = qa.transpose(1, 2)
+            label = (f"minitron-tp{TP_SIZE} {dname} T={t} B={b} ctx={ctx}, "
+                     f"{h} over {kh}")
+            ms = time_ms(torch, lambda: paged_tp.tp_paged_append_attention(
+                *args, heads=heads))
+            plain_ms = time_ms(torch, lambda: ref.paged_append_reference(
+                *args[1:]), reps=5)
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kc, vc, attn_mask=mask, enable_gqa=True))
+            pairs = b * (t * ctx + t * (t + 1) // 2)
+            nbytes = (2 * b * t * h * hd + 2 * b * t * kh * hd
+                      + 2 * b * ctx * kh * hd) * esize \
+                + 4 * (2 * b + b * nb)
+            bound_ms, by = bound(nbytes, 4 * hd * h * pairs, dname)
+            records["tp_paged_append_attention"].append(dict(
+                shape=label, dtype=dname, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=by))
+            print(f"[kernels] tp_paged_append_attention {label}: err "
+                  f"{err:.3g} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"sdpa over gathered K/V {lib_ms:.4f} ms, bound "
+                  f"{bound_ms:.5f} ms ({by})", flush=True)
+    return records
+
+
+def draw_params(torch, model, seed, tp):
+    """``model``'s parameters drawn on the card from ``seed`` with the
+    port's init rules and scales, a stacked tensor one layer a draw,
+    keeping rank ``tp.rank``'s slice of each tensor that
+    ``models/sharding.py`` slices (``tp`` None: everything whole).  So
+    every rank and tp=1 draw the same numbers, and a rank holds no more
+    than one layer of a sliced tensor beyond its slice."""
+    from repro_torch.models.model import unflatten
+    from repro_torch.models.sharding import sliced_dim
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def part(t, key):
+        dim = None if tp is None else sliced_dim(key)
+        if dim is None:
+            return t
+        n = t.shape[dim] // tp.tp_size
+        return t.narrow(dim, tp.rank * n, n).contiguous()
+    flat = {}
+    for key, s in sorted(model.spec().items()):
+        if s.init in ("ones", "zeros"):
+            full = (torch.ones if s.init == "ones" else torch.zeros)(
+                s.shape, device="cuda")
+            flat[key] = part(full, key)
+            continue
+        std = s.scale / math.sqrt(max(s.shape[s.fan_in_axis], 1)) \
+            if s.init == "scaled" else s.scale
+        if key.startswith("layers/"):
+            for i in range(s.shape[0]):
+                layer = part(torch.randn(s.shape[1:], generator=gen,
+                                         device="cuda") * std, key)
+                if i == 0:
+                    flat[key] = torch.empty((s.shape[0],) + layer.shape,
+                                            device="cuda")
+                flat[key][i] = layer
+        else:
+            flat[key] = part(torch.randn(s.shape, generator=gen,
+                                         device="cuda") * std, key)
+    return unflatten(flat)
+
+
+def tp_rank(tp):
+    """One side of ``[main] tp``: rank ``tp.rank`` of the group, or tp=1
+    in this process (``tp`` None).  Module level, so that the processes
+    ``serving.tp.run_ranks`` spawns find it by name.  Draws minitron-4b
+    at TP_DEPTH layers (``draw_params``, seed 0) and the SMALL drafter
+    (seed 1), serves TP_REQUESTS greedy requests through ``serve``'s
+    continuous scheduler on the per-token rows loop with the launch
+    counts zeroed just before, then extends a TP_PROMPT-token prompt on
+    a fresh engine.  Returns plain data."""
+    import dataclasses
+    import torch
+    from repro_torch.data import tasks
+    from repro_torch.kernels import paged_tp
+    from repro_torch.kernels.paged_append_attention import \
+        paged_append_attention
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.serving import loader
+    from repro_torch.serving.batch_engine import BatchEngine
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.workload import run_workload
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda") if tp is None else tp.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = Model(dataclasses.replace(loader.arch_config(DENSE_ARCH),
+                                      n_layers=TP_DEPTH))
+    base = Engine(model, draw_params(torch, model, 0, tp), name=DENSE_ARCH)
+    small = loader.random_engine("testbed-small", dev, seed=1)
+    args = serve.parse_args(
+        ["--scheduler", "continuous", "-n", str(TP_REQUESTS), "--batch", "4",
+         "--budget", str(ROWS_BUDGET), "--temperature", "0", "--threshold",
+         str(THRESHOLD), "--kv-budget-mb", str(DENSE_KV_MB), "--device",
+         "cuda", "--decode-loop", "eager"])
+    sched = serve.continuous_scheduler(args, base, small, tp)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    rng = random.Random(0)
+    pairs = [(tasks.sample_task(rng),
+              torch.Generator(device=dev).manual_seed(i))
+             for i in range(TP_REQUESTS)]
+    wrappers = {"decode": paged_decode_attention,
+                "append": paged_append_attention,
+                "tp_decode": paged_tp.tp_paged_decode_attention,
+                "tp_append": paged_tp.tp_paged_append_attention}
+    for w in wrappers.values():
+        w.launches = 0
+    if tp is not None:
+        tp.gathers, tp.gather_s = 0, 0.0
+    t0 = time.perf_counter()
+    handles = run_workload(sched, pairs, [0.0] * TP_REQUESTS)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    out = dict(
+        launches={k: w.launches for k, w in wrappers.items()},
+        meters={w: dict(layers=be.model.cfg.n_layers,
+                        decode_steps=be.meter.decode_steps,
+                        prefill_calls=be.meter.prefill_calls,
+                        heads=(be.params["layers"]["attn"]["wq"].shape[2],
+                               be.store.k.shape[2]),
+                        fused=be.fused)
+                for w, be in sched.engines.items()},
+        tokens=[h.result.thinking_ids + h.result.answer_ids
+                for h in handles],
+        statuses=[h.status for h in handles], wall=wall, init_s=init_s,
+        tok=sum(len(h.result.thinking_ids) + len(h.result.answer_ids)
+                for h in handles))
+    if tp is not None:
+        out.update(gathers=tp.gathers, gather_s=tp.gather_s,
+                   backend=tp.backend, devices=list(tp.devices))
+    be = BatchEngine(model, base.params, batch=1, capacity=CACHE,
+                     fused=False, tp=tp)
+    prompt = torch.randint(0, model.cfg.vocab_size, (TP_PROMPT,),
+                           generator=torch.Generator().manual_seed(4))
+    row = be.alloc_row()
+    last = be.extend_rows([row], [prompt.tolist()], want_logits=True)[0][-1]
+    out["logits"] = last.float().cpu().numpy()
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    out["param_bytes"] = sum(t.numel() * t.element_size()
+                             for t in leaves(sched.base_be.params))
+    out["whole_bytes"] = sum(4 * math.prod(s.shape)
+                             for s in model.spec().values())
+    return out
+
+
+def tp_cli_check(serve, ckpt):
+    """``serve --scheduler continuous --tp TP_SIZE`` on the card, the
+    CLI's own rank processes over the testbed checkpoint: 3 greedy
+    requests, whose think and answer tokens must be ``--tp 1``'s (the
+    per-token rows loop both ways)."""
+    argv = ["--scheduler", "continuous", "-n", "3", "--batch", "2",
+            "--budget", "48", "--temperature", "0", "--threshold",
+            str(THRESHOLD), "--ckpt-dir", ckpt, "--device", "cuda",
+            "--decode-loop", "eager"]
+    runs = [[(r[3].thinking_ids, r[3].answer_ids) for r in
+             serve.main(argv + ["--tp", str(n)]).runs]
+            for n in (1, TP_SIZE)]
+    if runs[0] != runs[1]:
+        raise AssertionError(f"serve --tp {TP_SIZE}: tokens differ from "
+                             "--tp 1's")
+    print(f"[main] tp cli: serve --tp {TP_SIZE} on the testbed pair gave "
+          f"--tp 1's think and answer tokens for {len(runs[0])} greedy "
+          "requests", flush=True)
+
+
+def tp_phase(torch, lap):
+    """[main] tp: exact tensor parallelism on the continuous path at
+    minitron-4b's widths (``tp_rank``), TP_SIZE rank processes sharing
+    the card over gloo, against tp=1 in this process.  Checks per rank:
+    #3's launches == n_layers x the metered decode steps and #4's ==
+    n_layers x the extends (both engines), all of them through
+    ``paged_tp`` (its counts equal #3's and #4's), the base's over its
+    12 query and 4 kv heads; the ranks' tokens identical; tp=TP_SIZE's
+    greedy tokens equal tp=1's for every request; one extend's last
+    logits within LOGIT_TOL of tp=1's; each rank's peak memory below the
+    whole model's bytes (a rank holding the model beside its shard would
+    pass them).  Prints the backend, the gathers' time a forward, the
+    memory and the lap.  Returns the ranks' summed paged_tp launches."""
+    from repro_torch.serving.tp import run_ranks
+    t0 = time.perf_counter()
+    one = tp_rank(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = run_ranks(TP_SIZE, "cuda", tp_rank, timeout_s=TP_TIMEOUT_S)
+    t2 = time.perf_counter()
+    base = one["meters"]["base"]
+    print(f"[main] tp: {DENSE_ARCH} base at {base['layers']} of 32 layers "
+          f"(published widths; vocabulary 64), SMALL drafter, "
+          f"{TP_REQUESTS} greedy requests over 4 rows at budget "
+          f"{ROWS_BUDGET}, per-token rows loop; tp=1 here in "
+          f"{t1 - t0:.1f} s (serving {one['wall']:.2f} s, {one['tok']} "
+          f"tokens, peak {one['peak'] / 2 ** 30:.2f} GiB); {TP_SIZE} ranks "
+          f"on {ranks[0]['devices']} over {ranks[0]['backend']} in "
+          f"{t2 - t1:.1f} s", flush=True)
+    for r, out in enumerate(ranks):
+        m, got = out["meters"], out["launches"]
+        want = {k: sum(e["layers"] * e[f] for e in m.values())
+                for k, f in (("decode", "decode_steps"),
+                             ("append", "prefill_calls"))}
+        if (got["decode"], got["append"]) != (want["decode"],
+                                              want["append"]) \
+                or (got["tp_decode"], got["tp_append"]) != \
+                (got["decode"], got["append"]) or not got["decode"] \
+                or not got["append"]:
+            raise AssertionError(f"tp rank {r}: launches {got} != {want} "
+                                 "(all through paged_tp)")
+        want_heads = (24 // TP_SIZE, 8 // TP_SIZE)
+        if m["base"]["heads"] != want_heads or m["base"]["fused"]:
+            raise AssertionError(f"tp rank {r}: base heads {m['base']} != "
+                                 f"{want_heads} on the per-token loop")
+        if any(st != "ok" for st in out["statuses"]):
+            raise AssertionError(f"tp rank {r}: {out['statuses']}")
+        if out["peak"] >= out["whole_bytes"]:
+            raise AssertionError(f"tp rank {r}: peak {out['peak']} bytes "
+                                 f">= the whole model's {out['whole_bytes']}")
+        forwards = sum(e["decode_steps"] + e["prefill_calls"]
+                       for e in m.values())
+        print(f"[main] tp rank {r}: {out['tok']} tokens in "
+              f"{out['wall']:.2f} s; #3 {got['decode']} = "
+              + " + ".join(f"{e['layers']} x {e['decode_steps']}"
+                           for e in m.values())
+              + f" decode steps, #4 {got['append']} = "
+              + " + ".join(f"{e['layers']} x {e['prefill_calls']}"
+                           for e in m.values())
+              + f" extends, all through paged_tp; base launches over "
+              f"{m['base']['heads'][0]} query and {m['base']['heads'][1]} kv "
+              f"heads, SMALL over {m['small']['heads'][0]} and "
+              f"{m['small']['heads'][1]}; {out['gathers']} gathers in "
+              f"{out['gather_s']:.3f} s ({out['gather_s'] / forwards * 1e3:.3f}"
+              f" ms of exchange a forward, {forwards} forwards, "
+              f"{2 * base['layers']} gathers a base forward); peak "
+              f"{out['peak'] / 2 ** 30:.2f} GiB (its shard "
+              f"{out['param_bytes'] / 2 ** 30:.2f} GiB, the whole model "
+              f"{out['whole_bytes'] / 2 ** 30:.2f} GiB); init "
+              f"{out['init_s']:.1f} s", flush=True)
+    if any(out["tokens"] != ranks[0]["tokens"] for out in ranks):
+        raise AssertionError("tp: the ranks' tokens differ")
+    same = [a == b for a, b in zip(ranks[0]["tokens"], one["tokens"])]
+    if not all(same):
+        raise AssertionError(f"tp: tp={TP_SIZE} greedy tokens differ from "
+                             f"tp=1's ({same})")
+    gap = max(abs(float(x)) for x in (ranks[0]["logits"] - one["logits"]))
+    if gap > LOGIT_TOL:
+        raise AssertionError(f"tp: extend logits gap {gap} > {LOGIT_TOL}")
+    print(f"[main] tp: the ranks' tokens are identical; tp={TP_SIZE} greedy "
+          f"tokens equal tp=1's for all {TP_REQUESTS} requests; a "
+          f"{TP_PROMPT}-token extend's last logits max |tp={TP_SIZE} - tp=1| "
+          f"{gap:.3g} (<= {LOGIT_TOL})", flush=True)
+    lap("main path, tp")
+    return {"tp_paged_decode_attention": sum(
+        o["launches"]["tp_decode"] for o in ranks),
+        "tp_paged_append_attention": sum(
+        o["launches"]["tp_append"] for o in ranks)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2981,6 +3347,7 @@ def main() -> int:
     records.update(paged_kernel_phase(torch, F, ref, paged_decode_attention,
                                       paged_append_attention,
                                       minitron_4b.CONFIG))
+    records.update(paged_tp_kernel_phase(torch, F, ref, minitron_4b.CONFIG))
     records.update(ssd_kernel_phase(torch, ref, mamba2, ssd_scan,
                                     mamba2_1_3b.CONFIG, hymba_1_5b.CONFIG))
     lap("kernels")
@@ -3011,6 +3378,9 @@ def main() -> int:
                                Model, engine_mod.Engine, BatchEngine,
                                SamplingParams, kernels, lap)
     torch.cuda.empty_cache()
+    launches.update(tp_phase(torch, lap))
+    tp_cli_check(serve, ckpt)
+    lap("main path, tp cli")
     check_phase(torch, Model, load_checkpoint, testbed, serve, tasks, loader,
                 greedy, ckpt)
     rows_check_phase(torch, Model, BatchEngine, testbed, load_checkpoint,
@@ -3067,7 +3437,8 @@ def main() -> int:
     # heads, fp32): decode at 128 cached tokens, a 16-token extend at 100;
     # a paged decode step of 4 ragged rows, a 16-token paged extend; a
     # 37-token mamba2-1.3b extend (one chunk); the attention backward at
-    # BASE's training shape
+    # BASE's training shape; paged_tp at a rank's share of minitron-4b's
+    # heads (the [main] tp launches summed over the ranks)
     rep = {"decode_attention": "base float32 B=1 cache=1024 lengths=[128]",
            "flash_attention": "base float32 S=16 q_offset=100 kv=1024 "
                               "causal=True window=0",
@@ -3077,7 +3448,11 @@ def main() -> int:
                                      "span=[16, 11]",
            "ssd_scan": "mamba2 float32 B=1 L=37 H=64 P=64 G=1 N=128 "
                        "chunk=37",
-           "flash_attention_bwd": "base float32 B=16 S=112 H=8 K=4 hd=28"}
+           "flash_attention_bwd": "base float32 B=16 S=112 H=8 K=4 hd=28",
+           "tp_paged_decode_attention":
+               f"minitron-tp{TP_SIZE} float32 B=8 over 4096, 12 over 4",
+           "tp_paged_append_attention":
+               f"minitron-tp{TP_SIZE} float32 T=64 B=8 ctx=4032, 12 over 4"}
     sources = {"decode_attention": "src/repro/kernels/decode_attention.py:83",
                "flash_attention": "src/repro/kernels/flash_attention.py:90",
                "paged_decode_attention":
@@ -3087,13 +3462,18 @@ def main() -> int:
                "ssd_scan": "src/repro/kernels/ssd_scan.py:88",
                # no TPU kernel: JAX differentiates XLA attention
                "flash_attention_bwd":
-                   "src/repro/kernels/flash_attention.py:90 (its gradient)"}
+                   "src/repro/kernels/flash_attention.py:90 (its gradient)",
+               # shard_map over #3 and #4: a rank's launch of either
+               "tp_paged_decode_attention": "src/repro/kernels/paged_tp.py:49",
+               "tp_paged_append_attention":
+                   "src/repro/kernels/paged_tp.py:79"}
     kernels_json = []
     for name, recs in records.items():
         r = next(x for x in recs if x["shape"] == rep[name])
         kernels_json.append(dict(
             name=name, route="cuda",
-            source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            source="src/repro_torch/kernels/paged_tp.py" if name.startswith(
+                "tp_") else f"src/repro_torch/kernels/csrc/{name}.cu",
             replaces=sources[name], launches=launches[name],
             max_abs_err=max(x["max_abs_err"] for x in recs
                             if x["dtype"] == "float32"),

@@ -8,18 +8,28 @@ the flags, so an edited source is rebuilt and a stale library is never
 loaded.  ``build`` starts one ``nvcc`` per missing library, all at once;
 ``load`` builds on first use.  Nothing is built or loaded when this
 module is imported.
+
+Processes share ``build/kernels/`` (tensor-parallel ranks, parallel
+test workers): ``build`` holds an exclusive lock on a file there while
+it looks for missing libraries and compiles them, so a second process
+waits and then finds them built, and each library is compiled to a
+temporary name and moved into place whole (``os.replace``), so no
+process ever loads a half-written one.  The lock is the kernel's
+(``fcntl.flock``), released when its holder exits, however it exits.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Iterator
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -53,13 +63,33 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+@contextlib.contextmanager
+def _exclusive(directory: Path) -> Iterator[None]:
+    """Hold the build directory's lock file exclusively (waiting for
+    another process's build to end)."""
+    with open(directory / "build.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile every named source whose library is missing: one ``nvcc``
-    each, all started together.  Returns name -> the compiler's output
-    (``-Xptxas -v``: registers, shared memory and spills per kernel) for
-    the sources it compiled; raises if any compile fails."""
+    each, all started together, under the build directory's lock.
+    Returns name -> the compiler's output (``-Xptxas -v``: registers,
+    shared memory and spills per kernel) for the sources it compiled;
+    raises if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    with _exclusive(BUILD_DIR):
+        return _compile_missing(nvcc, names)
+
+
+def _compile_missing(nvcc: str, names: Iterable[str]) -> Dict[str, str]:
+    """``build``'s work, under the lock: a failed compile's temporary
+    file is removed."""
     running = {}
     for name in names:
         target = library_path(name)
@@ -74,16 +104,18 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     for name, (proc, tmp, target) in running.items():
         try:
             out, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+            failed = proc.returncode and \
+                f"nvcc exited {proc.returncode}\n{out}"
         except subprocess.TimeoutExpired:
             proc.kill()
-            out, _ = proc.communicate()
-            errors.append(f"{name}: nvcc timed out after {NVCC_TIMEOUT_S}s")
+            proc.communicate()
+            failed = f"nvcc timed out after {NVCC_TIMEOUT_S}s"
+        if failed:
+            tmp.unlink(missing_ok=True)
+            errors.append(f"{name}: {failed}")
             continue
-        if proc.returncode != 0:
-            errors.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
-            continue
-        os.replace(tmp, target)
         target.with_suffix(".ptxas.txt").write_text(out)
+        os.replace(tmp, target)
         reports[name] = out
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))

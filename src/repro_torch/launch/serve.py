@@ -33,11 +33,18 @@ prefix prefill only their suffix, the rest read from shared cached
 blocks; each request line shows ``cache[hit=H/P]``.  ``--num-samples N
 --vote`` serves every prompt N times (best-of-N self-consistency; the
 N-1 repeated prefills are cache hits) and majority-votes the answers,
-printing a ``[vote]`` line a task.  The reference's ``--tp``,
-``--deadline``, ``--slo-tpot``, ``--shed-policy``, ``--degrade``,
-``--inject-faults``, ``--audit``, ``--trace``, ``--metrics-out``,
-``--admin-port``, ``--snapshot-every`` and ``--xla-profile-dir`` are
-accepted and raise ``NotImplementedError`` naming their ROADMAP item.
+printing a ``[vote]`` line a task.  ``--tp N`` (continuous only)
+serves with exact tensor parallelism over N rank processes
+(``serving/tp.py``): spawned, a card each where the host has N cards,
+else sharing the card (gloo), or on the CPU; every rank loads the pair
+on the host and puts its shard on its device, and rank 0 prints the
+same lines as ``--tp 1`` plus a ``[tp]`` line.  Under ``--tp`` the rows run the per-token loop
+(``--decode-loop eager``, the default there; ``fused`` is refused).
+The reference's ``--deadline``, ``--slo-tpot``, ``--shed-policy``,
+``--degrade``, ``--inject-faults``, ``--audit``, ``--trace``,
+``--metrics-out``, ``--admin-port``, ``--snapshot-every`` and
+``--xla-profile-dir`` are accepted and raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -60,8 +67,10 @@ from ..data.evaluate import is_correct
 from ..sampling.sample import SamplingParams
 from ..serving.engine import Engine
 from ..serving.kv_manager import KVBudget, KVManager
-from ..serving.loader import decode_loops, load_testbed_engines
+from ..serving.loader import (decode_loops, ensure_testbed,
+                              load_testbed_engines)
 from ..serving.scheduler import ContinuousScheduler
+from ..serving.tp import TPContext, run_ranks
 from ..serving.workload import (expand_best_of_n, majority_vote,
                                 poisson_arrivals, run_workload, summarize)
 from ..tokenizer import toy as tk
@@ -71,7 +80,6 @@ SCHEMES = ("base", "small", "specdecode", "specreason", "specreason+decode")
 # the reference CLI's flags this slice leaves out, with the ROADMAP item
 # that brings each (queue 1)
 NOT_PORTED = {
-    "tp": ("--tp", "item 8 (tensor parallelism)"),
     "deadline": ("--deadline", "item 6 (resilience)"),
     "slo_tpot": ("--slo-tpot", "item 6 (resilience)"),
     "shed_policy": ("--shed-policy", "item 6 (resilience)"),
@@ -148,9 +156,10 @@ class ServeReport:
     """What a run served: the engines, the decode loop and, per request,
     (scheme, request index, task, result); a continuous run also keeps
     its scheduler, the request handles, the summary and, with ``--vote``,
-    the votes."""
-    base: Engine
-    small: Engine
+    the votes.  A ``--tp`` run keeps rank 0's runs and summary only (the
+    engines lived in the rank processes)."""
+    base: Optional[Engine]
+    small: Optional[Engine]
     runs: List[Tuple[str, int, tasks.Task, SpecReasonResult]]
     decode_loop: str = "fused"
     sched: Optional[ContinuousScheduler] = None
@@ -159,10 +168,11 @@ class ServeReport:
     votes: Optional[list] = None
 
 
-def continuous_scheduler(args, base: Engine,
-                         small: Engine) -> ContinuousScheduler:
+def continuous_scheduler(args, base: Engine, small: Engine,
+                         tp: Optional[TPContext] = None
+                         ) -> ContinuousScheduler:
     """The continuous scheduler that ``args`` (``parse_args``) describe,
-    over the pair."""
+    over the pair (on rank ``tp.rank``'s shard under tp)."""
     cfg = SpecReasonConfig(policy=StaticThreshold(args.threshold),
                            token_budget=args.budget,
                            sampling=SamplingParams(
@@ -179,17 +189,27 @@ def continuous_scheduler(args, base: Engine,
         prefix_cache=not args.no_prefix_cache,
         chunked_prefill=args.chunked_prefill,
         max_prefill_tokens=args.max_prefill_tokens,
-        on_event=(lambda e: print(f"[sched] {e}")) if args.verbose else None,
-        seed=args.seed)
+        on_event=(lambda e: print(f"[sched] {e}"))
+        if args.verbose and (tp is None or tp.rank == 0) else None,
+        seed=args.seed, tp=tp)
+
+
+def _quiet(*_, **__) -> None:
+    """The print of a rank other than 0."""
 
 
 def serve_continuous(args, base: Engine, small: Engine, reqs,
-                     dev: torch.device) -> ServeReport:
+                     dev: torch.device,
+                     tp: Optional[TPContext] = None) -> ServeReport:
     """The continuous-batching path: paged-KV admission and per-tick
-    speculate / verify / fallback batching."""
-    sched = continuous_scheduler(args, base, small)
-    print(f"[serve] decode loop: {sched.base_be.name} {args.decode_loop}, "
-          f"{sched.small_be.name} {args.decode_loop}", flush=True)
+    speculate / verify / fallback batching; under tp one rank's part,
+    rank 0 printing."""
+    say = print if tp is None or tp.rank == 0 else _quiet
+    sched = continuous_scheduler(args, base, small, tp)
+    say(f"[serve] decode loop: {sched.base_be.name} {args.decode_loop}, "
+        f"{sched.small_be.name} {args.decode_loop}"
+        + (f" (--tp {tp.tp_size}: the per-token rows loop)"
+           if tp is not None else ""), flush=True)
     rng = random.Random(args.seed)
     pairs = [(t, torch.Generator(device=dev).manual_seed(1000 * args.seed
                                                          + i))
@@ -208,14 +228,14 @@ def serve_continuous(args, base: Engine, small: Engine, reqs,
         res = h.result
         ok = is_correct(h.task, res.answer_ids)
         report.runs.append((tag, i, h.task, res))
-        print(f"[{tag}] req{i}: {'OK ' if ok else 'BAD'} "
-              f"status={h.status} "
-              f"lat={h.e2e_latency:.2f}s think={res.n_thinking_tokens}"
-              f"{_spec_suffix(res)}{_cache_suffix(h)} "
-              f"answer={tk.detok(res.answer_ids)}", flush=True)
+        say(f"[{tag}] req{i}: {'OK ' if ok else 'BAD'} "
+            f"status={h.status} "
+            f"lat={h.e2e_latency:.2f}s think={res.n_thinking_tokens}"
+            f"{_spec_suffix(res)}{_cache_suffix(h)} "
+            f"answer={tk.detok(res.answer_ids)}", flush=True)
         if args.meters:
             for name, m in res.meters.items():
-                print(_meter_line(name, m))
+                say(_meter_line(name, m))
     stats = summarize(handles, wall)
     accuracy = sum(is_correct(h.task, h.result.answer_ids)
                    for h in handles) / max(len(handles), 1)
@@ -226,9 +246,9 @@ def serve_continuous(args, base: Engine, small: Engine, reqs,
             breakdown = ", ".join(
                 f"{tk.detok(list(a))}x{c}"
                 for a, c in sorted(v.counts.items(), key=lambda kv: -kv[1]))
-            print(f"[vote] task{i}: {'OK ' if ok else 'BAD'} "
-                  f"agree={v.agreement:.2f} [{breakdown}] "
-                  f"-> {tk.detok(v.winner_ids)}", flush=True)
+            say(f"[vote] task{i}: {'OK ' if ok else 'BAD'} "
+                f"agree={v.agreement:.2f} [{breakdown}] "
+                f"-> {tk.detok(v.winner_ids)}", flush=True)
         accuracy = sum(is_correct(v.task, v.winner_ids)
                        for v in report.votes) / max(len(report.votes), 1)
     stats.update({
@@ -247,18 +267,59 @@ def serve_continuous(args, base: Engine, small: Engine, reqs,
         "kv_accounted_bytes": {
             w: p.num_blocks * sched.kv.block_bytes(w)
             for w, p in sched.pools.items()},
+        "tp": 1 if tp is None else tp.tp_size,
     })
+    if tp is not None:
+        stats.update(tp_backend=tp.backend, tp_gathers=tp.gathers,
+                     tp_gather_s=tp.gather_s)
+        say(tp_line(tp, sched), flush=True)
     if "p95_ttft_s" in stats:
-        print(f"[latency] ttft p50={stats['p50_ttft_s']:.3f}s "
-              f"p95={stats['p95_ttft_s']:.3f}s | tpot "
-              f"p50={stats.get('p50_tpot_s', 0.0) * 1e3:.1f}ms "
-              f"p95={stats.get('p95_tpot_s', 0.0) * 1e3:.1f}ms | "
-              f"prefill stall "
-              f"mean={stats.get('mean_prefill_stall_s', 0.0):.3f}s "
-              f"p95={stats.get('p95_prefill_stall_s', 0.0):.3f}s")
-    print(json.dumps(stats), flush=True)
+        say(f"[latency] ttft p50={stats['p50_ttft_s']:.3f}s "
+            f"p95={stats['p95_ttft_s']:.3f}s | tpot "
+            f"p50={stats.get('p50_tpot_s', 0.0) * 1e3:.1f}ms "
+            f"p95={stats.get('p95_tpot_s', 0.0) * 1e3:.1f}ms | "
+            f"prefill stall "
+            f"mean={stats.get('mean_prefill_stall_s', 0.0):.3f}s "
+            f"p95={stats.get('p95_prefill_stall_s', 0.0):.3f}s")
+    say(json.dumps(stats), flush=True)
     report.stats = stats
     return report
+
+
+def tp_line(tp: TPContext, sched: ContinuousScheduler) -> str:
+    """The ``[tp]`` line: backend, devices, each engine's local heads and
+    gathers a forward, and the gathers' host time so far."""
+    heads = ", ".join(
+        f"{be.name} {be.model.cfg.n_heads // tp.tp_size} query over "
+        f"{be.model.cfg.n_kv_heads // tp.tp_size} kv heads, "
+        f"{2 * be.model.cfg.n_layers} gathers a step"
+        for be in (sched.base_be, sched.small_be))
+    return (f"[tp] {tp.tp_size} ranks, backend {tp.backend}, devices "
+            f"{list(tp.devices)}; per rank: {heads}; {tp.gathers} gathers "
+            f"on rank {tp.rank} in {tp.gather_s:.3f} s")
+
+
+def _serve_rank(tp: TPContext, args) -> Optional[tuple]:
+    """One rank of ``--tp``: load the pair on the host, serve the
+    continuous workload with the rank's shards on its device (the batch
+    engines move only their shards there); rank 0 returns (runs,
+    stats)."""
+    base, small = load_testbed_engines(args.ckpt_dir, "cpu")
+    rng = random.Random(args.seed)
+    reqs = [tasks.sample_task(rng) for _ in range(args.num_requests)]
+    report = serve_continuous(args, base, small, reqs, tp.device, tp)
+    return (report.runs, report.stats) if tp.rank == 0 else None
+
+
+def serve_tp(args, dev: torch.device) -> ServeReport:
+    """``--tp N``: the continuous path in N rank processes (the pair is
+    trained first where it is missing, once, on ``dev``)."""
+    ensure_testbed(args.ckpt_dir, dev)
+    threads = max(1, torch.get_num_threads() // args.tp) \
+        if dev.type == "cpu" else None
+    runs, stats = run_ranks(args.tp, str(dev), _serve_rank, (args,),
+                            threads=threads)[0]
+    return ServeReport(None, None, runs, args.decode_loop, stats=stats)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -275,11 +336,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--meters", action="store_true",
                     help="print the per-engine meter breakdown per request")
     ap.add_argument("--decode-loop", choices=("fused", "eager"),
-                    default="fused",
-                    help="fused = chunks of tokens a CUDA graph replay "
-                         "on the card (the body runs eagerly on the CPU), "
-                         "eager = the per-token loop; for the sequential "
-                         "engines and the continuous scheduler's rows")
+                    default=None,
+                    help="fused (the default without --tp) = chunks of "
+                         "tokens a CUDA graph replay on the card (the body "
+                         "runs eagerly on the CPU), eager (the default and "
+                         "the only loop with --tp) = the per-token loop; "
+                         "for the sequential engines and the continuous "
+                         "scheduler's rows")
     ap.add_argument("--scheduler", choices=("sequential", "continuous"),
                     default="sequential",
                     help="sequential = one request start-to-finish; "
@@ -287,6 +350,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "over paged KV")
     ap.add_argument("--batch", type=int, default=8,
                     help="continuous scheduler: max concurrent rows")
+    ap.add_argument("--tp", type=int, default=1, metavar="N",
+                    help="continuous scheduler: exact tensor parallelism "
+                         "over N rank processes (a card each where the "
+                         "host has N, else sharing one over gloo, or the "
+                         "CPU); N must divide both models' heads, kv heads "
+                         "and ffn hidden; outputs are --tp 1's")
     ap.add_argument("--arrival-rate", type=float, default=0.0,
                     help="Poisson arrival rate in req/s (0 = burst at t=0)")
     ap.add_argument("--kv-budget-mb", type=float, default=64,
@@ -321,7 +390,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="log admission / chunk-progress / preemption "
                          "events (continuous scheduler)")
     # the reference's flags that are not ported: accepted, then refused
-    ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--deadline", type=float, default=None)
     ap.add_argument("--slo-tpot", type=float, default=None)
     ap.add_argument("--shed-policy", choices=("none", "priority"),
@@ -339,6 +407,17 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         if getattr(args, dest) != ap.get_default(dest):
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP queue 1, {item})")
+    if args.tp < 1:
+        ap.error("--tp must be >= 1")
+    if args.tp > 1 and args.scheduler != "continuous":
+        ap.error("--tp rides on the continuous scheduler (the sharded "
+                 "BatchEngine pair); add --scheduler continuous")
+    if args.tp > 1 and args.decode_loop == "fused":
+        ap.error("--tp runs the per-token rows loop: the ranks' gloo "
+                 "all-gathers cannot be captured in a CUDA graph; drop "
+                 "--decode-loop fused")
+    if args.decode_loop is None:
+        args.decode_loop = "eager" if args.tp > 1 else "fused"
     if args.scheduler == "continuous":
         if args.scheme != "specreason":
             ap.error("--scheduler continuous serves the specreason scheme "
@@ -362,6 +441,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[List[str]] = None) -> ServeReport:
     args = parse_args(argv)
     dev = devices.resolve(args.device)
+    if args.tp > 1:
+        return serve_tp(args, dev)
     base, small = load_testbed_engines(args.ckpt_dir, dev)
     rng = random.Random(args.seed)
     reqs = [tasks.sample_task(rng) for _ in range(args.num_requests)]

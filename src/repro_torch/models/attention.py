@@ -6,7 +6,9 @@ The attention itself goes through ``kernels.ops``: on a CUDA tensor the
 hand-written kernels (``flash_attention`` for full-sequence and prefill,
 ``decode_attention`` for decode, ``paged_append_attention`` and
 ``paged_decode_attention`` for the batched rows), on a CPU tensor their
-plain versions.
+plain versions.  Batched rows under tensor parallelism (a ``PagedRows``
+with a ``tp`` context) run the rank's heads through ``kernels.paged_tp``
+and gather every rank's heads before the output projection.
 Caches are (B, C, K, hd) per layer, as in the JAX package, and are
 written in place (see ``kvcache.py`` for why that is safe); the kernels
 read them through permuted views, so no cache is copied per call.
@@ -19,7 +21,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..kernels import ops
+from ..kernels import ops, paged_tp
 from .config import ModelConfig
 from .kvcache import PagedRows
 from .layers import ParamSpec, apply_rope
@@ -217,11 +219,15 @@ def extend_rows_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
     if cfg.use_rope:
         q = apply_rope(q, rows.positions, cfg.rope_theta)
         k = apply_rope(k, rows.positions, cfg.rope_theta)
-    o = ops.paged_append_attention(q, k, v, rows.k_pages[layer],
-                                   rows.v_pages[layer], rows.tables,
-                                   rows.ctx_lens, rows.span_lens)
+    args = (q, k, v, rows.k_pages[layer], rows.v_pages[layer], rows.tables,
+            rows.ctx_lens, rows.span_lens)
+    if rows.tp is None:
+        o = ops.paged_append_attention(*args)
+    else:
+        o = paged_tp.tp_paged_append_attention(
+            rows.tp, *args, heads=(cfg.n_heads, cfg.n_kv_heads))
     _write_rows(rows, layer, k, v)
-    return out_proj(o, p)
+    return _rows_out(o, p, rows)
 
 
 def decode_rows_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
@@ -238,6 +244,21 @@ def decode_rows_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
         q = apply_rope(q, rows.positions, cfg.rope_theta)
         k = apply_rope(k, rows.positions, cfg.rope_theta)
     _write_rows(rows, layer, k, v)
-    o = ops.paged_decode_attention(q[:, 0], rows.k_pages[layer],
-                                   rows.v_pages[layer], rows.tables, lengths)
-    return out_proj(o[:, None], p)
+    args = (q[:, 0], rows.k_pages[layer], rows.v_pages[layer], rows.tables,
+            lengths)
+    if rows.tp is None:
+        o = ops.paged_decode_attention(*args)
+    else:
+        o = paged_tp.tp_paged_decode_attention(
+            rows.tp, *args, heads=(cfg.n_heads, cfg.n_kv_heads))
+    return _rows_out(o[:, None], p, rows)
+
+
+def _rows_out(o: torch.Tensor, p: Dict[str, torch.Tensor],
+              rows: PagedRows) -> torch.Tensor:
+    """The output projection of the rows' (B, T, heads, hd) attention;
+    under tensor parallelism over every rank's heads, gathered first, so
+    that the projection contracts whole operands as at tp=1."""
+    if rows.tp is not None:
+        o = rows.tp.gather_heads(o)
+    return out_proj(o, p)

@@ -162,14 +162,19 @@ class PagedRows:
     write_cols: torch.Tensor
     write_pages: torch.Tensor
     write_slots: torch.Tensor
+    # tensor parallelism: the rank's ``serving.tp.TPContext`` (the pages
+    # hold its kv heads; ``models/attention.py`` gathers the heads), or
+    # None
+    tp: Optional[object] = None
 
 
 def paged_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
-               tables, ctx_lens, span_lens, width: int) -> PagedRows:
+               tables, ctx_lens, span_lens, width: int,
+               tp: Optional[object] = None) -> PagedRows:
     """Build the index tensors of one batched call on the pages' device:
     ``tables`` lists each row's block ids (covering its context and its
     new tokens), ``ctx_lens`` / ``span_lens`` its committed and new token
-    counts, ``width`` the call's padded T."""
+    counts, ``width`` the call's padded T; ``tp`` the rank's context."""
     bs = k_pages.shape[3]
     b = len(tables)
     nb = max(1, max(len(t) for t in tables))
@@ -192,12 +197,12 @@ def paged_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
         k_pages, v_pages, put(tab, torch.int32), ctx_t, put(span, torch.int32),
         ctx_t.long()[:, None] + torch.arange(width, device=dev)[None, :],
         put(rows, torch.long), put(cols, torch.long), put(pages, torch.long),
-        put(tok % bs, torch.long))
+        put(tok % bs, torch.long), tp)
 
 
 def slot_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
               tables: torch.Tensor, pos: torch.Tensor, active: torch.Tensor,
-              scratch: int) -> PagedRows:
+              scratch: int, tp: Optional[object] = None) -> PagedRows:
     """One-token decode step over every row slot of a batched engine,
     built on the pages' device from static buffers with no host read
     (the batched decode loops, which a CUDA graph records): ``tables``
@@ -216,4 +221,5 @@ def slot_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
     return PagedRows(
         k_pages, v_pages, tables, ctx, active.to(torch.int32), pos[:, None],
         torch.arange(b, device=pos.device), torch.zeros_like(pos),
-        torch.where(active, page, scratch), torch.where(active, pos % bs, 0))
+        torch.where(active, page, scratch), torch.where(active, pos % bs, 0),
+        tp)

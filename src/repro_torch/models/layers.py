@@ -161,12 +161,21 @@ def mlp_spec(d: int, ff: int, act: str) -> Dict[str, ParamSpec]:
 
 
 def apply_mlp(x: torch.Tensor, p: Dict[str, torch.Tensor],
-              act: str) -> torch.Tensor:
+              act: str, tp=None) -> torch.Tensor:
+    """The MLP; under tensor parallelism (``tp``, a
+    ``serving.tp.TPContext``) ``p`` holds the rank's slice of the ffn
+    hidden in the up projections, and the hidden is gathered from every
+    rank before the (whole) down projection."""
     if act == "swiglu":
         g = x @ p["w_gate"]
         u = x @ p["w_up"]
-        return (F.silu(g) * u) @ p["w_down"]
+        h = F.silu(g) * u
+        if tp is not None:
+            h = tp.gather_hidden(h)
+        return h @ p["w_down"]
     h = F.gelu(x @ p["w_in"] + p["b_in"], approximate="tanh")
+    if tp is not None:
+        h = tp.gather_hidden(h)
     return h @ p["w_out"] + p["b_out"]
 
 

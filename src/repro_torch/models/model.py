@@ -25,6 +25,13 @@ Public surface:
                         (dense family)
   Model.decode_rows  -- batched one-token decode over a paged KV store
                         -> logits (B, V) (dense family)
+
+The two rows forwards also run one rank of exact tensor parallelism:
+with a ``tp`` context on the rows view the parameters are the rank's
+shard (``models/sharding.py``), attention runs the rank's heads, the
+heads and the ffn hidden are gathered before the contractions that
+follow them, and the logits come out whole on every rank (the
+unembedding is whole).
 """
 
 from __future__ import annotations
@@ -145,10 +152,10 @@ class Model:
                        cfg.rmsnorm_eps)
         return self._unembed(params, x)
 
-    def _mlp_block(self, x, lp) -> torch.Tensor:
+    def _mlp_block(self, x, lp, tp=None) -> torch.Tensor:
         cfg = self.cfg
         h = apply_norm(x, lp["ln2"], cfg.norm_type, cfg.rmsnorm_eps)
-        return x + apply_mlp(h, lp["mlp"], cfg.act)
+        return x + apply_mlp(h, lp["mlp"], cfg.act, tp)
 
     # -------------------------------------------------------------- forward --
     def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -328,7 +335,7 @@ class Model:
             lp = _layer(params["layers"], i)
             h = apply_norm(x, lp["ln1"], cfg.norm_type, cfg.rmsnorm_eps)
             x = x + attn.extend_rows_attention(h, lp["attn"], cfg, i, rows)
-            x = self._mlp_block(x, lp)
+            x = self._mlp_block(x, lp, rows.tp)
         return self._final(params, x)
 
     def decode_rows(self, params, tokens: torch.Tensor,
@@ -345,5 +352,5 @@ class Model:
             h = apply_norm(x, lp["ln1"], cfg.norm_type, cfg.rmsnorm_eps)
             x = x + attn.decode_rows_attention(h, lp["attn"], cfg, i, rows,
                                                lengths)
-            x = self._mlp_block(x, lp)
+            x = self._mlp_block(x, lp, rows.tp)
         return self._final(params, x)[:, 0, :]

@@ -61,6 +61,13 @@ Differences from the JAX package:
     from the row's, and leaves the row's generator where the per-token
     loop would.
 
+  * Tensor parallelism (``tp``, a ``serving.tp.TPContext``): the engine
+    holds the rank's shard of the parameters and a store of the rank's
+    kv heads, and its forwards gather heads and hidden from every rank
+    (``models/attention.py``, ``models/layers.py``).  It runs the
+    per-token loop: a gloo collective cannot be captured in a CUDA
+    graph, so the fused loop raises under tp.
+
 Identity with the sequential engine rests on row-independent
 arithmetic; the port runs the rows of a call as one batch, so a GEMM
 that picks another algorithm for another row count can move a logit by
@@ -85,6 +92,13 @@ from . import graph_loop
 from .engine import DEFAULT_BUCKETS, Meter
 from .kv_manager import DEFAULT_BLOCK_SIZE
 from .paged_kv import PagedKVPool, PagedKVStore, PagedSeq, cdiv
+
+
+FUSED_TP = ("the fused rows loop replays its steps as a CUDA graph, and "
+            "the ranks' all-gathers (gloo) cannot be captured in one: under "
+            "tensor parallelism the engine runs the per-token rows loop "
+            "(generate_rows_eager); in-graph NCCL collectives across "
+            "distinct GPUs are later work (ROADMAP queue 2 K)")
 
 
 @dataclasses.dataclass
@@ -135,9 +149,11 @@ class BatchEngine:
                  capacity: int = 1024,
                  buckets: Sequence[int] = DEFAULT_BUCKETS, name: str = "",
                  pad_id: int = 0, pool: Optional[PagedKVPool] = None,
-                 fused: Optional[bool] = None):
+                 fused: Optional[bool] = None, tp=None):
         """``fused``: the decode loop of ``generate_rows``, the fused
-        one unless False."""
+        one unless False (the per-token one under ``tp``, where True
+        raises).  ``tp``: the rank's ``serving.tp.TPContext``; ``params``
+        are then whole, or already the rank's shard."""
         cfg = model.cfg
         if cfg.has_ssm:
             raise ValueError(
@@ -153,6 +169,13 @@ class BatchEngine:
                 f"{cfg.name}: sliding window {cfg.sliding_window} over paged "
                 "rows has no kernel (ROADMAP queue 2 A, its paged half); "
                 "serve windowed models through the sequential Engine")
+        self.tp = tp
+        if tp is not None:
+            tp.check_model(cfg)
+            if fused:
+                raise NotImplementedError(FUSED_TP)
+            params = tp.shard_params(model, params)
+            fused = False
         self.model = model
         self.params = params
         self.device = params["tok_embed"].device
@@ -170,7 +193,7 @@ class BatchEngine:
         self.pool = pool
         self.store = PagedKVStore(pool, cfg.n_layers, cfg.n_kv_heads,
                                   cfg.resolved_head_dim, self.device,
-                                  params["tok_embed"].dtype)
+                                  params["tok_embed"].dtype, tp)
         self.pos = np.zeros(batch, np.int64)
         self.last_logits = torch.zeros((batch, cfg.vocab_size),
                                        dtype=torch.float32,
@@ -315,11 +338,12 @@ class BatchEngine:
     def _view(self, rows: Sequence[int], counts: Sequence[int], width: int):
         return paged_rows(self.store.k, self.store.v,
                           [self.seqs[r].blocks for r in rows],
-                          [int(self.pos[r]) for r in rows], counts, width)
+                          [int(self.pos[r]) for r in rows], counts, width,
+                          self.tp)
 
     def _slots(self, pos: torch.Tensor, active: torch.Tensor):
         return slot_rows(self.store.k, self.store.v, self._tables, pos,
-                         active, self.store.scratch_page)
+                         active, self.store.scratch_page, self.tp)
 
     def _decode(self, rows: Sequence[int],
                 tokens: torch.Tensor) -> torch.Tensor:
@@ -492,6 +516,8 @@ class BatchEngine:
         every row slot, replayed as a CUDA graph on the card.  Metered as
         one decode call of the rows' tokens; ``decode_steps`` counts
         every step run, masked ones included."""
+        if self.tp is not None:
+            raise NotImplementedError(FUSED_TP)
         if not rows:
             return ([], []) if collect_probs else []
         n_max, stops = self._call_plan(rows, max_tokens, stop_ids,

@@ -34,14 +34,11 @@ def checkpoint_path(ckpt_dir: str, cfg) -> str:
     return os.path.join(ckpt_dir, f"{cfg.name}.npz")
 
 
-def load_testbed_engines(ckpt_dir: str = "exp/ckpt", device="cuda",
-                         max_len: int = 1024, auto_train_steps: int = 500
-                         ) -> Tuple[Engine, Engine]:
-    """The (base, small) engines from ``ckpt_dir``; a missing model is
-    first trained for ``auto_train_steps`` steps on ``device`` and
-    written there."""
+def ensure_testbed(ckpt_dir: str, device, auto_train_steps: int = 500
+                   ) -> None:
+    """Train each missing model of the pair for ``auto_train_steps``
+    steps on ``device`` and write it to ``ckpt_dir``."""
     dev = devices.resolve(device)
-    engines = []
     for which, cfg in PAIR:
         path = checkpoint_path(ckpt_dir, cfg)
         if not os.path.exists(path):
@@ -50,6 +47,19 @@ def load_testbed_engines(ckpt_dir: str = "exp/ckpt", device="cuda",
                   f"({auto_train_steps} steps on {dev})", flush=True)
             train_testbed_model(which, auto_train_steps, ckpt_dir,
                                 device=dev)
+
+
+def load_testbed_engines(ckpt_dir: str = "exp/ckpt", device="cuda",
+                         max_len: int = 1024, auto_train_steps: int = 500
+                         ) -> Tuple[Engine, Engine]:
+    """The (base, small) engines from ``ckpt_dir``; a missing model is
+    first trained for ``auto_train_steps`` steps on ``device`` and
+    written there."""
+    dev = devices.resolve(device)
+    ensure_testbed(ckpt_dir, dev, auto_train_steps)
+    engines = []
+    for which, cfg in PAIR:
+        path = checkpoint_path(ckpt_dir, cfg)
         model = Model(cfg)
         shapes = {k: s.shape for k, s in model.spec().items()}
         params = load_checkpoint(path, dev, expect=shapes)

@@ -25,7 +25,7 @@ Layers:
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -281,22 +281,47 @@ class PagedKVStore:
     The arrays hold one page more than the pool's blocks, page
     ``scratch_page`` (= ``pool.num_blocks``), which the pool never hands
     out: a batched decode step over every row slot sends the writes of
-    its masked rows there (``models.kvcache.slot_rows``)."""
+    its masked rows there (``models.kvcache.slot_rows``).
+
+    Under tensor parallelism (``tp``, a ``serving.tp.TPContext``) the
+    store holds the rank's contiguous slice of the ``kv_heads``: every
+    page of the pool, its kv heads ``tp.local_heads(kv_heads)``.  Block
+    ids, tables and the pool's accounting mean the same on every rank,
+    so nothing else changes; the arrays are 1/tp of what the KVManager
+    accounts for."""
 
     def __init__(self, pool: PagedKVPool, n_layers: int, kv_heads: int,
-                 head_dim: int, device, dtype=torch.float32):
+                 head_dim: int, device, dtype=torch.float32, tp=None):
         self.pool = pool
+        self.kv_heads = kv_heads
+        self.tp = tp
+        if tp is not None and kv_heads % tp.tp_size != 0:
+            raise ValueError(
+                f"tp_size={tp.tp_size} must divide kv_heads={kv_heads}")
         self.scratch_page = pool.num_blocks
-        shape = (n_layers, pool.num_blocks + 1, kv_heads, pool.block_size,
+        local = kv_heads // tp.tp_size if tp is not None else kv_heads
+        shape = (n_layers, pool.num_blocks + 1, local, pool.block_size,
                  head_dim)
         self.k = torch.zeros(shape, dtype=dtype, device=device)
         self.v = torch.zeros_like(self.k)
+
+    def device_views(self) -> List[Dict[str, object]]:
+        """Which contiguous kv-head slice of the pool each rank holds, on
+        which device (block tables are replicated host state and have no
+        per-rank variant)."""
+        if self.tp is None:
+            return [{"rank": 0, "device": str(self.k.device),
+                     "kv_head_start": 0, "kv_heads": self.kv_heads}]
+        local = self.kv_heads // self.tp.tp_size
+        names = list(self.tp.devices) or [None] * self.tp.tp_size
+        return [{"rank": i, "device": d, "kv_head_start": i * local,
+                 "kv_heads": local} for i, d in enumerate(names)]
 
     @property
     def nbytes(self) -> int:
         """Real bytes of both page arrays, the scratch page included (the
         KVManager's accounting counts 2 bytes per element whatever the
-        dtype, and no scratch page)."""
+        dtype, no scratch page, and every kv head)."""
         return 2 * self.k.numel() * self.k.element_size()
 
     @property
@@ -331,7 +356,8 @@ class PagedKVStore:
 
     def gather(self, seq: PagedSeq, layer: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Dense (length, K, hd) caches for one layer of one sequence."""
+        """Dense (length, K, hd) caches for one layer of one sequence (the
+        rank's kv heads under tensor parallelism)."""
         idx = torch.tensor(seq.blocks, dtype=torch.long,
                            device=self.k.device)
         k, v = self.k[layer, idx], self.v[layer, idx]  # (nb, K, bs, hd)

@@ -103,9 +103,17 @@ class RadixCache:
     ``max_blocks`` cached blocks."""
 
     def __init__(self, pool: PagedKVPool, max_blocks: int,
-                 meter: Optional[Meter] = None):
+                 meter: Optional[Meter] = None, kv_heads: int = 0,
+                 tp=None):
+        """``tp``: the ranks' ``serving.tp.TPContext``, which must divide
+        the cached pages' ``kv_heads``; a cached block is a pool block, so
+        each rank's pages hold its heads of it and nothing else
+        changes."""
         if max_blocks <= 0:
             raise ValueError("RadixCache needs max_blocks >= 1")
+        if tp is not None and kv_heads % tp.tp_size != 0:
+            raise ValueError(
+                f"tp_size={tp.tp_size} must divide kv_heads={kv_heads}")
         self.pool = pool
         self.max_blocks = max_blocks
         self.meter = meter

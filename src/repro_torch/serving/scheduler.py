@@ -58,11 +58,19 @@ cache) skip the repeated prefill.  Under pool pressure idle cached
 blocks are evicted LRU-first, before an admission is declared blocked
 and before a live request is preempted.
 
+Tensor parallelism (``tp``, a ``serving.tp.TPContext``): every rank
+process runs this scheduler on the same host state, one context shared
+by both engines, their page stores and both prefix caches, and the
+ranks stay in lockstep because every decision is taken from replicated
+state and whole logits.  A decision that reads a clock (arrivals in
+``workload.run_workload``) is taken on rank 0 and broadcast; at the end
+of each drain the ranks' result tokens are compared
+(``check_lockstep``), and a mismatch raises.
+
 Not ported yet, each raising ``NotImplementedError``: deadlines,
 shedding and the degradation ladder, fault injection and audits,
 tracing, metrics, monitors and the admin plane, the compile and memory
-watches (ROADMAP queue 1, item 6), tensor parallelism (item 8), and
-overlapped mode.
+watches (ROADMAP queue 1, item 6), and overlapped mode.
 """
 
 from __future__ import annotations
@@ -89,6 +97,7 @@ from .resilience import (STATUS_OK, TERMINAL_STATUSES, OverloadController,
                          ResilienceConfig, TickConfig)
 from .spec_engine import BatchSpecEngine, SpecLedger, SpecRow
 from .telemetry import SchedEvent
+from .tp import TPContext
 
 # Per-tick prompt-prefill token budget (chunked prefill), as in the JAX
 # package.
@@ -237,7 +246,9 @@ class ContinuousScheduler:
                  max_prefill_tokens: int = DEFAULT_MAX_PREFILL_TOKENS,
                  on_event: Optional[Callable[[str], None]] = None,
                  resilience: Optional[ResilienceConfig] = None,
-                 seed: int = 0):
+                 seed: int = 0, tp: Optional[TPContext] = None):
+        """``tp``: this rank's context (None, or a degree of 1, serves on
+        one device)."""
         cfg = controller.cfg
         if cfg.overlapped:
             raise NotImplementedError(
@@ -260,20 +271,23 @@ class ContinuousScheduler:
             "small": PagedKVPool(max(kv.capacity_blocks("small"), 1),
                                  kv.block_size),
         }
+        # one context for both engines, their stores and both caches
+        self.tp = tp if tp is not None and tp.tp_size > 1 else None
         # the batched decode loop follows the controller's
-        # ``fused_decode`` (None: the engines' default, fused)
+        # ``fused_decode`` (None: the engines' default, fused; the
+        # per-token loop under tp)
         self.base_be = BatchEngine(controller.base.model,
                                    controller.base.params, max_batch,
                                    engine_capacity,
                                    name=f"cb-{controller.base.name}",
                                    pool=self.pools["base"],
-                                   fused=cfg.fused_decode)
+                                   fused=cfg.fused_decode, tp=self.tp)
         self.small_be = BatchEngine(controller.small.model,
                                     controller.small.params, max_batch,
                                     engine_capacity,
                                     name=f"cb-{controller.small.name}",
                                     pool=self.pools["small"],
-                                    fused=cfg.fused_decode)
+                                    fused=cfg.fused_decode, tp=self.tp)
         self.engines = {"base": self.base_be, "small": self.small_be}
         self.spec_be = BatchSpecEngine(self.base_be, self.small_be,
                                        self.gamma) if self.spec else None
@@ -285,7 +299,9 @@ class ContinuousScheduler:
             self.caches = {
                 which: RadixCache(self.pools[which],
                                   kv.prefix_cache_blocks(which),
-                                  meter=be.meter)
+                                  meter=be.meter,
+                                  kv_heads=be.model.cfg.n_kv_heads,
+                                  tp=self.tp)
                 for which, be in self.engines.items()}
         if max_prefill_tokens < 1:
             raise ValueError("max_prefill_tokens must be >= 1")
@@ -678,7 +694,24 @@ class ContinuousScheduler:
         done_before = len(self.done)
         while self.tick():
             pass
+        self.check_lockstep(self.done[done_before:])
         return self.done[done_before:]
+
+    def check_lockstep(self, requests: List[Request]) -> None:
+        """Under tp: raise unless every rank finished ``requests`` with the
+        same tokens (the ranks run on replicated state, so a difference
+        means they drifted apart)."""
+        if self.tp is None:
+            return
+        mine = [None if r.result is None else
+                (list(r.result.thinking_ids), list(r.result.answer_ids))
+                for r in requests]
+        ranks = self.tp.all_objects(mine)
+        bad = [i for i, t in enumerate(ranks) if t != ranks[0]]
+        if bad:
+            raise RuntimeError(f"tensor-parallel ranks {bad} finished "
+                               f"{len(requests)} requests with other tokens "
+                               "than rank 0")
 
     def _finish(self) -> None:
         meters = {"base": self.base_be.meter.as_dict(),

@@ -78,9 +78,21 @@ class BatchSpecEngine:
                  gamma: int = 4):
         if gamma < 1:
             raise ValueError("gamma must be >= 1")
+        if base_be.tp is not draft_be.tp:
+            # a round's draft feeds its verification: both engines must
+            # run on the same ranks (and a half-sharded pair would break
+            # the per-row identity with the sequential routine)
+            raise ValueError(
+                "base and draft engines must share one TPContext "
+                "(both None, or the same object)")
         self.base_be = base_be
         self.draft_be = draft_be
         self.gamma = gamma
+
+    @property
+    def tp_size(self) -> int:
+        """Tensor-parallel degree of the engine pair (1 = unsharded)."""
+        return 1 if self.base_be.tp is None else self.base_be.tp.tp_size
 
     def decode_rows(self, items: Sequence[SpecRow], params: SamplingParams,
                     ledger: Optional[SpecLedger] = None

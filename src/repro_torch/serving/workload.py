@@ -41,18 +41,26 @@ def run_workload(sched: ContinuousScheduler,
     """Submit ``pairs`` at their arrival offsets and tick ``sched`` until
     every request is terminal.  Returns the handles in submission order;
     a queue that stays admission-blocked with nothing in flight raises
-    with the head requests' reasons."""
+    with the head requests' reasons.  Under tensor parallelism rank 0
+    reads the clock and broadcasts how many requests have arrived each
+    tick, and the ranks' tokens are compared at the end."""
     assert len(pairs) == len(arrivals)
     t0 = time.perf_counter()
     handles: List[Request] = []
     i = 0
     while True:
         now = time.perf_counter() - t0
-        while i < len(pairs) and arrivals[i] <= now:
+        due = i
+        while due < len(pairs) and arrivals[due] <= now:
+            due += 1
+        if sched.tp is not None:
+            due = sched.tp.broadcast(due)
+        while i < due:
             task, gen = pairs[i]
             handles.append(sched.submit(task, generator=gen))
             i += 1
         if i >= len(pairs) and all(h.terminal for h in handles):
+            sched.check_lockstep(handles)
             return handles
         done_before = len(sched.done)
         sched.tick()

@@ -181,7 +181,7 @@ def test_left_out_features_raise(pairs, tmp_path):
     ckpt = str(tmp_path / "ckpt")
     base = ["--scheduler", "continuous", "--device", "cpu", "--ckpt-dir",
             ckpt]
-    for extra, match in ((["--tp", "2"], "tp"),
+    for extra, match in ((["--audit"], "audit"),
                          (["--trace", "t.json"], "trace"),
                          (["--degrade"], "degrade"),
                          (["--deadline", "5"], "deadline")):

@@ -1258,3 +1258,38 @@ def test_train_on_card_is_deterministic(dev):
     for k, t in flatten(runs[0]["params"]).items():
         assert t.is_cuda and not t.requires_grad
         assert torch.equal(t, flatten(runs[1]["params"])[k]), k
+
+
+def test_tp_two_ranks_share_the_card(dev):
+    """Exact tensor parallelism on one card: two rank processes over gloo
+    (``serving.tp.run_ranks``, ``tests/torch_tp_ranks.card``), each
+    launching #3 and #4 through ``paged_tp`` over its half of testbed
+    BASE's heads.  The ranks' logits are bit for bit the same, within
+    LOGIT_TOL of tp=1 in this process (cuBLAS picks its variant from N,
+    so half the heads may change a reduction order); each rank's
+    ``paged_tp`` outputs on the card, gathered, against the plain
+    version; every paged launch went through ``paged_tp``."""
+    import numpy as np
+    import torch_tp_ranks
+    from repro_torch.serving.tp import run_ranks
+    ranks = run_ranks(2, "cuda", torch_tp_ranks.card, (), timeout_s=600)
+    one = torch_tp_ranks.card(None)
+    layers = one["layers"]
+    assert one["launches"] == [layers, layers, 0, 0]
+    plain = torch_tp_ranks.plain_kernels(torch_tp_ranks.kernel_case())
+    span = torch_tp_ranks.kernel_case()["span"]
+    for r in ranks:
+        assert r["backend"] == "gloo" or torch.cuda.device_count() >= 2
+        assert r["launches"] == [layers] * 4
+        for kind in ("extend", "decode"):
+            assert np.array_equal(r[kind], ranks[0][kind])
+            np.testing.assert_allclose(r[kind], one[kind], atol=LOGIT_TOL,
+                                       rtol=LOGIT_TOL)
+        np.testing.assert_allclose(r["kernels"]["decode"], plain["decode"],
+                                   atol=TOL[torch.float32],
+                                   rtol=TOL[torch.float32])
+        for i, n in enumerate(span):
+            np.testing.assert_allclose(r["kernels"]["append"][i, :n],
+                                       plain["append"][i, :n],
+                                       atol=TOL[torch.float32],
+                                       rtol=TOL[torch.float32])

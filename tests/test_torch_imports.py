@@ -40,7 +40,9 @@ def test_every_module_imports_without_jax_or_repro():
            "repro_torch.launch.multiarch", "repro_torch.data.pipeline",
            "repro_torch.training.loss", "repro_torch.training.optimizer",
            "repro_torch.training.train_loop", "repro_torch.launch.train",
-           "repro_torch.kernels.flash_attention_bwd"} <= set(mods)
+           "repro_torch.kernels.flash_attention_bwd",
+           "repro_torch.kernels.paged_tp", "repro_torch.models.sharding",
+           "repro_torch.serving.tp", "repro_torch.launch.mesh"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
