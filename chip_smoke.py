@@ -40,6 +40,14 @@ from the root of a checkout.  Phases, each printing its lines:
      with span_len < T, and minitron-4b's shape: B=8 over 4096 tokens
      (256 pages a row), T = 5 (gamma + 1) and a 64-query chunk; the
      yardstick is SDPA over the pre-gathered dense K/V (gather excluded);
+   * the same two with a sliding window (``paged_decode_attention
+     window``, ``paged_append_attention window``) at starcoder2-7b's
+     heads (36 over 4, hd 128) with its window 4096: decode B=8 over
+     8192 and spans T = 64 and 5 over 8192 committed keys, each beside
+     the unwindowed launch of the same inputs; and at granite-moe-1b's
+     heads (16 over 8, hd 64, no window): decode B=8 over 4096, spans T
+     = 64 and 5 over 4096; SDPA with the same boolean mask, a window's
+     bound counting its keys only;
    * ``paged_tp`` (#3 and #4 as one rank's launch at tp=2) at one
      rank's share of minitron-4b's heads, 12 over 4: decode B=8 over
      4096, spans T = 64 and 5 over the same context, fp32 and bf16;
@@ -176,7 +184,33 @@ from the root of a checkout.  Phases, each printing its lines:
    keys; card logits at the last prefill position and after decodes 1
    and 48 against the CPU's.  phi3-mini-3.8b and starcoder2-7b at 2
    layers of their widths: prefill 64 tokens, decode 16 fused, card
-   logits against the CPU's over every step;
+   logits against the CPU's over every step.  ``[main] paged window``:
+   starcoder2-7b at 2 layers of its widths on the batched rows
+   (capacity 4608): 2 rows prefill prompts of 4300 and 4250 tokens in
+   256-token chunks through #4, then 48 greedy tokens through #3 on the
+   fused rows loop, so the window of 4096 masks keys in both; #3 and #4
+   launches == n_layers x the metered calls; the sequential Engine (#2
+   and #1 with the window) gives the same tokens; row 0's logits after
+   the prefill and decodes 1 and 48 against the CPU's;
+   ``[main] moe``: SpecReason with a granite-moe-1b-a400m base at its
+   published widths and depth (24 layers, 32 experts top-8; random
+   init, vocabulary 64) and the SMALL drafter: 3 requests greedy and at
+   0.6 on the fused loops (the moe step inside the graphs), greedy req0
+   and sampled req0 again per token (equal tokens), #1 and #2 launches
+   == n_layers x the metered calls; then the serve CLI's continuous path
+   over the pair (the prefix cache on), 8 requests over 4 rows greedy
+   and with spec decode, #3 and #4 launches == n_layers x the metered
+   calls, latency, TTFT, TPOT, tok/s and the mean dropped fraction of
+   the routings; greedy req0 profiled (the profiler's flash-decode count
+   == the counter); as information how many continuous greedy requests
+   give the sequential tokens; at 2 of the layers one 4-row extend card
+   against CPU (the smallest top-k margin, the routing choices that
+   differ, the logits where routing agrees) and one training step's
+   gradients card against CPU (1e-5 of each one's largest).  ``[fused
+   moe]``: the granite base alone at its published vocabulary (49155),
+   decode-only, two fused turns; ms a token against the byte
+   bounds of every expert's weights (the formulation's read) and of a
+   top-8 read;
 10. train: one BASE and one SMALL step's loss and every gradient on the
    card against the CPU (rtol 1e-4, atol that times each gradient's
    largest magnitude), at launch/train.py's batches; 20 BASE steps run twice from one seed with identical
@@ -252,6 +286,17 @@ WINDOW_CACHE = 4096
 WINDOW_PREFILL = 2100
 WINDOW_DECODE = 48
 ARCH_CHECKS = ("phi3-mini-3.8b", "starcoder2-7b")
+# [main] paged window: starcoder2-7b at WINDOW_DEPTH layers on the batched
+# rows, prompts past its window of 4096
+PAGED_WINDOW_CACHE = 4608
+PAGED_WINDOW_PROMPTS = (4300, 4250)
+PAGED_WINDOW_DECODE = 48
+# [main] moe: granite-moe-1b-a400m at its published widths and depth
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_THRESHOLD = 4.5
+MOE_BUDGET = 64
+MOE_REQUESTS = 8
+MOE_GRAD_TOL = 1e-5
 ARCH_DEPTH = 2
 ARCH_PREFILL = 64
 ARCH_DECODE = 16
@@ -3280,6 +3325,651 @@ def tp_phase(torch, lap):
         o["launches"]["tp_append"] for o in ranks)}
 
 
+def paged_window_kernel_phase(torch, F, ref, paged_decode, paged_append,
+                              windowed, moe):
+    """Paged flash-decode (#3) and paged span attention (#4) with a
+    sliding window against their plain versions (``ref`` with the
+    window), fp32 and bf16 at the tolerances of tests/test_kernels.py:
+    starcoder2-7b's heads (36 over 4, hd 128) with its window 4096, #3 B=8
+    over 8192 keys and #4 T=64 and T=5 over 8192 committed keys each
+    (every span position live), the unwindowed launch of the same inputs
+    timed beside; granite-moe-1b's heads (16 over 8, hd 64), #3 B=8 over
+    4096 and #4 T=64 / T=5 over 4096, no window.  Each: its time (CUDA
+    events, host cost included), the plain version's, SDPA's over the
+    pre-gathered K/V with the same boolean mask, and its bound (a window
+    counts its keys only).  Returns per-kernel records."""
+    from repro_torch.kernels import paged_decode_attention as paged_mod
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bs = 16
+    heads = {"starcoder2": (windowed.n_heads, windowed.n_kv_heads,
+                            windowed.resolved_head_dim,
+                            windowed.sliding_window),
+             "granite": (moe.n_heads, moe.n_kv_heads,
+                         moe.resolved_head_dim, moe.sliding_window)}
+    records = {"paged_decode_attention": [], "paged_append_attention": []}
+
+    def pages(lens, kh, hd, dtype):
+        nb = -(-max(lens) // bs)
+        n_pages = len(lens) * nb + 3
+        kp = torch.randn(n_pages, kh, bs, hd, generator=gen,
+                         device=dev).to(dtype)
+        vp = torch.randn(n_pages, kh, bs, hd, generator=gen,
+                         device=dev).to(dtype)
+        perm = torch.randperm(n_pages, generator=gen, device=dev)
+        return kp, vp, perm[:len(lens) * nb].reshape(len(lens), nb).to(
+            torch.int32).contiguous()
+
+    def gathered(p, tables):
+        b, nb = tables.shape
+        return p[tables.long()].transpose(1, 2).reshape(b, p.shape[1],
+                                                        nb * bs, p.shape[3])
+
+    def check(name, label, out, exp, dname):
+        err = (out.float() - exp.float()).abs().max().item()
+        if not torch.allclose(out.float(), exp.float(), atol=TOL[dname],
+                              rtol=TOL[dname]):
+            raise AssertionError(f"{name} {label}: max |err| {err} beyond "
+                                 f"atol = rtol = {TOL[dname]}")
+        return err
+
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        esize = torch.tensor([], dtype=dt).element_size()
+        for model, n_keys in (("starcoder2", 8192), ("granite", 4096)):
+            h, kh, hd, window = heads[model]
+            b = 8
+            lens = [n_keys] * b
+            kp, vp, tables = pages(lens, kh, hd, dt)
+            q = torch.randn(b, h, hd, generator=gen, device=dev).to(dt)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            label = (f"{model} {dname} B={b} over {n_keys} window={window}")
+            out = paged_decode(q, kp, vp, tables, lengths, window)
+            err = check("paged_decode_attention", label, out,
+                        ref.paged_decode_reference(q, kp, vp, tables,
+                                                   lengths, window), dname)
+            kd, vd = gathered(kp, tables), gathered(vp, tables)
+            j = torch.arange(kd.shape[2], device=dev)[None, :]
+            seen = j < lengths[:, None]
+            if window:
+                seen = seen & (j >= lengths[:, None] - window)
+            q4 = q[:, :, None, :]
+            ms = time_ms(torch, lambda: paged_decode(q, kp, vp, tables,
+                                                     lengths, window))
+            full_ms = time_ms(torch, lambda: paged_decode(q, kp, vp, tables,
+                                                          lengths))
+            plain_ms = time_ms(torch, lambda: ref.paged_decode_reference(
+                q, kp, vp, tables, lengths, window), reps=5)
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, kd, vd, attn_mask=seen[:, None, None, :],
+                enable_gqa=True))
+            keys = sum(min(n, window) if window else n for n in lens)
+            nbytes = (2 * q.numel() + 2 * keys * kh * hd) * esize \
+                + 4 * (b + sum(-(-(min(n, window) if window else n) // bs)
+                               + 1 for n in lens))
+            bound_ms, by = bound(nbytes, 4 * hd * h * keys, dname)
+            plan = paged_mod.plan(q, kp, vp, tables, window)
+            records["paged_decode_attention"].append(dict(
+                shape=label, dtype=dname, max_abs_err=err, ms=ms,
+                unwindowed_ms=full_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=by,
+                split=[plan["n_split"], plan["split_keys"]],
+                vector_bytes=plan["vector_bytes"]))
+            print(f"[kernels] paged_decode_attention window {label}: err "
+                  f"{err:.3g} | kernel {ms:.4f} ms"
+                  + (f" windowed, {full_ms:.4f} ms unwindowed" if window
+                     else "") + f"; plain {plain_ms:.4f} ms, sdpa over "
+                  f"gathered K/V (same mask, gather excluded) {lib_ms:.4f} "
+                  f"ms, bound {bound_ms:.5f} ms ({by}; {keys} keys) | "
+                  + decode_plan_note(plan, label), flush=True)
+
+            for t in (64, 5):
+                ctx = [n_keys] * b
+                kp, vp, tables = pages([c + t for c in ctx], kh, hd, dt)
+                q = torch.randn(b, t, h, hd, generator=gen, device=dev).to(dt)
+                kn = torch.randn(b, t, kh, hd, generator=gen,
+                                 device=dev).to(dt)
+                vn = torch.randn(b, t, kh, hd, generator=gen,
+                                 device=dev).to(dt)
+                cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+                sl = torch.full((b,), t, dtype=torch.int32, device=dev)
+                args = (q, kn, vn, kp, vp, tables, cl, sl)
+                label = (f"{model} {dname} T={t} B={b} ctx={n_keys} "
+                         f"window={window}")
+                out = paged_append(*args, window)
+                err = check("paged_append_attention", label, out,
+                            ref.paged_append_reference(*args, window), dname)
+                kd = torch.cat([gathered(kp, tables), kn.transpose(1, 2)], 2)
+                vd = torch.cat([gathered(vp, tables), vn.transpose(1, 2)], 2)
+                s_ctx = kd.shape[2] - t
+                kj = torch.arange(s_ctx + t, device=dev)[None, None, :]
+                qi = torch.arange(t, device=dev)[None, :, None]
+                c3 = cl[:, None, None]
+                mask = ((kj < c3) & (kj < s_ctx)) | (
+                    (kj >= s_ctx) & (kj - s_ctx <= qi))
+                if window:
+                    kpos = torch.where(kj < s_ctx, kj, c3 + kj - s_ctx)
+                    mask = mask & (kpos > c3 + qi - window)
+                qh = q.transpose(1, 2)
+                ms = time_ms(torch, lambda: paged_append(*args, window))
+                full_ms = time_ms(torch, lambda: paged_append(*args))
+                plain_ms = time_ms(torch, lambda: ref.paged_append_reference(
+                    *args, window), reps=3)
+                lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qh, kd, vd, attn_mask=mask[:, None], enable_gqa=True))
+                # (query, key) pairs each query sees; the committed keys
+                # some query of the row sees
+                seen_q = [min(c + i + 1, window) if window else c + i + 1
+                          for c in ctx for i in range(t)]
+                read = sum(min(c, window - 1) if window else c for c in ctx)
+                nbytes = (2 * b * t * h * hd + 2 * b * t * kh * hd
+                          + 2 * read * kh * hd) * esize + 4 * (
+                              2 * b + sum(-(-(min(c, window) if window
+                                              else c) // bs) + 1
+                                          for c in ctx))
+                bound_ms, by = bound(nbytes, 4 * hd * h * sum(seen_q),
+                                     dname)
+                records["paged_append_attention"].append(dict(
+                    shape=label, dtype=dname, max_abs_err=err, ms=ms,
+                    unwindowed_ms=full_ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=bound_ms, bound_by=by))
+                print(f"[kernels] paged_append_attention window {label}: "
+                      f"err {err:.3g} | kernel {ms:.4f} ms"
+                      + (f" windowed, {full_ms:.4f} ms unwindowed"
+                         if window else "") + f"; plain {plain_ms:.4f} ms, "
+                      f"sdpa over gathered K/V (same mask, gather "
+                      f"excluded) {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                      f"({by}; {sum(seen_q)} query-key pairs, {read} "
+                      "committed keys read)", flush=True)
+    return records
+
+
+class DropMeter:
+    """Counts, on the card and without a host read (so inside captured
+    graphs too), the routings of the port's moe layers and the sum of
+    their ``dropped_frac``: ``models.moe.route`` wrapped while
+    installed."""
+
+    def __init__(self, torch, moe):
+        self.moe, self.real = moe, moe.route
+        self.acc = torch.zeros(2, device="cuda")
+
+        def route(logits, cfg, capacity):
+            out = self.real(logits, cfg, capacity)
+            self.acc[0].add_(out[-1]["dropped_frac"])
+            self.acc[1].add_(1.0)
+            return out
+        moe.route = route
+
+    def read(self):
+        """(routings, mean dropped fraction) since the last read."""
+        n, s = self.acc[1].item(), self.acc[0].item()
+        self.acc.zero_()
+        return int(n), s / max(n, 1.0)
+
+    def remove(self):
+        self.moe.route = self.real
+
+
+def moe_routing(torch, moe, run):
+    """Run ``run()`` with ``models.moe.route`` recording, per routing,
+    the experts (G, S, k), the keep mask and the top-k margin (the k-th
+    probability less the (k+1)-th) of every token.  Returns (run's
+    result, the records)."""
+    real, recs = moe.route, []
+
+    def route(logits, cfg, capacity):
+        out = real(logits, cfg, capacity)
+        probs = torch.sort(torch.softmax(logits.float(), -1), dim=-1,
+                           descending=True, stable=True)[0]
+        k = cfg.top_k
+        recs.append((out[0].cpu(), out[2].cpu(),
+                     (probs[..., k - 1] - probs[..., k]).cpu()))
+        return out
+    moe.route = route
+    try:
+        return run(), recs
+    finally:
+        moe.route = real
+
+
+def moe_main_phase(torch, serve, tasks, loader, kernels, Model,
+                   BatchEngine, lap):
+    """granite-moe-1b-a400m at its published widths and depth (24 layers,
+    d_model 1024, 16 heads over 8 of 64, 32 experts of d_ff 512, top-8;
+    random init from a seed, vocabulary cut to 64) with the testbed SMALL
+    drafter, both on their fused loops.  Sequential SpecReason
+    (``serve.run_scheme``): 3 requests greedy and at 0.6, then greedy
+    req0 and sampled req0 on the per-token loop, whose tokens must equal
+    the fused turn's; #2 == 24 x the base's extends + SMALL's layers x
+    its prefill calls, #1 == 24 x the base's decode steps + SMALL's, no
+    paged launch; one capture per loop key.  Continuous
+    (``serve.serve_continuous``: the batched rows' fused loop, the prefix
+    cache on): 8 requests over 4 rows greedy, then with spec decode
+    (gamma 4); #3 and #4 == n_layers x the batched engines' metered
+    steps and extends, no dense launch; per request latency, TTFT, TPOT;
+    tok/s a run.  As information: how many of the first 3 continuous
+    greedy requests give the sequential greedy tokens, and the mean
+    dropped fraction of the runs' routings.  Greedy req0 once more under
+    the profiler (its idle share; its count of #1 against the
+    counter).  Then, at 2 of the
+    layers: one 4-row extend card against CPU (the smallest top-k margin,
+    the routing choices that differ, and the logits within LOGIT_TOL at
+    every token whose row agreed in routing up to it), and one training
+    step's loss and gradients card against CPU, each within 1e-5 of its
+    tensor's largest.  Returns (launches, base engine)."""
+    import dataclasses
+
+    from repro_torch.data import pipeline
+    from repro_torch.models import moe
+    from repro_torch.models.model import flatten, unflatten
+    from repro_torch.training import loss as tloss
+    t0 = time.perf_counter()
+    base = loader.random_engine(MOE_ARCH, "cuda", seed=0)
+    small = loader.random_engine("testbed-small", "cuda", seed=1)
+    torch.cuda.synchronize()
+    cfg = base.model.cfg
+    print(f"[main] moe: {MOE_ARCH} base, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} of "
+          f"{cfg.resolved_head_dim}, {cfg.n_experts} experts of d_ff "
+          f"{cfg.d_ff}, top-{cfg.top_k}, capacity factor "
+          f"{cfg.capacity_factor}, tied embeddings, vocab {cfg.vocab_size} "
+          f"(cut from 49155), "
+          f"{sum(t.numel() for t in leaves(base.params))} parameters, "
+          f"random init in {time.perf_counter() - t0:.1f} s; testbed SMALL "
+          f"drafter; threshold {MOE_THRESHOLD}; decode loops "
+          f"{loader.decode_loops(base, small)}", flush=True)
+    drops = DropMeter(torch, moe)
+    rng = random.Random(0)
+    reqs = [tasks.sample_task(rng) for _ in range(MOE_REQUESTS)]
+    layers = {"base": cfg.n_layers, "small": small.model.cfg.n_layers}
+    launches = dict.fromkeys(kernels, 0)
+    outputs = {}
+    runs = (("greedy", 0.0, 3, None), ("sampled", 0.6, 3, None),
+            ("greedy eager", 0.0, 1, False), ("sampled eager", 0.6, 1, False))
+    for label, temp, n_req, fused in runs:
+        for k in kernels.values():
+            k.launches = 0
+        want = {"decode_attention": 0, "flash_attention": 0}
+        outputs[label] = []
+        for i in range(n_req):
+            gen = torch.Generator(device="cuda").manual_seed(i)
+            res = serve.run_scheme("specreason", base, small, reqs[i], gen,
+                                   MOE_BUDGET, MOE_THRESHOLD, temp,
+                                   fused=fused)
+            mb, ms_ = res.meters["base"], res.meters["small"]
+            want["flash_attention"] += layers["base"] * mb["prefill_calls"] \
+                + layers["small"] * ms_["prefill_calls"]
+            want["decode_attention"] += layers["base"] * mb["decode_steps"] \
+                + layers["small"] * ms_["decode_steps"]
+            for eng in (base, small):
+                if eng.captures != len(eng._loops):
+                    raise AssertionError(
+                        f"moe {label} req{i}: {eng.name} captured "
+                        f"{eng.captures} graphs for {len(eng._loops)} keys")
+            toks = res.thinking_ids + res.answer_ids
+            outputs[label].append(toks)
+            steps = [s for s in res.steps if s.source == "small"]
+            print(f"[main] moe {label} req{i}: {res.wall_time * 1e3:.1f} ms, "
+                  f"{len(toks)} tokens, {len(toks) / res.wall_time:.1f} "
+                  f"tok/s, {len(res.steps)} steps "
+                  f"({sum(s.accepted for s in steps)} accepted / "
+                  f"{len(steps)} drafted), base {mb['prefill_calls']} "
+                  f"extends / {mb['decode_calls']} decode calls of "
+                  f"{mb['decode_tokens']} tokens in {mb['decode_steps']} "
+                  f"steps", flush=True)
+        got = {k: kernels[k].launches for k in want}
+        if got != want or not all(want.values()) or any(
+                kernels[k].launches for k in kernels if k not in want):
+            now = {k: v.launches for k, v in kernels.items()}
+            raise AssertionError(f"moe {label}: launches {now} != {want} "
+                                 "(others 0)")
+        n, frac = drops.read()
+        print(f"[main] moe {label} (decode loops "
+              f"{'eager' if fused is False else 'fused'}): launches flash "
+              f"{got['flash_attention']}, decode {got['decode_attention']} "
+              f"== n_layers x the metered extends and decode steps; paged "
+              f"0; {n} routings, mean dropped fraction {frac:.4g}",
+              flush=True)
+        for k in want:
+            launches[k] += got[k]
+    for label in ("greedy", "sampled"):
+        if outputs[f"{label} eager"][0] != outputs[label][0]:
+            raise AssertionError(f"moe {label} req0: the eager turn's "
+                                 "tokens differ from the fused turn's")
+    print(f"[main] moe: the eager turn's tokens equal the fused turn's "
+          f"(greedy req0 and sampled req0); base {base.captures} captures "
+          f"for {len(base._loops)} keys, small {small.captures} for "
+          f"{len(small._loops)}", flush=True)
+    lap("main path, moe sequential")
+
+    # the serve CLI's continuous path over this pair
+    argv = ["--scheduler", "continuous", "--batch", "4", "--budget",
+            str(MOE_BUDGET), "--threshold", str(MOE_THRESHOLD),
+            "--temperature", "0", "--device", "cuda", "-n",
+            str(MOE_REQUESTS)]
+    reports = {}
+    for label, extra in (("greedy", []),
+                         ("spec greedy", ["--spec-decode", "--gamma", "4"])):
+        args = serve.parse_args(argv + extra)
+        for k in kernels.values():
+            k.launches = 0
+        report = serve.serve_continuous(args, base, small, reqs,
+                                        torch.device("cuda"))
+        sched, st = report.sched, report.stats
+        want = {"paged_decode_attention": 0, "paged_append_attention": 0}
+        for be in (sched.base_be, sched.small_be):
+            n = be.model.cfg.n_layers
+            want["paged_decode_attention"] += n * be.meter.decode_steps
+            want["paged_append_attention"] += n * be.meter.prefill_calls
+        got = {k: kernels[k].launches for k in want}
+        if got != want or not all(want.values()) or any(
+                kernels[k].launches for k in kernels if k not in want):
+            now = {k: v.launches for k, v in kernels.items()}
+            raise AssertionError(f"moe continuous {label}: launches {now} "
+                                 f"!= {want} (dense 0)")
+        if not sched.base_be.coupled:
+            raise AssertionError("moe continuous: the base's batched "
+                                 "engine does not carry every slot")
+        for i, h in enumerate(report.handles):
+            res = h.result
+            n_out = res.n_thinking_tokens + len(res.answer_ids)
+            print(f"[main] moe continuous {label} req{i}: latency "
+                  f"{h.e2e_latency * 1e3:.1f} ms, TTFT {h.ttft * 1e3:.1f} ms,"
+                  f" TPOT {h.tpot(n_out) * 1e3:.2f} ms, {n_out} tokens"
+                  + (f", spec {res.spec_stats.accepted}/"
+                     f"{res.spec_stats.proposed}" if res.spec_stats.rounds
+                     else ""), flush=True)
+        n, frac = drops.read()
+        print(f"[main] moe continuous {label}: {st['tok_s']} tok/s, "
+              f"{st['req_s']} req/s, wall {st['wall_s']} s, ticks "
+              f"{st['ticks']}, TTFT p50 {st.get('p50_ttft_s')} s, TPOT p50 "
+              f"{st.get('p50_tpot_s')} s; cache {sched.cache_stats()['base']}"
+              f"; launches paged decode {got['paged_decode_attention']}, "
+              f"paged append {got['paged_append_attention']} == n_layers x "
+              f"metered steps/extends, dense 0; {n} routings, mean dropped "
+              f"fraction {frac:.4g}; KV store bytes {st['kv_store_bytes']} "
+              f"(the base's includes {sched.base_be.batch} shadow pages)",
+              flush=True)
+        for k in want:
+            launches[k] += got[k]
+        reports[label] = report
+    drops.remove()
+
+    def req0():
+        return serve.run_scheme("specreason", base, small, reqs[0],
+                                torch.Generator(device="cuda").manual_seed(0),
+                                MOE_BUDGET, MOE_THRESHOLD, 0.0)
+    p = profile_request(torch, req0, kernels["decode_attention"])
+    seen, dev_ms = traced(p["rows"], "decode_kernel")
+    gate(p, seen, "moe greedy req0", "decode_kernel")
+    n_out = len(p["res"].thinking_ids + p["res"].answer_ids)
+    print(f"[profile] moe greedy req0 (fused, {n_out} tokens): "
+          f"{p['window']}; decode_kernel {seen} launches traced == "
+          f"{p['counted']} counted, {dev_ms:.1f} ms; {p['top']}",
+          flush=True)
+    cont = [r.thinking_ids + r.answer_ids for *_, r in
+            reports["greedy"].runs][:3]
+    same = sum(a == b for a, b in zip(cont, outputs["greedy"]))
+    print(f"[main] moe (information): continuous greedy tokens equal the "
+          f"sequential greedy tokens for {same} of 3 requests (a call's "
+          "rows share expert capacity, so a drop may differ between the "
+          "two paths)", flush=True)
+    lap("main path, moe continuous")
+
+    # 2 of the layers: one 4-row extend and one training step, card vs CPU
+    two = dataclasses.replace(cfg, n_layers=2)
+    m2 = Model(two)
+    p2 = tree_map(lambda t: t.contiguous(), {
+        k: (tree_map(lambda t: t[:2], v) if k == "layers" else v)
+        for k, v in base.params.items()})
+    lens, bucket = [40, 23, 64, 7], 64
+    g = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(0, two.vocab_size, (n,), generator=g).tolist()
+               for n in lens]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = p2 if dev == "cuda" else tree_map(lambda t: t.cpu(), p2)
+        be = BatchEngine(m2, params, batch=4, capacity=256, fused=False)
+        rows = [be.alloc_row() for _ in lens]
+        with torch.no_grad():
+            logits, recs = moe_routing(torch, moe, lambda: be.extend_rows(
+                rows, prompts, want_logits=True))
+        out[dev] = ([lg.float().cpu() for lg in logits], recs)
+    (lc, rc), (lp, rp) = out["cuda"], out["cpu"]
+    margin = min(r[2].min().item() for r in rc)
+    bad = torch.zeros(4, bucket, dtype=torch.int32)
+    flips = 0
+    for (ec, kc, _), (ep, kp, _) in zip(rc, rp):
+        # (G, S, k) over the call's 4 x bucket tokens, batch-major
+        diff = (ec != ep) | (kc != kp)
+        flips += int(diff.sum())
+        bad |= diff.any(-1).reshape(4, bucket).int()
+    # a token whose row differs in routing at or before it may differ
+    agree = bad.cummax(dim=1)[0] == 0
+    worst = 0.0
+    held = 0
+    for i, n in enumerate(lens):
+        ok = agree[i, :n]
+        if ok.any():
+            a, b_ = lc[i][ok], lp[i][ok]
+            worst = max(worst, (a - b_).abs().max().item())
+            held += int(ok.sum())
+            if not torch.allclose(a, b_, atol=LOGIT_TOL, rtol=LOGIT_TOL):
+                raise AssertionError(
+                    f"moe extend row {i}: card vs CPU logits differ by "
+                    f"{(a - b_).abs().max().item()} where routing agrees")
+    print(f"[main] moe extend (2 of {cfg.n_layers} layers, 4 rows of "
+          f"{lens} in one {bucket}-token bucket, every slot): smallest top-"
+          f"{two.top_k} margin on the card {margin:.3g}; {flips} routing "
+          f"choices differ card vs CPU; logits at the {held} of {sum(lens)} "
+          f"tokens whose rows agree in routing up to them within "
+          f"{LOGIT_TOL}: max |diff| {worst:.3g}", flush=True)
+
+    inp, tgt, wgt = next(pipeline.batch_iterator(
+        pipeline.BatchSpec(2, 64), 0, "mixed"))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        pv = {k: t.to(dev, copy=True).requires_grad_()
+              for k, t in flatten(p2).items()}
+        loss, met = tloss.loss_fn(m2, unflatten(pv), {
+            "tokens": torch.from_numpy(inp).to(dev),
+            "targets": torch.from_numpy(tgt).to(dev),
+            "weights": torch.from_numpy(wgt).to(dev)})
+        grads = torch.autograd.grad(loss, list(pv.values()))
+        res[dev] = (loss.detach().cpu(), {k: v.detach().cpu() for k, v in
+                                          met.items()},
+                    {k: gr.cpu() for k, gr in zip(pv, grads)})
+    worst, where = 0.0, ""
+    for name, cpu in [("loss", res["cpu"][0])] + list(res["cpu"][2].items()):
+        card = res["cuda"][0] if name == "loss" else res["cuda"][2][name]
+        top = max(cpu.abs().max().item(), 1e-30)
+        rel = (card - cpu).abs().max().item() / top
+        if rel > MOE_GRAD_TOL:
+            raise AssertionError(f"moe train {name}: card vs CPU |diff| / "
+                                 f"max {rel} (> {MOE_GRAD_TOL})")
+        if rel >= worst:
+            worst, where = rel, name
+    print(f"[main] moe train (2 of {cfg.n_layers} layers, 2 x 64 tokens, "
+          f"remat): loss {res['cuda'][0].item():.6f} card / "
+          f"{res['cpu'][0].item():.6f} CPU, aux "
+          f"{ {k: round(v.item(), 6) for k, v in res['cuda'][1].items() if k.startswith('aux')} }"
+          f"; the loss and all {len(res['cpu'][2])} gradients within "
+          f"{MOE_GRAD_TOL} of each one's largest magnitude (worst "
+          f"{worst:.3g}, {where})", flush=True)
+    return launches, base
+
+
+def fused_moe_phase(torch, Model, registry, Engine, SamplingParams, base,
+                    decode_kernel):
+    """The granite base alone at its published vocabulary (49155; the
+    same 24 layers, tied embeddings drawn on the card from a seed),
+    decode-only (``decode_turns``: a 64-token prompt, DECODE_TOKENS
+    tokens greedy and at 0.6, two fused turns, the second without a
+    capture; flash-decode launches == n_layers x decode steps; ``[main]
+    moe`` holds the fused loop to the per-token one); then its tok/s and
+    ms a token against two byte bounds: every expert's weights, which the reference's
+    formulation reads for one token (32 experts x 8 capacity slots), and
+    a top-8 read of 8 experts a layer, as information."""
+    from repro_torch.models.model import flatten
+    full, params = published_vocab(torch, Model, registry, MOE_ARCH,
+                                   base.params)
+    eng = Engine(full, params, name=MOE_ARCH)
+    cfg = full.cfg
+    prompt = torch.randint(0, cfg.vocab_size, (64,),
+                           generator=torch.Generator().manual_seed(4)).tolist()
+    tag = f"{MOE_ARCH} vocab {cfg.vocab_size}"
+    decode_turns(torch, eng, SamplingParams, "[fused moe]", tag,
+                 lambda: eng.extend(eng.new_session(), prompt),
+                 ("fused", "fused"), counter=decode_kernel,
+                 kernel="decode_kernel")
+    s = eng.extend(eng.new_session(), prompt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, _, _ = eng.generate(s, DECODE_TOKENS, [], SamplingParams(),
+                             torch.Generator(device="cuda"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d, ff, e, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k
+    per_layer = {n: t[0].numel()
+                 for n, t in flatten(params["layers"]).items()}
+    expert = 3 * d * ff
+    dense = sum(per_layer.values()) - e * expert
+    embed = params["tok_embed"].numel()
+    cache = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.resolved_head_dim * (
+        len(prompt) + DECODE_TOKENS // 2)
+    every = 4 * (cfg.n_layers * (dense + e * expert) + embed + cache)
+    top = 4 * (cfg.n_layers * (dense + k * expert) + embed + cache)
+    ms_tok = wall / len(ids) * 1e3
+    every_ms = every / HBM_BYTES_PER_S * 1e3
+    top_ms = top / HBM_BYTES_PER_S * 1e3
+    print(f"[fused moe] {tag}: {len(ids)} greedy tokens fused in "
+          f"{wall:.4f} s, {len(ids) / wall:.1f} tok/s, {ms_tok:.3f} ms a "
+          f"token; byte bound of the formulation's read (every expert's "
+          f"weights, {every / 1e9:.3f} GB a token) {every_ms:.3f} ms "
+          f"({every_ms / ms_tok:.1%} of it reached); of a top-{k} read "
+          f"(information: {top / 1e9:.3f} GB) {top_ms:.3f} ms", flush=True)
+
+
+def paged_window_main_phase(torch, loader, Model, Engine, BatchEngine,
+                            SamplingParams, kernels):
+    """starcoder2-7b at WINDOW_DEPTH layers of its published widths
+    (random init, vocabulary 64) on the continuous path's engine with
+    capacity PAGED_WINDOW_CACHE: 2 rows commit prompts of
+    PAGED_WINDOW_PROMPTS tokens by chunked prefill (``prefill_rows``,
+    256-token chunks through #4), then PAGED_WINDOW_DECODE greedy tokens
+    through #3 on the fused rows loop, so the window of 4096 masks keys
+    in both kernels; #3 and #4 == n_layers x the metered steps and
+    extends, no dense launch.  The sequential ``Engine`` (#2 and #1 with
+    the window) gives the same tokens from the same chunks.  Then row 0
+    again on a fresh engine, its last logits after the prefill and after
+    feeding decode tokens 1 and PAGED_WINDOW_DECODE (``feed_rows``:
+    #3), against the same engine's on the CPU (LOGIT_TOL).  Returns the
+    launches."""
+    import dataclasses
+    t0 = time.perf_counter()
+    arch = "starcoder2-7b"
+    cfg = dataclasses.replace(loader.arch_config(arch),
+                              n_layers=WINDOW_DEPTH)
+    model = Model(cfg)
+    params = model.init(4, device="cuda")
+    g = torch.Generator().manual_seed(8)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in PAGED_WINDOW_PROMPTS]
+    chunk = 256
+
+    def rows_run(dev_params):
+        be = BatchEngine(model, dev_params, batch=len(prompts),
+                         capacity=PAGED_WINDOW_CACHE)
+        rows = [be.alloc_row() for _ in prompts]
+        for lo in range(0, max(PAGED_WINDOW_PROMPTS), chunk):
+            part = [(r, p[lo:lo + chunk]) for r, p in zip(rows, prompts)
+                    if lo < len(p)]
+            be.prefill_rows([r for r, _ in part], [c for _, c in part],
+                            [lo] * len(part))
+        return be, rows
+
+    for k in kernels.values():
+        k.launches = 0
+    be, rows = rows_run(params)
+    with torch.no_grad():
+        outs = be.generate_rows(rows, PAGED_WINDOW_DECODE, [],
+                                SamplingParams(),
+                                [torch.Generator(device="cuda")
+                                 for _ in rows])
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    want = {"paged_append_attention": n * be.meter.prefill_calls,
+            "paged_decode_attention": n * be.meter.decode_steps}
+    got = {k: kernels[k].launches for k in want}
+    if got != want or any(kernels[k].launches for k in kernels
+                          if k not in want):
+        raise AssertionError(f"paged window: launches "
+                             f"{ {k: v.launches for k, v in kernels.items()} }"
+                             f" != {want} (others 0)")
+    launches = dict(got)
+    del be
+    eng = Engine(model, params, max_len=PAGED_WINDOW_CACHE, name=arch)
+    seq = []
+    for k in kernels.values():
+        k.launches = 0
+    for p in prompts:
+        s = eng.new_session()
+        for lo in range(0, len(p), chunk):
+            s = eng.extend(s, p[lo:lo + chunk])
+        ids, _, _ = eng.generate(s, PAGED_WINDOW_DECODE, [],
+                                 SamplingParams(),
+                                 torch.Generator(device="cuda"))
+        seq.append(ids)
+        del s
+    torch.cuda.synchronize()
+    dense = {k: kernels[k].launches for k in ("flash_attention",
+                                              "decode_attention")}
+    if seq != outs:
+        same = [a == b for a, b in zip(seq, outs)]
+        raise AssertionError(f"paged window: continuous tokens differ from "
+                             f"the sequential Engine's (rows equal: {same})")
+    for name, v in dense.items():
+        launches[name] = v
+    del eng
+
+    # row 0 card vs CPU: logits after the prefill and decodes 1 and N
+    toks = outs[0]
+    out, cpu_s = {}, 0.0
+    for dev in ("cuda", "cpu"):
+        t1 = time.perf_counter()
+        p = params if dev == "cuda" else tree_map(lambda t: t.cpu(), params)
+        be = BatchEngine(model, p, batch=1, capacity=PAGED_WINDOW_CACHE,
+                         fused=False)
+        r = be.alloc_row()
+        with torch.no_grad():
+            for lo in range(0, len(prompts[0]), chunk):
+                be.prefill_rows([r], [prompts[0][lo:lo + chunk]], [lo])
+            got_rows = [be.last_logits[r].clone()]
+            for i, tok in enumerate(toks, 1):
+                be.feed_rows([r], [tok])
+                if i in (1, len(toks)):
+                    got_rows.append(be.last_logits[r].clone())
+        out[dev] = torch.stack(got_rows).float().cpu()
+        cpu_s = time.perf_counter() - t1
+    note = logits_close(torch, f"{arch} paged window", out)
+    last = len(prompts[0]) + len(toks) - 1
+    print(f"[main] paged window: {arch} at {n} of 32 layers (published "
+          f"widths, window {cfg.sliding_window}, capacity "
+          f"{PAGED_WINDOW_CACHE}): 2 rows prefill {PAGED_WINDOW_PROMPTS} "
+          f"tokens in {chunk}-token chunks through #4, then "
+          f"{PAGED_WINDOW_DECODE} greedy tokens through #3 on the fused rows "
+          f"loop; row 0's last query (position {last}) masks the "
+          f"{last + 1 - cfg.sliding_window} oldest keys; launches "
+          f"{got} == {n} x the metered calls; the sequential Engine (#2, "
+          f"#1 with the window: {dense}) gives the same tokens for both "
+          f"rows; row 0 card vs CPU logits after the prefill and decodes 1 "
+          f"and {len(toks)}: {note} (tolerance {LOGIT_TOL}); CPU "
+          f"{cpu_s:.1f} s, {time.perf_counter() - t0:.1f} s in all",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3289,8 +3979,8 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.checkpoint.checkpoint import load_checkpoint
-    from repro_torch.configs import hymba_1_5b, mamba2_1_3b, minitron_4b, \
-        registry, starcoder2_7b, testbed
+    from repro_torch.configs import granite_moe_1b, hymba_1_5b, \
+        mamba2_1_3b, minitron_4b, registry, starcoder2_7b, testbed
     from repro_torch.data import tasks
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.decode_attention import decode_attention
@@ -3347,6 +4037,10 @@ def main() -> int:
     records.update(paged_kernel_phase(torch, F, ref, paged_decode_attention,
                                       paged_append_attention,
                                       minitron_4b.CONFIG))
+    for name, recs in paged_window_kernel_phase(
+            torch, F, ref, paged_decode_attention, paged_append_attention,
+            starcoder2_7b.CONFIG, granite_moe_1b.CONFIG).items():
+        records[name] += recs
     records.update(paged_tp_kernel_phase(torch, F, ref, minitron_4b.CONFIG))
     records.update(ssd_kernel_phase(torch, ref, mamba2, ssd_scan,
                                     mamba2_1_3b.CONFIG, hymba_1_5b.CONFIG))
@@ -3424,6 +4118,22 @@ def main() -> int:
         for name, n in launched.items():
             launches[name] = launches.get(name, 0) + n
     lap("main path, window")
+    for name, n in paged_window_main_phase(
+            torch, loader, Model, engine_mod.Engine, BatchEngine,
+            SamplingParams, kernels).items():
+        launches[name] = launches.get(name, 0) + n
+    torch.cuda.empty_cache()
+    lap("main path, paged window")
+    moe_launches, moe_base = moe_main_phase(torch, serve, tasks, loader,
+                                            kernels, Model, BatchEngine, lap)
+    for name, n in moe_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    lap("check, moe")
+    fused_moe_phase(torch, Model, registry, engine_mod.Engine,
+                    SamplingParams, moe_base, decode_attention)
+    del moe_base
+    torch.cuda.empty_cache()
+    lap("fused moe")
     for arch in ARCH_CHECKS:
         arch_check_phase(torch, loader, Model, engine_mod.Engine,
                          SamplingParams, arch, kernels)

@@ -8,8 +8,11 @@
 // function: query i of row b (absolute position ctx_lens[b] + i) sees the
 // committed keys j < ctx_lens[b], key j lying in page tables[b, j / bs] at
 // slot j % bs, plus the span keys k_new[b, j] with j <= i and
-// j < span_lens[b]; causal within the span, no window.  A query that sees no
-// key gives 0 (the l == 0 -> 1 guard).  Outputs at or past span_lens[b] are
+// j < span_lens[b]; causal within the span.  One addition: a sliding
+// `window` (the JAX package masks a windowed extend in XLA; its Pallas
+// kernel has none): query i then sees only the keys whose absolute position
+// lies in (ctx_lens[b] + i - window, ctx_lens[b] + i], committed and span
+// keys alike.  A query that sees no key gives 0 (the l == 0 -> 1 guard).  Outputs at or past span_lens[b] are
 // unspecified by the contract (the caller slices them off); this kernel
 // writes 0 there, as the plain version does.
 //
@@ -61,6 +64,15 @@
 //    at 64 rows (3 blocks).  The split over the committed context is
 //    planned against the blocks the card runs at once, which
 //    paged_append_attention_slots asks of the occupancy calculator.
+//  * A window skips what no query of a block can see: the committed splits
+//    of a row start at its first query's window start, ctx - window + 1
+//    (planned over min(nb * bs, window) keys, host constants only), a
+//    block's committed loop starts at its own first live query's window
+//    start, and its span loop at that query's window start within the
+//    span.  Where a tile crosses a query's window start the mask is applied
+//    per element, inside the span too (a bucket longer than the window
+//    drops a span's early keys from its late queries).  Pages wholly below
+//    every window stay in the table and are never read.
 //  * Registers (ptxas -v, sm_90a; cp.async / scalar copy variants): fp32
 //    hd 128 153 / 157, hd 64 141 / 142, hd 32 116; bf16 hd 128 162, hd 64
 //    124, hd 32 80 with 8 bytes spilled; no other variant spills.
@@ -104,6 +116,7 @@ struct Args {
   void* out;
   float* part;
   int Tq, H, KH, nb, bs, hd, n_rt, n_split, split_keys;
+  int window;  // 0: no window; else query i sees keys > ctx + i - window
   long long q_sb, q_st, q_sh, kn_sb, kn_st, kn_sh, vn_sb, vn_st, vn_sh;
   long long k_sp, k_sh, k_ss, v_sp, v_sh, v_ss, t_sb, o_sb, o_st, o_sh;
   float scale_log2;  // log2(e) / sqrt(hd): scores in base 2
@@ -139,10 +152,18 @@ paged_append_kernel(const Args a) {
   const bool warp_live = 16 * warp < live_rows;
   const int span_hi =
       live_rows > 0 ? min(span, (r0 + live_rows - 1) / G + 1) : 0;
-  const int lo = split * a.split_keys;
-  const int hi = live_rows > 0 ? min(lo + a.split_keys, ctx) : lo;
+  // with a window: the row's first query's window start (the splits'
+  // origin), and this block's first query's, absolute and in the span
+  const int win = a.window;
+  const int p_lo = r0 / G;
+  const int ws = win > 0 ? max(ctx - win + 1, 0) : 0;
+  const int lo0 = ws + split * a.split_keys;
+  const int lo = win > 0 ? max(lo0, ctx + p_lo - win + 1) : lo0;
+  const int hi = live_rows > 0 ? min(lo0 + a.split_keys, ctx) : lo;
   const int n_ctx = hi > lo ? (hi - lo + kKT - 1) / kKT : 0;
-  const int n_tiles = n_ctx + (split == 0 ? (span_hi + kKT - 1) / kKT : 0);
+  const int sp_lo = win > 0 ? max(p_lo - win + 1, 0) : 0;
+  const int n_tiles =
+      n_ctx + (split == 0 ? (max(span_hi - sp_lo, 0) + kKT - 1) / kKT : 0);
 
   // zero K/V (pad columns and never-copied keys must hold finite values:
   // a masked key's p = 0 still multiplies its V row), then stage Q as fp32
@@ -174,7 +195,7 @@ paged_append_kernel(const Args a) {
       k0 = lo + i * kKT;
       n = min(kKT, hi - k0);
     } else {
-      k0 = (i - n_ctx) * kKT;
+      k0 = sp_lo + (i - n_ctx) * kKT;
       n = min(kKT, span_hi - k0);
     }
   };
@@ -307,7 +328,11 @@ paged_append_kernel(const Args a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int j = nt * 8 + 2 * tig + (e & 1);
-          const bool ok = j < n && (!in_span || k0 + j <= pos[e >> 1]);
+          const int p = pos[e >> 1];
+          // the key's absolute position against the query's, ctx + p
+          const int kabs = (in_span ? ctx : 0) + k0 + j;
+          const bool ok = j < n && (!in_span || k0 + j <= p) &&
+                          (win <= 0 || kabs > ctx + p - win);
           s[nt][e] = ok ? s[nt][e] * a.scale_log2 : kNeg;
           mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
         }
@@ -492,26 +517,32 @@ int slots_hd(int hd, int rows, int* out, int* smem) {
 // ctx_lens, span_lens: (B,) int32.  strides: the 19 element strides q_sb,
 // q_st, q_sh, kn_sb, kn_st, kn_sh, vn_sb, vn_st, vn_sh, k_sp, k_sh, k_ss,
 // v_sp, v_sh, v_ss, t_sb, o_sb, o_st, o_sh.  part: fp32 scratch of B * T * H
-// * n_split * (hd + 2) floats when n_split > 1; split i covers the committed
-// keys [i * split_keys, (i + 1) * split_keys).
+// * n_split * (hd + 2) floats when n_split > 1.  window: 0, or a sliding
+// window (query i of row b sees keys at absolute positions above
+// ctx_lens[b] + i - window); split i covers the committed keys [w + i *
+// split_keys, w + (i + 1) * split_keys), w = max(0, ctx_lens[b] - window +
+// 1) (w = 0 without a window), n_split * split_keys >= nb * bs, or >=
+// min(nb * bs, window) with a window.
 extern "C" int paged_append_attention_launch(
     int dtype, const void* q, const void* k_new, const void* v_new,
     const void* k_pages, const void* v_pages, const void* tables,
     const void* ctx_lens, const void* span_lens, void* out, void* part, int B,
     int Tq, int H, int KH, int nb, int bs, int hd, int n_split,
-    int split_keys, const long long* strides, void* stream) {
+    int split_keys, int window, const long long* strides, void* stream) {
+  const long long keys = (long long)nb * bs;
   if (KH <= 0 || H % KH != 0 || Tq <= 0 || nb <= 0 || bs <= 0 || hd <= 0 ||
-      n_split <= 0 || split_keys <= 0 ||
-      (long long)n_split * split_keys < (long long)nb * bs)
+      n_split <= 0 || split_keys <= 0 || window < 0 ||
+      (long long)n_split * split_keys <
+          (window > 0 && window < keys ? window : keys))
     return (int)cudaErrorInvalidValue;
   const long long* s = strides;
   const int rows = Tq * (H / KH);
   const Args a{q, k_new, v_new, k_pages, v_pages, (const int*)tables,
                (const int*)ctx_lens, (const int*)span_lens, out, (float*)part,
                Tq, H, KH, nb, bs, hd, (rows + kRows - 1) / kRows, n_split,
-               split_keys, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7],
-               s[8], s[9], s[10], s[11], s[12], s[13], s[14], s[15], s[16],
-               s[17], s[18], 1.4426950408889634f / sqrtf((float)hd)};
+               split_keys, window, s[0], s[1], s[2], s[3], s[4], s[5],
+               s[6], s[7], s[8], s[9], s[10], s[11], s[12], s[13], s[14],
+               s[15], s[16], s[17], s[18], 1.4426950408889634f / sqrtf((float)hd)};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) return dispatch_hd<float>(a, B, st);
   if (dtype == 1) return dispatch_hd<__nv_bfloat16>(a, B, st);

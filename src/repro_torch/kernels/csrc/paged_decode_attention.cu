@@ -8,7 +8,10 @@
 // row's keys j < lengths[b], key j lying in page tables[b, j / bs] at slot
 // j % bs; pages past a row's length are never read, the tail page is masked
 // per slot, rows may alias pages (the kernel only reads), a row with no key
-// gives 0 (the l == 0 -> 1 guard), and any G = H / K.
+// gives 0 (the l == 0 -> 1 guard), and any G = H / K.  One addition: a
+// sliding `window` (the JAX package masks a windowed decode in XLA; its
+// Pallas kernel has none): row b then sees the keys lengths[b] - window <=
+// j < lengths[b] only.
 //
 // What bounds it on this card: bytes, as for the dense flash-decode: each
 // token reads the row's whole valid context once (2 * len * K * hd
@@ -34,6 +37,12 @@
 //    (paged_decode_attention_slots; planned on the host from nb * bs), and
 //    a merge kernel combines the partial (max, sum, acc) triples; splits
 //    past a row's length exit at once.
+//  * A window starts a row's splits at its first key in the window,
+//    lengths[b] - window, so the first table entry read is (lengths[b] -
+//    window) / bs: pages wholly below the window stay in the table and are
+//    never read.  The split is planned over min(nb * bs, window) keys, from
+//    host constants only (never the lengths), so the launch stays safe to
+//    record into the fused rows loop's graph.
 //
 // Plain C interface for ctypes; the launch returns cudaGetLastError().
 
@@ -86,6 +95,7 @@ struct Args {
   void* out;
   float* part;
   int H, KH, nb, bs, hd, n_hg, n_split, split_keys;
+  int window;  // 0: every key below the length; else the last `window`
   long long q_sb, q_sh, k_sp, k_sh, k_ss, v_sp, v_sh, v_ss, t_sb, o_sb, o_sh;
   float scale_log2;  // log2(e) / sqrt(hd): scores in base 2
 };
@@ -98,7 +108,8 @@ paged_decode_kernel(const Args a) {
   const int split = blockIdx.x, b = blockIdx.z;
   const int kh = blockIdx.y / a.n_hg, hg = blockIdx.y % a.n_hg;
   const int len = min(max(a.lengths[b], 0), a.nb * a.bs);
-  const int lo = split * a.split_keys;
+  const int lo = (a.window > 0 ? max(len - a.window, 0) : 0) +
+                 split * a.split_keys;
   const int hi = min(lo + a.split_keys, len);
   const int G = a.H / a.KH;
   const PagedKeys<T> keys{static_cast<const T*>(a.kp) + kh * a.k_sh,
@@ -128,24 +139,30 @@ struct Paged {
 // v_pages: (P, KH, bs, hd); tables: (B, nb) int32, unit stride over nb;
 // lengths: (B,) int32; out: (B, H, hd); strides: the 11 element strides
 // q_sb, q_sh, k_sp, k_sh, k_ss, v_sp, v_sh, v_ss, t_sb, o_sb, o_sh (unit
-// stride over hd everywhere).  Split i covers the keys [i * split_keys,
-// (i + 1) * split_keys), n_split * split_keys >= nb * bs; part is fp32
-// scratch of B * H * n_split * (hd + 2) floats when n_split > 1.
+// stride over hd everywhere).  window: 0, or a sliding window: row b
+// attends over the keys [w, lengths[b]), w = max(0, lengths[b] - window).
+// Split i covers the keys [w + i * split_keys, w + (i + 1) * split_keys)
+// (w = 0 without a window), n_split * split_keys >= nb * bs, or >=
+// min(nb * bs, window) with one; part is fp32 scratch of B * H * n_split *
+// (hd + 2) floats when n_split > 1.
 extern "C" int paged_decode_attention_launch(
     int dtype, const void* q, const void* k_pages, const void* v_pages,
     const void* tables, const void* lengths, void* out, void* part, int B,
     int H, int KH, int nb, int bs, int hd, int n_split, int split_keys,
-    const long long* strides, void* stream) {
+    int window, const long long* strides, void* stream) {
   const int n_hg = head_groups(H, KH);
+  const long long keys = (long long)nb * bs;
   if (n_hg == 0 || B <= 0 || B > 65535 || nb <= 0 || bs <= 0 || hd <= 0 ||
-      hd > 128 || n_split <= 0 || split_keys <= 0 ||
-      (long long)n_split * split_keys < (long long)nb * bs)
+      hd > 128 || n_split <= 0 || split_keys <= 0 || window < 0 ||
+      (long long)n_split * split_keys <
+          (window > 0 && window < keys ? window : keys))
     return (int)cudaErrorInvalidValue;
   const long long* s = strides;
   const Args a{q, k_pages, v_pages, (const int*)tables, (const int*)lengths,
                out, (float*)part, H, KH, nb, bs, hd, n_hg, n_split,
-               split_keys, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7],
-               s[8], s[9], s[10], 1.4426950408889634f / sqrtf((float)hd)};
+               split_keys, window, s[0], s[1], s[2], s[3], s[4], s[5],
+               s[6], s[7], s[8], s[9], s[10],
+               1.4426950408889634f / sqrtf((float)hd)};
   return decode_run<Paged>(dtype, a, B, k_pages, v_pages, strides,
                            (cudaStream_t)stream);
 }

@@ -50,9 +50,16 @@ def _strides(q, k_cache, v_cache, out) -> ctypes.Array:
                     *v_cache.stride()[:3], out.stride(0), out.stride(1))
 
 
-def _keys(capacity: int, window: int) -> int:
+def window_keys(capacity: int, window: int) -> int:
     """The keys a row can read, over which the split is planned."""
     return min(capacity, window) if window else capacity
+
+
+def check_window(window) -> None:
+    """A window is a host int >= 0 (0: none): it plans the split."""
+    if isinstance(window, bool) or not isinstance(window, int) \
+            or window < 0:
+        raise ValueError(f"window must be an int >= 0; got {window!r}")
 
 
 def plan(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -60,7 +67,7 @@ def plan(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     """``tile_plan.decode_plan`` of a launch on these CUDA tensors."""
     return tile_plan.decode_plan("decode_attention", DTYPES[q.dtype], q,
                                  k_cache, v_cache,
-                                 _keys(k_cache.shape[2], window),
+                                 window_keys(k_cache.shape[2], window),
                                  list(_strides(q, k_cache, v_cache, q)))
 
 
@@ -98,17 +105,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if lengths.shape != (b,) or lengths.dtype != torch.int32 \
             or not lengths.is_contiguous():
         raise ValueError("lengths must be a contiguous (B,) int32 tensor")
-    if isinstance(window, bool) or not isinstance(window, int) \
-            or window < 0:
-        raise ValueError(f"window must be an int >= 0; got {window!r}")
+    check_window(window)
     for t in (k_cache, v_cache, lengths):
         if t.device != q.device:
             raise ValueError(f"all tensors must be on {q.device}")
 
     out = torch.empty((b, h, hd), dtype=q.dtype, device=q.device)
     n_split, split_keys = tile_plan.decode_split(
-        "decode_attention", DTYPES[q.dtype], b, h, kh, hd, _keys(s, window),
-        q.device.index)
+        "decode_attention", DTYPES[q.dtype], b, h, kh, hd,
+        window_keys(s, window), q.device.index)
     part = (torch.empty((b, h, n_split, hd + 2), dtype=torch.float32,
                         device=q.device) if n_split > 1 else out)
     with torch.cuda.device(q.device):

@@ -99,30 +99,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
-                           lengths: torch.Tensor) -> torch.Tensor:
+                           lengths: torch.Tensor,
+                           window: int = 0) -> torch.Tensor:
     """(B,H,hd) over (P,K,bs,hd)^2 pages through (B,nb) tables + lengths
-    (B,) -> (B,H,hd)."""
+    (B,) -> (B,H,hd); with a ``window``, row b sees only its last
+    ``window`` keys."""
     if _on_cpu(q):
         return ref.paged_decode_reference(q, k_pages, v_pages, block_tables,
-                                          lengths)
+                                          lengths, window)
     _no_grad_on_card("paged_decode_attention", q, k_pages, v_pages)
-    return paged_kernel(q, k_pages, v_pages, block_tables, lengths)
+    return paged_kernel(q, k_pages, v_pages, block_tables, lengths, window)
 
 
 def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
                            v_new: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
                            ctx_lens: torch.Tensor,
-                           span_lens: torch.Tensor) -> torch.Tensor:
+                           span_lens: torch.Tensor,
+                           window: int = 0) -> torch.Tensor:
     """(B,T,H,hd) span queries over the committed pages plus the span's
-    (B,T,K,hd) K/V -> (B,T,H,hd); rows past span_len unspecified."""
+    (B,T,K,hd) K/V -> (B,T,H,hd); rows past span_len unspecified; with a
+    ``window``, query i of row b sees only the keys at positions above
+    ``ctx_lens[b] + i - window``."""
     if _on_cpu(q):
         return ref.paged_append_reference(q, k_new, v_new, k_pages, v_pages,
-                                          block_tables, ctx_lens, span_lens)
+                                          block_tables, ctx_lens, span_lens,
+                                          window)
     _no_grad_on_card("paged_append_attention", q, k_new, v_new, k_pages,
                      v_pages)
     return append_kernel(q, k_new, v_new, k_pages, v_pages, block_tables,
-                         ctx_lens, span_lens)
+                         ctx_lens, span_lens, window)
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,

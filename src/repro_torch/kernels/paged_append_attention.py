@@ -5,7 +5,9 @@ The port of the JAX package's Pallas kernel
 ``kernels/paged_append_attention.py``: T span queries per row attend
 over the row's committed pages (through its block table) plus a dense
 (B, T, K, hd) side buffer of the span's own fresh K/V, causal within the
-span, with ragged context and span lengths.  The port runs every batched
+span, with ragged context and span lengths, and (an addition: the JAX
+package masks a windowed extend in XLA) a sliding ``window``.  The port
+runs every batched
 extend through it (prompt chunks, step scoring, delimiters, spec-decode
 verification), so T goes up to the largest extend bucket.  The kernel
 computes on the tensor cores (3xTF32 for fp32 operands).  This wrapper
@@ -25,7 +27,7 @@ import functools
 import torch
 
 from . import build, counts
-from .decode_attention import DTYPES
+from .decode_attention import DTYPES, check_window, window_keys
 from .paged_decode_attention import check_lengths, check_pages
 from .tile_plan import ROWS, card_occupancy, split_plan
 
@@ -37,8 +39,8 @@ def _lib():
     lib = build.load("paged_append_attention")
     fn = lib.paged_append_attention_launch
     fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                   _I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong),
-                   _P]
+                   _I, _I, _I, _I, _I, _I, _I,
+                   ctypes.POINTER(ctypes.c_longlong), _P]
     fn.restype = _I
     return lib
 
@@ -47,11 +49,14 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
                            v_new: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
                            ctx_lens: torch.Tensor,
-                           span_lens: torch.Tensor) -> torch.Tensor:
+                           span_lens: torch.Tensor,
+                           window: int = 0) -> torch.Tensor:
     """q: (B, T, H, hd) span queries; k_new/v_new: (B, T, K, hd) the span's
     fresh K/V; k_pages/v_pages: (P, K, bs, hd); block_tables: (B, nb)
-    int32; ctx_lens/span_lens: (B,) int32 (ctx_len at most nb * bs).  Any
-    strides with a unit stride over hd, any H / K.  Returns (B, T, H, hd)
+    int32; ctx_lens/span_lens: (B,) int32 (ctx_len at most nb * bs);
+    window: 0, or a sliding window: query i of row b sees only the keys
+    at positions above ``ctx_lens[b] + i - window``.  Any strides with a
+    unit stride over hd, any H / K.  Returns (B, T, H, hd)
     in q's dtype; a row's outputs at or past its span_len are unspecified
     (the kernel writes 0).  float32 or bfloat16 in, fp32-accurate
     arithmetic (3xTF32 tensor-core products for fp32 operands)."""
@@ -73,12 +78,14 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
                              "unit stride over hd")
     check_lengths(ctx_lens, b, "ctx_lens", q.device)
     check_lengths(span_lens, b, "span_lens", q.device)
+    check_window(window)
     nb = block_tables.shape[1]
 
     out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
     slots, _ = card_occupancy("paged_append_attention", DTYPES[q.dtype], hd,
                               min(ROWS, t * (h // kh)), q.device.index)
-    n_split, split_keys = split_plan(b, t, h, kh, nb * bs, slots)
+    n_split, split_keys = split_plan(b, t, h, kh,
+                                     window_keys(nb * bs, window), slots)
     part = (torch.empty((b, t, h, n_split, hd + 2), dtype=torch.float32,
                         device=q.device) if n_split > 1 else out)
     strides = (ctypes.c_longlong * 19)(
@@ -92,7 +99,7 @@ def paged_append_attention(q: torch.Tensor, k_new: torch.Tensor,
             v_new.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), ctx_lens.data_ptr(),
             span_lens.data_ptr(), out.data_ptr(), part.data_ptr(), b, t, h,
-            kh, nb, bs, hd, n_split, split_keys, strides, stream)
+            kh, nb, bs, hd, n_split, split_keys, window, strides, stream)
     if rc != 0:
         raise RuntimeError(f"paged_append_attention kernel launch failed: "
                            f"CUDA error {rc}")

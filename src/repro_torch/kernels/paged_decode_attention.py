@@ -5,9 +5,12 @@ The port of the JAX package's Pallas kernel
 ``kernels/paged_decode_attention.py`` (one query token per row over a
 global page pool read through per-row block tables; the G query heads of
 a kv head as one tile; pages past a row's length skipped, the tail page
-masked), for any G = H / K.  This wrapper checks its arguments, plans
-the split over keys against the blocks the card runs at once
-(``tile_plan.decode_split``, from the table's nb * bs slots), launches
+masked), for any G = H / K, with a sliding ``window`` as the dense
+flash-decode takes one.  This wrapper checks its arguments, plans the
+split over keys against the blocks the card runs at once
+(``tile_plan.decode_split``, from the table's nb * bs slots, or from
+``min(nb * bs, window)`` with a window: host constants only, so a launch
+can be recorded into the fused rows loop's graph), launches
 the CUDA kernel on the current stream and counts the launch; it never
 computes on the CPU (``ops.paged_decode_attention`` sends CPU tensors to
 ``ref.paged_decode_reference``).
@@ -22,7 +25,8 @@ import torch
 
 from . import build, counts
 from . import tile_plan
-from .decode_attention import DTYPES, MAX_HEAD_DIM
+from .decode_attention import DTYPES, MAX_HEAD_DIM, check_window, \
+    window_keys
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _STRIDES = ctypes.c_longlong * 11
@@ -32,7 +36,7 @@ _STRIDES = ctypes.c_longlong * 11
 def _entry():
     fn = build.load("paged_decode_attention").paged_decode_attention_launch
     fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                   _I, _I, ctypes.POINTER(ctypes.c_longlong), _P]
+                   _I, _I, _I, ctypes.POINTER(ctypes.c_longlong), _P]
     fn.restype = _I
     return fn
 
@@ -44,11 +48,11 @@ def _strides(q, k_pages, v_pages, block_tables, out) -> ctypes.Array:
 
 
 def plan(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-         block_tables: torch.Tensor) -> dict:
+         block_tables: torch.Tensor, window: int = 0) -> dict:
     """``tile_plan.decode_plan`` of a launch on these CUDA tensors."""
     return tile_plan.decode_plan(
         "paged_decode_attention", DTYPES[q.dtype], q, k_pages, v_pages,
-        block_tables.shape[1] * k_pages.shape[2],
+        window_keys(block_tables.shape[1] * k_pages.shape[2], window),
         list(_strides(q, k_pages, v_pages, block_tables, q)))
 
 
@@ -97,12 +101,15 @@ def check_lengths(t: torch.Tensor, b: int, name: str,
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
-                           lengths: torch.Tensor) -> torch.Tensor:
+                           lengths: torch.Tensor,
+                           window: int = 0) -> torch.Tensor:
     """q: (B, H, hd); k_pages/v_pages: (P, K, bs, hd), any strides with a
     unit stride over hd (one layer of the port's (L, P, K, bs, hd) store
     is fine); block_tables: (B, nb) int32 page ids; lengths: (B,) int32,
-    the valid tokens per row (at most nb * bs).  Returns (B, H, hd) in q's
-    dtype.  float32 or bfloat16 in, fp32 arithmetic."""
+    the valid tokens per row (at most nb * bs); window: 0, or a sliding
+    window: row b attends over the keys ``lengths[b] - window <= j <
+    lengths[b]`` only.  Returns (B, H, hd) in q's dtype.  float32 or
+    bfloat16 in, fp32 arithmetic."""
     if not q.is_cuda:
         raise ValueError("paged_decode_attention launches a CUDA kernel; "
                          f"got a tensor on {q.device}")
@@ -111,13 +118,14 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     b, h, hd = q.shape
     check_pages(q, k_pages, v_pages, block_tables, b, h, hd)
     check_lengths(lengths, b, "lengths", q.device)
+    check_window(window)
     _, kh, bs, _ = k_pages.shape
     nb = block_tables.shape[1]
 
     out = torch.empty((b, h, hd), dtype=q.dtype, device=q.device)
     n_split, split_keys = tile_plan.decode_split(
-        "paged_decode_attention", DTYPES[q.dtype], b, h, kh, hd, nb * bs,
-        q.device.index)
+        "paged_decode_attention", DTYPES[q.dtype], b, h, kh, hd,
+        window_keys(nb * bs, window), q.device.index)
     part = (torch.empty((b, h, n_split, hd + 2), dtype=torch.float32,
                         device=q.device) if n_split > 1 else out)
     with torch.cuda.device(q.device):
@@ -126,8 +134,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
             DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), part.data_ptr(), b, h, kh, nb, bs, hd, n_split,
-            split_keys, _strides(q, k_pages, v_pages, block_tables, out),
-            stream)
+            split_keys, window,
+            _strides(q, k_pages, v_pages, block_tables, out), stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {rc}")

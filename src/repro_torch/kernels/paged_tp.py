@@ -46,17 +46,17 @@ def tp_paged_decode_attention(tp, q: torch.Tensor, k_pages: torch.Tensor,
                               v_pages: torch.Tensor,
                               block_tables: torch.Tensor,
                               lengths: torch.Tensor,
-                              heads: Optional[Tuple[int, int]] = None
-                              ) -> torch.Tensor:
+                              heads: Optional[Tuple[int, int]] = None,
+                              window: int = 0) -> torch.Tensor:
     """The rank's paged flash-decode: q (B, H/tp, hd) over its pages (P,
-    K/tp, bs, hd), replicated tables (B, nb) and lengths (B,).  Returns
-    its (B, H/tp, hd)."""
+    K/tp, bs, hd), replicated tables (B, nb) and lengths (B,), with the
+    model's sliding ``window`` (0: none).  Returns its (B, H/tp, hd)."""
     if q.dim() != 3 or k_pages.dim() != 4:
         raise ValueError(f"q (B, H, hd) and pages (P, K, bs, hd); got "
                          f"{tuple(q.shape)}, {tuple(k_pages.shape)}")
     check_heads(tp, q.shape[1], k_pages.shape[1], heads)
     out = ops.paged_decode_attention(q, k_pages, v_pages, block_tables,
-                                     lengths)
+                                     lengths, window)
     if q.is_cuda:
         counts.launched(tp_paged_decode_attention)
     return out
@@ -68,11 +68,12 @@ def tp_paged_append_attention(tp, q: torch.Tensor, k_new: torch.Tensor,
                               block_tables: torch.Tensor,
                               ctx_lens: torch.Tensor,
                               span_lens: torch.Tensor,
-                              heads: Optional[Tuple[int, int]] = None
-                              ) -> torch.Tensor:
+                              heads: Optional[Tuple[int, int]] = None,
+                              window: int = 0) -> torch.Tensor:
     """The rank's span attention: q (B, T, H/tp, hd) and the span's
     k_new/v_new (B, T, K/tp, hd) over its pages (P, K/tp, bs, hd), with
-    replicated tables and lengths.  Returns its (B, T, H/tp, hd)."""
+    replicated tables and lengths and the model's sliding ``window`` (0:
+    none).  Returns its (B, T, H/tp, hd)."""
     if q.dim() != 4 or k_new.dim() != 4 or k_pages.dim() != 4:
         raise ValueError(f"q (B, T, H, hd), k_new (B, T, K, hd), pages (P, "
                          f"K, bs, hd); got {tuple(q.shape)}, "
@@ -82,7 +83,8 @@ def tp_paged_append_attention(tp, q: torch.Tensor, k_new: torch.Tensor,
         raise ValueError(f"rank {tp.rank}: the span's {k_new.shape[2]} kv "
                          f"heads against the pages' {k_pages.shape[1]}")
     out = ops.paged_append_attention(q, k_new, v_new, k_pages, v_pages,
-                                     block_tables, ctx_lens, span_lens)
+                                     block_tables, ctx_lens, span_lens,
+                                     window)
     if q.is_cuda:
         counts.launched(tp_paged_append_attention)
     return out

@@ -127,26 +127,34 @@ def _gather_pages(pages: torch.Tensor,
 
 def paged_decode_reference(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
-                           lengths: torch.Tensor) -> torch.Tensor:
+                           lengths: torch.Tensor,
+                           window: int = 0) -> torch.Tensor:
     """Paged flash-decode: gather each row's pages into a dense cache,
     then ``decode_reference``.  q: (B, H, hd); k_pages/v_pages: (P, K,
     bs, hd); block_tables: (B, nb) page ids (padding entries are masked
-    by ``lengths``); lengths: (B,)."""
+    by ``lengths``); lengths: (B,); with a ``window``, row b sees the keys
+    ``lengths[b] - window <= j < lengths[b]`` (the JAX package's decode
+    mask ``pos - window < j <= pos`` at lengths = pos + 1)."""
     return decode_reference(q, _gather_pages(k_pages, block_tables),
-                            _gather_pages(v_pages, block_tables), lengths)
+                            _gather_pages(v_pages, block_tables), lengths,
+                            window)
 
 
 def paged_append_reference(q: torch.Tensor, k_new: torch.Tensor,
                            v_new: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
                            ctx_lens: torch.Tensor,
-                           span_lens: torch.Tensor) -> torch.Tensor:
+                           span_lens: torch.Tensor,
+                           window: int = 0) -> torch.Tensor:
     """Span attention: gather each row's pages into a dense cache, append
     the span's fresh K/V, masked softmax.  q: (B, T, H, hd); k_new/v_new:
     (B, T, K, hd); k_pages/v_pages: (P, K, bs, hd); block_tables: (B, nb);
     ctx_lens/span_lens: (B,).  Query i of a row sees context slots below
-    ctx_len plus span slots j <= i with j < span_len.  Outputs past a
-    row's span_len are zero (the kernel leaves them unspecified)."""
+    ctx_len plus span slots j <= i with j < span_len; with a ``window``,
+    only the keys whose position (slot j of the context, ctx_len + j of
+    the span) is above ``ctx_len + i - window`` (the JAX package's
+    prefill mask).  Outputs past a row's span_len are zero (the kernel
+    leaves them unspecified)."""
     bsz, t, h, hd = q.shape
     kh = k_pages.shape[1]
     kc = _gather_pages(k_pages, block_tables)
@@ -165,7 +173,11 @@ def paged_append_reference(q: torch.Tensor, k_new: torch.Tensor,
     span = span_lens.to(dev)[:, None, None, None]
     in_ctx = (kj < s_ctx) & (kj < ctx)
     in_span = (kj >= s_ctx) & (kj - s_ctx <= qi) & (kj - s_ctx < span)
-    scores = scores.masked_fill(~(in_ctx | in_span), NEG_INF)
+    seen = in_ctx | in_span
+    if window:
+        key_pos = torch.where(kj < s_ctx, kj, ctx + kj - s_ctx)
+        seen = seen & (key_pos > ctx + qi - window)
+    scores = scores.masked_fill(~seen, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
     out = out.transpose(1, 2)                          # (B, T, H, hd)

@@ -5,10 +5,11 @@ way (an attention cache by truncation; SSM state, and a hybrid's K/V
 and SSM state together, by snapshot and replay).  The port's twin of
 the JAX package's ``examples/multiarch_smoke.py``, over the port's
 registry: phi3-mini-3.8b, starcoder2-7b (sliding window) and minitron-4b
-(dense), mamba2-1.3b (ssm) and hymba-1.5b (hybrid: windowed attention
-and a mamba2 mixer in each layer).  The registry refuses the JAX
-package's other architectures (the moe, encdec and vlm families, and
-yi-34b).  Each engine decodes by its default loop (the fused one, for
+(dense), mamba2-1.3b (ssm), hymba-1.5b (hybrid: windowed attention and a
+mamba2 mixer in each layer) and granite-moe-1b-a400m (moe: a mixture of
+experts in each layer).  The registry refuses the JAX package's other
+architectures (the encdec and vlm families, yi-34b, and
+qwen3-moe-235b-a22b, too large for one card).  Each engine decodes by its default loop (the fused one, for
 every family), and each line names the base's family, its rollback and
 both engines' loops.
 

@@ -184,21 +184,19 @@ def _ring_decode(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, h, hd).to(q.dtype)
 
 
-def _paged_only(cfg: ModelConfig) -> None:
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            "sliding-window attention over paged rows has no kernel and no "
-            "plain version yet (ROADMAP queue 2 A, its paged half); the "
-            "batched path serves full attention")
-
-
 def _write_rows(rows: PagedRows, layer: int, k: torch.Tensor,
                 v: torch.Tensor) -> None:
     """Write the call's real tokens' K/V of one layer into the pages, one
     indexed write per array: (B, T, K, hd) -> the (page, slot) of each
     real token.  Pads and uninvolved rows write nothing into a row's
     pages: ``paged_rows`` leaves them out, ``slot_rows`` sends a masked
-    row's write to the scratch page."""
+    row's write to the scratch page, or (a view with shadow pages) to
+    its slot's shadow page, which first takes a copy of the row's page
+    at its position (every slot's, one indexed copy per array)."""
+    if rows.shadow_dst is not None:
+        for pages in (rows.k_pages[layer], rows.v_pages[layer]):
+            pages.index_copy_(0, rows.shadow_dst,
+                              pages.index_select(0, rows.shadow_src))
     sel = (rows.write_rows, rows.write_cols)
     rows.k_pages[layer, rows.write_pages, :, rows.write_slots] = \
         k[sel].to(rows.k_pages.dtype)
@@ -213,8 +211,9 @@ def extend_rows_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
     ``span_lens[b]`` real, the rest bucket pads) at positions
     ``ctx_lens[b] + i``.  Attention is ``ops.paged_append_attention``
     over the row's committed pages plus the span's fresh K/V as the side
-    buffer; then the real tokens' K/V are written into the pages."""
-    _paged_only(cfg)
+    buffer, with the config's sliding window (pages wholly below a
+    row's window stay in its table; the kernel skips them); then the
+    real tokens' K/V are written into the pages."""
     q, k, v = qkv(x, p)
     if cfg.use_rope:
         q = apply_rope(q, rows.positions, cfg.rope_theta)
@@ -222,10 +221,11 @@ def extend_rows_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
     args = (q, k, v, rows.k_pages[layer], rows.v_pages[layer], rows.tables,
             rows.ctx_lens, rows.span_lens)
     if rows.tp is None:
-        o = ops.paged_append_attention(*args)
+        o = ops.paged_append_attention(*args, cfg.sliding_window)
     else:
         o = paged_tp.tp_paged_append_attention(
-            rows.tp, *args, heads=(cfg.n_heads, cfg.n_kv_heads))
+            rows.tp, *args, heads=(cfg.n_heads, cfg.n_kv_heads),
+            window=cfg.sliding_window)
     _write_rows(rows, layer, k, v)
     return _rows_out(o, p, rows)
 
@@ -236,9 +236,9 @@ def decode_rows_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
     """Batched one-token decode over a paged store (a ``slot_rows``
     view, or a ``paged_rows`` view of width 1): row b's token at
     ``positions[b]`` is written into its page first, then attends over
-    the row's ``lengths[b] = ctx_lens[b] + 1`` keys through
+    the row's ``lengths[b] = ctx_lens[b] + 1`` keys (its last
+    ``cfg.sliding_window`` of them with a window) through
     ``ops.paged_decode_attention``."""
-    _paged_only(cfg)
     q, k, v = qkv(x, p)
     if cfg.use_rope:
         q = apply_rope(q, rows.positions, cfg.rope_theta)
@@ -247,10 +247,11 @@ def decode_rows_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
     args = (q[:, 0], rows.k_pages[layer], rows.v_pages[layer], rows.tables,
             lengths)
     if rows.tp is None:
-        o = ops.paged_decode_attention(*args)
+        o = ops.paged_decode_attention(*args, cfg.sliding_window)
     else:
         o = paged_tp.tp_paged_decode_attention(
-            rows.tp, *args, heads=(cfg.n_heads, cfg.n_kv_heads))
+            rows.tp, *args, heads=(cfg.n_heads, cfg.n_kv_heads),
+            window=cfg.sliding_window)
     return _rows_out(o[:, None], p, rows)
 
 

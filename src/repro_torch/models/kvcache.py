@@ -1,14 +1,14 @@
-"""Decode state of the dense, ssm and hybrid families and its rollback
-rules, and the per-call view of batched rows over a paged KV store
-(``PagedRows``, built on the host by ``paged_rows`` for an extend, on
-the device by ``slot_rows`` for a decode step).
+"""Decode state of the dense, moe, ssm and hybrid families and its
+rollback rules, and the per-call view of batched rows over a paged KV
+store (``PagedRows``, built on the host by ``paged_rows`` for an extend,
+on the device by ``slot_rows`` for a decode step).
 
 A :class:`DecodeState` holds the attention KV caches, stacked over layers
-as (L, B, C, K, hd) like the JAX package's (dense family), or the mamba2
-states, conv (L, B, W-1, C) and ssm (L, B, H, P, N) (ssm family), or both
-(hybrid family: each layer runs attention and a mamba2 mixer side by
-side), and the absolute position (the number of tokens already in
-context) as a host integer.
+as (L, B, C, K, hd) like the JAX package's (dense and moe families), or
+the mamba2 states, conv (L, B, W-1, C) and ssm (L, B, H, P, N) (ssm
+family), or both (hybrid family: each layer runs attention and a mamba2
+mixer side by side), and the absolute position (the number of tokens
+already in context) as a host integer.
 
 **Caches are written in place.**  JAX arrays are immutable, so there a
 snapshot is the state object itself.  Here ``prefill`` and
@@ -122,10 +122,10 @@ def make_ssm_state(cfg, batch: int, device, dtype=torch.float32
 
 def make_decode_state(cfg, batch: int, capacity: int, device,
                       dtype=torch.float32, ring: bool = False) -> DecodeState:
-    """A zeroed decode state for a dense, ssm or hybrid ``cfg`` on
+    """A zeroed decode state for a dense, moe, ssm or hybrid ``cfg`` on
     ``device`` (``capacity`` and ``ring`` are unused for ssm; a hybrid
     state takes linear caches only, as the module docstring says)."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"decode state for family {cfg.family!r} "
                                   "is not ported yet")
     conv = ssm = None
@@ -151,7 +151,9 @@ class PagedRows:
     ``span_lens[b]`` real new tokens of the call's T; its new token i
     sits at absolute position ``ctx_lens[b] + i``.  Only real tokens are
     written: token (``write_rows[n]``, ``write_cols[n]``) of the call goes
-    to page ``write_pages[n]``, slot ``write_slots[n]``."""
+    to page ``write_pages[n]``, slot ``write_slots[n]``.  A view with
+    shadow pages first copies page ``shadow_src[b]`` to ``shadow_dst[b]``
+    for every row (``slot_rows``)."""
     k_pages: torch.Tensor       # (L, P, K, bs, hd)
     v_pages: torch.Tensor
     tables: torch.Tensor        # (B, nb) int32, padded with page 0
@@ -166,15 +168,24 @@ class PagedRows:
     # hold its kv heads; ``models/attention.py`` gathers the heads), or
     # None
     tp: Optional[object] = None
+    # (B,) int64 page ids, or None: each layer copies page shadow_src[b]
+    # to shadow_dst[b] before its writes
+    shadow_src: Optional[torch.Tensor] = None
+    shadow_dst: Optional[torch.Tensor] = None
 
 
 def paged_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
                tables, ctx_lens, span_lens, width: int,
-               tp: Optional[object] = None) -> PagedRows:
+               tp: Optional[object] = None,
+               attend_pads: bool = False) -> PagedRows:
     """Build the index tensors of one batched call on the pages' device:
     ``tables`` lists each row's block ids (covering its context and its
     new tokens), ``ctx_lens`` / ``span_lens`` its committed and new token
-    counts, ``width`` the call's padded T; ``tp`` the rank's context."""
+    counts, ``width`` the call's padded T; ``tp`` the rank's context.
+    With ``attend_pads`` every query of the span attends causally over
+    the whole span, pads included (the view's ``span_lens`` are
+    ``width``), as the JAX package's batched extend computes its pads;
+    only the real tokens are written either way."""
     bs = k_pages.shape[3]
     b = len(tables)
     nb = max(1, max(len(t) for t in tables))
@@ -193,8 +204,10 @@ def paged_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
     ctx_t = put(ctx, torch.int32)
+    attend = np.full_like(span, width) if attend_pads else span
     return PagedRows(
-        k_pages, v_pages, put(tab, torch.int32), ctx_t, put(span, torch.int32),
+        k_pages, v_pages, put(tab, torch.int32), ctx_t,
+        put(attend, torch.int32),
         ctx_t.long()[:, None] + torch.arange(width, device=dev)[None, :],
         put(rows, torch.long), put(cols, torch.long), put(pages, torch.long),
         put(tok % bs, torch.long), tp)
@@ -202,7 +215,8 @@ def paged_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
 
 def slot_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
               tables: torch.Tensor, pos: torch.Tensor, active: torch.Tensor,
-              scratch: int, tp: Optional[object] = None) -> PagedRows:
+              scratch: int, tp: Optional[object] = None,
+              shadow: Optional[int] = None) -> PagedRows:
     """One-token decode step over every row slot of a batched engine,
     built on the pages' device from static buffers with no host read
     (the batched decode loops, which a CUDA graph records): ``tables``
@@ -212,11 +226,31 @@ def slot_rows(k_pages: torch.Tensor, v_pages: torch.Tensor,
     ``pos % bs``, and attends over ``pos + 1`` keys.  A masked row writes
     into the scratch page, which the pool never hands out, so that no
     page of a live row changes, and attends over one key; its output is
-    the caller's to throw away."""
+    the caller's to throw away.
+
+    With ``shadow``, the first of ``B`` shadow pages (one a slot, never
+    handed out by the pool), a masked row is computed as the JAX
+    package's batched decode computes it: its token at ``pos[b]``
+    attends over the row's context and itself.  Each layer copies the
+    row's page at its position into the slot's shadow page
+    (``PagedRows.shadow_src`` / ``shadow_dst``), the masked row's K/V
+    go there, and its table reads that page in the position's column,
+    so its context is read and no page of a live row changes.  A model
+    whose rows interact (the moe family's capacity) needs this; the
+    others throw a masked row's output away."""
     bs = k_pages.shape[3]
     b, width = tables.shape
     col = (pos // bs).clamp(max=width - 1)
     page = tables.gather(1, col[:, None])[:, 0].long()
+    if shadow is not None:
+        own = torch.arange(b, device=pos.device) + shadow
+        dst = torch.where(active, page, own)
+        return PagedRows(
+            k_pages, v_pages, tables.scatter(1, col[:, None],
+                                             dst.to(tables.dtype)[:, None]),
+            pos.to(torch.int32), torch.ones_like(pos, dtype=torch.int32),
+            pos[:, None], torch.arange(b, device=pos.device),
+            torch.zeros_like(pos), dst, pos % bs, tp, page, own)
     ctx = torch.where(active, pos, 0).to(torch.int32)
     return PagedRows(
         k_pages, v_pages, tables, ctx, active.to(torch.int32), pos[:, None],

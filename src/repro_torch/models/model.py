@@ -1,4 +1,4 @@
-"""Model assembly for the dense, ssm and hybrid families.
+"""Model assembly for the dense, moe, ssm and hybrid families.
 
 Functions over a params dict, as in the JAX package: parameters are
 nested dicts of tensors stacked over layers (``params["layers"]["attn"]
@@ -7,14 +7,18 @@ that stacked dimension.  A dense layer is pre-norm attention plus an MLP;
 an ssm layer is a pre-norm mamba2 mixer (``layers/mixer/*``) and no MLP;
 a hybrid layer (hymba) runs attention (``layers/attn/*``, with the
 config's sliding window) and a mamba2 mixer (``layers/mamba/*``) side by
-side on the same normed input, adds their mean, then an MLP.  Other
-families raise ``NotImplementedError``.
+side on the same normed input, adds their mean, then an MLP; a moe
+layer (granite-moe) is a dense layer whose MLP is a mixture of experts
+(``layers/moe/*``, ``models/moe.py``), in every forward below.  Other
+families (encdec, vlm) raise ``NotImplementedError``.
 
 Public surface:
   Model.init         -- random parameters from a seed, on a device
   Model.forward      -- full-sequence causal forward -> logits (B, S, V),
                         differentiable (the training path; each layer
                         checkpointed when ``cfg.remat``)
+  Model.forward_aux  -- the same, also returning the moe family's aux
+                        terms averaged over the layers
   Model.prefill      -- chunked prefill / extend from state.pos
                         -> (logits (B, S, V), new state)
   Model.decode_step  -- one-token decode -> (logits (B, V), new state),
@@ -22,9 +26,9 @@ Public surface:
   Model.init_state   -- an empty KV cache
   Model.prefill_rows -- batched extend of B rows over a paged KV store,
                         each row at its own position -> logits (B, T, V)
-                        (dense family)
+                        (attention-only families)
   Model.decode_rows  -- batched one-token decode over a paged KV store
-                        -> logits (B, V) (dense family)
+                        -> logits (B, V) (attention-only families)
 
 The two rows forwards also run one rank of exact tensor parallelism:
 with a ``tp`` context on the rows view the parameters are the rank's
@@ -44,7 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import device as devices
 from . import attention as attn
-from . import mamba2
+from . import mamba2, moe
 from .config import ModelConfig
 from .kvcache import DecodeState, PagedRows, make_decode_state
 from .layers import (ParamSpec, apply_mlp, apply_norm, embed_spec,
@@ -86,10 +90,11 @@ def _layer(stacked: Dict, i: int) -> Dict:
 class Model:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg.validate()
-        if cfg.family not in ("dense", "ssm", "hybrid"):
-            raise NotImplementedError(f"family {cfg.family!r} is not ported "
-                                      "yet; the port runs the dense, ssm and "
-                                      "hybrid families")
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 "
+                "item 7: encdec and vlm); the port runs the dense, moe, ssm "
+                "and hybrid families")
 
     # ------------------------------------------------------------- params --
     def spec(self) -> Dict[str, ParamSpec]:
@@ -103,8 +108,11 @@ class Model:
             layer = {"ln1": norm_spec(d, nt), "attn": attn.attn_spec(cfg)}
             if cfg.family == "hybrid":
                 layer["mamba"] = mamba2.mamba_spec(cfg)
-            layer.update(ln2=norm_spec(d, nt),
-                         mlp=mlp_spec(d, cfg.d_ff, cfg.act))
+            layer["ln2"] = norm_spec(d, nt)
+            if cfg.family == "moe":
+                layer["moe"] = moe.moe_spec(cfg)
+            else:
+                layer["mlp"] = mlp_spec(d, cfg.d_ff, cfg.act)
         tree = {"tok_embed": embed_spec(cfg.vocab_size, d),
                 "final_norm": norm_spec(d, nt),
                 "layers": {k: s.stacked(cfg.n_layers)
@@ -153,14 +161,31 @@ class Model:
         return self._unembed(params, x)
 
     def _mlp_block(self, x, lp, tp=None) -> torch.Tensor:
+        return self._ffn(x, lp, tp)[0]
+
+    def _ffn(self, x, lp, tp=None
+             ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+        """The layer's second half: x + MLP(norm(x)), or for the moe
+        family x + MoE(norm(x)) and its aux terms (None otherwise)."""
         cfg = self.cfg
         h = apply_norm(x, lp["ln2"], cfg.norm_type, cfg.rmsnorm_eps)
-        return x + apply_mlp(h, lp["mlp"], cfg.act, tp)
+        if cfg.family == "moe":
+            y, aux = moe.apply_moe(h, lp["moe"], cfg)
+            return x + y, aux
+        return x + apply_mlp(h, lp["mlp"], cfg.act, tp), None
 
     # -------------------------------------------------------------- forward --
     def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
         """Full-sequence causal forward from position 0 (the training
-        path).  tokens: (B, S) int; returns logits (B, S, V).
+        path).  tokens: (B, S) int; returns logits (B, S, V)."""
+        return self.forward_aux(params, tokens)[0]
+
+    def forward_aux(self, params, tokens: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``forward`` and the aux terms of the JAX package's forward:
+        the moe family's ``load_balance``, ``router_z`` and
+        ``dropped_frac``, each the mean over the layers (empty for the
+        other families).
 
         Under autograd with ``cfg.remat`` each layer is checkpointed, as
         the JAX package wraps each layer in ``jax.checkpoint``: its
@@ -170,30 +195,37 @@ class Model:
         x = self._embed(params, tokens, 0)
         positions = torch.arange(tokens.shape[1], device=x.device)
         remat = cfg.remat and torch.is_grad_enabled()
+        auxs = []
         for i in range(cfg.n_layers):
             if remat:
-                x = checkpoint(self._block, x, params["layers"], i,
-                               positions, use_reentrant=False,
-                               preserve_rng_state=False)
+                x, aux = checkpoint(self._block, x, params["layers"], i,
+                                    positions, use_reentrant=False,
+                                    preserve_rng_state=False)
             else:
-                x = self._block(x, params["layers"], i, positions)
-        return self._final(params, x)
+                x, aux = self._block(x, params["layers"], i, positions)
+            if aux is not None:
+                auxs.append(aux)
+        mean = {k: torch.stack([a[k] for a in auxs]).mean()
+                for k in (auxs[0] if auxs else ())}
+        return self._final(params, x), mean
 
     def _block(self, x: torch.Tensor, layers: Dict, i: int,
-               positions: torch.Tensor) -> torch.Tensor:
-        """Layer i of the full-sequence forward."""
+               positions: torch.Tensor
+               ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+        """Layer i of the full-sequence forward, and its moe aux terms
+        (None for the other families)."""
         cfg = self.cfg
         lp = _layer(layers, i)
         h = apply_norm(x, lp["ln1"], cfg.norm_type, cfg.rmsnorm_eps)
         if cfg.family == "ssm":
-            return x + mamba2.apply_mamba(h, lp["mixer"], cfg)
+            return x + mamba2.apply_mamba(h, lp["mixer"], cfg), None
         a = attn.self_attention(h, lp["attn"], cfg, positions,
                                 window=cfg.sliding_window)
         if cfg.family == "hybrid":
             x = x + 0.5 * (a + mamba2.apply_mamba(h, lp["mamba"], cfg))
         else:
             x = x + a
-        return self._mlp_block(x, lp)
+        return self._ffn(x, lp)
 
     # ----------------------------------------------------- prefill / extend --
     def prefill(self, params, tokens: torch.Tensor, state: DecodeState

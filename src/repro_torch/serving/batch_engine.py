@@ -26,7 +26,16 @@ Differences from the JAX package:
     itself; an engine over a caller's pool (the scheduler) raises if the
     caller did not reserve them.
   * An extend and ``feed_rows`` run the involved rows only, their page
-    index built on the host (``kvcache.paged_rows``).  A step of either
+    index built on the host (``kvcache.paged_rows``): dense rows do not
+    interact, so the other rows' pads would change nothing.  Moe rows
+    do: the experts' capacity couples every token of a call, pads
+    included (``models/moe.py``).  So a moe engine (``coupled``) runs
+    the tokens the JAX package's engine runs, for parity with it: an
+    extend runs every row slot, each padded to the call's bucket (an
+    uninvolved slot all pads at its position, pads attending causally
+    over the span as the JAX package's do), and ``feed_rows`` runs the
+    one-token step over every slot below.  Only real tokens are
+    written.  A step of either
     ``generate_rows`` loop runs every one of the ``batch`` row slots at
     once (``kvcache.slot_rows``): block tables of a fixed width,
     ``ceil(capacity / block_size)``, filled once a call into a device
@@ -35,7 +44,11 @@ Differences from the JAX package:
     and its logits are thrown away.  So both loops launch the same
     shapes whatever rows they run, and the GEMMs and flash-decode's
     split (``tile_plan.decode_split``, from the row count and the
-    table's width) sum a row's terms in one order.
+    table's width) sum a row's terms in one order.  In a moe engine a
+    masked row decodes ``pad_id`` at its position over its own context,
+    as the JAX package's masked rows do: its K/V go to its slot's shadow
+    page, which takes a copy of the row's page first
+    (``kvcache.slot_rows`` with ``shadow``).
   * ``generate_rows_fused`` is the JAX package's one ``while_loop`` a
     call, rebuilt for a CUDA graph as ``Engine.generate_fused`` is
     (``serving/graph_loop.py`` captures and replays both): a
@@ -161,14 +174,6 @@ class BatchEngine:
                 "position-masked caches; SSM state would be polluted by "
                 "pads.  Serve ssm/hybrid models through the sequential "
                 "Engine.")
-        if cfg.family != "dense":
-            raise NotImplementedError(f"family {cfg.family!r}: the batched "
-                                      "engine serves the dense family")
-        if cfg.sliding_window:
-            raise NotImplementedError(
-                f"{cfg.name}: sliding window {cfg.sliding_window} over paged "
-                "rows has no kernel (ROADMAP queue 2 A, its paged half); "
-                "serve windowed models through the sequential Engine")
         self.tp = tp
         if tp is not None:
             tp.check_model(cfg)
@@ -185,6 +190,8 @@ class BatchEngine:
         self.name = name or f"batch-{cfg.name}"
         self.pad_id = pad_id
         self.fused = True if fused is None else fused
+        # rows interact through the experts' capacity (module docstring)
+        self.coupled = cfg.family == "moe"
         self.meter = Meter()
         self.own_pool = pool is None
         if pool is None:
@@ -193,7 +200,8 @@ class BatchEngine:
         self.pool = pool
         self.store = PagedKVStore(pool, cfg.n_layers, cfg.n_kv_heads,
                                   cfg.resolved_head_dim, self.device,
-                                  params["tok_embed"].dtype, tp)
+                                  params["tok_embed"].dtype, tp,
+                                  shadow_pages=batch if self.coupled else 0)
         self.pos = np.zeros(batch, np.int64)
         self.last_logits = torch.zeros((batch, cfg.vocab_size),
                                        dtype=torch.float32,
@@ -337,13 +345,15 @@ class BatchEngine:
 
     def _view(self, rows: Sequence[int], counts: Sequence[int], width: int):
         return paged_rows(self.store.k, self.store.v,
-                          [self.seqs[r].blocks for r in rows],
+                          [self.seqs[r].blocks if self.seqs[r] else []
+                           for r in rows],
                           [int(self.pos[r]) for r in rows], counts, width,
-                          self.tp)
+                          self.tp, attend_pads=self.coupled)
 
     def _slots(self, pos: torch.Tensor, active: torch.Tensor):
         return slot_rows(self.store.k, self.store.v, self._tables, pos,
-                         active, self.store.scratch_page, self.tp)
+                         active, self.store.scratch_page, self.tp,
+                         self.store.shadow_page if self.coupled else None)
 
     def _decode(self, rows: Sequence[int],
                 tokens: torch.Tensor) -> torch.Tensor:
@@ -384,24 +394,30 @@ class BatchEngine:
                 raise ValueError(f"row {r} context overflow: "
                                  f"{self.pos[r]}+{n} > {self.capacity}")
             self._cover(r, int(self.pos[r]) + n)
-        toks = torch.full((len(rows), bucket), self.pad_id, dtype=torch.long)
-        for i, t in enumerate(token_lists):
-            toks[i, :len(t)] = torch.tensor(list(t), dtype=torch.long)
+        # the call's rows: the involved ones, or every slot (coupled)
+        slots = list(range(self.batch)) if self.coupled else list(rows)
+        at = {r: i for i, r in enumerate(slots)}
+        counts = [0] * len(slots)
+        toks = torch.full((len(slots), bucket), self.pad_id,
+                          dtype=torch.long)
+        for r, t in zip(rows, token_lists):
+            counts[at[r]] = len(t)
+            toks[at[r], :len(t)] = torch.tensor(list(t), dtype=torch.long)
         toks = toks.to(self.device)
         t0 = time.perf_counter()
         logits = self.model.prefill_rows(self.params, toks,
-                                         self._view(rows, lens, bucket))
+                                         self._view(slots, counts, bucket))
         self._sync()
         self.meter.prefill_time += time.perf_counter() - t0
         self.meter.prefill_tokens += bucket * len(rows)
         self.meter.prefill_calls += 1
         out = []
-        for i, (r, n) in enumerate(zip(rows, lens)):
+        for r, n in zip(rows, lens):
             self.pos[r] += n
             if n > 0:
-                self.last_logits[r] = logits[i, n - 1]
+                self.last_logits[r] = logits[at[r], n - 1]
             if want_logits:
-                out.append(logits[i, :n])
+                out.append(logits[at[r], :n])
         return out if want_logits else None
 
     def prefill_rows(self, rows: Sequence[int],
@@ -659,7 +675,9 @@ class BatchEngine:
                 loop.toks.index_select(1, slot)))
             n.add_(act)
             hit = ((tok[:, None] == stop) & mask).any(-1)
-            new = self.model.decode_rows(self.params, tok[:, None],
+            fed = torch.where(active, tok, self.pad_id) if self.coupled \
+                else tok
+            new = self.model.decode_rows(self.params, fed[:, None],
                                          self._slots(pos, active))
             logits.copy_(torch.where(active[:, None], new.float(), logits))
             pos.add_(act)
@@ -703,7 +721,8 @@ class BatchEngine:
                   tokens: Sequence[int]) -> None:
         """Append ``tokens[i]`` to row ``rows[i]`` with one batched decode
         step over these rows only (the multi-row ``Engine.decode_one``),
-        refreshing last_logits."""
+        refreshing last_logits; in a moe engine over every row slot, the
+        others masked (``_decode``), as the JAX package's feed."""
         assert len(rows) == len(tokens)
         if not rows:
             return
@@ -714,10 +733,14 @@ class BatchEngine:
         t0 = time.perf_counter()
         toks = torch.tensor(list(tokens), dtype=torch.long,
                             device=self.device)
-        self.meter.decode_steps += 1
-        logits = self.model.decode_rows(
-            self.params, toks[:, None],
-            self._view(rows, [1] * len(rows), 1))
+        if self.coupled:
+            self._fill_tables()
+            logits = self._decode(rows, toks)
+        else:
+            self.meter.decode_steps += 1
+            logits = self.model.decode_rows(
+                self.params, toks[:, None],
+                self._view(rows, [1] * len(rows), 1))
         self._sync()
         self.meter.decode_time += time.perf_counter() - t0
         self.meter.decode_tokens += len(rows)

@@ -5,10 +5,14 @@ The substrate the SpecReason controller drives, one engine per model of
 the pair.  As in the JAX package:
 
   * ``extend`` pads to a small set of sequence buckets; the Meter counts
-    the padded bucket.  Trailing pads are harmless: queries attend only
-    to positions <= their own and the next extend overwrites the padded
-    slots.  An ssm model's recurrent state would take the pads in, so
-    its extends run at their exact length (``exact_lengths``).
+    the padded bucket.  Trailing pads are harmless to attention:
+    queries attend only to positions <= their own and the next extend
+    overwrites the padded slots.  In the moe family the pads go through
+    the router and take expert capacity, so they can push a real token's
+    choice past capacity (``models/moe.py``); the port keeps them, for
+    parity with the JAX package's ``Engine``.  An ssm model's recurrent
+    state would take the pads in, so its extends run at their exact
+    length (``exact_lengths``).
   * every Session keeps ``last_logits``, the logits after its last token.
   * ``truncate`` rolls an attention cache back by resetting the
     position (``can_truncate``; SSM state refuses it); ``rollback``
@@ -34,8 +38,8 @@ Differences from the JAX package:
     steps.  On the CPU the same body runs eagerly.  A failed capture or
     replay raises; nothing falls back to the per-token loop.
   * The fused loop is the default of every family the engine serves
-    (dense, with or without a sliding window, ssm and hybrid), as in the
-    JAX package.  A session's SSM state is never written in place
+    (dense, with or without a sliding window, moe, ssm and hybrid), as
+    in the JAX package.  A session's SSM state is never written in place
     (``models/kvcache.py``), so an ssm or hybrid engine keeps one static
     conv/ssm pair per batch size, shared by all its capture keys: a call
     copies the session's state into it, the loop writes it in place
@@ -170,7 +174,9 @@ class Engine:
         self.name = name or model.cfg.name
         self.pad_id = pad_id
         # trailing pads are invisible to attention caches (position-masked)
-        # but would enter an SSM's recurrent state: exact-length extends
+        # but would enter an SSM's recurrent state: exact-length extends.
+        # A moe model keeps the pads, which take expert capacity, as the
+        # JAX package's Engine does
         self.exact_lengths = model.cfg.has_ssm
         self.fused = True if fused is None else fused
         self.meter = Meter()

@@ -9,8 +9,8 @@ Checkpoints from the JAX package's trainer load as they are;
 machinery without training.  ``random_engine`` draws a registry
 architecture's weights from a seed, for driving the machinery at an
 architecture's published widths.  Engines take ``Engine``'s decode-loop
-default: the fused loop, for every family (dense, windowed or not, ssm
-and hybrid).
+default: the fused loop, for every family (dense, windowed or not, moe,
+ssm and hybrid).
 """
 
 from __future__ import annotations

@@ -281,7 +281,11 @@ class PagedKVStore:
     The arrays hold one page more than the pool's blocks, page
     ``scratch_page`` (= ``pool.num_blocks``), which the pool never hands
     out: a batched decode step over every row slot sends the writes of
-    its masked rows there (``models.kvcache.slot_rows``).
+    its masked rows there (``models.kvcache.slot_rows``).  A store built
+    with ``shadow_pages`` holds that many more after it, from
+    ``shadow_page``: one a row slot of an engine whose rows interact
+    (the moe family), where a masked row's token reads its own context
+    (``slot_rows`` with ``shadow``).
 
     Under tensor parallelism (``tp``, a ``serving.tp.TPContext``) the
     store holds the rank's contiguous slice of the ``kv_heads``: every
@@ -291,7 +295,8 @@ class PagedKVStore:
     accounts for."""
 
     def __init__(self, pool: PagedKVPool, n_layers: int, kv_heads: int,
-                 head_dim: int, device, dtype=torch.float32, tp=None):
+                 head_dim: int, device, dtype=torch.float32, tp=None,
+                 shadow_pages: int = 0):
         self.pool = pool
         self.kv_heads = kv_heads
         self.tp = tp
@@ -299,9 +304,10 @@ class PagedKVStore:
             raise ValueError(
                 f"tp_size={tp.tp_size} must divide kv_heads={kv_heads}")
         self.scratch_page = pool.num_blocks
+        self.shadow_page = pool.num_blocks + 1
         local = kv_heads // tp.tp_size if tp is not None else kv_heads
-        shape = (n_layers, pool.num_blocks + 1, local, pool.block_size,
-                 head_dim)
+        shape = (n_layers, pool.num_blocks + 1 + shadow_pages, local,
+                 pool.block_size, head_dim)
         self.k = torch.zeros(shape, dtype=dtype, device=device)
         self.v = torch.zeros_like(self.k)
 
@@ -319,9 +325,9 @@ class PagedKVStore:
 
     @property
     def nbytes(self) -> int:
-        """Real bytes of both page arrays, the scratch page included (the
-        KVManager's accounting counts 2 bytes per element whatever the
-        dtype, no scratch page, and every kv head)."""
+        """Real bytes of both page arrays, the scratch and shadow pages
+        included (the KVManager's accounting counts 2 bytes per element
+        whatever the dtype, neither of them, and every kv head)."""
         return 2 * self.k.numel() * self.k.element_size()
 
     @property

@@ -69,17 +69,15 @@ class TPContext:
     # -------------------------------------------------------- validation
     def check_model(self, cfg) -> None:
         """Refuse a model the exact split cannot serve: another family
-        than dense, a sliding window (the paged kernels take none), or a
-        degree that does not divide the heads, the kv heads or the ffn
-        hidden."""
+        than dense (windowed or not), or a degree that does not divide
+        the heads, the kv heads or the ffn hidden."""
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"{cfg.name}: tensor parallelism serves the dense family, "
-                f"not {cfg.family!r}")
-        if cfg.sliding_window:
-            raise NotImplementedError(
-                f"{cfg.name}: sliding window {cfg.sliding_window} over paged "
-                "rows has no kernel (ROADMAP queue 2 A)")
+                f"not {cfg.family!r}"
+                + (": the experts' split (expert parallelism) is ROADMAP "
+                   "queue 1 item 8's later work" if cfg.family == "moe"
+                   else ""))
         for name, val in (("n_heads", cfg.n_heads),
                           ("n_kv_heads", cfg.n_kv_heads)):
             if val % self.tp_size != 0:

@@ -4,10 +4,12 @@ JAX package's ``training/loss.py``.
 Gradients come from torch autograd over ``Model.forward``.  On the card
 the forward's attention is kernel #2 and its gradient the hand-written
 backward kernel (``kernels/flash_attention_bwd.py``, through
-``ops.flash_attention``); on the CPU both are the plain versions.  The
-moe family's auxiliary loss and the vlm and encdec families are not
-ported (ROADMAP queue 1 item 7): ``Model`` refuses them and so does
-``loss_fn``.
+``ops.flash_attention``); on the CPU both are the plain versions.  A moe
+model adds the JAX package's router aux loss (``models.moe.aux_loss``)
+and its metrics; its experts' gradient is autograd of their torch
+products.  The vlm and encdec families are not ported (ROADMAP queue 1
+item 7): ``Model`` refuses them and so does ``loss_fn``; the hybrid
+family does not train yet (queue 2 J).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from ..models import moe
 from ..models.model import Model, flatten, unflatten
 from .optimizer import AdamWConfig, AdamWState, update
 
@@ -40,20 +43,29 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 def loss_fn(model: Model, params: Params, batch: Batch
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics ``ce_loss`` and ``loss``) of ``batch`` (``tokens``,
-    ``targets``, ``weights``)."""
+    ``targets``, ``weights``); a moe model's loss adds ``aux_loss``, and
+    its metrics ``aux_load_balance``, ``aux_router_z``,
+    ``aux_dropped_frac`` and ``aux_loss``."""
     family = model.cfg.family
     if family == "hybrid":
         raise NotImplementedError(
             "training the 'hybrid' family is not ported yet: on the card "
             "the SSD scan (#5) has no backward (ROADMAP queue 2 J) and the "
             "attention backward (2b) takes no sliding window")
-    if family not in ("dense", "ssm"):
+    if family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"training the {family!r} family is not ported yet "
-            "(ROADMAP queue 1 item 7: moe aux loss, vlm, encdec)")
-    logits = model.forward(params, batch["tokens"])
+            "(ROADMAP queue 1 item 7: vlm, encdec)")
+    logits, aux = model.forward_aux(params, batch["tokens"])
     loss = cross_entropy(logits, batch["targets"], batch["weights"])
-    return loss, {"ce_loss": loss.detach(), "loss": loss.detach()}
+    metrics = {"ce_loss": loss.detach()}
+    if aux:
+        al = moe.aux_loss(aux, model.cfg)
+        metrics.update({f"aux_{k}": v.detach() for k, v in aux.items()})
+        metrics["aux_loss"] = al.detach()
+        loss = loss + al
+    metrics["loss"] = loss.detach()
+    return loss, metrics
 
 
 def _grads_of(model: Model, params: Params, batch: Batch):

@@ -1,7 +1,9 @@
-"""The port's CUDA kernels on the card: each against its plain version,
-the wrappers' refusals, and the model and engine on CUDA against the CPU
-(the sequential engine, the batched paged path, and an ssm model whose
-extends go through the SSD scan kernel); the fused decode loops' CUDA
+"""The port's CUDA kernels on the card: each against its plain version
+(#3 and #4 also with a sliding window), the wrappers' refusals, and the
+model and engine on CUDA against the CPU (the sequential engine, the
+batched paged path, an ssm model whose extends go through the SSD scan
+kernel, and the moe family: its layer, its fused loop, its coupled
+rows); the fused decode loops' CUDA
 graphs (the sequential engine's, dense and ssm, and the batched rows')
 against the per-token loops on the card; the attention backward kernel
 against its plain version, and training gradients on the card against
@@ -541,6 +543,91 @@ def test_windowed_decode_kernel_matches_plain(dev, dtype, b, h, kh, cap, hd,
         decode_attention(q, kc, vc, lengths, -1)
 
 
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kh,hd,bs,window,lens", [
+    (36, 4, 128, 16, 4096, [8192, 5000, 4097, 4096]),   # starcoder2-7b
+    (16, 8, 64, 16, 4096, [4096, 4500, 1]),             # granite's heads
+    (8, 4, 28, 16, 8, [1, 9, 300, 0]),      # BASE heads, window 8
+    (4, 4, 16, 5, 7, [333, 6, 40]),         # odd pages, G = 1
+    (18, 2, 32, 16, 100, [1000, 17]),       # G = 9
+])
+def test_windowed_paged_decode_kernel_matches_plain(dev, dtype, h, kh, hd,
+                                                    bs, window, lens):
+    """#3 with a window against ``ref.paged_decode_reference(...,
+    window)`` over shuffled, aliased pages: rows below, at and above the
+    window; the same call without a window beside it."""
+    gen = torch.Generator(device=dev).manual_seed(hd + bs + window)
+    n_pages = 4 * sum(-(-n // bs) + 1 for n in lens)
+    kp = _pool(gen, n_pages, kh, bs, hd, dtype)
+    vp = _pool(gen, n_pages, kh, bs, hd, dtype)
+    tables = _tables(gen, lens, bs, n_pages, alias=True)
+    q = _randn(gen, len(lens), h, hd, dtype=dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = paged_decode_attention.launches
+    out = paged_decode_attention(q, kp, vp, tables, lengths, window)
+    full = paged_decode_attention(q, kp, vp, tables, lengths)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 2
+    live = lengths > 0
+    for got, w in ((out, window), (full, 0)):
+        exp = ref.paged_decode_reference(q, kp, vp, tables, lengths, w)
+        torch.testing.assert_close(got[live].float(), exp[live].float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.all(out[~live] == 0)
+    with pytest.raises(ValueError, match="window"):
+        paged_decode_attention(q, kp, vp, tables, lengths, -1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kh,hd,bs,t,window,ctx,span", [
+    (36, 4, 128, 16, 64, 4096, [8192, 4000], [64, 30]),   # starcoder2-7b
+    (36, 4, 128, 16, 5, 4096, [8192, 100], [5, 5]),       # verification
+    (16, 8, 64, 16, 64, 4096, [4096, 5000], [64, 64]),    # granite's heads
+    (16, 8, 64, 16, 5, 4096, [4096, 4093], [5, 2]),
+    (8, 4, 28, 16, 16, 8, [0, 3, 40, 300], [16, 16, 5, 16]),  # window < T
+    (4, 2, 32, 16, 64, 8, [100, 7], [64, 33]),        # several span tiles
+    (4, 4, 16, 5, 8, 7, [24, 6], [8, 7]),             # odd pages, G = 1
+    (18, 2, 32, 16, 9, 100, [70, 1000], [9, 5]),      # G = 9
+])
+def test_windowed_paged_append_kernel_matches_plain(dev, dtype, h, kh, hd,
+                                                    bs, t, window, ctx,
+                                                    span):
+    """#4 with a window against ``ref.paged_append_reference(...,
+    window)``: committed keys below the window skipped, tiles crossing a
+    window start masked per element, windows shorter than the span (the
+    span's early keys leave its late queries' window); the same call
+    without a window beside it.  Every query of the span is compared
+    (``span_lens = T``, as a moe extend's pads attend)."""
+    gen = torch.Generator(device=dev).manual_seed(hd + t + window)
+    b = len(ctx)
+    lens = [c + t for c in ctx]
+    n_pages = 4 * sum(-(-n // bs) + 1 for n in lens)
+    kp = _pool(gen, n_pages, kh, bs, hd, dtype)
+    vp = _pool(gen, n_pages, kh, bs, hd, dtype)
+    tables = _tables(gen, lens, bs, n_pages, alias=True)
+    q = _randn(gen, b, t, h, hd, dtype=dtype)
+    kn = _randn(gen, b, t, kh, hd, dtype=dtype)
+    vn = _randn(gen, b, t, kh, hd, dtype=dtype)
+    cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    for sp in (span, [t] * b):
+        sl = torch.tensor(sp, dtype=torch.int32, device=dev)
+        before = paged_append_attention.launches
+        out = paged_append_attention(q, kn, vn, kp, vp, tables, cl, sl,
+                                     window)
+        full = paged_append_attention(q, kn, vn, kp, vp, tables, cl, sl)
+        torch.cuda.synchronize()
+        assert paged_append_attention.launches == before + 2
+        for got, w in ((out, window), (full, 0)):
+            exp = ref.paged_append_reference(q, kn, vn, kp, vp, tables, cl,
+                                             sl, w)
+            for i, n in enumerate(sp):
+                torch.testing.assert_close(
+                    got[i, :n].float(), exp[i, :n].float(),
+                    atol=TOL[dtype], rtol=TOL[dtype])
+    with pytest.raises(ValueError, match="window"):
+        paged_append_attention(q, kn, vn, kp, vp, tables, cl, sl, -1)
+
 def _hybrid_engine(dev, seed=2, window=8):
     cfg = dataclasses.replace(arch_config("hymba-1.5b", reduced=True),
                               sliding_window=window)
@@ -904,6 +991,116 @@ def test_fused_capture_failure_raises_on_card(dev):
                          env={**os.environ, "PYTHONPATH": src})
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.split()[:3] == ["raised", "0", "0"], out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the moe family: the layer, the sequential engine and the coupled rows
+# ---------------------------------------------------------------------------
+
+def _moe_pair(dev, seed=5):
+    """The reduced granite (2 layers, 4 experts, top-2, vocabulary 64):
+    (model, CPU params, the same params on the card)."""
+    m = Model(arch_config("granite-moe-1b-a400m", reduced=True))
+    params = m.init(seed, device="cpu")
+    return m, params, params_from_numpy(params_to_numpy(params), dev)
+
+
+def test_moe_layer_on_card_matches_cpu(dev):
+    """``apply_moe`` on the card against the CPU: the same routing (the
+    experts and keep mask the reference's rules give), y and the aux
+    terms within LOGIT_TOL, at the default capacity and at 0.25."""
+    from repro_torch.models import moe
+    m, params, card = _moe_pair(dev)
+    x = torch.randn(3, 40, m.cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    for cf in (1.25, 0.25):
+        cfg = dataclasses.replace(m.cfg, capacity_factor=cf)
+        lp = {k: v[0] for k, v in params["layers"]["moe"].items()}
+        lc = {k: v[0] for k, v in card["layers"]["moe"].items()}
+        y, aux = moe.apply_moe(x, lp, cfg)
+        yc, auxc = moe.apply_moe(x.to(dev), lc, cfg)
+        logits = x.reshape(1, 120, -1) @ lp["router"]
+        cap = moe.group_capacity(120, cfg)
+        want = moe.route(logits, cfg, cap)
+        got = moe.route(logits.to(dev), cfg, cap)
+        for a, b in zip(got[:3], want[:3]):
+            assert torch.equal(a.cpu(), b)
+        torch.testing.assert_close(yc.cpu(), y, atol=LOGIT_TOL,
+                                   rtol=LOGIT_TOL)
+        for k in aux:
+            torch.testing.assert_close(auxc[k].cpu(), aux[k],
+                                       atol=LOGIT_TOL, rtol=LOGIT_TOL)
+        if cf < 1:
+            assert aux["dropped_frac"] > 0
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.6])
+def test_moe_engine_fused_matches_eager_on_card(dev, temperature):
+    """The reduced granite's sequential engine on the card: the moe step
+    inside the fused loop's CUDA graphs gives the per-token loop's
+    tokens; #1 and #2 launch n_layers x the metered steps and extends;
+    greedy tokens equal the CPU engine's."""
+    m, params, card = _moe_pair(dev)
+    eng = Engine(m, card, max_len=128)
+    out = {}
+    for fused in (False, True):
+        decode_attention.launches = flash_attention.launches = 0
+        eng.meter.reset()
+        s = eng.extend(eng.new_session(), list(range(10, 31)))
+        ids, s, _ = eng.generate(s, 24, [], SamplingParams(temperature),
+                                 torch.Generator(device=dev).manual_seed(3),
+                                 fused=fused)
+        n = m.cfg.n_layers
+        assert decode_attention.launches == n * eng.meter.decode_steps
+        assert flash_attention.launches == n * eng.meter.prefill_calls
+        out[fused] = ids
+    assert out[True] == out[False] and len(out[True]) == 24
+    if temperature == 0.0:
+        cpu = Engine(m, params, max_len=128)
+        s = cpu.extend(cpu.new_session(), list(range(10, 31)))
+        ids, _, _ = cpu.generate(s, 24, [], SamplingParams(),
+                                 torch.Generator())
+        assert ids == out[True]
+
+
+def test_moe_rows_on_card_match_cpu_and_fused_matches_eager(dev):
+    """The coupled moe rows on the card (every slot a call, masked slots
+    reading their own context through the shadow pages): 3 rows of 4
+    extend, decode fused and per-token from the same start (equal tokens
+    and last logits), then a feed; greedy tokens and logits against the
+    CPU engine's (LOGIT_TOL); #3 and #4 launch
+    n_layers x the metered steps and extends."""
+    m, params, card = _moe_pair(dev)
+    prompts = [list(range(10, 21)), list(range(30, 35)),
+               list(range(40, 49))]
+    res = {}
+    for d, p in (("cpu", params), ("cuda", card)):
+        for fused in ((False,) if d == "cpu" else (False, True)):
+            be = BatchEngine(m, p, batch=4, capacity=128, fused=fused)
+            rows = [be.alloc_row() for _ in prompts]
+            paged_decode_attention.launches = 0
+            paged_append_attention.launches = 0
+            be.extend_rows(rows, prompts)
+            first = be.last_logits[:3].cpu().clone()
+            ids = be.generate_rows(rows[::2], [9, 6], [], SamplingParams(),
+                                   [torch.Generator(device=d)
+                                    for _ in range(2)])
+            be.feed_rows([rows[1]], [7])
+            if d == "cuda":
+                n = m.cfg.n_layers
+                assert paged_decode_attention.launches == \
+                    n * be.meter.decode_steps
+                assert paged_append_attention.launches == \
+                    n * be.meter.prefill_calls
+            res[d, fused] = (ids, first, be.last_logits[:3].cpu().clone())
+    assert res["cuda", True][0] == res["cuda", False][0] == \
+        res["cpu", False][0]
+    torch.testing.assert_close(res["cuda", True][2], res["cuda", False][2],
+                               atol=LOGIT_TOL, rtol=LOGIT_TOL)
+    for i in (1, 2):
+        torch.testing.assert_close(res["cuda", False][i],
+                                   res["cpu", False][i], atol=LOGIT_TOL,
+                                   rtol=LOGIT_TOL)
 
 
 # ---------------------------------------------------------------------------

@@ -119,9 +119,16 @@ def test_load_checkpoint_checks_keys_and_shapes(tmp_path):
 
 
 def test_other_families_raise():
-    with pytest.raises(NotImplementedError):
-        TModel(dataclasses.replace(testbed.MICRO, family="moe",
-                                   n_experts=4, top_k=2))
+    """The encdec and vlm families raise; the moe family builds (its
+    parity with the JAX package is tests/test_torch_moe.py's)."""
+    for over in (dict(family="encdec", n_encoder_layers=1),
+                 dict(family="vlm", cross_attn_every=2)):
+        with pytest.raises(NotImplementedError, match=over["family"]):
+            TModel(dataclasses.replace(testbed.MICRO, **over))
+    moe = TModel(dataclasses.replace(testbed.MICRO, family="moe",
+                                     n_experts=4, top_k=2))
+    assert "layers/moe/w_gate" in moe.spec() and \
+        "layers/mlp/w_up" not in moe.spec()
 
 
 # ---------------------------------------------------------------------------

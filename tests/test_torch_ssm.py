@@ -438,15 +438,16 @@ def test_hierarchical_ssm_self_draft_accepts_and_replays(self_pairs):
 def test_registry_refuses_unported_archs():
     assert set(registry.ASSIGNED) == {"minitron-4b", "mamba2-1.3b",
                                       "phi3-mini-3.8b", "hymba-1.5b",
-                                      "starcoder2-7b"}
+                                      "starcoder2-7b",
+                                      "granite-moe-1b-a400m"}
     assert dataclasses.asdict(registry.get(ARCH)) == \
         dataclasses.asdict(jregistry.get(ARCH))
-    for arch in ("granite-moe-1b-a400m", "yi-34b"):
+    for arch in ("qwen3-moe-235b-a22b", "yi-34b"):
         with pytest.raises(KeyError, match="not ported"):
             registry.get(arch)
-    with pytest.raises(NotImplementedError, match="moe"):
-        Model(dataclasses.replace(registry.reduced(ARCH), family="moe",
-                                  n_experts=4, top_k=2))
+    with pytest.raises(NotImplementedError, match="encdec"):
+        Model(dataclasses.replace(registry.reduced(ARCH), family="encdec",
+                                  n_encoder_layers=1))
 
 
 def test_random_engine_and_multiarch_on_cpu(capsys):

@@ -19,8 +19,9 @@ while this process runs the same scenarios at tp=1.  Held:
   * tp=2 against tp=1 in the port on the reference suite's configs
     (``tests/test_tp_serving.py``) with JAX-initialised parameters:
     tokens and step traces identical greedy, sampled at 0.8, with spec
-    decode at gamma 3, on a prefix-cache resubmit with hits and on a
-    pressured run that preempts; the base's logits of an extend and a
+    decode at gamma 3, on a prefix-cache resubmit with hits, on a
+    pressured run that preempts and with a sliding window of 8 on the
+    base (#3 and #4 take it per rank); the base's logits of an extend and a
     decode step bit for bit (on the CPU at one thread a column slice of
     a GEMM keeps the whole product's order; on the card cuBLAS picks its
     variant from N, and ``chip_smoke.py`` holds the gap to 1e-4);
@@ -246,6 +247,8 @@ def test_tp2_tokens_and_traces_equal_tp1(runs, name):
     if name == "spec":
         assert ranks[0][name]["spec_tp_size"] == 2
         assert any(t[3][2] > 0 for t in want["traces"])
+    if name == "window":     # every prompt outgrows the window
+        assert min(want["prompt_lens"]) > 8
 
 
 @pytest.mark.parametrize("kind", ["extend", "decode"])
@@ -288,12 +291,12 @@ def test_divisibility_and_family_contracts():
         tp.check_model(dataclasses.replace(odd, n_heads=3, n_kv_heads=3))
     with pytest.raises(ValueError, match="d_ff=63"):
         tp.check_model(dataclasses.replace(odd, n_kv_heads=2, d_ff=63))
-    with pytest.raises(NotImplementedError, match="sliding window"):
+    # a window goes through paged_tp to #3 and #4 (the "window" scenario)
+    tp.check_model(dataclasses.replace(odd, n_kv_heads=2, sliding_window=8))
+    with pytest.raises(NotImplementedError, match="dense family.*item 8"):
         tp.check_model(dataclasses.replace(odd, n_kv_heads=2,
-                                           sliding_window=8))
-    with pytest.raises(NotImplementedError, match="dense family"):
-        tp.check_model(dataclasses.replace(odd, n_kv_heads=2,
-                                           family="moe"))
+                                           family="moe", n_experts=4,
+                                           top_k=2))
     tp.check_model(ModelConfig(**_port_cfg(BASE_CFG)))
     pool = PagedKVPool(8, 4)
     with pytest.raises(ValueError, match="kv_heads=3"):

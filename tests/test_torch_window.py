@@ -4,8 +4,9 @@ flash-decode with a window (``ref.decode_reference(..., window)``, which
 JAX package's ``decode_self_attention`` at G = 1, 5 and 9 query heads a
 kv head, for windows below, at and above the row's length; the windowed
 decode from a device position (the fused loop's) against a host one; and
-the refusals that stay: a ring cache from a device position, a window
-over paged rows (``BatchEngine`` at construction), and hybrid training.
+the refusals that stay: a ring cache from a device position, recurrent
+state on the batched engine (a window over paged rows is served), and
+hybrid training.
 
 Inputs are made with numpy from fixed seeds.  fp32 atol = rtol = 2e-5,
 as tests/test_torch_kernels.py (the two sides sum in different orders).
@@ -136,9 +137,10 @@ def test_windowed_decode_from_a_device_position():
 
 def test_refusals_that_stay():
     """A ring cache takes no device position (the JAX package's dry-run
-    is its one user); a window over paged rows is refused when the
-    batched engine is built, naming the roadmap item; hybrid training
-    names its missing pieces; a hybrid state takes no ring."""
+    is its one user); a window over paged rows is served (#3 and #4 take
+    it: tests/test_torch_paged_window.py), while recurrent state is
+    still refused by the batched engine; hybrid training names its
+    missing pieces; a hybrid state takes no ring."""
     cfg = _cfg(ModelConfig, 1, 8)
     p = {n: torch.from_numpy(a) for n, a in
          _layer(np.random.default_rng(0), cfg).items()}
@@ -150,10 +152,12 @@ def test_refusals_that_stay():
                                     ring=True)
     star = registry.reduced("starcoder2-7b")
     model = Model(star)
-    with pytest.raises(NotImplementedError, match="queue 2 A"):
-        BatchEngine(model, model.init(0, device="cpu"), batch=2,
-                    capacity=64)
+    be = BatchEngine(model, model.init(0, device="cpu"), batch=2,
+                     capacity=64)
+    assert be.model.cfg.sliding_window == star.sliding_window > 0
     hyb = Model(registry.reduced("hymba-1.5b"))
+    with pytest.raises(ValueError, match="attention-only"):
+        BatchEngine(hyb, hyb.init(0, device="cpu"), batch=2, capacity=64)
     with pytest.raises(NotImplementedError, match="queue 2 J"):
         tloss.loss_fn(hyb, None, {})
     with pytest.raises(ValueError, match="linear"):

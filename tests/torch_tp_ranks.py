@@ -6,6 +6,7 @@ spawned ranks import this module by name."""
 
 from __future__ import annotations
 
+import dataclasses
 import random
 from typing import Dict
 
@@ -36,6 +37,9 @@ SCENARIOS = {
     "prefix": dict(seed=5, resubmit=True),
     "pressured": dict(n_requests=4, kv_bytes=90_000, kv_fraction=0.5,
                       prefix_cache=False),
+    # the base with a sliding window of 8, which every request outgrows:
+    # #3 and #4 take the window per rank through ``paged_tp``
+    "window": dict(seed=6, window=8),
 }
 
 
@@ -52,11 +56,17 @@ def engines(payload) -> tuple:
 
 def serve(pair, tp, n_requests=3, temperature=0.0, spec=False, gamma=3,
           seed=0, max_batch=4, kv_bytes=1 << 26, kv_fraction=0.8,
-          context_capacity=128, prefix_cache=True, resubmit=False) -> Dict:
+          context_capacity=128, prefix_cache=True, resubmit=False,
+          window=0) -> Dict:
     """One workload through a fresh scheduler (the reference's
     ``_serve``): each request's tokens and step trace, and the
-    scheduler's counters."""
+    scheduler's counters.  ``window``: the base's sliding window (0:
+    the payload's config)."""
     base, small = pair
+    if window:
+        base = Engine(Model(dataclasses.replace(
+            base.model.cfg, sliding_window=window)), base.params,
+            max_len=256, fused=False)
     cfg = SpecReasonConfig(policy=StaticThreshold(5.0), token_budget=32,
                            max_steps=4, use_spec_decode=spec,
                            spec_gamma=gamma, fused_decode=False,
@@ -86,6 +96,7 @@ def serve(pair, tp, n_requests=3, temperature=0.0, spec=False, gamma=3,
                  (r.spec_stats.proposed, r.spec_stats.accepted,
                   r.spec_stats.rounds))
                 for r in (h.result for h in handles)],
+        prompt_lens=[len(tasks.question_tokens(t)) for t in reqs],
         ticks=cs.ticks, preemptions=cs.preemptions, cache_hits=hits,
         pools=cs.pool_utilization(),
         spec_tp_size=cs.spec_be.tp_size if cs.spec_be else None,
