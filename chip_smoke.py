@@ -51,6 +51,12 @@ from the root of a checkout.  Phases, each printing its lines:
    * ``paged_tp`` (#3 and #4 as one rank's launch at tp=2) at one
      rank's share of minitron-4b's heads, 12 over 4: decode B=8 over
      4096, spans T = 64 and 5 over the same context, fp32 and bf16;
+   * the cross-attention families' shapes: #2 non-causal over
+     whisper-base's encoder (S 1500 over 1500 keys, 8 over 8 heads, hd
+     64) and a 64-token cross prefill over its 1500 frames and over
+     llama-3.2-vision-11b's 1601 patches (32 over 8, hd 128), #1 over
+     the same cross K/V (G 1 and G 4; no 32-key tile divides 1500 or
+     1601), SDPA over the same K/V as the yardstick;
    * the causal attention backward (2b) in fp32 at BASE's and SMALL's
      training shapes and minitron-4b's heads over S = 256 to 4096, with
      SDPA's autograd backward as the yardstick;
@@ -210,7 +216,25 @@ from the root of a checkout.  Phases, each printing its lines:
    moe]``: the granite base alone at its published vocabulary (49155),
    decode-only, two fused turns; ms a token against the byte
    bounds of every expert's weights (the formulation's read) and of a
-   top-8 read;
+   top-8 read.  ``[main] encdec`` and ``[main] vlm``: SpecReason with a
+   whisper-base base (6 decoder and 6 encoder layers, d_model 512, 8
+   heads of 64) and then a llama-3.2-vision-11b base (40 layers, every
+   5th a gated cross layer, d_model 4096, 32 heads over 8 of 128; 37.7
+   GiB of fp32 weights drawn on the card one layer a draw, the gates,
+   zero at init, drawn nonzero) at published widths and depth
+   (vocabulary 64) with the SMALL drafter, each base session over a
+   stub source (1500 frame embeddings, which it encodes, or 1601 patch
+   embeddings): 3 requests greedy and at 0.6 fused, greedy req0 and
+   sampled req0 per token (equal tokens); #2 launches == encoder layers
+   x encodes + (self + cross layers) x the base's extends + SMALL's
+   layers x its prefill calls, #1 == (self + cross layers) x the base's
+   decode steps + SMALL's, no other kernel; one capture per loop key,
+   the keys over one pooled KV pair and cross pair; greedy req0
+   profiled; card vs CPU logits over a 64-token prompt and 16 decodes
+   (whisper at full depth, the vlm at one group of 5 layers); then the
+   base alone at its published vocabulary, decode-only, two fused
+   turns, ms a token against the byte bound of its decoder weights and
+   the K/V and cross K/V a token reads, and the phase's peak memory;
 10. train: one BASE and one SMALL step's loss and every gradient on the
    card against the CPU (rtol 1e-4, atol that times each gradient's
    largest magnitude), at launch/train.py's batches; 20 BASE steps run twice from one seed with identical
@@ -258,6 +282,11 @@ TRACE_TRIES = 3
 # 495 / 3 TFLOP/s (dense TF32, data sheet), above the CUDA cores' 67
 PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}        # atol = rtol, as the tests
+# a bf16 row of the cross-attention shapes, whose outputs are small
+# (softmax over 1500 and more keys: RMS about 0.04), is held to the plain
+# version in fp32 of the same bf16 inputs at its own scale: |err| <=
+# 2^-8 |ref| (the output's rounding) + this x RMS(ref)
+BF16_RMS_TOL = 2e-2
 LOGIT_TOL = 1e-4       # card vs CPU model logits (fp32 GEMMs, TF32 off)
 CACHE = 1024           # the serving engines' max_len
 # the random-init pair's step utilities spread over about 2..5.5, so this
@@ -291,6 +320,13 @@ ARCH_CHECKS = ("phi3-mini-3.8b", "starcoder2-7b")
 PAGED_WINDOW_CACHE = 4608
 PAGED_WINDOW_PROMPTS = (4300, 4250)
 PAGED_WINDOW_DECODE = 48
+# [main] encdec and [main] vlm: whisper-base and llama-3.2-vision-11b at
+# published widths and depth, the SMALL drafter; the card-vs-CPU check
+# over a CROSS_PREFILL-token prompt and CROSS_DECODE decodes
+CROSS_ARCHS = ("whisper-base", "llama-3.2-vision-11b")
+CROSS_THRESHOLD = 4.5
+CROSS_PREFILL = 64
+CROSS_DECODE = 16
 # [main] moe: granite-moe-1b-a400m at its published widths and depth
 MOE_ARCH = "granite-moe-1b-a400m"
 MOE_THRESHOLD = 4.5
@@ -330,12 +366,10 @@ TP_DEPTH = 32
 TP_REQUESTS = 4
 TP_PROMPT = 64
 TP_TIMEOUT_S = 600
-# the turns of the dense phases, sequential and batched: one eager turn
-# between two fused ones (each loop's tokens against the other's, and a
-# second fused turn that must capture nothing)
+# the turns of the decode-only phases: one eager turn between two fused
+# ones (each loop's tokens against the other's, and a second fused turn
+# that must capture nothing)
 TURNS = ("fused", "eager", "fused")
-# the ssm base's decode-only turns: two eager turns between two fused ones
-SSM_TURNS = ("fused", "eager", "eager", "fused")
 # the attention backward (2b): BASE's and SMALL's training shapes, and
 # minitron-4b's heads from S=256 to 2048, where 2b's first version fell
 # behind the plain backward, and at 4096, its context, where the sums are
@@ -450,9 +484,15 @@ def decode_plan_note(plan, label):
             f"once, {plan['smem_bytes']} bytes of shared memory a block")
 
 
-def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron):
-    """Every kernel against its plain version at the path's shapes.
-    Returns per-kernel records for the JSON line."""
+def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron,
+                 whisper, vlm):
+    """Every kernel against its plain version at the path's shapes, the
+    cross-attention families' among them: #2 non-causal over
+    whisper-base's encoder (S 1500 over 1500 keys) and a 64-token cross
+    prefill over its 1500 frames and llama-3.2-vision-11b's 1601
+    patches, #1 over the same cross K/V (no key tile of 32 divides 1500
+    or 1601); their bf16 rows are held at the output's scale
+    (BF16_RMS_TOL).  Returns per-kernel records for the JSON line."""
     from repro_torch.kernels import decode_attention as decode_mod
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import tile_plan
@@ -464,16 +504,30 @@ def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron):
                           minitron.resolved_head_dim),
              # minitron-4b's kv heads and hd with G = 16 (qwen3-moe's G)
              "minitron-g16": (16 * minitron.n_kv_heads, minitron.n_kv_heads,
-                              minitron.resolved_head_dim)}
+                              minitron.resolved_head_dim),
+             "whisper": (whisper.n_heads, whisper.n_kv_heads,
+                         whisper.resolved_head_dim),
+             "vlm": (vlm.n_heads, vlm.n_kv_heads, vlm.resolved_head_dim)}
+    n_frames, n_patches = whisper.encoder_seq_len, vlm.n_image_tokens
     records = {"decode_attention": [], "flash_attention": []}
 
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    def check(name, out, exp, dtype, label):
-        err = (out.float() - exp.float()).abs().max().item()
-        if not torch.allclose(out.float(), exp.float(), atol=TOL[dtype],
-                              rtol=TOL[dtype]):
+    def check(name, out, exp, dtype, label, scaled=False):
+        """``out`` against ``exp`` at TOL; with ``scaled``, against
+        ``exp``, the plain version over the bf16 inputs in fp32, at
+        BF16_RMS_TOL of its RMS."""
+        diff = (out.float() - exp.float()).abs()
+        err = diff.max().item()
+        if scaled:
+            rms = exp.pow(2).mean().sqrt()
+            if (diff > exp.abs() * 2.0 ** -8 + BF16_RMS_TOL * rms).any():
+                raise AssertionError(
+                    f"{name} {label}: max |err| {err} beyond 2^-8 |ref| + "
+                    f"{BF16_RMS_TOL} x RMS {rms.item():.4g} of the fp32 ref")
+        elif not torch.allclose(out.float(), exp.float(), atol=TOL[dtype],
+                                rtol=TOL[dtype]):
             raise AssertionError(f"{name} {label}: max |err| {err} beyond "
                                  f"atol = rtol = {TOL[dtype]}")
         return err
@@ -481,7 +535,10 @@ def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron):
     decode_cases = [("base", 1, [128]), ("base", 4, [1, 77, 640, 1024]),
                     ("small", 1, [128]), ("small", 4, [1, 300, 777, 1024]),
                     ("minitron", 8, [4096] * 8),
-                    ("minitron-g16", 8, [4096] * 8)]
+                    ("minitron-g16", 8, [4096] * 8),
+                    # one decoded token's cross-attention (G 1, hd 64;
+                    # G 4, hd 128)
+                    ("whisper", 1, [n_frames]), ("vlm", 1, [n_patches])]
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt).split(".")[1]
         esize = torch.tensor([], dtype=dt).element_size()
@@ -493,10 +550,12 @@ def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron):
             q = randn(b, h, hd, dtype=dt)
             lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
             label = f"{model} {dname} B={b} cache={cap} lengths={lens}"
+            scaled = dt == torch.bfloat16 and model in ("whisper", "vlm")
+            exp = ref.decode_reference(
+                *(t.float() if scaled else t for t in (q, kc, vc)), lengths)
             err = check("decode_attention",
-                        decode_kernel(q, kc, vc, lengths),
-                        ref.decode_reference(q, kc, vc, lengths), dname,
-                        label)
+                        decode_kernel(q, kc, vc, lengths), exp, dname, label,
+                        scaled)
             mask = (torch.arange(cap, device=dev)[None, :]
                     < lengths[:, None])[:, None, None, :]
             q4 = q[:, :, None, :]
@@ -527,7 +586,11 @@ def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron):
                           ("base", 128, 0, 128, False, 0),       # Pallas,
                           ("base", 128, 0, 128, True, 0),        # contract
                           ("minitron", 2048, 0, 2048, True, 0),
-                          ("minitron", 256, 1792, 2048, True, 0)]  # a chunk
+                          ("minitron", 256, 1792, 2048, True, 0),  # a chunk
+                          # the encoder, and a 64-token cross prefill
+                          ("whisper", n_frames, 0, n_frames, False, 0),
+                          ("whisper", 64, 0, n_frames, False, 0),
+                          ("vlm", 64, 0, n_patches, False, 0)]
         for model, s, off, cap, causal, window in prefill_cases:
             h, kh, hd = heads[model]
             q = randn(1, s, h, hd, dtype=dt).permute(0, 2, 1, 3)
@@ -536,16 +599,20 @@ def kernel_phase(torch, F, ref, decode_kernel, flash_kernel, minitron):
             label = (f"{model} {dname} S={s} q_offset={off} kv={cap} "
                      f"causal={causal} window={window}")
             args = (causal, off, cap, window)
+            scaled = dt == torch.bfloat16 and model in ("whisper", "vlm")
+            exp = ref.mha_reference(
+                *(t.float() if scaled else t for t in (q, kc, vc)), *args)
             err = check("flash_attention", flash_kernel(q, kc, vc, *args),
-                        ref.mha_reference(q, kc, vc, *args), dname, label)
+                        exp, dname, label, scaled)
+            # (S, keys): a non-causal mask comes back as one row
             mask = ref.attention_mask(s, cap, causal, off, cap, window,
-                                      device=dev)
+                                      device=dev).expand(s, cap)
             ms = time_ms(torch, lambda: flash_kernel(q, kc, vc, *args))
             plain_ms = time_ms(torch, lambda: ref.mha_reference(
                 q, kc, vc, *args), reps=5 if s >= 2048 else 30)
             # the yardstick takes its fastest form of the same function
             whole = cap == s and off == 0 and window == 0
-            sdpa_mask = None if whole else mask
+            sdpa_mask = None if whole or not causal else mask
             lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, kc, vc, attn_mask=sdpa_mask, is_causal=causal and whole,
                 enable_gqa=True))
@@ -1479,6 +1546,91 @@ def batch_invariance_phase(torch, serve, tasks, Model, load_checkpoint,
           "sequential path's on the card", flush=True)
 
 
+# fused turns, then one per-token turn of req0 each way
+SEQ_RUNS = (("greedy", "specreason", 0.0, 3, None),
+            ("sampled", "specreason", 0.6, 3, None),
+            ("greedy eager", "specreason", 0.0, 1, False),
+            ("sampled eager", "specreason", 0.6, 1, False))
+
+
+def tokens_of(res):
+    return res.thinking_ids + res.answer_ids
+
+
+def sequential_turns(torch, serve, base, small, reqs, kernels, tag, want,
+                     formula, threshold, budget=128, runs=SEQ_RUNS):
+    """Sequential SpecReason (``serve.run_scheme``) with ``base`` and
+    ``small`` on the card: each run (label, scheme, temperature,
+    requests, fused) serves its first requests of ``reqs``, every count
+    set to 0 just before it and read just after.  ``want(mb, ms,
+    encodes)`` gives the launches a request must make from the base's
+    and SMALL's meters and the sources the base encoded; a run's counts
+    must equal their sum, every kernel of it must have launched and no
+    other, and after every request each engine has captured once per
+    loop key.  ``formula`` says in the run's line what the counts
+    equal.  The eager runs' req0 tokens must equal the fused runs'.
+    Returns ({label: [results]}, launches of the kernels)."""
+    launches = dict.fromkeys(kernels, 0)
+    results = {}
+    for label, scheme, temp, n_req, fused in runs:
+        for k in kernels.values():
+            k.launches = 0
+        expect = {}
+        results[label] = []
+        for i in range(n_req):
+            gen = torch.Generator(device="cuda").manual_seed(i)
+            encodes = base.encodes
+            res = serve.run_scheme(scheme, base, small, reqs[i], gen, budget,
+                                   threshold, temp, fused=fused)
+            mb, ms_ = res.meters["base"], res.meters["small"]
+            for k, n in want(mb, ms_, base.encodes - encodes).items():
+                expect[k] = expect.get(k, 0) + n
+            for eng in (base, small):
+                if eng.captures != len(eng._loops):
+                    raise AssertionError(
+                        f"{tag} {label} req{i}: {eng.name} captured "
+                        f"{eng.captures} graphs for {len(eng._loops)} keys")
+            results[label].append(res)
+            toks = tokens_of(res)
+            steps = [s for s in res.steps if s.source == "small"]
+            print(f"[main] {tag} {label} req{i}: {res.wall_time * 1e3:.1f} "
+                  f"ms, {len(toks)} tokens, {len(toks) / res.wall_time:.1f} "
+                  f"tok/s, {len(res.steps)} steps "
+                  f"({sum(s.accepted for s in steps)} accepted / "
+                  f"{len(steps)} drafted; utilities "
+                  f"{[round(s.utility, 4) for s in steps]}), base "
+                  f"{mb['prefill_calls']} extends / {mb['decode_calls']} "
+                  f"decode calls of {mb['decode_tokens']} tokens in "
+                  f"{mb['decode_steps']} steps; captures base "
+                  f"{base.captures}, small {small.captures}" + (
+                      f"; spec {res.spec_stats.accepted}/"
+                      f"{res.spec_stats.proposed} over "
+                      f"{res.spec_stats.rounds} rounds"
+                      if res.spec_stats.rounds else ""), flush=True)
+        got = {k: kernels[k].launches for k in expect}
+        if got != expect or not all(expect.values()) or any(
+                kernels[k].launches for k in kernels if k not in expect):
+            now = {k: v.launches for k, v in kernels.items()}
+            raise AssertionError(f"{tag} {label}: launches {now} != "
+                                 f"{expect} (others 0)")
+        loop = "eager" if fused is False else "fused"
+        print(f"[main] {tag} {label} (decode loops {loop}): launches "
+              f"{', '.join(f'{k} {n}' for k, n in got.items())}; {formula};"
+              " no other kernel", flush=True)
+        for k in expect:
+            launches[k] += got[k]
+    for label in ("greedy", "sampled"):
+        if tokens_of(results[f"{label} eager"][0]) != \
+                tokens_of(results[label][0]):
+            raise AssertionError(f"{tag} {label} req0: the eager turn's "
+                                 "tokens differ from the fused turn's")
+    print(f"[main] {tag}: the eager turn's tokens equal the fused turn's "
+          f"(greedy req0 and sampled req0); base {base.captures} captures "
+          f"for {len(base._loops)} keys, small {small.captures} for "
+          f"{len(small._loops)}", flush=True)
+    return results, launches
+
+
 def ssm_main_phase(torch, serve, tasks, loader, kernels):
     """SpecReason with the mamba2-1.3b base on the card, both engines on
     their default decode loop (the fused one): 3 requests greedy and
@@ -1502,74 +1654,29 @@ def ssm_main_phase(torch, serve, tasks, loader, kernels):
           f"{loader.decode_loops(base, small)}", flush=True)
     rng = random.Random(0)
     reqs = [tasks.sample_task(rng) for _ in range(3)]
-    layers = {"base": cfg.n_layers, "small": small.model.cfg.n_layers}
-    launches = dict.fromkeys(kernels, 0)
-    outputs, walls = {}, {}
-    runs = (("greedy", "specreason", 0.0, 3, None),
-            ("sampled", "specreason", 0.6, 3, None),
-            ("hierarchical greedy", "specreason+decode", 0.0, 1, None),
-            ("greedy eager", "specreason", 0.0, 1, False),
-            ("sampled eager", "specreason", 0.6, 1, False))
-    for label, scheme, temp, n_req, fused in runs:
-        for k in kernels.values():
-            k.launches = 0
-        want = {"ssd_scan": 0, "decode_attention": 0, "flash_attention": 0}
-        drafted, outputs[label], walls[label] = [], [], []
-        for i in range(n_req):
-            gen = torch.Generator(device="cuda").manual_seed(i)
-            res = serve.run_scheme(scheme, base, small, reqs[i], gen, 128,
-                                   SSM_THRESHOLD, temp, fused=fused)
-            mb, ms_ = res.meters["base"], res.meters["small"]
-            want["ssd_scan"] += layers["base"] * mb["prefill_calls"]
-            want["decode_attention"] += layers["small"] * ms_["decode_steps"]
-            want["flash_attention"] += layers["small"] * ms_["prefill_calls"]
-            toks = res.thinking_ids + res.answer_ids
-            outputs[label].append(toks)
-            walls[label].append(res.wall_time)
-            steps = [s for s in res.steps if s.source == "small"]
-            drafted += steps
-            n_acc = sum(s.accepted for s in steps)
-            utils = [round(s.utility, 4) for s in steps]
-            print(f"[main] ssm {label} req{i}: {res.wall_time * 1e3:.1f} ms, "
-                  f"{len(toks)} tokens, {len(toks) / res.wall_time:.1f} "
-                  f"tok/s, {len(res.steps)} steps ({n_acc} accepted / "
-                  f"{len(steps)} drafted; utilities {utils}), base "
-                  f"{mb['prefill_calls']} extends / {mb['decode_calls']} "
-                  f"decode calls of {mb['decode_tokens']} tokens in "
-                  f"{mb['decode_steps']} steps" + (
-                      f", spec {res.spec_stats.accepted}/"
-                      f"{res.spec_stats.proposed} over "
-                      f"{res.spec_stats.rounds} rounds"
-                      if res.spec_stats.rounds else ""), flush=True)
-        got = {k: kernels[k].launches for k in want}
-        if got != want or not want["ssd_scan"] or any(
-                kernels[k].launches for k in kernels if k not in want):
-            now = {k: v.launches for k, v in kernels.items()}
-            raise AssertionError(f"ssm {label}: launches {now} != {want} "
-                                 "(paged kernels 0)")
-        if label == "greedy" and len({s.accepted for s in drafted}) < 2:
-            raise AssertionError("ssm greedy run saw only one verifier "
-                                 "decision; both paths must run")
-        loop = "eager" if fused is False else "fused"
-        print(f"[main] ssm {label} (decode loops {loop}): launches ssd_scan "
-              f"{got['ssd_scan']} == {layers['base']} x base extends; decode "
-              f"{got['decode_attention']}, prefill {got['flash_attention']} =="
-              f" {layers['small']} x SMALL's decode steps and prefill calls; "
-              "paged 0", flush=True)
-        for k in want:
-            launches[k] += got[k]
-    for label in ("greedy", "sampled"):
-        if outputs[f"{label} eager"][0] != outputs[label][0]:
-            raise AssertionError(f"ssm {label} req0: the eager turn's tokens "
-                                 "differ from the fused turn's")
-    print("[main] ssm: the eager turn's tokens equal the fused turn's "
-          "(greedy req0 and sampled req0)", flush=True)
-    same = outputs["hierarchical greedy"][0] == outputs["greedy"][0]
+    nb, ns = cfg.n_layers, small.model.cfg.n_layers
+    runs = SEQ_RUNS[:2] + (("hierarchical greedy", "specreason+decode", 0.0,
+                            1, None),) + SEQ_RUNS[2:]
+    results, launches = sequential_turns(
+        torch, serve, base, small, reqs, kernels, "ssm",
+        lambda mb, ms_, _: {
+            "ssd_scan": nb * mb["prefill_calls"],
+            "decode_attention": ns * ms_["decode_steps"],
+            "flash_attention": ns * ms_["prefill_calls"]},
+        f"ssd_scan == {nb} x base extends; decode and flash == {ns} x "
+        "SMALL's decode steps and prefill calls", SSM_THRESHOLD, runs=runs)
+    drafted = [s for res in results["greedy"] for s in res.steps
+               if s.source == "small"]
+    if len({s.accepted for s in drafted}) < 2:
+        raise AssertionError("ssm greedy run saw only one verifier "
+                             "decision; both paths must run")
+    same = tokens_of(results["hierarchical greedy"][0]) == \
+        tokens_of(results["greedy"][0])
     print(f"[main] ssm (information): hierarchical greedy req0 tokens "
           f"{'equal' if same else 'differ from'} plain greedy req0's",
           flush=True)
     ssm_profile(torch, serve, base, small, reqs[2], kernels,
-                walls["greedy"][2])
+                results["greedy"][2].wall_time)
     return launches, base
 
 
@@ -2461,14 +2568,17 @@ def decode_turns(torch, eng, SamplingParams, phase, name, start, turns,
     probabilities within 2e-5, DECODE_TOKENS tokens a call, no capture
     in the last (fused) turn, at most ceil(DECODE_TOKENS / k) + 1 waits
     and 2k - 1 wasted steps a fused call; with a kernel wrapper
-    ``counter``, its launches == n_layers x decode steps.  Prints decode
+    ``counter``, its launches == the attention layers (self and cross)
+    x decode steps.  Prints decode
     tok/s, TPOT, waits, wasted steps, captures and capture s each turn,
     then the loop's memory; with ``profile``, one greedy call profiled
     each way (``profile_request``: idle share, device time by kernel,
     the profiler's count of ``kernel`` against ``counter``'s)."""
     from repro_torch.serving.graph_loop import chunk_steps
     k = chunk_steps(DECODE_TOKENS)
-    layers = eng.model.cfg.n_layers
+    # the layers that launch flash-decode a step: every attention layer
+    # (an encdec layer twice: its self- and its cross-attention)
+    layers = eng.model.cfg.n_self_layers + eng.model.cfg.n_cross_layers
     tag = f"{phase} {name}"
 
     def call(session, loop, temp, probs):
@@ -2505,7 +2615,8 @@ def decode_turns(torch, eng, SamplingParams, phase, name, start, turns,
             if counter is not None and counter.launches - launches != want:
                 raise AssertionError(f"{tag} {label} {loop}: {kernel} "
                                      f"launches {counter.launches - launches}"
-                                     f" != n_layers x decode steps {want}")
+                                     f" != {layers} attention layers x "
+                                     f"decode steps {want}")
             if turn == len(turns) - 1 and new:
                 raise AssertionError(f"{tag} {label}: the second fused "
                                      "turn captured again")
@@ -2532,8 +2643,9 @@ def decode_turns(torch, eng, SamplingParams, phase, name, start, turns,
                   + (", probabilities collected" if probs else "")
                   + f"; {note}; captures {new} in "
                   f"{eng.capture_time - cap_s:.3f} s"
-                  + (f"; {kernel} launches {want} == n_layers x decode "
-                     "steps" if counter is not None else ""), flush=True)
+                  + (f"; {kernel} launches {want} == {layers} attention "
+                     "layers x decode steps" if counter is not None else ""),
+                  flush=True)
         print(f"{tag} {label}: tokens identical in all {len(turns)} turns"
               + (" (probabilities within 2e-5)" if probs else ""),
               flush=True)
@@ -2567,7 +2679,7 @@ def fused_ssm_phase(torch, Model, registry, Engine, SamplingParams, base,
                     lap):
     """The ssm base's fused decode loop (CUDA graphs over the engine's
     static conv/ssm pair) against its per-token loop on the card
-    (``decode_turns``, turns SSM_TURNS): the mamba2-1.3b base alone, 48
+    (``decode_turns``, turns TURNS): the mamba2-1.3b base alone, 48
     layers at published widths (the main phase's engine), first at the
     toy vocabulary of 64 and then at its published vocabulary of 50280
     (the same layers, the embedding drawn on the card), decode-only from
@@ -2584,7 +2696,7 @@ def fused_ssm_phase(torch, Model, registry, Engine, SamplingParams, base,
         committed = eng.extend(eng.new_session(), prompt)
         decode_turns(torch, eng, SamplingParams, "[fused ssm]",
                      f"{SSM_ARCH} vocab {vocab}", lambda: committed,
-                     SSM_TURNS, profile=eng is not base)
+                     TURNS, profile=eng is not base)
         lap(f"fused ssm, vocab {vocab}")
 
 
@@ -2747,89 +2859,40 @@ def hybrid_main_phase(torch, serve, tasks, loader, kernels):
           f"{loader.decode_loops(base, small)}", flush=True)
     rng = random.Random(0)
     reqs = [tasks.sample_task(rng) for _ in range(3)]
-    layers = {"base": cfg.n_layers, "small": small.model.cfg.n_layers}
-    launches = dict.fromkeys(kernels, 0)
-    outputs, walls = {}, {}
-    runs = (("greedy", 0.0, 3, None), ("sampled", 0.6, 3, None),
-            ("greedy eager", 0.0, 1, False), ("sampled eager", 0.6, 1, False))
-    for label, temp, n_req, fused in runs:
-        for k in kernels.values():
-            k.launches = 0
-        want = {"ssd_scan": 0, "decode_attention": 0, "flash_attention": 0}
-        outputs[label], walls[label] = [], []
-        for i in range(n_req):
-            gen = torch.Generator(device="cuda").manual_seed(i)
-            res = serve.run_scheme("specreason", base, small, reqs[i], gen,
-                                   128, HYBRID_THRESHOLD, temp, fused=fused)
-            mb, ms_ = res.meters["base"], res.meters["small"]
-            want["ssd_scan"] += layers["base"] * mb["prefill_calls"]
-            want["flash_attention"] += layers["base"] * mb["prefill_calls"] \
-                + layers["small"] * ms_["prefill_calls"]
-            want["decode_attention"] += layers["base"] * mb["decode_steps"] \
-                + layers["small"] * ms_["decode_steps"]
-            for eng in (base, small):
-                if eng.captures != len(eng._loops):
-                    raise AssertionError(
-                        f"hybrid {label} req{i}: {eng.name} captured "
-                        f"{eng.captures} graphs for {len(eng._loops)} keys")
-            toks = res.thinking_ids + res.answer_ids
-            outputs[label].append(toks)
-            walls[label].append(res.wall_time)
-            steps = [s for s in res.steps if s.source == "small"]
-            n_acc = sum(s.accepted for s in steps)
-            print(f"[main] hybrid {label} req{i}: {res.wall_time * 1e3:.1f} "
-                  f"ms, {len(toks)} tokens, {len(toks) / res.wall_time:.1f} "
-                  f"tok/s, {len(res.steps)} steps ({n_acc} accepted / "
-                  f"{len(steps)} drafted; utilities "
-                  f"{[round(s.utility, 4) for s in steps]}), base "
-                  f"{mb['prefill_calls']} extends / {mb['decode_calls']} "
-                  f"decode calls of {mb['decode_tokens']} tokens in "
-                  f"{mb['decode_steps']} steps; captures base "
-                  f"{base.captures}, small {small.captures}", flush=True)
-        got = {k: kernels[k].launches for k in want}
-        if got != want or not all(want.values()) or any(
-                kernels[k].launches for k in kernels if k not in want):
-            now = {k: v.launches for k, v in kernels.items()}
-            raise AssertionError(f"hybrid {label}: launches {now} != {want} "
-                                 "(paged kernels 0)")
-        loop = "eager" if fused is False else "fused"
-        print(f"[main] hybrid {label} (decode loops {loop}): launches "
-              f"ssd_scan {got['ssd_scan']} == {layers['base']} x base "
-              f"extends; flash {got['flash_attention']} == {layers['base']} x"
-              f" base extends + {layers['small']} x SMALL's prefill calls; "
-              f"decode {got['decode_attention']} == {layers['base']} x base "
-              f"decode steps + {layers['small']} x SMALL's; paged 0",
-              flush=True)
-        for k in want:
-            launches[k] += got[k]
-    for label in ("greedy", "sampled"):
-        if outputs[f"{label} eager"][0] != outputs[label][0]:
-            raise AssertionError(f"hybrid {label} req0: the eager turn's "
-                                 "tokens differ from the fused turn's")
+    nb, ns = cfg.n_layers, small.model.cfg.n_layers
+    results, launches = sequential_turns(
+        torch, serve, base, small, reqs, kernels, "hybrid",
+        lambda mb, ms_, _: {
+            "ssd_scan": nb * mb["prefill_calls"],
+            "flash_attention": nb * mb["prefill_calls"]
+            + ns * ms_["prefill_calls"],
+            "decode_attention": nb * mb["decode_steps"]
+            + ns * ms_["decode_steps"]},
+        f"ssd_scan == {nb} x base extends; flash == {nb} x base extends + "
+        f"{ns} x SMALL's prefill calls; decode == {nb} x base decode steps "
+        f"+ {ns} x SMALL's", HYBRID_THRESHOLD)
+    walls = [res.wall_time for res in results["greedy"]]
     keys = list(base._loops)
     static = base._ssm_static[1]
     if len({k[:2] for k in keys}) != 1 or {k[-2:] for k in keys} != {
             (static.conv.data_ptr(), static.ssm.data_ptr())}:
         raise AssertionError("hybrid: the base's loop keys do not share one "
                              "pooled K/V pair and the static conv/ssm pair")
-    print(f"[main] hybrid: the eager turn's tokens equal the fused turn's "
-          f"(greedy req0 and sampled req0); base {base.captures} captures "
-          f"for {len(keys)} keys over one pooled K/V pair and the static "
-          f"conv/ssm pair, small {small.captures} for {len(small._loops)}",
-          flush=True)
+    print(f"[main] hybrid: the base's {len(keys)} loop keys share one "
+          "pooled K/V pair and the static conv/ssm pair", flush=True)
     for i, task in enumerate(reqs):
         def run(task=task, i=i):
             gen = torch.Generator(device="cuda").manual_seed(i)
             return serve.run_scheme("specreason", base, small, task, gen,
                                     128, HYBRID_THRESHOLD, 0.0)
         p = profile_request(torch, run, kernels["decode_attention"],
-                            walls["greedy"][i])
+                            walls[i])
         n_out = len(p["res"].thinking_ids + p["res"].answer_ids)
         seen, dev_ms = traced(p["rows"], "decode_kernel")
         gate(p, seen, f"hybrid greedy req{i}", "decode_kernel")
         print(f"[profile] hybrid greedy req{i} (fused, {n_out} tokens, "
-              f"{walls['greedy'][i] * 1e3:.1f} ms and "
-              f"{n_out / walls['greedy'][i]:.1f} tok/s unprofiled): "
+              f"{walls[i] * 1e3:.1f} ms and "
+              f"{n_out / walls[i]:.1f} tok/s unprofiled): "
               f"{p['window']}; decode_kernel {seen} launches traced == "
               f"{p['counted']} counted, {dev_ms:.1f} ms; {p['top']}",
               flush=True)
@@ -2837,11 +2900,12 @@ def hybrid_main_phase(torch, serve, tasks, loader, kernels):
 
 
 def card_and_cpu_logits(torch, Engine, model, params, prompt, tokens,
-                        max_len, at):
+                        max_len, at, src=None):
     """The last prefill position's logits of ``prompt`` and the logits
     after feeding ``tokens`` one by one (``decode_one``), at the decode
     steps listed in ``at`` (1-based), on the card and on the CPU from
-    the same parameters: {"cuda": (rows, V), "cpu": (rows, V)} and the
+    the same parameters (a cross-attention model's sessions over the
+    source ``src``): {"cuda": (rows, V), "cpu": (rows, V)} and the
     CPU's seconds."""
     out, cpu_s = {}, 0.0
     for dev in ("cuda", "cpu"):
@@ -2849,7 +2913,7 @@ def card_and_cpu_logits(torch, Engine, model, params, prompt, tokens,
         p = params if dev == "cuda" else tree_map(lambda t: t.cpu(), params)
         eng = Engine(model, p, max_len=max_len)
         with torch.no_grad():
-            s = eng.extend(eng.new_session(), prompt)
+            s = eng.extend(eng.new_session(cross_src=src), prompt)
             rows = [s.last_logits[0]]
             for n, tok in enumerate(tokens, 1):
                 s = eng.decode_one(s, tok)
@@ -3089,7 +3153,9 @@ def paged_tp_kernel_phase(torch, F, ref, minitron):
 
 def draw_params(torch, model, seed, tp):
     """``model``'s parameters drawn on the card from ``seed`` with the
-    port's init rules and scales, a stacked tensor one layer a draw,
+    port's init rules and scales, a stacked tensor (``layers/``,
+    ``cross_layers/``, ``encoder/layers/``) one layer (a vlm model's:
+    one group) a draw,
     keeping rank ``tp.rank``'s slice of each tensor that
     ``models/sharding.py`` slices (``tp`` None: everything whole).  So
     every rank and tp=1 draw the same numbers, and a rank holds no more
@@ -3113,7 +3179,7 @@ def draw_params(torch, model, seed, tp):
             continue
         std = s.scale / math.sqrt(max(s.shape[s.fan_in_axis], 1)) \
             if s.init == "scaled" else s.scale
-        if key.startswith("layers/"):
+        if key.startswith(("layers/", "cross_layers/", "encoder/layers/")):
             for i in range(s.shape[0]):
                 layer = part(torch.randn(s.shape[1:], generator=gen,
                                          device="cuda") * std, key)
@@ -3582,65 +3648,21 @@ def moe_main_phase(torch, serve, tasks, loader, kernels, Model,
     drops = DropMeter(torch, moe)
     rng = random.Random(0)
     reqs = [tasks.sample_task(rng) for _ in range(MOE_REQUESTS)]
-    layers = {"base": cfg.n_layers, "small": small.model.cfg.n_layers}
-    launches = dict.fromkeys(kernels, 0)
-    outputs = {}
-    runs = (("greedy", 0.0, 3, None), ("sampled", 0.6, 3, None),
-            ("greedy eager", 0.0, 1, False), ("sampled eager", 0.6, 1, False))
-    for label, temp, n_req, fused in runs:
-        for k in kernels.values():
-            k.launches = 0
-        want = {"decode_attention": 0, "flash_attention": 0}
-        outputs[label] = []
-        for i in range(n_req):
-            gen = torch.Generator(device="cuda").manual_seed(i)
-            res = serve.run_scheme("specreason", base, small, reqs[i], gen,
-                                   MOE_BUDGET, MOE_THRESHOLD, temp,
-                                   fused=fused)
-            mb, ms_ = res.meters["base"], res.meters["small"]
-            want["flash_attention"] += layers["base"] * mb["prefill_calls"] \
-                + layers["small"] * ms_["prefill_calls"]
-            want["decode_attention"] += layers["base"] * mb["decode_steps"] \
-                + layers["small"] * ms_["decode_steps"]
-            for eng in (base, small):
-                if eng.captures != len(eng._loops):
-                    raise AssertionError(
-                        f"moe {label} req{i}: {eng.name} captured "
-                        f"{eng.captures} graphs for {len(eng._loops)} keys")
-            toks = res.thinking_ids + res.answer_ids
-            outputs[label].append(toks)
-            steps = [s for s in res.steps if s.source == "small"]
-            print(f"[main] moe {label} req{i}: {res.wall_time * 1e3:.1f} ms, "
-                  f"{len(toks)} tokens, {len(toks) / res.wall_time:.1f} "
-                  f"tok/s, {len(res.steps)} steps "
-                  f"({sum(s.accepted for s in steps)} accepted / "
-                  f"{len(steps)} drafted), base {mb['prefill_calls']} "
-                  f"extends / {mb['decode_calls']} decode calls of "
-                  f"{mb['decode_tokens']} tokens in {mb['decode_steps']} "
-                  f"steps", flush=True)
-        got = {k: kernels[k].launches for k in want}
-        if got != want or not all(want.values()) or any(
-                kernels[k].launches for k in kernels if k not in want):
-            now = {k: v.launches for k, v in kernels.items()}
-            raise AssertionError(f"moe {label}: launches {now} != {want} "
-                                 "(others 0)")
-        n, frac = drops.read()
-        print(f"[main] moe {label} (decode loops "
-              f"{'eager' if fused is False else 'fused'}): launches flash "
-              f"{got['flash_attention']}, decode {got['decode_attention']} "
-              f"== n_layers x the metered extends and decode steps; paged "
-              f"0; {n} routings, mean dropped fraction {frac:.4g}",
-              flush=True)
-        for k in want:
-            launches[k] += got[k]
-    for label in ("greedy", "sampled"):
-        if outputs[f"{label} eager"][0] != outputs[label][0]:
-            raise AssertionError(f"moe {label} req0: the eager turn's "
-                                 "tokens differ from the fused turn's")
-    print(f"[main] moe: the eager turn's tokens equal the fused turn's "
-          f"(greedy req0 and sampled req0); base {base.captures} captures "
-          f"for {len(base._loops)} keys, small {small.captures} for "
-          f"{len(small._loops)}", flush=True)
+    nb, ns = cfg.n_layers, small.model.cfg.n_layers
+    results, launches = sequential_turns(
+        torch, serve, base, small, reqs, kernels, "moe",
+        lambda mb, ms_, _: {
+            "flash_attention": nb * mb["prefill_calls"]
+            + ns * ms_["prefill_calls"],
+            "decode_attention": nb * mb["decode_steps"]
+            + ns * ms_["decode_steps"]},
+        f"flash == {nb} x base extends + {ns} x SMALL's prefill calls; "
+        f"decode == {nb} x base decode steps + {ns} x SMALL's",
+        MOE_THRESHOLD, MOE_BUDGET)
+    outputs = [tokens_of(res) for res in results["greedy"]]
+    n, frac = drops.read()
+    print(f"[main] moe sequential: {n} routings over the four runs, mean "
+          f"dropped fraction {frac:.4g}", flush=True)
     lap("main path, moe sequential")
 
     # the serve CLI's continuous path over this pair
@@ -3710,7 +3732,7 @@ def moe_main_phase(torch, serve, tasks, loader, kernels, Model,
           flush=True)
     cont = [r.thinking_ids + r.answer_ids for *_, r in
             reports["greedy"].runs][:3]
-    same = sum(a == b for a, b in zip(cont, outputs["greedy"]))
+    same = sum(a == b for a, b in zip(cont, outputs))
     print(f"[main] moe (information): continuous greedy tokens equal the "
           f"sequential greedy tokens for {same} of 3 requests (a call's "
           "rows share expert capacity, so a drop may differ between the "
@@ -3970,6 +3992,196 @@ def paged_window_main_phase(torch, loader, Model, Engine, BatchEngine,
     return launches
 
 
+def cross_main_phase(torch, serve, tasks, loader, Model, Engine, registry,
+                     SamplingParams, kernels, arch):
+    """``[main] encdec`` (whisper-base) or ``[main] vlm``
+    (llama-3.2-vision-11b): SpecReason with ``arch``'s base at its
+    published widths and depth, drawn on the card from a seed one layer
+    a draw (``draw_params``; 37.7 GiB of fp32 weights for the vlm), the
+    vocabulary cut to 64, and the testbed SMALL drafter.  The vlm gates
+    start at zero in the port's init (tanh(0) = 0 hides every cross
+    layer), so they are drawn here in [0.4, 1.2) from a seed.  Every base
+    session attends to the stub source (``loader.stub_source``: 1500
+    frame embeddings, which it encodes, or 1601
+    patch embeddings).  3 requests greedy and at 0.6, then greedy req0
+    and sampled req0 on the per-token loop, whose tokens must equal the
+    fused turn's.  Per run, #2 must launch n_encoder_layers x the base's
+    encodes + (self + cross layers) x its metered extends + SMALL's
+    layers x its prefill calls, #1 (self + cross layers) x the base's
+    metered decode steps + SMALL's layers x its steps (masked and
+    warm-up steps included), no other kernel; after every request each
+    engine has captured once per loop key, and the base's keys share one
+    pooled K/V pair and one pooled cross pair.  Greedy req0 profiled
+    (the profiler's flash-decode count == the counter).  Then card
+    logits against the CPU's (LOGIT_TOL) over a CROSS_PREFILL-token
+    prompt and CROSS_DECODE greedy decodes: whisper-base at its full
+    depth, the vlm at one group (4 self layers and its cross layer) of
+    the same parameters.  Then the base alone at its published
+    vocabulary, decode-only (``decode_turns``, two fused turns), and its
+    ms a token against the byte bound of its decoder's weights, the
+    K/V it reads and the cross K/V.  Prints the phase's peak memory.
+    Returns the launches."""
+    import dataclasses
+    from repro_torch.models.model import flatten
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = loader.arch_config(arch)
+    family, published = cfg.family, registry.get(arch).vocab_size
+    model = Model(cfg)
+    params = draw_params(torch, model, 0, None)
+    if family == "vlm":
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        for name in ("gate_attn", "gate_mlp"):
+            params["cross_layers"][name] = torch.rand(
+                params["cross_layers"][name].shape, generator=gen,
+                device="cuda") * 0.8 + 0.4
+    src = loader.stub_source(cfg).cuda()
+    base = loader.attach_cross_source(Engine(model, params, name=arch),
+                                      src=src)
+    small = loader.random_engine("testbed-small", "cuda", seed=1)
+    torch.cuda.synchronize()
+    n_self, n_cross, n_enc = (cfg.n_self_layers, cfg.n_cross_layers,
+                              cfg.n_encoder_layers)
+    n_attn = n_self + n_cross
+    shape = (f"{cfg.n_layers} decoder layers and {n_enc} encoder layers"
+             if family == "encdec" else
+             f"{cfg.n_layers} layers ({n_cross} groups of {n_self // n_cross}"
+             f" self layers and a gated cross layer; gates drawn in "
+             f"[0.4, 1.2))")
+    print(f"[main] {family}: {arch} base, {shape}, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, {cfg.act}, "
+          f"{cfg.norm_type}, vocab {cfg.vocab_size} (cut from {published}), "
+          f"{sum(t.numel() for t in leaves(params))} parameters (fp32), "
+          f"drawn on the card in {time.perf_counter() - t0:.1f} s; stub "
+          f"source {src.shape[1]} x {cfg.d_model}; testbed SMALL drafter; "
+          f"threshold {CROSS_THRESHOLD}; decode loops "
+          f"{loader.decode_loops(base, small)}", flush=True)
+    rng = random.Random(0)
+    reqs = [tasks.sample_task(rng) for _ in range(3)]
+    ns = small.model.cfg.n_layers
+    enc = f"{n_enc} x encodes + " if n_enc else ""
+    results, launches = sequential_turns(
+        torch, serve, base, small, reqs, kernels, family,
+        lambda mb, ms_, encodes: {
+            "flash_attention": n_enc * encodes + n_attn * mb["prefill_calls"]
+            + ns * ms_["prefill_calls"],
+            "decode_attention": n_attn * mb["decode_steps"]
+            + ns * ms_["decode_steps"]},
+        f"flash == {enc}({n_self} self + {n_cross} cross) x base extends + "
+        f"{ns} x SMALL's prefill calls; decode == ({n_self} self + "
+        f"{n_cross} cross) x base decode steps + {ns} x SMALL's",
+        CROSS_THRESHOLD)
+    wall = results["greedy"][0].wall_time
+    keys = list(base._loops)
+    pool = base._kv_pool[(1, base.max_len, src.shape[1])]
+    st = pool[0][0]
+    if len(pool) != 1 or {k[:2] for k in keys} != {
+            (st.k.data_ptr(), st.v.data_ptr())} or {k[-3:] for k in keys} \
+            != {(st.cross_k.data_ptr(), st.cross_v.data_ptr(),
+                 st.cross_len.data_ptr())}:
+        raise AssertionError(f"{family}: the base's loop keys do not share "
+                             "one pooled K/V pair and cross pair")
+    print(f"[main] {family}: the base's {len(keys)} loop keys share one "
+          f"pooled K/V pair and one pooled cross pair "
+          f"({mib(2 * st.cross_k.numel() * 4)})", flush=True)
+
+    def run():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        return serve.run_scheme("specreason", base, small, reqs[0], gen,
+                                128, CROSS_THRESHOLD, 0.0)
+    p = profile_request(torch, run, kernels["decode_attention"], wall)
+    n_out = len(p["res"].thinking_ids + p["res"].answer_ids)
+    seen, dev_ms = traced(p["rows"], "decode_kernel")
+    gate(p, seen, f"{family} greedy req0", "decode_kernel")
+    fl_seen, fl_ms = traced(p["rows"], "flash_kernel")
+    print(f"[profile] {family} greedy req0 (fused, {n_out} tokens, "
+          f"{wall * 1e3:.1f} ms and {n_out / wall:.1f} tok/s "
+          f"unprofiled): "
+          f"{p['window']}; decode_kernel {seen} launches traced == "
+          f"{p['counted']} counted, {dev_ms:.1f} ms; flash_kernel "
+          f"{fl_seen} launches, {fl_ms:.1f} ms; {p['top']}", flush=True)
+    del p
+
+    # card against CPU: whisper at full depth, the vlm at one group
+    t1 = time.perf_counter()
+    if family == "vlm":
+        ccfg = dataclasses.replace(cfg, n_layers=cfg.cross_attn_every)
+        cparams = dict(params)
+        for sub in ("layers", "cross_layers"):
+            cparams[sub] = tree_map(lambda t: t[:1], params[sub])
+        depth = f"one group ({ccfg.n_self_layers} self layers and its " \
+            "cross layer)"
+    else:
+        ccfg, cparams, depth = cfg, params, "full depth"
+    cmodel = Model(ccfg)
+    ceng = Engine(cmodel, cparams, name=arch)
+    prompt = torch.randint(0, cfg.vocab_size, (CROSS_PREFILL,),
+                           generator=torch.Generator().manual_seed(7)
+                           ).tolist()
+    s = ceng.extend(ceng.new_session(cross_src=src), prompt)
+    ids, _, _ = ceng.generate(s, CROSS_DECODE, [], SamplingParams(),
+                              torch.Generator(device="cuda"))
+    del s, ceng
+    logits, cpu_s = card_and_cpu_logits(
+        torch, Engine, cmodel, cparams, prompt, ids, CACHE,
+        range(1, CROSS_DECODE + 1), src=src)
+    note = logits_close(torch, f"{arch} {depth}", logits)
+    picks = logits["cuda"][:-1].argmax(-1).tolist()
+    if picks != ids:
+        raise AssertionError(f"{arch}: the card's greedy picks {picks} "
+                             f"differ from the fused loop's tokens {ids}")
+    print(f"[main] {family} check at {depth}: prefill {CROSS_PREFILL}, "
+          f"{CROSS_DECODE} tokens fused == the card's greedy picks; card vs "
+          f"CPU logits over the prefill's last position and "
+          f"{CROSS_DECODE} decodes: {note} (tolerance {LOGIT_TOL}); CPU "
+          f"{cpu_s:.1f} s, {time.perf_counter() - t1:.1f} s in all",
+          flush=True)
+    del logits, cparams
+
+    # the base alone at its published vocabulary, decode-only
+    full, fparams = published_vocab(torch, Model, registry, arch, params)
+    fcfg = full.cfg
+    eng = loader.attach_cross_source(Engine(full, fparams, name=arch),
+                                     src=src)
+    prompt = torch.randint(0, fcfg.vocab_size, (64,),
+                           generator=torch.Generator().manual_seed(4)).tolist()
+    tag = f"{arch} vocab {fcfg.vocab_size}"
+    decode_turns(torch, eng, SamplingParams, f"[fused {family}]", tag,
+                 lambda: eng.extend(eng.new_session(), prompt),
+                 ("fused", "fused"), counter=kernels["decode_attention"],
+                 kernel="decode_kernel")
+    s = eng.extend(eng.new_session(), prompt)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ids, _, _ = eng.generate(s, DECODE_TOKENS, [], SamplingParams(),
+                             torch.Generator(device="cuda"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t2
+    del s
+    # a token reads every decoder weight but the embedding table (one
+    # row of it), its self K/V and the cross K/V
+    weights = sum(t.numel() for k, t in flatten(fparams).items()
+                  if k != "tok_embed" and not k.startswith("encoder/")) \
+        + fcfg.d_model
+    kv = 2 * n_self * fcfg.n_kv_heads * fcfg.resolved_head_dim * (
+        len(prompt) + DECODE_TOKENS // 2)
+    cross = 2 * n_cross * src.shape[1] * fcfg.n_kv_heads * \
+        fcfg.resolved_head_dim
+    nbytes = 4 * (weights + kv + cross)
+    ms_tok = wall / len(ids) * 1e3
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[fused {family}] {tag}: {len(ids)} greedy tokens fused in "
+          f"{wall:.4f} s, {len(ids) / wall:.1f} tok/s, {ms_tok:.3f} ms a "
+          f"token; byte bound {bound_ms:.3f} ms ({nbytes / 1e9:.3f} GB a "
+          f"token: weights {4 * weights / 1e9:.3f} GB, self K/V "
+          f"{4 * kv / 1e6:.1f} MB, cross K/V {4 * cross / 1e6:.1f} MB; "
+          f"{bound_ms / ms_tok:.1%} of it reached); peak memory "
+          f"{mib(torch.cuda.max_memory_allocated())}; "
+          f"{time.perf_counter() - t0:.1f} s in all", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3980,7 +4192,8 @@ def main() -> int:
 
     from repro_torch.checkpoint.checkpoint import load_checkpoint
     from repro_torch.configs import granite_moe_1b, hymba_1_5b, \
-        mamba2_1_3b, minitron_4b, registry, starcoder2_7b, testbed
+        llama_3_2_vision_11b, mamba2_1_3b, minitron_4b, registry, \
+        starcoder2_7b, testbed, whisper_base
     from repro_torch.data import tasks
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.decode_attention import decode_attention
@@ -4027,7 +4240,8 @@ def main() -> int:
     lap("build")
 
     records = kernel_phase(torch, F, ref, decode_attention, flash_attention,
-                           minitron_4b.CONFIG)
+                           minitron_4b.CONFIG, whisper_base.CONFIG,
+                           llama_3_2_vision_11b.CONFIG)
     records["decode_attention"] += window_kernel_phase(
         torch, F, ref, decode_attention, hymba_1_5b.CONFIG,
         starcoder2_7b.CONFIG)
@@ -4139,6 +4353,16 @@ def main() -> int:
                          SamplingParams, arch, kernels)
         torch.cuda.empty_cache()
         lap(f"check, {arch}")
+    for arch in CROSS_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name, n in cross_main_phase(
+                torch, serve, tasks, loader, Model, engine_mod.Engine,
+                registry, SamplingParams, kernels, arch).items():
+            launches[name] = launches.get(name, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap(f"main path, {registry.get(arch).family}")
     launches["flash_attention_bwd"] = train_phase(
         torch, kernels)["flash_attention_bwd"]
     lap("train")

@@ -6,10 +6,15 @@ and SSM state together, by snapshot and replay).  The port's twin of
 the JAX package's ``examples/multiarch_smoke.py``, over the port's
 registry: phi3-mini-3.8b, starcoder2-7b (sliding window) and minitron-4b
 (dense), mamba2-1.3b (ssm), hymba-1.5b (hybrid: windowed attention and a
-mamba2 mixer in each layer) and granite-moe-1b-a400m (moe: a mixture of
-experts in each layer).  The registry refuses the JAX package's other
-architectures (the encdec and vlm families, yi-34b, and
-qwen3-moe-235b-a22b, too large for one card).  Each engine decodes by its default loop (the fused one, for
+mamba2 mixer in each layer), granite-moe-1b-a400m (moe: a mixture of
+experts in each layer), whisper-base (encdec) and llama-3.2-vision-11b
+(vlm).  The two cross-attention bases attend to a stub source attached
+to their sessions (``loader.attach_cross_source``: N(0, 1) x 0.1 from
+seed 7, 64 frame embeddings that the encoder encodes, or 16 patch
+embeddings), as the JAX package's example attaches it; the controller
+is unchanged.  The registry refuses the JAX package's other two
+architectures (yi-34b, and qwen3-moe-235b-a22b, too large for one
+card).  Each engine decodes by its default loop (the fused one, for
 every family), and each line names the base's family, its rollback and
 both engines' loops.
 
@@ -32,7 +37,8 @@ from ..data import tasks
 from ..models.config import ModelConfig
 from ..models.model import Model
 from ..serving.engine import Engine
-from ..serving.loader import arch_config, decode_loops
+from ..serving.loader import arch_config, attach_cross_source, \
+    decode_loops
 from ..tokenizer import toy as tk
 
 SMALL = ModelConfig(name="spec-small", family="dense", n_layers=1,
@@ -52,8 +58,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     for arch in registry.ASSIGNED:
         cfg = arch_config(arch, reduced=True)
         model = Model(cfg)
-        base = Engine(model, model.init(0, device=dev), max_len=256,
-                      name=arch)
+        base = attach_cross_source(Engine(model, model.init(0, device=dev),
+                                          max_len=256, name=arch))
         sr = SpecReason(base, small, SpecReasonConfig(
             policy=StaticThreshold(5.0), token_budget=24, max_steps=3))
         res = sr.run(prompt, torch.Generator(device=dev).manual_seed(11))

@@ -1,10 +1,16 @@
 """GQA self-attention of the dense family: full-sequence, chunked prefill
 into a KV cache, one-token decode, and their batched forms over a paged
-KV store (``extend_rows_attention``, ``decode_rows_attention``).
+KV store (``extend_rows_attention``, ``decode_rows_attention``); the
+encoder's bidirectional self-attention and cross-attention over a
+source (encoder frames, image patches) with its K/V cached once
+(``cross_kv``, ``cross_attention``).
 
 The attention itself goes through ``kernels.ops``: on a CUDA tensor the
 hand-written kernels (``flash_attention`` for full-sequence and prefill,
-``decode_attention`` for decode, ``paged_append_attention`` and
+``decode_attention`` for decode, a non-causal ``flash_attention`` for
+the encoder and for the queries of a forward or prefill over a cross
+source, ``decode_attention`` with constant lengths for one decoded
+token's cross-attention, ``paged_append_attention`` and
 ``paged_decode_attention`` for the batched rows), on a CPU tensor their
 plain versions.  Batched rows under tensor parallelism (a ``PagedRows``
 with a ``tp`` context) run the rank's heads through ``kernels.paged_tp``
@@ -69,6 +75,53 @@ def self_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],
     o = ops.flash_attention(_heads_first(q), _heads_first(k),
                             _heads_first(v), causal=True, window=window)
     return out_proj(_heads_first(o), p)
+
+
+def encoder_self_attention(x: torch.Tensor, p: Dict[str, torch.Tensor]
+                           ) -> torch.Tensor:
+    """Bidirectional self-attention of the encoder (no RoPE, no mask):
+    every frame sees every frame."""
+    q, k, v = qkv(x, p)
+    o = ops.flash_attention(_heads_first(q), _heads_first(k),
+                            _heads_first(v), causal=False)
+    return out_proj(_heads_first(o), p)
+
+
+def cross_kv(src: torch.Tensor, p: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """src (B, S_src, d) -> the cross layer's k and v (B, S_src, K, hd)."""
+    k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+    return k, v
+
+
+def cross_attention(x: torch.Tensor, kv_src: Optional[torch.Tensor],
+                    p: Dict[str, torch.Tensor], cfg: ModelConfig,
+                    cached_kv: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None,
+                    lengths: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Cross-attention of x (B, S, d) to a source: its K/V from
+    ``kv_src`` (B, S_src, d), or ``cached_kv``, the (B, S_src, K, hd)
+    pair ``cross_kv`` made once a session.  No RoPE and no mask: every
+    query sees all S_src keys.  The queries go through a non-causal
+    ``ops.flash_attention`` over the S_src keys; one decoded token
+    (``lengths`` given: (B,) int32, S_src in every row, built with the
+    cached pair) through ``ops.decode_attention``.  Both read the pair
+    through permuted views, as the self-attention caches are read.  The
+    JAX package switches to its blockwise form above 512 x 2048
+    query-key pairs; that computes the same function, and the kernels
+    need no switch."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k, v = cached_kv if cached_kv is not None else cross_kv(kv_src, p)
+    if lengths is not None:
+        o = ops.decode_attention(q[:, 0], _heads_first(k), _heads_first(v),
+                                 lengths)[:, None]
+    else:
+        o = _heads_first(ops.flash_attention(
+            _heads_first(q), _heads_first(k), _heads_first(v),
+            causal=False, kv_len=k.shape[1]))
+    return out_proj(o, p)
 
 
 def prefill_self_attention(x: torch.Tensor, p: Dict[str, torch.Tensor],

@@ -1,4 +1,4 @@
-"""Decode state of the dense, moe, ssm and hybrid families and its
+"""Decode state of every family and its
 rollback rules, and the per-call view of batched rows over a paged KV
 store (``PagedRows``, built on the host by ``paged_rows`` for an extend,
 on the device by ``slot_rows`` for a decode step).
@@ -8,7 +8,15 @@ as (L, B, C, K, hd) like the JAX package's (dense and moe families), or
 the mamba2 states, conv (L, B, W-1, C) and ssm (L, B, H, P, N) (ssm
 family), or both (hybrid family: each layer runs attention and a mamba2
 mixer side by side), and the absolute position (the number of tokens
-already in context) as a host integer.
+already in context) as a host integer.  The cross-attention families
+add the cross K/V, stacked over the cross layers as (Lc, B, S_src, K,
+hd) like the JAX package's (encdec: every decoder layer, over the
+encoded frames; vlm: one a group, over the patch embeddings, its self
+caches then holding ``n_self_layers`` layers), and ``cross_len``, the
+(B,) int32 ``lengths`` of flash-decode over them (S_src in every row),
+made once with the pair.  ``Model.prep_cross`` writes the cross pair
+once a session; nothing after it writes them, so a snapshot, a
+``truncate`` and every later state share them unchanged.
 
 **Caches are written in place.**  JAX arrays are immutable, so there a
 snapshot is the state object itself.  Here ``prefill`` and
@@ -72,6 +80,11 @@ class DecodeState:
     ring: bool = False   # ring-buffer (sliding window) cache
     conv: Optional[torch.Tensor] = None   # (L, B, W-1, C) mamba conv state
     ssm: Optional[torch.Tensor] = None    # (L, B, H, P, N) SSM state
+    # cross-attention K/V (Lc, B, S_src, K, hd) and their decode lengths
+    # (B,) int32, all S_src; None without a cross source
+    cross_k: Optional[torch.Tensor] = None
+    cross_v: Optional[torch.Tensor] = None
+    cross_len: Optional[torch.Tensor] = None
     # held by every state over an engine's pooled caches, so the engine
     # knows when no live state holds them (``Engine.new_session``)
     lease: object = dataclasses.field(default=None, repr=False,
@@ -121,13 +134,14 @@ def make_ssm_state(cfg, batch: int, device, dtype=torch.float32
 
 
 def make_decode_state(cfg, batch: int, capacity: int, device,
-                      dtype=torch.float32, ring: bool = False) -> DecodeState:
-    """A zeroed decode state for a dense, moe, ssm or hybrid ``cfg`` on
-    ``device`` (``capacity`` and ``ring`` are unused for ssm; a hybrid
-    state takes linear caches only, as the module docstring says)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(f"decode state for family {cfg.family!r} "
-                                  "is not ported yet")
+                      dtype=torch.float32, ring: bool = False,
+                      n_cross_src: int = 0) -> DecodeState:
+    """A zeroed decode state for ``cfg`` on ``device`` (``capacity`` and
+    ``ring`` are unused for ssm; a hybrid state takes linear caches
+    only, as the module docstring says).  ``n_cross_src``: the source
+    tokens a cross-attention family attends over (encoder frames, image
+    patches); 0 leaves the cross pair out, as the JAX package's
+    ``make_decode_state`` does."""
     conv = ssm = None
     if cfg.has_ssm:
         conv, ssm = make_ssm_state(cfg, batch, device, dtype)
@@ -136,11 +150,19 @@ def make_decode_state(cfg, batch: int, capacity: int, device,
         if ring:
             raise ValueError("a hybrid state takes linear caches only: a "
                              "snapshot must never see its slots rewritten")
-    shape = (cfg.n_layers, batch, capacity, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    k = torch.zeros(shape, dtype=dtype, device=device)
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    k = torch.zeros((cfg.n_self_layers, batch, capacity, kv, hd),
+                    dtype=dtype, device=device)
+    ck = cv = clen = None
+    if cfg.n_cross_layers and n_cross_src:
+        ck = torch.zeros((cfg.n_cross_layers, batch, n_cross_src, kv, hd),
+                         dtype=dtype, device=device)
+        cv = torch.zeros_like(ck)
+        clen = torch.full((batch,), n_cross_src, dtype=torch.int32,
+                          device=device)
     return DecodeState(k=k, v=torch.zeros_like(k), pos=0, ring=ring,
-                       conv=conv, ssm=ssm)
+                       conv=conv, ssm=ssm, cross_k=ck, cross_v=cv,
+                       cross_len=clen)
 
 
 @dataclasses.dataclass

@@ -174,6 +174,14 @@ class BatchEngine:
                 "position-masked caches; SSM state would be polluted by "
                 "pads.  Serve ssm/hybrid models through the sequential "
                 "Engine.")
+        if cfg.n_cross_layers:
+            raise ValueError(
+                f"BatchEngine does not serve the {cfg.family!r} family: the "
+                "JAX package's BatchEngine builds no cross-attention cache, "
+                "so the continuous path has no reference for it (ROADMAP "
+                "queue 1 item 11).  Serve encdec/vlm models through the "
+                "sequential Engine with a cross source "
+                "(Engine.new_session(cross_src=...)).")
         self.tp = tp
         if tp is not None:
             tp.check_model(cfg)

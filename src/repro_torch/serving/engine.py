@@ -49,6 +49,14 @@ Differences from the JAX package:
     stay O(1).  A hybrid session's K/V pair comes from the engine's pool,
     as a dense session's does, so a hybrid loop is keyed by the pooled
     pair and the static conv/ssm pair, and is captured once.
+  * A cross-attention session (encdec, vlm: ``new_session(cross_src=)``,
+    where the JAX package's also takes ``n_cross_src``; here it is the
+    source's length) takes its cross K/V pair, and the pair's decode
+    lengths, from the pool with its K/V pair, keyed by (batch,
+    capacity, n_cross_src); ``Model.prep_cross`` writes the source's
+    K/V into it (after ``Model.encode`` for encdec).  Nothing writes it
+    after that, so snapshots and rollbacks share it, and one capture of
+    the fused loop serves every request.
   * ``generate_eager`` is the JAX package's: one decode call, one host
     sync and one sample per token, metered per token.
   * Sampling draws from a ``torch.Generator`` (``sampling/sample.py``).
@@ -140,7 +148,7 @@ class _FusedLoop:
     """The static buffers of one capture key and, on the card, the graph
     that reads and writes them."""
     # the KV caches (no lease) and/or the engine's static conv/ssm pair,
-    # pos a view of ctl
+    # and a cross-attention session's cross pair, pos a view of ctl
     state: DecodeState
     sp: SamplingParams
     k: int                 # one-token steps a body
@@ -180,15 +188,17 @@ class Engine:
         self.exact_lengths = model.cfg.has_ssm
         self.fused = True if fused is None else fused
         self.meter = Meter()
-        # (batch, capacity) -> [(state over a KV pair, weakref to the
-        # lease of the states that hold it)]
-        self._kv_pool: Dict[Tuple[int, int], list] = {}
+        # (batch, capacity, n_cross_src) -> [(state over a KV pair and
+        # a cross pair of n_cross_src source tokens, weakref to the lease
+        # of the states that hold it)]
+        self._kv_pool: Dict[Tuple[int, int, int], list] = {}
         self._loops: Dict[tuple, _FusedLoop] = {}
         # batch -> the static conv/ssm pair of an ssm or hybrid engine's
         # fused loops
         self._ssm_static: Dict[int, DecodeState] = {}
         self._graph_gen: Optional[torch.Generator] = None
         self.captures = 0          # CUDA graphs captured
+        self.encodes = 0           # cross sources encoded (encdec)
         self.capture_time = 0.0    # seconds spent capturing them
 
     def _sync(self) -> None:
@@ -196,20 +206,28 @@ class Engine:
             torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------ api
-    def new_session(self, batch: int = 1,
-                    capacity: Optional[int] = None) -> Session:
+    def new_session(self, batch: int = 1, capacity: Optional[int] = None,
+                    cross_src: Optional[torch.Tensor] = None) -> Session:
         """An empty context.  A dense or hybrid engine hands out a KV pair
         of this (batch, capacity) again, zeroed, once no live state holds
         it, so a fused loop's graph keyed by the pair's addresses is
         replayed across requests; it allocates a pair only while every
         pooled one is held.  SSM state (ssm and hybrid) is allocated
-        anew for every session."""
+        anew for every session.
+
+        A cross-attention model (encdec, vlm) attends to ``cross_src``,
+        (batch, n_cross_src, d): precomputed frame embeddings, which it
+        encodes first (``Model.encode``), or image patch embeddings.
+        ``Model.prep_cross`` writes their K/V into the cross pair pooled
+        with the KV pair; without a source the session has no cross
+        pair, and the model's prefill refuses it."""
         cfg = self.model.cfg
         cap = capacity or self.max_len
+        n_cross_src = 0 if cross_src is None else cross_src.shape[1]
         if cfg.family == "ssm":
             return Session(self.model.init_state(batch, cap, self.device),
                            None, 0)
-        pairs = self._kv_pool.setdefault((batch, cap), [])
+        pairs = self._kv_pool.setdefault((batch, cap, n_cross_src), [])
         lease = _Lease()
         for n, (st, held) in enumerate(pairs):
             if held() is None:
@@ -218,7 +236,8 @@ class Engine:
                 pairs[n] = (st, weakref.ref(lease))
                 break
         else:
-            st = self.model.init_state(batch, cap, self.device)
+            st = self.model.init_state(batch, cap, self.device,
+                                       n_cross_src=n_cross_src)
             st = dataclasses.replace(st, conv=None, ssm=None)
             pairs.append((st, weakref.ref(lease)))
         st = dataclasses.replace(st, lease=lease)
@@ -226,6 +245,12 @@ class Engine:
             conv, ssm = make_ssm_state(cfg, batch, self.device,
                                        st.k.dtype)
             st = dataclasses.replace(st, conv=conv, ssm=ssm)
+        if cross_src is not None:
+            src = cross_src.to(self.device, st.k.dtype)
+            if cfg.family == "encdec":
+                src = self.model.encode(self.params, src)
+                self.encodes += 1
+            st = self.model.prep_cross(self.params, st, src)
         return Session(st, None, 0)
 
     def _bucket(self, n: int) -> int:
@@ -417,10 +442,12 @@ class Engine:
         includes the state's: the KV pair's, which ``new_session`` hands
         out again, and the engine's static conv/ssm pair of this batch
         size (a new ssm or hybrid session allocates new conv/ssm
-        tensors).  Key entries 0 and 1 are the KV pair's addresses, or
-        an ssm engine's static pair's; a hybrid key ends with its static
-        pair's."""
-        st = DecodeState(state.k, state.v, pos=0)
+        tensors), and the pooled cross pair's and its lengths'.  Key
+        entries 0 and 1 are the KV pair's addresses, or an ssm engine's
+        static pair's; a hybrid key ends with its static pair's, a
+        cross-attention key with its cross pair's and lengths'."""
+        st = DecodeState(state.k, state.v, pos=0, cross_k=state.cross_k,
+                         cross_v=state.cross_v, cross_len=state.cross_len)
         if state.ssm is not None:
             batch = state.ssm.shape[1]
             if batch not in self._ssm_static:
@@ -430,7 +457,8 @@ class Engine:
                                                       conv=conv, ssm=ssm)
             static = self._ssm_static[batch]
             st = dataclasses.replace(st, conv=static.conv, ssm=static.ssm)
-        bufs = [t for t in (st.k, st.v, st.conv, st.ssm) if t is not None]
+        bufs = [t for t in (st.k, st.v, st.conv, st.ssm, st.cross_k,
+                            st.cross_v, st.cross_len) if t is not None]
         key = (bufs[0].data_ptr(), bufs[1].data_ptr(), bufs[1].shape, sp,
                collect_probs, buf, n_slots, k) + tuple(
                    t.data_ptr() for t in bufs[2:])

@@ -10,14 +10,18 @@ machinery without training.  ``random_engine`` draws a registry
 architecture's weights from a seed, for driving the machinery at an
 architecture's published widths.  Engines take ``Engine``'s decode-loop
 default: the fused loop, for every family (dense, windowed or not, moe,
-ssm and hybrid).
+ssm, hybrid, encdec and vlm).  ``attach_cross_source`` gives a
+cross-attention engine (encdec, vlm) the stub source its front end
+would make, as the JAX package's ``examples/multiarch_smoke.py`` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Tuple
+from typing import Optional, Tuple
+
+import torch
 
 from .. import device as devices
 from ..checkpoint.checkpoint import load_checkpoint, save_checkpoint
@@ -99,3 +103,48 @@ def decode_loops(*engines: Engine) -> str:
     line: "name fused, name eager"."""
     return ", ".join(f"{e.name} {'fused' if e.fused else 'eager'}"
                      for e in engines)
+
+
+def cross_src_len(cfg: ModelConfig) -> int:
+    """The source tokens a cross-attention ``cfg`` attends over (encoder
+    frames, image patches); 0 for the other families."""
+    if cfg.family == "encdec":
+        return cfg.encoder_seq_len
+    if cfg.family == "vlm":
+        return cfg.n_image_tokens
+    return 0
+
+
+# the stub front end's seed, the JAX package's examples/multiarch_smoke.py's
+STUB_SEED = 7
+
+
+def stub_source(cfg: ModelConfig) -> Optional[torch.Tensor]:
+    """The stub front end's output for a cross-attention ``cfg``: N(0, 1)
+    x 0.1 of shape (1, ``cross_src_len(cfg)``, d_model), drawn on the
+    CPU from STUB_SEED (the same on every device); None for the other
+    families."""
+    n = cross_src_len(cfg)
+    if not n:
+        return None
+    gen = torch.Generator().manual_seed(STUB_SEED)
+    return torch.randn((1, n, cfg.d_model), generator=gen) * 0.1
+
+
+def attach_cross_source(engine: Engine,
+                        src: Optional[torch.Tensor] = None) -> Engine:
+    """Make every session of a cross-attention ``engine`` attend to
+    ``src`` (default ``stub_source(cfg)``): its ``new_session`` passes
+    the source on, so the controller and the schemes drive it
+    unchanged.  Other families' engines are returned as they are."""
+    if src is None:
+        src = stub_source(engine.model.cfg)
+    if src is None:
+        return engine
+    src = src.to(engine.device)
+    orig = engine.new_session
+
+    def new_session(batch: int = 1, capacity: Optional[int] = None):
+        return orig(batch, capacity, cross_src=src)
+    engine.new_session = new_session
+    return engine

@@ -7,9 +7,9 @@ backward kernel (``kernels/flash_attention_bwd.py``, through
 ``ops.flash_attention``); on the CPU both are the plain versions.  A moe
 model adds the JAX package's router aux loss (``models.moe.aux_loss``)
 and its metrics; its experts' gradient is autograd of their torch
-products.  The vlm and encdec families are not ported (ROADMAP queue 1
-item 7): ``Model`` refuses them and so does ``loss_fn``; the hybrid
-family does not train yet (queue 2 J).
+products.  The vlm and encdec families serve but do not train yet
+(ROADMAP queue 1 item 10): ``loss_fn`` refuses them; the hybrid family
+does not train yet either (queue 2 J).
 """
 
 from __future__ import annotations
@@ -54,8 +54,10 @@ def loss_fn(model: Model, params: Params, batch: Batch
             "attention backward (2b) takes no sliding window")
     if family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
-            f"training the {family!r} family is not ported yet "
-            "(ROADMAP queue 1 item 7: vlm, encdec)")
+            f"training the {family!r} family is not ported yet (ROADMAP "
+            "queue 1 item 10: on the card its non-causal encoder and "
+            "cross-attention need a backward kernel, and 2b takes causal "
+            "attention from position 0 only)")
     logits, aux = model.forward_aux(params, batch["tokens"])
     loss = cross_entropy(logits, batch["targets"], batch["weights"])
     metrics = {"ce_loss": loss.detach()}

@@ -2,8 +2,9 @@
 (#3 and #4 also with a sliding window), the wrappers' refusals, and the
 model and engine on CUDA against the CPU (the sequential engine, the
 batched paged path, an ssm model whose extends go through the SSD scan
-kernel, and the moe family: its layer, its fused loop, its coupled
-rows); the fused decode loops' CUDA
+kernel, the moe family: its layer, its fused loop, its coupled
+rows, and the encdec and vlm families over their cached cross K/V);
+the fused decode loops' CUDA
 graphs (the sequential engine's, dense and ssm, and the batched rows')
 against the per-token loops on the card; the attention backward kernel
 against its plain version, and training gradients on the card against
@@ -50,7 +51,8 @@ from repro_torch.models.model import Model, flatten, unflatten
 from repro_torch.sampling.sample import SamplingParams
 from repro_torch.serving.batch_engine import BatchEngine
 from repro_torch.serving.engine import Engine
-from repro_torch.serving.loader import arch_config
+from repro_torch.serving.loader import arch_config, \
+    attach_cross_source, stub_source
 from repro_torch.training import loss as tloss
 from repro_torch.training.train_loop import TrainConfig, train
 
@@ -91,6 +93,8 @@ def _randn(gen, *shape, dtype=torch.float32):
     (2, 12, 4, 800, 96, [800, 13]),        # hd 96
     (40, 8, 8, 512, 32, [512, 1, 300, 0] * 10),  # 320 blocks: no split
     (8, 24, 8, 4096, 128, [4096, 4000, 1, 0, 4095, 2048, 33, 3000]),
+    (1, 8, 8, 1500, 64, [1500]),           # whisper-base's cross K/V
+    (1, 32, 8, 1601, 128, [1601]),         # llama-3.2-vision's cross K/V
 ])
 def test_decode_kernel_matches_plain(dev, dtype, b, h, kh, cap, hd, lens):
     gen = torch.Generator(device=dev).manual_seed(cap + hd)
@@ -131,6 +135,10 @@ def test_decode_kernel_matches_plain(dev, dtype, b, h, kh, cap, hd, lens):
     (6, 2, 64, 50, 1000, 900, 1000, False, 0),   # not causal, split keys
     (24, 8, 128, 256, 2048, 1792, 2048, True, 0),  # minitron-4b chunk
     (24, 8, 128, 2048, 2048, 0, 2048, True, 0),    # minitron-4b prompt
+    (8, 8, 64, 1500, 1500, 0, 1500, False, 0),     # whisper-base encoder
+    (8, 8, 64, 64, 1500, 0, 1500, False, 0),       # its cross prefill
+    (32, 8, 128, 64, 1601, 0, 1601, False, 0),     # llama-3.2-vision's
+    (32, 8, 128, 1500, 1601, 0, 1601, False, 0),   # tails on both axes
 ])
 def test_flash_kernel_matches_plain(dev, dtype, h, kh, hd, s, cap, off,
                                     kv_len, causal, window):
@@ -689,7 +697,94 @@ def test_hybrid_fused_graphs_match_eager_on_card(dev, temperature):
     assert caps == len(eng._loops) == 2
     del fs
     _two_calls(eng, True, temperature)
-    assert eng.captures == caps and len(eng._kv_pool[(1, 96)]) == 1
+    assert eng.captures == caps and len(eng._kv_pool[(1, 96, 0)]) == 1
+
+
+def _cross_engine(dev, arch):
+    """An engine over ``arch``'s reduced config (vocabulary 64), the vlm
+    gates drawn nonzero (they start at zero), its sessions attached to
+    the stub source."""
+    model = Model(arch_config(arch, reduced=True))
+    params = model.init(5, device="cpu")
+    if model.cfg.family == "vlm":
+        gen = torch.Generator().manual_seed(6)
+        for gate in ("gate_attn", "gate_mlp"):
+            params["cross_layers"][gate] = torch.rand(
+                params["cross_layers"][gate].shape, generator=gen) + 0.4
+    params = unflatten({k: t.to(dev) for k, t in flatten(params).items()})
+    return attach_cross_source(Engine(model, params, max_len=96))
+
+
+CROSS_ARCHS = ["whisper-base", "llama-3.2-vision-11b"]
+
+
+@pytest.mark.parametrize("arch", CROSS_ARCHS)
+def test_cross_model_on_card_matches_cpu(dev, arch):
+    """The reduced encdec and vlm models: a 21-token prefill, a 7-token
+    extend and 12 decodes over the cached cross K/V, card logits against
+    the CPU's; #2 launches once an encoder layer an encode and once a
+    self and a cross layer an extend, #1 once a self and a cross layer a
+    decode."""
+    eng = _cross_engine(dev, arch)
+    m, cfg = eng.model, eng.model.cfg
+    n_self, n_cross = cfg.n_self_layers, cfg.n_cross_layers
+    src = stub_source(cfg)
+    toks = torch.randint(0, 64, (1, 40), generator=torch.Generator()
+                         .manual_seed(1))
+    out = {}
+    for d in ("cuda", "cpu"):
+        p = eng.params if d == "cuda" else \
+            unflatten({k: t.cpu() for k, t in flatten(eng.params).items()})
+        counts = (flash_attention.launches, decode_attention.launches)
+        st = m.init_state(1, 64, device=d, n_cross_src=src.shape[1])
+        x = src.to(d)
+        if cfg.family == "encdec":
+            x = m.encode(p, x)
+        st = m.prep_cross(p, st, x)
+        a, st = m.prefill(p, toks[:, :21].to(d), st)
+        b, st = m.prefill(p, toks[:, 21:28].to(d), st)
+        rows = [a[0], b[0]]
+        for t in range(28, 40):
+            c, st = m.decode_step(p, st, toks[:, t:t + 1].to(d))
+            rows.append(c)
+        out[d] = (torch.cat(rows).cpu(), st.cross_k.cpu())
+        if d == "cuda":
+            torch.cuda.synchronize()
+            assert (flash_attention.launches - counts[0],
+                    decode_attention.launches - counts[1]) == \
+                (cfg.n_encoder_layers + 2 * (n_self + n_cross),
+                 12 * (n_self + n_cross))
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=LOGIT_TOL,
+                               rtol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("arch", CROSS_ARCHS)
+@pytest.mark.parametrize("temperature", [0.0, 0.6])
+def test_cross_fused_graphs_match_eager_on_card(dev, arch, temperature):
+    """The reduced encdec and vlm engines: the replayed graphs give the
+    per-token loop's tokens and logits, leave the cross K/V as they
+    were, and a second request captures nothing (its KV and cross pair
+    come from the pool)."""
+    eng = _cross_engine(dev, arch)
+    assert eng.fused
+    eo, es, enext = _two_calls(eng, False, temperature)
+    want = (es.pos, es.last_logits, es.state.cross_k.clone())
+    del es          # frees its pooled pairs for the fused calls
+    fo, fs, fnext = _two_calls(eng, True, temperature)
+    assert [i for i, _ in fo] == [i for i, _ in eo]
+    assert fs.pos == want[0]
+    torch.testing.assert_close(fs.last_logits, want[1], rtol=2e-4,
+                               atol=2e-4)
+    assert torch.equal(fs.state.cross_k, want[2])
+    torch.testing.assert_close(fnext, enext, rtol=0, atol=0)
+    caps = eng.captures
+    assert caps == len(eng._loops) == 2
+    del fs
+    _two_calls(eng, True, temperature)
+    key = (1, 96, eng.model.cfg.encoder_seq_len
+           if eng.model.cfg.family == "encdec"
+           else eng.model.cfg.n_image_tokens)
+    assert eng.captures == caps and len(eng._kv_pool[key]) == 1
 
 
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}

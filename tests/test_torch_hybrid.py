@@ -96,15 +96,15 @@ def _prompt(n=11, seed=0):
 
 def test_registry_has_the_new_archs():
     """``get`` gives the JAX package's configs of the three new archs
-    (and of granite-moe, ported since), the others still raise naming
-    their family, and the port's reduced hymba is the JAX package's
-    field for field."""
+    (and of granite-moe, whisper-base and llama-3.2-vision-11b, ported
+    since), the others still raise naming their family, and the port's
+    reduced hymba is the JAX package's field for field."""
     for arch in ("hymba-1.5b", "phi3-mini-3.8b", "starcoder2-7b",
-                 "granite-moe-1b-a400m"):
+                 "granite-moe-1b-a400m", "whisper-base",
+                 "llama-3.2-vision-11b"):
         assert dataclasses.asdict(registry.get(arch)) == \
             dataclasses.asdict(jregistry.get(arch))
-    for arch in ("yi-34b", "qwen3-moe-235b-a22b", "whisper-base",
-                 "llama-3.2-vision-11b"):
+    for arch in ("yi-34b", "qwen3-moe-235b-a22b"):
         family = jregistry.get(arch).family
         with pytest.raises(KeyError, match=f"{family} family"):
             registry.get(arch)

@@ -44,7 +44,9 @@ def test_every_module_imports_without_jax_or_repro():
            "repro_torch.kernels.paged_tp", "repro_torch.models.sharding",
            "repro_torch.serving.tp", "repro_torch.launch.mesh",
            "repro_torch.models.moe", "repro_torch.configs.granite_moe_1b",
-           "repro_torch.configs.qwen3_moe_235b"} <= set(mods)
+           "repro_torch.configs.qwen3_moe_235b",
+           "repro_torch.configs.whisper_base",
+           "repro_torch.configs.llama_3_2_vision_11b"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -26,6 +26,7 @@ from repro_torch.checkpoint import checkpoint as tckpt
 from repro_torch.configs import testbed
 from repro_torch.models import layers as tlayers
 from repro_torch.models.model import Model as TModel, flatten
+from repro_torch.serving.batch_engine import BatchEngine
 
 LAYER_TOL = dict(rtol=2e-5, atol=2e-5)
 LOGIT_TOL = dict(rtol=5e-5, atol=5e-5)
@@ -119,12 +120,21 @@ def test_load_checkpoint_checks_keys_and_shapes(tmp_path):
 
 
 def test_other_families_raise():
-    """The encdec and vlm families raise; the moe family builds (its
-    parity with the JAX package is tests/test_torch_moe.py's)."""
+    """The encdec and vlm families build, with the JAX package's
+    parameter keys and shapes, and the batched engine refuses them (the
+    JAX package's builds no cross cache); the moe family builds.  Their
+    parity with the JAX package is tests/test_torch_crossattn.py's and
+    tests/test_torch_moe.py's."""
     for over in (dict(family="encdec", n_encoder_layers=1),
                  dict(family="vlm", cross_attn_every=2)):
-        with pytest.raises(NotImplementedError, match=over["family"]):
-            TModel(dataclasses.replace(testbed.MICRO, **over))
+        tm = TModel(dataclasses.replace(testbed.MICRO, **over))
+        jm = JModel(dataclasses.replace(jtestbed.MICRO, **over))
+        want = jckpt._flatten(jm.init(jax.random.PRNGKey(0)))
+        assert {k: s.shape for k, s in tm.spec().items()} == \
+            {k: tuple(a.shape) for k, a in want.items()}
+        with pytest.raises(ValueError, match=over["family"]):
+            BatchEngine(tm, tm.init(0, device="cpu"), batch=2,
+                        capacity=64)
     moe = TModel(dataclasses.replace(testbed.MICRO, family="moe",
                                      n_experts=4, top_k=2))
     assert "layers/moe/w_gate" in moe.spec() and \

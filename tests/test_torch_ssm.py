@@ -436,18 +436,29 @@ def test_hierarchical_ssm_self_draft_accepts_and_replays(self_pairs):
 # ---------------------------------------------------------------------------
 
 def test_registry_refuses_unported_archs():
+    """The registry serves every JAX arch but the two too large for one
+    card in fp32; the cross-attention archs' configs, full and reduced,
+    are the JAX package's field for field, and the batched engine
+    refuses them (the JAX package's has no cross cache)."""
     assert set(registry.ASSIGNED) == {"minitron-4b", "mamba2-1.3b",
                                       "phi3-mini-3.8b", "hymba-1.5b",
                                       "starcoder2-7b",
-                                      "granite-moe-1b-a400m"}
+                                      "granite-moe-1b-a400m",
+                                      "whisper-base",
+                                      "llama-3.2-vision-11b"}
     assert dataclasses.asdict(registry.get(ARCH)) == \
         dataclasses.asdict(jregistry.get(ARCH))
     for arch in ("qwen3-moe-235b-a22b", "yi-34b"):
         with pytest.raises(KeyError, match="not ported"):
             registry.get(arch)
-    with pytest.raises(NotImplementedError, match="encdec"):
-        Model(dataclasses.replace(registry.reduced(ARCH), family="encdec",
-                                  n_encoder_layers=1))
+    for arch in ("whisper-base", "llama-3.2-vision-11b"):
+        for get in ("get", "reduced"):
+            assert dataclasses.asdict(getattr(registry, get)(arch)) == \
+                dataclasses.asdict(getattr(jregistry, get)(arch))
+        model = Model(registry.reduced(arch))
+        with pytest.raises(ValueError, match=model.cfg.family):
+            BatchEngine(model, model.init(0, device="cpu"), batch=2,
+                        capacity=64)
 
 
 def test_random_engine_and_multiarch_on_cpu(capsys):
