@@ -107,7 +107,22 @@ from the root of a checkout.  Phases, each printing its lines:
    on at most those with it off less the hit tokens; a hit's last logits
    against a cold prefill's (LOGIT_TOL); hit rate, prefill tokens saved,
    TTFT, tok/s and evictions on against off, and as information whether
-   the greedy tokens agree.  ``[main] tp``: exact tensor parallelism
+   the greedy tokens agree.  ``[main] overload``, on the same pair: 12
+   tasks over 4 rows, greedy, spec decode at gamma 4, the prefix cache
+   on, three fresh schedulers: unloaded; overloaded (Poisson arrivals at
+   twice the unloaded req/s, the first at 0, deadlines of 3x its median
+   latency, an unmeetable TPOT SLO, priority shedding over a queue of 6,
+   the degradation ladder, ``FaultPlan.random(seed=7)`` over the
+   unloaded run's ticks with 0.05 s stalls and a NaN in request 0's row
+   at tick 1, the per-tick audit, an annotating tracer and the metrics);
+   traced.  Every request terminal with a known error code, no audit
+   violation, a row fault injected, quarantined and retried, the stall
+   fired, a retried request ok, ok tokens the unloaded run's, the
+   ladder off L0, the captures on keys
+   the unloaded run lacked at most the rungs visited, #3 / #4 launches
+   == n_layers x the metered calls, the trace's scheduler, engine and
+   request tracks, the metrics' TTFT count; the traced run's tokens,
+   Meter counts and captures the unloaded run's.  ``[main] tp``: exact tensor parallelism
    (``serve``'s continuous scheduler with a ``TPContext``) at
    minitron-4b's widths and TP_DEPTH layers with the SMALL drafter, two
    rank processes sharing the card over gloo (``serving.tp.run_ranks``;
@@ -141,7 +156,11 @@ from the root of a checkout.  Phases, each printing its lines:
    n_layers x their extend calls, the dense kernels must not launch, the
    pressured greedy run must give the unpressured greedy tokens, and
    both cache-on samples of each request its cache-off greedy tokens,
-   with cache hits.
+   with cache hits.  Then the CLI with ``--spec-decode --inject-faults
+   7:3 --audit --deadline 30 --slo-tpot 0.5 --shed-policy priority
+   --degrade --trace --metrics-out``: every request terminal, its
+   ``[resilience]`` line with ``audit_violations=0``, the same launch
+   check, a trace and metrics that parse.
    For information, how many requests' continuous greedy tokens equal
    the sequential path's on the card (batch-size-dependent GEMMs may
    move a logit by an ulp).  Then ``[fused rows]`` on the testbed pair:
@@ -264,6 +283,8 @@ call's last unprofiled turn.  A trace that lost its end (fewer than all
 pads after the window) is taken again, at most TRACE_TRIES times.
 """
 
+import collections
+import dataclasses
 import gc
 import json
 import math
@@ -356,6 +377,27 @@ DECODE_TOKENS = 128
 PREFIX_TASKS = 2
 PREFIX_N = 4
 PREFIX_PRESSURE_MB = 40
+# [main] overload at minitron-4b (the same pair): OVERLOAD_TASKS tasks
+# over 4 rows at ROWS_BUDGET with spec decode (gamma 4) and the prefix
+# cache, three runs: unloaded, overloaded (Poisson arrivals at twice the
+# unloaded req/s, the first at 0, deadlines of OVERLOAD_DEADLINE_X x its
+# median latency, an unmeetable TPOT SLO, priority shedding over
+# OVERLOAD_MAX_QUEUE, the ladder, FaultPlan.random(seed OVERLOAD_SEED)
+# over the ticks the unloaded run took (at most the CLI's FAULT_MAX_TICK)
+# with stalls of OVERLOAD_STALL_S, plus a NaN in request 0's base row at
+# tick 1, the audit, the tracer and metrics), traced; the phase's lap
+# budget in seconds, enforced
+OVERLOAD_TASKS = 12
+OVERLOAD_SEED = 7
+OVERLOAD_FAULTS = 4
+OVERLOAD_DEADLINE_X = 3.0
+OVERLOAD_SLO_TPOT_S = 1e-6
+OVERLOAD_MAX_QUEUE = 6
+OVERLOAD_STALL_S = 0.05
+OVERLOAD_LAP_S = 45.0
+# the terminal error codes of the JAX package's failure model
+ERROR_CODES = ("deadline", "shed_infeasible", "shed_overload", "nan_logits",
+               "engine_error")
 # [main] tp: minitron-4b (vocabulary 64, TP_DEPTH of its 32 layers) with
 # the SMALL drafter at tp=TP_SIZE, the rank processes sharing the card
 # over gloo, against tp=1 in this process: TP_REQUESTS greedy requests
@@ -1505,7 +1547,64 @@ def continuous_phase(torch, serve, kernels, ckpt):
     same = sum(a == b for a, b in zip(spec, plain))
     print(f"[main] continuous (information): spec-decode greedy tokens equal"
           f" plain greedy for {same} of {len(spec)} requests", flush=True)
+    for name, n in resilience_cli_check(serve, kernels, argv).items():
+        launches[name] += n
     return launches, reports["greedy"]
+
+
+def resilience_cli_check(serve, kernels, argv):
+    """The serve CLI with the overload and fault flags on the testbed
+    pair (spec decode, the prefix cache on): ``--inject-faults 7:3
+    --audit --deadline 30 --slo-tpot 0.5 --shed-policy priority
+    --degrade --trace --metrics-out`` must run through, print a
+    ``[resilience]`` line with ``audit_violations=0``, leave every
+    request terminal, launch #3 and #4 n_layers x the metered calls and
+    write a trace and metrics that parse.  Returns its paged launches."""
+    import contextlib
+    import io
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        prom = os.path.join(tmp, "metrics.prom")
+        for k in kernels.values():
+            k.launches = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            report = serve.main(argv + [
+                "--temperature", "0", "--spec-decode", "--gamma", "4",
+                "--inject-faults", "7:3", "--audit", "--deadline", "30",
+                "--slo-tpot", "0.5", "--shed-policy", "priority",
+                "--degrade", "--trace", trace, "--metrics-out", prom])
+        text = out.getvalue()
+        got = {n: k.launches for n, k in kernels.items()}
+        sched = report.sched
+        want = (sum(be.model.cfg.n_layers * be.meter.decode_steps
+                    for be in (sched.base_be, sched.small_be)),
+                sum(be.model.cfg.n_layers * be.meter.prefill_calls
+                    for be in (sched.base_be, sched.small_be)))
+        line = next((ln for ln in text.splitlines()
+                     if ln.startswith("[resilience]")), "")
+        doc = json.load(open(trace))
+        samples = parse_prometheus(open(prom).read())
+        if "audit_violations=0" not in line \
+                or not all(h.terminal for h in report.handles) \
+                or (got["paged_decode_attention"],
+                    got["paged_append_attention"]) != want \
+                or "scheduler" not in trace_tracks(doc) \
+                or "specreason_ticks_total" not in samples:
+            raise AssertionError(f"continuous resilience CLI: {line!r}, "
+                                 f"launches {got} against {want}\n{text}")
+    print(f"[main] continuous resilience CLI (--inject-faults 7:3 --audit "
+          f"--deadline 30 --slo-tpot 0.5 --shed-policy priority --degrade "
+          f"--trace --metrics-out): {line}; statuses "
+          f"{dict(collections.Counter(h.status for h in report.handles))}; "
+          f"trace {len(doc['traceEvents'])} events, metrics "
+          f"{len(samples)} samples; launches paged decode "
+          f"{got['paged_decode_attention']}, paged append "
+          f"{got['paged_append_attention']} == n_layers x metered "
+          "steps/extends", flush=True)
+    return {n: got[n] for n in ("paged_decode_attention",
+                                "paged_append_attention")}
 
 
 def batch_invariance_phase(torch, serve, tasks, Model, load_checkpoint,
@@ -2237,6 +2336,286 @@ def prefix_phase(torch, serve, kernels, base, small):
     return launches
 
 
+def parse_prometheus(text):
+    """{sample name with labels: value} of a Prometheus text exposition;
+    raises on a line that is neither a comment nor ``name value``."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, value = line.rsplit(" ", 1)
+        out[name] = float(value)
+    return out
+
+
+def trace_tracks(doc):
+    """The track names of a Chrome trace (its thread_name metadata)."""
+    return {e["args"]["name"] for e in doc["traceEvents"]
+            if e.get("ph") == "M" and e.get("name") == "thread_name"}
+
+
+def overload_phase(torch, tasks, kernels, base, small):
+    """[main] overload: the overload and fault plane on the continuous
+    path at minitron-4b's widths (the pair ``fused_dense_phase``
+    loaded): OVERLOAD_TASKS tasks, greedy, budget ROWS_BUDGET, 4 rows,
+    spec decode at gamma 4, the prefix cache on, one fresh scheduler a
+    run.  (a) unloaded: all arrivals at 0, no resilience, no tracer; its
+    tokens and its req/s R.  (b) overloaded: Poisson arrivals at 2R from
+    OVERLOAD_SEED, shifted so that the first comes at 0 (tick 1 then
+    has work, as (a)'s has), deadlines of OVERLOAD_DEADLINE_X x (a)'s
+    median latency, an unmeetable TPOT SLO (the ladder must step down),
+    priority shedding (priorities from the seed) over a queue of
+    OVERLOAD_MAX_QUEUE, the ladder, ``FaultPlan.random(seed=
+    OVERLOAD_SEED)`` over ticks 1 to min((a)'s ticks, FAULT_MAX_TICK)
+    with stalls of OVERLOAD_STALL_S, plus a NaN written into request
+    0's base row at tick 1 (whether the seeded row faults find their
+    targets in flight depends on the wall clock; this one always does),
+    the audit, an annotating tracer and the metrics.  It must hold:
+    every request terminal, each non-ok one with an error code of
+    ERROR_CODES; no audit violation; a NaN or raise fault injected, a
+    quarantine and a retry, the stall fired, and a retried request ok;
+    each ok request's tokens (a)'s; the ladder left L0;
+    the captures on keys (a)'s engines did not capture (the captures
+    past the warm-up that (a) is) at most the rungs visited; #3 and #4
+    launches == n_layers x the metered decode steps and extends; the
+    Chrome trace loads as JSON with the ``scheduler`` track, each
+    engine's and each request's; the metrics text parses and its TTFT
+    count is the ok requests'.  (c) traced: (a) with the tracer and
+    metrics on; tokens, Meter counts and captures (a)'s; its wall
+    against (a)'s for information.  The phase's lap must stay within
+    OVERLOAD_LAP_S.  Returns the paged launches of the three runs."""
+    from repro_torch.core.controller import SpecReason, SpecReasonConfig
+    from repro_torch.core.policies import StaticThreshold
+    from repro_torch.launch.serve import FAULT_MAX_TICK
+    from repro_torch.serving.faults import Fault, FaultInjector, FaultPlan
+    from repro_torch.serving.kv_manager import KVBudget, KVManager
+    from repro_torch.serving.resilience import (TERMINAL_STATUSES,
+                                                ResilienceConfig)
+    from repro_torch.sampling.sample import SamplingParams
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    from repro_torch.serving.telemetry import ServingMetrics, Tracer
+    from repro_torch.serving.workload import (percentile, poisson_arrivals,
+                                              run_workload, summarize)
+    t_phase = time.perf_counter()
+    rng = random.Random(OVERLOAD_SEED)
+    reqs = [tasks.sample_task(rng) for _ in range(OVERLOAD_TASKS)]
+    n_req = len(reqs)
+
+    def make(**plane):
+        cfg = SpecReasonConfig(policy=StaticThreshold(THRESHOLD),
+                               token_budget=ROWS_BUDGET,
+                               sampling=SamplingParams(0.0),
+                               use_spec_decode=True, spec_gamma=4,
+                               fused_decode=True)
+        kv = KVManager(base.model.cfg, small.model.cfg,
+                       KVBudget(total_bytes=DENSE_KV_MB << 20))
+        return ContinuousScheduler(
+            SpecReason(base, small, cfg), kv, max_batch=4,
+            context_capacity=min(base.max_len, ROWS_BUDGET + 64), **plane)
+
+    def gens():
+        return [torch.Generator(device="cuda").manual_seed(i)
+                for i in range(n_req)]
+
+    def run(label, sched, arrivals, opts=None):
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handles = run_workload(sched, list(zip(reqs, gens())), arrivals,
+                               opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {n: k.launches for n, k in kernels.items()}
+        engines = (sched.base_be, sched.small_be)
+        want_decode = sum(be.model.cfg.n_layers * be.meter.decode_steps
+                          for be in engines)
+        want_append = sum(be.model.cfg.n_layers * be.meter.prefill_calls
+                          for be in engines)
+        if (got["paged_decode_attention"], got["paged_append_attention"]) \
+                != (want_decode, want_append) or not want_decode \
+                or got["decode_attention"] or got["flash_attention"] \
+                or got["ssd_scan"]:
+            raise AssertionError(
+                f"overload {label}: launches {got} != paged decode "
+                f"{want_decode}, paged append {want_append}, dense and "
+                "SSD 0")
+        return handles, wall, got
+
+    def tokens(h):
+        return h.result.thinking_ids + h.result.answer_ids
+
+    def meters(sched):
+        keep = ("prefill_tokens", "prefill_calls", "decode_tokens",
+                "decode_calls", "decode_steps", "spec_rounds",
+                "spec_proposed", "spec_accepted")
+        return [{k: be.meter.as_dict()[k] for k in keep}
+                for be in (sched.base_be, sched.small_be)]
+
+    def keys(sched):
+        return [set(be._loops) for be in (sched.base_be, sched.small_be)]
+
+    launches = {"paged_decode_attention": 0, "paged_append_attention": 0}
+
+    def count(got):
+        for name in launches:
+            launches[name] += got[name]
+
+    # (a) unloaded
+    sa = make()
+    ha, wall_a, got = run("unloaded", sa, [0.0] * n_req)
+    count(got)
+    if any(h.status != "ok" for h in ha):
+        raise AssertionError("overload unloaded: a request did not finish")
+    st_a = summarize(ha, wall_a)
+    rate = n_req / wall_a
+    median = percentile(sorted(h.e2e_latency for h in ha), 0.5)
+    print(f"[main] overload (a) unloaded: {n_req} requests, wall "
+          f"{wall_a:.4f} s, {rate:.3f} req/s, {st_a['tok_s']} tok/s, "
+          f"latency p50 {median:.4f} s p95 {st_a['p95_latency_s']} s, "
+          f"ticks {sa.ticks}, captures "
+          f"{[be.captures for be in (sa.base_be, sa.small_be)]}; launches "
+          f"paged decode {got['paged_decode_attention']}, paged append "
+          f"{got['paged_append_attention']} == n_layers x metered "
+          "steps/extends", flush=True)
+
+    # (b) overloaded
+    prng = random.Random(OVERLOAD_SEED)
+    arrivals = poisson_arrivals(n_req, 2 * rate, prng)
+    arrivals = [t - arrivals[0] for t in arrivals]
+    deadline = OVERLOAD_DEADLINE_X * median
+    opts = [{"deadline_s": deadline, "priority": prng.randrange(3)}
+            for _ in range(n_req)]
+    plan = FaultPlan.random(seed=OVERLOAD_SEED, n_faults=OVERLOAD_FAULTS,
+                            n_requests=n_req,
+                            max_tick=min(sa.ticks, FAULT_MAX_TICK))
+    plan = FaultPlan([Fault(tick=1, kind="nan_logits", target=0,
+                            which="base")]
+                     + [dataclasses.replace(f, stall_s=OVERLOAD_STALL_S)
+                        if f.kind == "stall" else f for f in plan.faults])
+    injector = FaultInjector(plan)
+    tracer, metrics = Tracer(annotate=True), ServingMetrics()
+    # two retries: the seeded plan may hit request 0 again after tick 1
+    sb = make(resilience=ResilienceConfig(
+        slo_tpot_s=OVERLOAD_SLO_TPOT_S, shed_policy="priority",
+        max_queue=OVERLOAD_MAX_QUEUE, degrade=True, max_retries=2),
+        faults=injector, audit=True, tracer=tracer, metrics=metrics)
+    hb, wall_b, got = run("overloaded", sb, arrivals, opts)
+    count(got)
+    kinds = collections.Counter(h.status for h in hb)
+    bad = [(i, h.status, h.error) for i, h in enumerate(hb)
+           if h.status not in TERMINAL_STATUSES
+           or (h.status != "ok" and (h.error is None
+                                     or h.error.code not in ERROR_CODES))]
+    if bad:
+        raise AssertionError(f"overload (b): requests not terminal or "
+                             f"without a known error code: {bad}")
+    rs = sb.resilience_stats()
+    if rs["audit_violations"]:
+        raise AssertionError(f"overload (b): audit violations {rs}")
+    fired = rs["faults"]["injected"]
+    retried_ok = [i for i, h in enumerate(hb)
+                  if h.retries and h.status == "ok"]
+    if fired["nan_logits"] + fired["raise"] < 1 or not fired["stall"] \
+            or rs["stalled_ticks"] < 1 or rs["quarantines"] < 1 \
+            or rs["retries"] < 1 or not retried_ok:
+        raise AssertionError(
+            f"overload (b): want a NaN or raise fault injected, a "
+            f"quarantine, a retry, the stall and a retried request ok; "
+            f"faults {rs['faults']}, quarantines {rs['quarantines']}, "
+            f"retries {rs['retries']}, stalled ticks "
+            f"{rs['stalled_ticks']}, retried and ok {retried_ok}")
+    wrong = [i for i, (x, y) in enumerate(zip(hb, ha))
+             if x.status == "ok" and tokens(x) != tokens(y)]
+    if wrong:
+        raise AssertionError(f"overload (b): ok requests {wrong} differ "
+                             "from the unloaded run's tokens")
+    trans = sb.res.transitions
+    if not trans:
+        raise AssertionError("overload (b): the ladder never left L0")
+    doc = json.loads(json.dumps(tracer.chrome_trace()))
+    tracks = trace_tracks(doc)
+    want_tracks = {"scheduler"} | {f"engine:{be.name}" for be in
+                                   (sb.base_be, sb.small_be)} \
+        | {f"req:{h.request_id}" for h in hb}
+    if not want_tracks <= tracks:
+        raise AssertionError(f"overload (b): trace lacks tracks "
+                             f"{sorted(want_tracks - tracks)}")
+    rungs = collections.Counter(
+        e["args"]["level"] for e in doc["traceEvents"]
+        if e.get("ph") == "X" and e["name"] == "tick"
+        and e.get("args", {}).get("tick") is not None)
+    new_keys = sum(len(kb - ka) for kb, ka in zip(keys(sb), keys(sa)))
+    caps_b = [be.captures for be in (sb.base_be, sb.small_be)]
+    if new_keys > len(rungs):
+        raise AssertionError(
+            f"overload (b): {new_keys} captures on keys the unloaded run "
+            f"did not capture, more than the {len(rungs)} rungs visited")
+    samples = parse_prometheus(metrics.render())
+    n_ok = kinds.get("ok", 0)
+    if samples["specreason_ttft_seconds_count"] != n_ok:
+        raise AssertionError(
+            f"overload (b): TTFT count "
+            f"{samples['specreason_ttft_seconds_count']} != {n_ok} ok")
+    st_b = summarize(hb, wall_b, slo_tpot_s=OVERLOAD_SLO_TPOT_S)
+    st_dl = summarize(hb, wall_b)
+    print(f"[main] overload (b) overloaded: {n_req} Poisson arrivals at "
+          f"{2 * rate:.3f} req/s (seed {OVERLOAD_SEED}), deadline "
+          f"{deadline:.4f} s, TPOT SLO {OVERLOAD_SLO_TPOT_S:g} s, "
+          f"priorities {[o['priority'] for o in opts]}, max_queue "
+          f"{OVERLOAD_MAX_QUEUE}; plan "
+          + ", ".join(f"{f.kind}@{f.tick}"
+                      + (f"->req{f.target}" if f.target is not None
+                         else f"x{f.duration}")
+                      for f in plan.faults)
+          + f"; statuses {dict(kinds)}, codes "
+          f"{dict(collections.Counter(h.error.code for h in hb if h.error))}"
+          f"; goodput {st_b['goodput_req_s']} req/s against the SLO "
+          f"(slo_met {st_b['slo_met']}), {st_dl['goodput_req_s']} req/s "
+          f"against the deadlines alone; retries {rs['retries']}, "
+          f"quarantines {rs['quarantines']}, retried and ok "
+          f"{['req%d' % i for i in retried_ok]}, stalled ticks "
+          f"{rs['stalled_ticks']}, preemptions {rs['preemptions']}, "
+          f"audit violations {rs['audit_violations']}; faults "
+          f"{rs['faults']['injected']} ({rs['faults']['skipped']} "
+          f"skipped); wall {wall_b:.4f} s, ticks {sb.ticks}", flush=True)
+    print(f"[main] overload (b) ladder: rungs visited (level: ticks) "
+          f"{dict(sorted(rungs.items()))}; " + "; ".join(trans)
+          + f"; captures {caps_b}, {new_keys} on keys the unloaded run "
+          f"did not capture (<= {len(rungs)} rungs); ok tokens equal the "
+          f"unloaded run's ({n_ok} requests); trace {len(doc['traceEvents'])}"
+          f" events over {len(tracks)} tracks ({tracer.dropped} dropped), "
+          f"metrics {len(samples)} samples, TTFT count {n_ok}; launches "
+          f"paged decode {got['paged_decode_attention']}, paged append "
+          f"{got['paged_append_attention']} == n_layers x metered "
+          "steps/extends", flush=True)
+
+    # (c) traced
+    sc = make(tracer=Tracer(), metrics=ServingMetrics())
+    hc, wall_c, got = run("traced", sc, [0.0] * n_req)
+    count(got)
+    if [tokens(h) for h in hc] != [tokens(h) for h in ha] \
+            or meters(sc) != meters(sa) or keys(sc) != keys(sa) \
+            or [be.captures for be in (sc.base_be, sc.small_be)] != \
+            [be.captures for be in (sa.base_be, sa.small_be)]:
+        raise AssertionError("overload (c): the traced run's tokens, Meter "
+                             "counts or captures differ from the "
+                             "unloaded run's")
+    lap_s = time.perf_counter() - t_phase
+    print(f"[main] overload (c) traced: tokens, Meter counts and captures "
+          f"equal (a)'s; wall {wall_c:.4f} s against (a)'s {wall_a:.4f} s "
+          f"(information; {nvidia_smi()}); trace "
+          f"{len(sc.tracer.entries())} entries; lap {lap_s:.1f} s "
+          f"(budget {OVERLOAD_LAP_S:g} s)", flush=True)
+    if lap_s > OVERLOAD_LAP_S:
+        raise AssertionError(f"overload: lap {lap_s:.1f} s over its budget "
+                             f"of {OVERLOAD_LAP_S:g} s")
+    del sa, sb, sc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def decode_rows_phase(torch, BatchEngine, SamplingParams, paged_kernel,
                       model, params, tag):
     """A decode-only call of the batched engine at ``model``'s vocabulary:
@@ -2516,8 +2895,9 @@ def fused_dense_phase(torch, serve, tasks, loader, registry,
     from a seed): from a 64-token prompt, ``decode_turns`` in turns
     TURNS, with flash-decode launches == n_layers x decode steps and one
     greedy call profiled each way (the profiler's flash-decode launches
-    against the wrapper's).  ``prefix_phase`` runs on the same pair
-    after the ``[fused rows]`` turns; returns its paged launches."""
+    against the wrapper's).  ``prefix_phase`` and then
+    ``overload_phase`` run on the same pair after the ``[fused rows]``
+    turns; returns their paged launches."""
     decode_kernel = kernels["decode_attention"]
     paged_kernel = kernels["paged_decode_attention"]
     t0 = time.perf_counter()
@@ -2542,6 +2922,10 @@ def fused_dense_phase(torch, serve, tasks, loader, registry,
     lap(f"fused rows, {DENSE_ARCH}")
     prefix_launches = prefix_phase(torch, serve, kernels, base, small)
     lap(f"prefix, {DENSE_ARCH}")
+    for name, n in overload_phase(torch, tasks, kernels, base,
+                                  small).items():
+        prefix_launches[name] += n
+    lap(f"overload, {DENSE_ARCH}")
 
     full, params = published_vocab(torch, Model, registry, DENSE_ARCH,
                                    base.params)
@@ -3243,7 +3627,7 @@ def tp_rank(tp):
     for w in wrappers.values():
         w.launches = 0
     if tp is not None:
-        tp.gathers, tp.gather_s = 0, 0.0
+        tp.gathers, tp.gather_s, tp.broadcasts = 0, 0.0, 0
     t0 = time.perf_counter()
     handles = run_workload(sched, pairs, [0.0] * TP_REQUESTS)
     torch.cuda.synchronize(dev)
@@ -3260,11 +3644,13 @@ def tp_rank(tp):
         tokens=[h.result.thinking_ids + h.result.answer_ids
                 for h in handles],
         statuses=[h.status for h in handles], wall=wall, init_s=init_s,
+        ticks=sched.ticks,
         tok=sum(len(h.result.thinking_ids) + len(h.result.answer_ids)
                 for h in handles))
     if tp is not None:
         out.update(gathers=tp.gathers, gather_s=tp.gather_s,
-                   backend=tp.backend, devices=list(tp.devices))
+                   broadcasts=tp.broadcasts, backend=tp.backend,
+                   devices=list(tp.devices))
     be = BatchEngine(model, base.params, batch=1, capacity=CACHE,
                      fused=False, tp=tp)
     prompt = torch.randint(0, model.cfg.vocab_size, (TP_PROMPT,),
@@ -3348,6 +3734,11 @@ def tp_phase(torch, lap):
                                  f"{want_heads} on the per-token loop")
         if any(st != "ok" for st in out["statuses"]):
             raise AssertionError(f"tp rank {r}: {out['statuses']}")
+        if out["broadcasts"] > out["ticks"] + 1:
+            raise AssertionError(
+                f"tp rank {r}: {out['broadcasts']} broadcasts over "
+                f"{out['ticks']} ticks; want the arrivals' alone (one a "
+                "workload turn, ticks + 1)")
         if out["peak"] >= out["whole_bytes"]:
             raise AssertionError(f"tp rank {r}: peak {out['peak']} bytes "
                                  f">= the whole model's {out['whole_bytes']}")
@@ -3366,7 +3757,10 @@ def tp_phase(torch, lap):
               f"{m['small']['heads'][1]}; {out['gathers']} gathers in "
               f"{out['gather_s']:.3f} s ({out['gather_s'] / forwards * 1e3:.3f}"
               f" ms of exchange a forward, {forwards} forwards, "
-              f"{2 * base['layers']} gathers a base forward); peak "
+              f"{2 * base['layers']} gathers a base forward); "
+              f"{out['broadcasts']} broadcasts over {out['ticks']} ticks "
+              "(the arrivals', one a workload turn: no deadline and no SLO, "
+              "so no sweep broadcast); peak "
               f"{out['peak'] / 2 ** 30:.2f} GiB (its shard "
               f"{out['param_bytes'] / 2 ** 30:.2f} GiB, the whole model "
               f"{out['whole_bytes'] / 2 ** 30:.2f} GiB); init "

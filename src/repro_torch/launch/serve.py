@@ -40,11 +40,30 @@ else sharing the card (gloo), or on the CPU; every rank loads the pair
 on the host and puts its shard on its device, and rank 0 prints the
 same lines as ``--tp 1`` plus a ``[tp]`` line.  Under ``--tp`` the rows run the per-token loop
 (``--decode-loop eager``, the default there; ``fused`` is refused).
-The reference's ``--deadline``, ``--slo-tpot``, ``--shed-policy``,
-``--degrade``, ``--inject-faults``, ``--audit``, ``--trace``,
-``--metrics-out``, ``--admin-port``, ``--snapshot-every`` and
-``--xla-profile-dir`` are accepted and raise ``NotImplementedError``
-naming their ROADMAP item.
+
+Overload and faults (continuous scheduler, as the JAX CLI):
+``--deadline S`` gives every request a wall-clock deadline (expired
+requests are cancelled queued or mid-flight, status ``timeout``),
+``--slo-tpot S`` a per-output-token SLO (the overload controller's
+strain signal and the goodput count), ``--shed-policy priority`` sheds
+queued requests that cannot meet their deadline or overflow the queue,
+``--degrade`` turns on the degradation ladder (gamma halved, spec
+decode off, a smaller prefill budget, no cache insertion, stepping
+back up with hysteresis), ``--inject-faults SEED[:N]`` runs N seeded
+faults (default 4: NaN logits, a raised engine call, pool exhaustion,
+stalled ticks; faulted requests are quarantined and retried once
+without speculation) and ``--audit`` reconciles the pools' refcounts
+every tick.  The ``[resilience]`` line and each request's ``status=``
+report the outcome.  ``--trace OUT.json`` records the per-request and
+per-tick span timeline and the engines' call brackets into a ring of
+``--trace-buffer`` events and writes it as Chrome trace-event JSON;
+``--metrics-out OUT.prom`` writes the Prometheus-style exposition.
+Both are written atomically after the run, also when it fails or is
+interrupted with Ctrl-C.
+The reference's ``--admin-port``, ``--admin-linger``,
+``--snapshot-every``, ``--monitor-window`` and ``--xla-profile-dir``
+are accepted and raise ``NotImplementedError``: ROADMAP queue 1, item 6
+(monitors, admin and device plane).
 """
 
 from __future__ import annotations
@@ -66,10 +85,13 @@ from ..data import tasks
 from ..data.evaluate import is_correct
 from ..sampling.sample import SamplingParams
 from ..serving.engine import Engine
+from ..serving.faults import FaultInjector, FaultPlan
 from ..serving.kv_manager import KVBudget, KVManager
 from ..serving.loader import (decode_loops, ensure_testbed,
                               load_testbed_engines)
-from ..serving.scheduler import ContinuousScheduler
+from ..serving.resilience import ResilienceConfig
+from ..serving.scheduler import LIVE_PLANE_ITEM, ContinuousScheduler
+from ..serving.telemetry import ServingMetrics, Tracer, atomic_write
 from ..serving.tp import TPContext, run_ranks
 from ..serving.workload import (expand_best_of_n, majority_vote,
                                 poisson_arrivals, run_workload, summarize)
@@ -77,22 +99,16 @@ from ..tokenizer import toy as tk
 
 SCHEMES = ("base", "small", "specdecode", "specreason", "specreason+decode")
 
-# the reference CLI's flags this slice leaves out, with the ROADMAP item
-# that brings each (queue 1)
+# the reference CLI's flags this slice leaves out: the live plane
 NOT_PORTED = {
-    "deadline": ("--deadline", "item 6 (resilience)"),
-    "slo_tpot": ("--slo-tpot", "item 6 (resilience)"),
-    "shed_policy": ("--shed-policy", "item 6 (resilience)"),
-    "degrade": ("--degrade", "item 6 (resilience)"),
-    "inject_faults": ("--inject-faults", "item 6 (faults and audits)"),
-    "audit": ("--audit", "item 6 (faults and audits)"),
-    "trace": ("--trace", "item 6 (observability)"),
-    "metrics_out": ("--metrics-out", "item 6 (observability)"),
-    "admin_port": ("--admin-port", "item 6 (observability)"),
-    "snapshot_every": ("--snapshot-every", "item 6 (observability)"),
-    "xla_profile_dir": ("--xla-profile-dir", "item 6 (compile and device "
-                        "plane)"),
+    "admin_port": "--admin-port",
+    "admin_linger": "--admin-linger",
+    "snapshot_every": "--snapshot-every",
+    "monitor_window": "--monitor-window",
+    "xla_profile_dir": "--xla-profile-dir",
 }
+# seeded fault plans target ticks 1..8, as the JAX CLI's
+FAULT_MAX_TICK = 8
 
 
 def run_scheme(scheme: str, base: Engine, small: Engine, task,
@@ -183,6 +199,14 @@ def continuous_scheduler(args, base: Engine, small: Engine,
     ctrl = SpecReason(base, small, cfg)
     kv = KVManager(base.model.cfg, small.model.cfg,
                    KVBudget(total_bytes=int(args.kv_budget_mb * (1 << 20))))
+    lead = tp is None or tp.rank == 0
+    injector = None
+    if args.inject_faults:
+        seed, _, nf = args.inject_faults.partition(":")
+        injector = FaultInjector(FaultPlan.random(
+            seed=int(seed), n_faults=int(nf) if nf else 4,
+            n_requests=args.num_requests * args.num_samples,
+            max_tick=FAULT_MAX_TICK))
     return ContinuousScheduler(
         ctrl, kv, max_batch=args.batch,
         context_capacity=min(base.max_len, args.budget + 64),
@@ -190,12 +214,29 @@ def continuous_scheduler(args, base: Engine, small: Engine,
         chunked_prefill=args.chunked_prefill,
         max_prefill_tokens=args.max_prefill_tokens,
         on_event=(lambda e: print(f"[sched] {e}"))
-        if args.verbose and (tp is None or tp.rank == 0) else None,
+        if args.verbose and lead else None,
+        resilience=ResilienceConfig(slo_tpot_s=args.slo_tpot,
+                                    shed_policy=args.shed_policy,
+                                    degrade=args.degrade),
+        faults=injector, audit=args.audit,
+        # rank 0 records and writes the artifacts
+        tracer=Tracer(buffer=args.trace_buffer)
+        if args.trace and lead else None,
+        metrics=ServingMetrics() if args.metrics_out and lead else None,
         seed=args.seed, tp=tp)
 
 
 def _quiet(*_, **__) -> None:
     """The print of a rank other than 0."""
+
+
+def flush_artifacts(args, sched: ContinuousScheduler) -> None:
+    """Write the ``--trace`` and ``--metrics-out`` artifacts (atomic
+    renames: a reader never sees a truncated file)."""
+    if sched.tracer is not None:
+        sched.tracer.export(args.trace)
+    if sched.metrics is not None:
+        atomic_write(args.metrics_out, sched.metrics.render())
 
 
 def serve_continuous(args, base: Engine, small: Engine, reqs,
@@ -218,14 +259,35 @@ def serve_continuous(args, base: Engine, small: Engine, reqs,
         # best-of-N: every prompt becomes N sampled reasoning chains whose
         # prefills share one set of cached blocks
         pairs = expand_best_of_n(pairs, args.num_samples)
+    # per-request submit options: the deadline, and the best-of-N group
+    # (the shed policy prefers a sibling whose group keeps survivors)
+    opts = [{"deadline_s": args.deadline,
+             "group": f"task{i // args.num_samples}"
+             if args.num_samples > 1 else None}
+            for i in range(len(pairs))]
     arrivals = poisson_arrivals(len(pairs), args.arrival_rate, rng)
-    t0 = time.perf_counter()
-    handles = run_workload(sched, pairs, arrivals)
-    wall = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        handles = run_workload(sched, pairs, arrivals, opts=opts)
+        wall = time.perf_counter() - t0
+    finally:
+        # the artifacts land also when the run fails or is interrupted
+        # (Ctrl-C)
+        flush_artifacts(args, sched)
+        if sched.tracer is not None:
+            say(f"[trace] {args.trace}: {len(sched.tracer.entries())} "
+                f"events ({sched.tracer.dropped} dropped)", flush=True)
+        if sched.metrics is not None:
+            say(f"[metrics] {args.metrics_out}", flush=True)
     tag = "hierspec" if args.spec_decode else "continuous"
     report = ServeReport(base, small, [], args.decode_loop, sched, handles)
     for i, h in enumerate(handles):
         res = h.result
+        if res is None:
+            # timed out, shed or failed: no output to grade
+            say(f"[{tag}] req{i}: --- status={h.status} ({h.error})",
+                flush=True)
+            continue
         ok = is_correct(h.task, res.answer_ids)
         report.runs.append((tag, i, h.task, res))
         say(f"[{tag}] req{i}: {'OK ' if ok else 'BAD'} "
@@ -236,9 +298,10 @@ def serve_continuous(args, base: Engine, small: Engine, reqs,
         if args.meters:
             for name, m in res.meters.items():
                 say(_meter_line(name, m))
-    stats = summarize(handles, wall)
+    stats = summarize(handles, wall, slo_tpot_s=args.slo_tpot)
+    graded = [h for h in handles if h.result is not None]
     accuracy = sum(is_correct(h.task, h.result.answer_ids)
-                   for h in handles) / max(len(handles), 1)
+                   for h in graded) / max(len(graded), 1)
     if args.vote:
         report.votes = majority_vote(handles, args.num_samples)
         for i, v in enumerate(report.votes):
@@ -281,6 +344,18 @@ def serve_continuous(args, base: Engine, small: Engine, reqs,
             f"prefill stall "
             f"mean={stats.get('mean_prefill_stall_s', 0.0):.3f}s "
             f"p95={stats.get('p95_prefill_stall_s', 0.0):.3f}s")
+    rs = sched.resilience_stats()
+    say(f"[resilience] goodput={stats['goodput_req_s']:.3f} req/s "
+        f"(slo_met={stats['slo_met']}/{len(handles)}) | "
+        f"timeout={rs['timeouts']} shed={rs['shed']} "
+        f"failed={rs['failed']} | quarantines={rs['quarantines']} "
+        f"retries={rs['retries']} stalled_ticks={rs['stalled_ticks']} | "
+        f"degrade_level={rs['level']} pressure={rs['pressure']:.2f} "
+        f"audit_violations={rs['audit_violations']}", flush=True)
+    stats.update({f"resilience_{k}": v for k, v in rs.items()
+                  if k in ("timeouts", "shed", "failed", "quarantines",
+                           "retries", "stalled_ticks", "level",
+                           "audit_violations")})
     say(json.dumps(stats), flush=True)
     report.stats = stats
     return report
@@ -389,24 +464,56 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--verbose", action="store_true",
                     help="log admission / chunk-progress / preemption "
                          "events (continuous scheduler)")
-    # the reference's flags that are not ported: accepted, then refused
-    ap.add_argument("--deadline", type=float, default=None)
-    ap.add_argument("--slo-tpot", type=float, default=None)
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="continuous scheduler: per-request deadline in "
+                         "seconds from submission; a request still "
+                         "unfinished is cancelled with status 'timeout' "
+                         "and its KV pages reclaimed")
+    ap.add_argument("--slo-tpot", type=float, default=None,
+                    help="per-output-token latency SLO in seconds: the "
+                         "overload controller's strain signal and the "
+                         "goodput count")
     ap.add_argument("--shed-policy", choices=("none", "priority"),
-                    default="none")
-    ap.add_argument("--degrade", action="store_true")
-    ap.add_argument("--inject-faults", default=None, metavar="SEED[:N]")
-    ap.add_argument("--audit", action="store_true")
-    ap.add_argument("--trace", default=None, metavar="OUT.json")
-    ap.add_argument("--metrics-out", default=None, metavar="OUT.prom")
+                    default="none",
+                    help="'priority' sheds queued requests that cannot "
+                         "meet their deadline or overflow the queue "
+                         "(lowest priority first, best-of-N siblings with "
+                         "surviving group members preferred)")
+    ap.add_argument("--degrade", action="store_true",
+                    help="the degradation ladder: under sustained pressure "
+                         "gamma halved -> token-level spec off -> smaller "
+                         "prefill chunks -> no cache insertion, and back "
+                         "up with hysteresis")
+    ap.add_argument("--inject-faults", default=None, metavar="SEED[:N]",
+                    help="inject N (default 4) seeded faults (NaN logits, "
+                         "a raised engine call, pool exhaustion, stalled "
+                         "ticks); faulted requests are quarantined and "
+                         "retried once without speculation")
+    ap.add_argument("--audit", action="store_true",
+                    help="reconcile the pools' refcounts, the block tables "
+                         "and the radix caches every tick; a violation "
+                         "raises")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="continuous scheduler: record the per-request / "
+                         "per-tick span timeline and write it as Chrome "
+                         "trace-event JSON")
+    ap.add_argument("--metrics-out", default=None, metavar="OUT.prom",
+                    help="continuous scheduler: write the Prometheus-style "
+                         "exposition of the serving metrics")
+    ap.add_argument("--trace-buffer", type=int, default=65536,
+                    help="tracer ring capacity in events (the oldest are "
+                         "dropped beyond it)")
+    # the reference's live-plane flags: accepted, then refused
     ap.add_argument("--admin-port", type=int, default=None)
+    ap.add_argument("--admin-linger", type=float, default=0.0)
     ap.add_argument("--snapshot-every", type=float, default=None)
+    ap.add_argument("--monitor-window", type=int, default=64)
     ap.add_argument("--xla-profile-dir", default=None)
     args = ap.parse_args(argv)
-    for dest, (flag, item) in NOT_PORTED.items():
+    for dest, flag in NOT_PORTED.items():
         if getattr(args, dest) != ap.get_default(dest):
             raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP queue 1, {item})")
+                f"{flag} is not ported yet ({LIVE_PLANE_ITEM})")
     if args.tp < 1:
         ap.error("--tp must be >= 1")
     if args.tp > 1 and args.scheduler != "continuous":
@@ -435,6 +542,18 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         ap.error("--vote needs --num-samples >= 2")
     if args.max_prefill_tokens < 1:
         ap.error("--max-prefill-tokens must be >= 1")
+    if args.trace_buffer < 1:
+        ap.error("--trace-buffer must be >= 1")
+    continuous_only = [f for f, on in (
+        ("--deadline", args.deadline is not None),
+        ("--slo-tpot", args.slo_tpot is not None),
+        ("--shed-policy", args.shed_policy != "none"),
+        ("--degrade", args.degrade), ("--inject-faults", args.inject_faults),
+        ("--audit", args.audit), ("--trace", args.trace),
+        ("--metrics-out", args.metrics_out)) if on]
+    if continuous_only and args.scheduler != "continuous":
+        ap.error(f"{', '.join(continuous_only)} ride on the continuous "
+                 "scheduler; add --scheduler continuous")
     return args
 
 

@@ -81,6 +81,21 @@ Differences from the JAX package:
     per-token loop: a gloo collective cannot be captured in a CUDA
     graph, so the fused loop raises under tp.
 
+  * Telemetry (``tracer``, a ``serving.telemetry.Tracer``): every
+    engine call is bracketed on the tracer's ``engine:<name>`` track as
+    the JAX package brackets its dispatches -- ``prefill`` / ``extend``
+    / ``decode`` / ``feed`` spans with ``.dispatch`` (host: staging and
+    the launches) and ``.block_until_ready`` (the wait on the card)
+    sub-spans, and a ``cache_seed`` span when a row adopts cached pages
+    (zero-copy: nothing is launched).  A fused rows call is one
+    ``decode`` bracket around its graph replays, never one a step.
+    With ``tracer.annotate`` the call also runs inside
+    ``torch.profiler.record_function("<engine>.<op>")``.  Recording
+    adds no sync, no launch and no draw from a generator.
+  * ``rows_finite`` / ``finite_mask``: the scheduler's health scan reads
+    whether rows' ``last_logits`` are finite with one device reduction
+    (the JAX package reads host rows).
+
 Identity with the sequential engine rests on row-independent
 arithmetic; the port runs the rows of a call as one batch, so a GEMM
 that picks another algorithm for another row count can move a logit by
@@ -89,6 +104,7 @@ an ulp (a hazard ROADMAP section 3 watches).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import Counter
@@ -105,6 +121,7 @@ from . import graph_loop
 from .engine import DEFAULT_BUCKETS, Meter
 from .kv_manager import DEFAULT_BLOCK_SIZE
 from .paged_kv import PagedKVPool, PagedKVStore, PagedSeq, cdiv
+from .telemetry import Tracer, engine_track
 
 
 FUSED_TP = ("the fused rows loop replays its steps as a CUDA graph, and "
@@ -162,11 +179,13 @@ class BatchEngine:
                  capacity: int = 1024,
                  buckets: Sequence[int] = DEFAULT_BUCKETS, name: str = "",
                  pad_id: int = 0, pool: Optional[PagedKVPool] = None,
-                 fused: Optional[bool] = None, tp=None):
+                 fused: Optional[bool] = None, tp=None,
+                 tracer: Optional[Tracer] = None):
         """``fused``: the decode loop of ``generate_rows``, the fused
         one unless False (the per-token one under ``tp``, where True
         raises).  ``tp``: the rank's ``serving.tp.TPContext``; ``params``
-        are then whole, or already the rank's shard."""
+        are then whole, or already the rank's shard.  ``tracer``: the
+        engine-call brackets' recorder (None: off)."""
         cfg = model.cfg
         if cfg.has_ssm:
             raise ValueError(
@@ -201,6 +220,7 @@ class BatchEngine:
         # rows interact through the experts' capacity (module docstring)
         self.coupled = cfg.family == "moe"
         self.meter = Meter()
+        self.tracer = tracer
         self.own_pool = pool is None
         if pool is None:
             pool = PagedKVPool(batch * cdiv(capacity, DEFAULT_BLOCK_SIZE),
@@ -226,10 +246,38 @@ class BatchEngine:
         self._slot_gens: Optional[List[torch.Generator]] = None
         self.captures = 0          # CUDA graphs captured
         self.capture_time = 0.0    # seconds spent capturing them
+        # K and V bytes of one token over every layer (the brackets'
+        # static kv_bytes annotation)
+        self._kv_token_bytes = 2 * cfg.n_layers * self.store.k.shape[2] \
+            * cfg.resolved_head_dim * self.store.k.element_size()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # --------------------------------------------------------- telemetry
+    def _annotate(self, op: str):
+        """``torch.profiler.record_function("<engine>.<op>")`` around an
+        engine call when the tracer asks for profiler alignment, else a
+        null context."""
+        tr = self.tracer
+        if tr is not None and tr.annotate:
+            return torch.profiler.record_function(f"{self.name}.{op}")
+        return contextlib.nullcontext()
+
+    def _bracket(self, op: str, t0: float, td: float, t1: float,
+                 args: dict) -> None:
+        """One engine-call bracket: the parent span ``<op>`` over [t0,
+        t1) and the sub-spans that tile it, ``<op>.dispatch`` over [t0,
+        td) (host: staging and the launches, which return once the work
+        is queued) and ``<op>.block_until_ready`` over [td, t1) (the wait
+        on the card).  The caller guards on ``tracer is not None``."""
+        tr = self.tracer
+        track = engine_track(self.name)
+        tr.span(track, op, t0, t1, args)
+        tr.span(track, f"{op}.dispatch", t0, td, {"side": "host"})
+        tr.span(track, f"{op}.block_until_ready", td, t1,
+                {"side": "device"})
 
     # ------------------------------------------------------------- rows
     def alloc_row(self, seq: Optional[PagedSeq] = None) -> Optional[int]:
@@ -264,9 +312,20 @@ class BatchEngine:
         counterpart of the JAX package's ``load_prefix`` family, which
         copies cached KV into a dense row.  None when all rows are
         live."""
+        t0 = time.perf_counter() if self.tracer is not None else 0.0
         r = self.alloc_row(seq)
         if r is not None:
             self.pos[r] = seq.length
+            if self.tracer is not None and seq.length:
+                # the row reads the cached pages where they are: a
+                # host-side span with nothing launched (the JAX package's
+                # cache_seed is a copy into the dense row)
+                td = time.perf_counter()
+                track = engine_track(self.name)
+                args = {"rows": 1, "tokens": seq.length, "kv_bytes": 0}
+                self.tracer.span(track, "cache_seed", t0, td, args)
+                self.tracer.span(track, "cache_seed.dispatch", t0, td,
+                                 {"side": "host"})
         return r
 
     def free_row(self, row: int) -> None:
@@ -284,6 +343,21 @@ class BatchEngine:
     @property
     def free_rows(self) -> int:
         return len(self._free)
+
+    def finite_mask(self, rows: Sequence[int]) -> torch.Tensor:
+        """Whether each row's ``last_logits`` are all finite, as a bool
+        tensor on the engine's device (nothing read back)."""
+        idx = torch.tensor(list(rows), dtype=torch.long, device=self.device)
+        return torch.isfinite(self.last_logits.index_select(0, idx)).all(-1)
+
+    def rows_finite(self, rows: Sequence[int]) -> List[bool]:
+        """Whether each row's ``last_logits`` are all finite (one
+        reduction, one copy to the host): a NaN/Inf row (a corrupted
+        engine step, or ``serving/faults.py``'s ``nan_logits``) must be
+        quarantined before anything samples from it."""
+        if not rows:
+            return []
+        return self.finite_mask(rows).tolist()
 
     def snapshot_row(self, row: int) -> RowSnapshot:
         return RowSnapshot(int(self.pos[row]),
@@ -385,11 +459,12 @@ class BatchEngine:
     # ------------------------------------------------------------ extend
     def extend_rows(self, rows: Sequence[int],
                     token_lists: Sequence[Sequence[int]],
-                    want_logits: bool = False
+                    want_logits: bool = False, op: str = "extend"
                     ) -> Optional[List[torch.Tensor]]:
         """Length-bucketed batched extend: append ``token_lists[i]`` to row
         ``rows[i]``, all involved rows in one forward.  With
-        ``want_logits`` returns each row's (n_i, V) logits."""
+        ``want_logits`` returns each row's (n_i, V) logits.  ``op``
+        labels the call's tracer bracket."""
         assert len(rows) == len(token_lists)
         lens = [len(t) for t in token_lists]
         if not rows or max(lens, default=0) == 0:
@@ -413,12 +488,22 @@ class BatchEngine:
             toks[at[r], :len(t)] = torch.tensor(list(t), dtype=torch.long)
         toks = toks.to(self.device)
         t0 = time.perf_counter()
-        logits = self.model.prefill_rows(self.params, toks,
-                                         self._view(slots, counts, bucket))
-        self._sync()
-        self.meter.prefill_time += time.perf_counter() - t0
+        with self._annotate(op):
+            logits = self.model.prefill_rows(
+                self.params, toks, self._view(slots, counts, bucket))
+            td = time.perf_counter()
+            self._sync()
+        t1 = time.perf_counter()
+        self.meter.prefill_time += t1 - t0
         self.meter.prefill_tokens += bucket * len(rows)
         self.meter.prefill_calls += 1
+        if self.tracer is not None:
+            ctx = sum(int(self.pos[r]) for r in rows)
+            self._bracket(op, t0, td, t1,
+                          {"rows": len(rows), "tokens": sum(lens),
+                           "bucket": bucket,
+                           "kv_bytes": self._kv_token_bytes
+                           * (sum(lens) + ctx)})
         out = []
         for r, n in zip(rows, lens):
             self.pos[r] += n
@@ -442,7 +527,7 @@ class BatchEngine:
             assert self.pos[r] == s, \
                 f"row {r}: chunk declared at offset {s} but the row " \
                 f"sits at {self.pos[r]} -- prefill cursor out of sync"
-        return self.extend_rows(rows, chunks, want_logits)
+        return self.extend_rows(rows, chunks, want_logits, op="prefill")
 
     # ---------------------------------------------------------- generate
     def generate_rows(self, rows: Sequence[int], max_tokens,
@@ -499,29 +584,38 @@ class BatchEngine:
         self._fill_tables()
         t0 = time.perf_counter()
         calls = 0
-        while active:
-            idx = [rows[i] for i in active]
-            logits = self.last_logits[idx]
-            toks = sample_rows(logits, params,
-                               [generators[i] for i in active])
-            if collect_probs:
-                p = probs_from_logits(logits, params)
-                for j, i in enumerate(active):
-                    probs[i].append(p[j])
-            new_logits = self._decode(idx, toks)
-            calls += 1
-            for i, tok in zip(active, toks.tolist()):
-                out[i].append(tok)
-                self.pos[rows[i]] += 1
-            self.last_logits[idx] = new_logits.float()
-            active = [i for i in active
-                      if out[i][-1] not in stops[i]
-                      and len(out[i]) < n_max[i]]
+        with self._annotate("decode"):
+            while active:
+                idx = [rows[i] for i in active]
+                logits = self.last_logits[idx]
+                toks = sample_rows(logits, params,
+                                   [generators[i] for i in active])
+                if collect_probs:
+                    p = probs_from_logits(logits, params)
+                    for j, i in enumerate(active):
+                        probs[i].append(p[j])
+                new_logits = self._decode(idx, toks)
+                calls += 1
+                for i, tok in zip(active, toks.tolist()):
+                    out[i].append(tok)
+                    self.pos[rows[i]] += 1
+                self.last_logits[idx] = new_logits.float()
+                active = [i for i in active
+                          if out[i][-1] not in stops[i]
+                          and len(out[i]) < n_max[i]]
+            if calls:
+                self._sync()
         if calls:
-            self._sync()
-            self.meter.decode_time += time.perf_counter() - t0
-            self.meter.decode_tokens += sum(len(o) for o in out)
+            t1 = time.perf_counter()
+            ntok = sum(len(o) for o in out)
+            self.meter.decode_time += t1 - t0
+            self.meter.decode_tokens += ntok
             self.meter.decode_calls += 1
+            if self.tracer is not None:
+                # the per-token loop waits on every token: the whole call
+                # is the device-bound window
+                self._bracket("decode", t0, t0, t1, self._decode_args(
+                    rows, ntok))
         if not collect_probs:
             return out
         vocab = self.last_logits.shape[1]
@@ -583,17 +677,19 @@ class BatchEngine:
                 gens[r].set_offset(start[r])
             else:
                 gens[r].set_state(g.get_state())
-        if cuda:
-            chunks = self._replay(loop, top)
-            final, toks = loop.final, loop.toks_host
-        else:                          # the CPU: the body, eagerly
-            chunks = 0
-            while True:
-                self._rows_steps(loop, gens, k)
-                chunks += 1
-                if int(loop.ctl[1]) == 0:
-                    break
-            final, toks = loop.ctl, loop.toks
+        td = time.perf_counter()
+        with self._annotate("decode"):
+            if cuda:
+                chunks = self._replay(loop, top)
+                final, toks = loop.final, loop.toks_host
+            else:                          # the CPU: the body, eagerly
+                chunks = 0
+                while True:
+                    self._rows_steps(loop, gens, k)
+                    chunks += 1
+                    if int(loop.ctl[1]) == 0:
+                        break
+                final, toks = loop.ctl, loop.toks
         pos_dev = final[2:2 + b].tolist()
         n = final[2 + 2 * b:2 + 3 * b].tolist()
         out = []
@@ -611,13 +707,33 @@ class BatchEngine:
             else:          # the per-token loop draws once a token
                 for _ in range(n[r]):
                     gumbel(self.last_logits.shape[-1:], g, "cpu")
-        self.meter.decode_time += time.perf_counter() - t0
-        self.meter.decode_tokens += sum(n[r] for r in rows)
+        t1 = time.perf_counter()
+        ntok = sum(n[r] for r in rows)
+        self.meter.decode_time += t1 - t0
+        self.meter.decode_tokens += ntok
         self.meter.decode_calls += 1
         self.meter.decode_steps += chunks * k
+        if self.tracer is not None:
+            # one bracket around the call's graph replays: staging (and a
+            # first call's capture) is the dispatch side, the replays and
+            # their waits the device side
+            self._bracket("decode", t0, td, t1,
+                          self._decode_args(rows, ntok, chunks * k))
         if not collect_probs:
             return out
         return out, [loop.probs[r, :n[r]].clone() for r in rows]
+
+    def _decode_args(self, rows: Sequence[int], ntok: int,
+                     steps: Optional[int] = None) -> dict:
+        """A decode bracket's args, once the rows' positions advanced:
+        rows, tokens, (steps run) and the K/V bytes the tokens wrote plus
+        their rows' contexts (a static estimate, not a measurement)."""
+        ctx = sum(int(self.pos[r]) for r in rows) - ntok
+        args = {"rows": len(rows), "tokens": ntok,
+                "kv_bytes": self._kv_token_bytes * (ntok + ctx)}
+        if steps is not None:
+            args["steps"] = steps
+        return args
 
     def _slot_generators(self) -> List[torch.Generator]:
         """One generator a row slot, on the engine's device: the fused
@@ -739,23 +855,30 @@ class BatchEngine:
         for r in rows:
             self._cover(r, int(self.pos[r]) + 1)
         t0 = time.perf_counter()
-        toks = torch.tensor(list(tokens), dtype=torch.long,
-                            device=self.device)
-        if self.coupled:
-            self._fill_tables()
-            logits = self._decode(rows, toks)
-        else:
-            self.meter.decode_steps += 1
-            logits = self.model.decode_rows(
-                self.params, toks[:, None],
-                self._view(rows, [1] * len(rows), 1))
-        self._sync()
-        self.meter.decode_time += time.perf_counter() - t0
+        with self._annotate("feed"):
+            toks = torch.tensor(list(tokens), dtype=torch.long,
+                                device=self.device)
+            if self.coupled:
+                self._fill_tables()
+                logits = self._decode(rows, toks)
+            else:
+                self.meter.decode_steps += 1
+                logits = self.model.decode_rows(
+                    self.params, toks[:, None],
+                    self._view(rows, [1] * len(rows), 1))
+            td = time.perf_counter()
+            self._sync()
+        t1 = time.perf_counter()
+        self.meter.decode_time += t1 - t0
         self.meter.decode_tokens += len(rows)
         self.meter.decode_calls += 1
+
         for r in rows:
             self.pos[r] += 1
         self.last_logits[list(rows)] = logits.float()
+        if self.tracer is not None:
+            self._bracket("feed", t0, td, t1,
+                          self._decode_args(rows, len(rows)))
 
     def kv_dims(self) -> Tuple[int, int, int]:
         """(n_layers, kv_heads, head_dim) of the attention cache."""

@@ -123,6 +123,15 @@ class Meter:
     cache_hit_tokens: int = 0
     cache_lookup_tokens: int = 0
     cache_evictions: int = 0
+    # resilience (the continuous scheduler's failure lifecycle): requests
+    # timed out, shed and failed, fault-guard quarantines and the retries
+    # they spawned, kept on the BASE engine's meter so that the result
+    # meter snapshots carry the run's failure counters
+    req_timeouts: int = 0
+    req_shed: int = 0
+    req_quarantines: int = 0
+    req_retries: int = 0
+    req_failed: int = 0
 
     @property
     def cache_hit_rate(self) -> float:

@@ -58,19 +58,51 @@ cache) skip the repeated prefill.  Under pool pressure idle cached
 blocks are evicted LRU-first, before an admission is declared blocked
 and before a live request is preempted.
 
+**Failure model** (``serving/resilience.py``, ``serving/faults.py``),
+as in the JAX package: every request ends in a terminal ``status`` of
+ok, timeout, shed or failed, a non-ok one with a structured
+``RequestError``; deadlines cancel rows queued or mid-flight (mid
+chunked prefill, and between spec-decode rounds through the ledger's
+``alive``) through an idempotent release; an overload controller folds
+pool occupancy, busy rows and the finishes' TTFT / TPOT / service EWMAs
+into a pressure that drives an admission throttle, a priority and
+best-of-N aware shed policy, and the degradation ladder, whose rung's
+``TickConfig`` is applied every tick (gamma to the spec engine, spec
+decode off, the prefill budget, prefix-cache insertion); fault guards
+quarantine poisoned rows (NaN logits, a raised engine call), retry them
+once without speculation and fail them with a structured error on the
+next hit; ``audit=True`` reconciles every pool's refcounts against its
+holders each tick.  A ``raise`` fault fires where the phase collects
+its rows, before it reserves pages or calls an engine, so a raising
+phase has nothing reserved to give back: the admission's first-chunk
+pages of a prefill row belong to its sequence and go with its release.
+
+**Observability** (``serving/telemetry.py``): a ``tracer`` records
+per-request span timelines (queued, prefill chunks, the phases,
+spec-decode rounds, verdicts, terminal instants), per-tick scheduler
+spans and counters and the engines' call brackets; ``metrics`` feeds
+the Prometheus-style registry.  Both are None by default and every
+recording site is guarded on that.
+
 Tensor parallelism (``tp``, a ``serving.tp.TPContext``): every rank
 process runs this scheduler on the same host state, one context shared
 by both engines, their page stores and both prefix caches, and the
 ranks stay in lockstep because every decision is taken from replicated
-state and whole logits.  A decision that reads a clock (arrivals in
-``workload.run_workload``) is taken on rank 0 and broadcast; at the end
-of each drain the ranks' result tokens are compared
-(``check_lockstep``), and a mismatch raises.
+state and whole logits.  A decision that reads a clock is taken on rank
+0 and broadcast: arrivals in ``workload.run_workload``, and, in one
+broadcast on each tick with an SLO set or a request with a deadline,
+the requests that expire, those shed as infeasible (by arrival index),
+and the overload controller's EWMAs, pressure and rung (from which the
+admission throttle follows).  So under tp a deadline is checked at the
+tick's sweep only, not between spec-decode rounds.  Injected stalls
+sleep on every rank.  At the end of each drain the ranks' statuses,
+error codes and tokens are compared (``check_lockstep``), and a
+mismatch raises.
 
-Not ported yet, each raising ``NotImplementedError``: deadlines,
-shedding and the degradation ladder, fault injection and audits,
-tracing, metrics, monitors and the admin plane, the compile and memory
-watches (ROADMAP queue 1, item 6), and overlapped mode.
+Not ported yet, each raising ``NotImplementedError``: the monitors, the
+admin plane's status board and tick callback, the compile and memory
+watches (ROADMAP queue 1, item 6: monitors, admin and device plane),
+and overlapped mode.
 """
 
 from __future__ import annotations
@@ -79,7 +111,8 @@ import dataclasses
 import time
 import uuid
 from collections import deque
-from typing import Callable, Deque, Dict, List, Optional, Tuple
+from typing import (Callable, Collection, Deque, Dict, List, Optional,
+                    Tuple)
 
 import torch
 
@@ -89,14 +122,19 @@ from ..core.verifier import mean_body_logprob
 from ..data.tasks import Task, question_tokens
 from ..tokenizer import toy as tk
 from .batch_engine import BatchEngine, RowSnapshot
+from .faults import (AuditViolation, FaultInjector, InjectedEngineError,
+                     audit_scheduler)
 from .kv_manager import KVManager
 from .paged_kv import (BlockTableSnapshot, PagedKVPool, PagedSeq,
                        PoolExhausted)
 from .prefix_cache import RadixCache
-from .resilience import (STATUS_OK, TERMINAL_STATUSES, OverloadController,
-                         ResilienceConfig, TickConfig)
+from .resilience import (STATUS_FAILED, STATUS_OK, STATUS_SHED,
+                         STATUS_TIMEOUT, TERMINAL_STATUSES,
+                         OverloadController, RequestError, ResilienceConfig,
+                         TickConfig)
 from .spec_engine import BatchSpecEngine, SpecLedger, SpecRow
-from .telemetry import SchedEvent
+from .telemetry import (TRACK_SCHED, SchedEvent, ServingMetrics, Tracer,
+                        request_track)
 from .tp import TPContext
 
 # Per-tick prompt-prefill token budget (chunked prefill), as in the JAX
@@ -104,9 +142,14 @@ from .tp import TPContext
 DEFAULT_MAX_PREFILL_TOKENS = 64
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
-                               f"item {item})")
+# the scheduler arguments of the JAX package this slice leaves out
+LIVE_PLANE = ("monitors", "status_board", "on_tick", "compile_watch",
+              "memory_watch")
+LIVE_PLANE_ITEM = "ROADMAP queue 1, item 6 (monitors, admin and device plane)"
+
+# the overload controller's state that rank 0 broadcasts under tp
+_RES_STATE = ("level", "pressure", "transitions", "_hot", "_cool")
+_RES_EWMAS = ("ewma_tpot", "ewma_ttft", "ewma_service")
 
 
 @dataclasses.dataclass
@@ -124,9 +167,22 @@ class Request:
     generator_state: Optional[torch.Tensor] = None
     result: Optional[SpecReasonResult] = None
     finished_at: Optional[float] = None
-    status: str = "queued"      # queued -> running -> ok
+    # failure lifecycle (serving/resilience.py): "queued" -> "running" ->
+    # one of ok | timeout | shed | failed, every non-ok one with a
+    # structured error.  ``deadline_s`` is a wall-clock budget from
+    # submission (None: none); higher ``priority`` admits first and sheds
+    # last; ``group`` marks best-of-N siblings for the shed policy
+    status: str = "queued"
+    error: Optional[RequestError] = None
+    deadline_s: Optional[float] = None
     priority: int = 0
+    group: Optional[str] = None
+    # submission order (the fault plan's target key) and the fault
+    # guard's retry state: ``quarantined`` sends every later decode down
+    # the plain (speculation-free) path
     arrival_idx: int = -1
+    retries: int = 0
+    quarantined: bool = False
     blocked_reason: Optional[str] = None
     # radix prefix cache: prompt length and how many of its tokens were
     # served from cached blocks (set at admission, the last one for a
@@ -170,6 +226,13 @@ class Request:
     def terminal(self) -> bool:
         return self.status in TERMINAL_STATUSES
 
+    def expired(self, now: Optional[float] = None) -> bool:
+        """True when the request's wall-clock deadline has passed."""
+        if self.deadline_s is None:
+            return False
+        now = time.perf_counter() if now is None else now
+        return now - self.submitted_at > self.deadline_s
+
 
 @dataclasses.dataclass
 class _Active:
@@ -212,7 +275,15 @@ class _SchedulerLedger(SpecLedger):
         self.acts = acts
 
     def alive(self, i: int) -> bool:
-        return self.acts[i].alive
+        # deadline checks ride the engine's liveness probes: a request
+        # whose deadline passes during a multi-round spec decode is
+        # cancelled between rounds (its pages released, the engine drops
+        # the row as after a preemption).  Under tp the clock is rank 0's
+        # alone, so the tick's sweep decides (module docstring)
+        a = self.acts[i]
+        if a.alive and self.sched.tp is None:
+            self.sched._check_deadline(a)
+        return a.alive
 
     def reserve(self, i: int, which: str, end: int) -> None:
         self.sched._reserve(self.acts[i], _engine(which), end)
@@ -233,8 +304,11 @@ class ContinuousScheduler:
     controller (greedy, and sampled with the same generators), chunked
     prefill to unchunked, and the prefix cache on to off.
 
-    ``on_event`` receives admission / chunk-progress / preemption events
-    as :class:`telemetry.SchedEvent` (the serve CLI's ``--verbose``)."""
+    ``on_event`` receives admission / chunk-progress / preemption /
+    quarantine / degradation / terminal events as
+    :class:`telemetry.SchedEvent` (the serve CLI's ``--verbose``);
+    ``resilience``, ``faults``, ``audit``, ``tracer`` and ``metrics``
+    are the failure model and observability of the module docstring."""
 
     def __init__(self, controller: SpecReason, kv: KVManager,
                  max_batch: int = 8, context_capacity: int = 256,
@@ -246,9 +320,22 @@ class ContinuousScheduler:
                  max_prefill_tokens: int = DEFAULT_MAX_PREFILL_TOKENS,
                  on_event: Optional[Callable[[str], None]] = None,
                  resilience: Optional[ResilienceConfig] = None,
-                 seed: int = 0, tp: Optional[TPContext] = None):
+                 faults: Optional[FaultInjector] = None,
+                 audit: bool = False,
+                 tracer: Optional[Tracer] = None,
+                 metrics: Optional[ServingMetrics] = None,
+                 seed: int = 0, tp: Optional[TPContext] = None,
+                 **live_plane):
         """``tp``: this rank's context (None, or a degree of 1, serves on
-        one device)."""
+        one device).  ``live_plane``: the JAX package's ``monitors``,
+        ``status_board``, ``on_tick``, ``compile_watch`` and
+        ``memory_watch``, which raise: they are not ported yet."""
+        for name, value in live_plane.items():
+            if name not in LIVE_PLANE:
+                raise TypeError(f"unexpected argument {name!r}")
+            if value is not None:
+                raise NotImplementedError(
+                    f"{name}= is not ported yet ({LIVE_PLANE_ITEM})")
         cfg = controller.cfg
         if cfg.overlapped:
             raise NotImplementedError(
@@ -276,18 +363,22 @@ class ContinuousScheduler:
         # the batched decode loop follows the controller's
         # ``fused_decode`` (None: the engines' default, fused; the
         # per-token loop under tp)
+        self.tracer = tracer
+        self.metrics = metrics
         self.base_be = BatchEngine(controller.base.model,
                                    controller.base.params, max_batch,
                                    engine_capacity,
                                    name=f"cb-{controller.base.name}",
                                    pool=self.pools["base"],
-                                   fused=cfg.fused_decode, tp=self.tp)
+                                   fused=cfg.fused_decode, tp=self.tp,
+                                   tracer=tracer)
         self.small_be = BatchEngine(controller.small.model,
                                     controller.small.params, max_batch,
                                     engine_capacity,
                                     name=f"cb-{controller.small.name}",
                                     pool=self.pools["small"],
-                                    fused=cfg.fused_decode, tp=self.tp)
+                                    fused=cfg.fused_decode, tp=self.tp,
+                                    tracer=tracer)
         self.engines = {"base": self.base_be, "small": self.small_be}
         self.spec_be = BatchSpecEngine(self.base_be, self.small_be,
                                        self.gamma) if self.spec else None
@@ -315,24 +406,40 @@ class ContinuousScheduler:
         self.preemptions = 0
         self.ticks = 0
         self.prefill_chunks = 0      # chunked-prefill batches dispatched
-        self.res = OverloadController(
-            resilience if resilience is not None else ResilienceConfig(),
-            TickConfig(gamma=self.gamma, spec_decode=self.spec,
-                       max_prefill_tokens=max_prefill_tokens,
-                       cache_insert=prefix_cache))
-        self._submitted = 0
+        # resilience: a default (inert) config keeps the exact behaviour
+        # of a scheduler without it; the injector and the per-tick audits
+        # are debug machinery, off in production serving
+        self.res_cfg = resilience if resilience is not None \
+            else ResilienceConfig()
+        self.res = OverloadController(self.res_cfg, TickConfig(
+            gamma=self.gamma, spec_decode=self.spec,
+            max_prefill_tokens=max_prefill_tokens, cache_insert=True))
+        self.faults = faults
+        self.audit_enabled = audit
+        self._submitted = 0          # arrival_idx assignment
+        self.timeouts = 0            # requests past deadline
+        self.shed_requests = 0       # dropped by the shed policy
+        self.quarantines = 0         # fault-guard hits
+        self.retries = 0             # quarantine readmissions
+        self.failures = 0            # terminal ``failed`` outcomes
+        self.stalled_ticks = 0       # injected stall ticks
+        self.audit_violations = 0    # should stay 0; audits raise
 
     # ------------------------------------------------------------- intake
     def submit(self, task: Task, generator: Optional[torch.Generator] = None,
-               deadline_s: Optional[float] = None,
-               priority: int = 0) -> Request:
+               deadline_s: Optional[float] = None, priority: int = 0,
+               group: Optional[str] = None) -> Request:
         """Queue a task; ``generator`` pins the request's random draws
-        (same generator seed, same tokens, sequential or continuous).  Without one,
-        admission seeds a generator on the engines' device from the
-        scheduler's ``seed`` and the arrival index."""
-        if deadline_s is not None:
-            raise _not_ported("request deadlines", 6)
-        req = Request(task, generator=generator, priority=priority,
+        (same generator seed, same tokens, sequential or continuous).
+        Without one, admission seeds a generator on the engines' device
+        from the scheduler's ``seed`` and the arrival index.
+        ``deadline_s`` is a wall-clock budget from submission (expiry
+        cancels the request, queued or mid-flight, with status
+        ``timeout``); ``priority`` orders admission and protects against
+        shedding; ``group`` marks best-of-N siblings for the shed
+        policy."""
+        req = Request(task, generator=generator, deadline_s=deadline_s,
+                      priority=priority, group=group,
                       arrival_idx=self._submitted)
         self._submitted += 1
         self.queue.append(req)
@@ -373,10 +480,17 @@ class ContinuousScheduler:
         return max(nb, 0) * self.kv.block_size
 
     def _emit(self, kind: str, msg: str, **fields) -> None:
+        """One structured event to ``on_event`` and, as an instant on the
+        owning track, to the tracer; a no-op with neither attached."""
+        if self.on_event is None and self.tracer is None:
+            return
+        ev = SchedEvent(kind, msg, fields)
         if self.on_event is not None:
-            self.on_event(SchedEvent(kind, msg, fields))
+            self.on_event(ev)
+        if self.tracer is not None:
+            self.tracer.event(ev)
 
-    def _admit(self, tc: TickConfig) -> None:
+    def _admit(self, tc: TickConfig, quota: Optional[int] = None) -> None:
         admitted: List[_Active] = []
         # wait-for-prefix: prompts whose prefill will insert new cached
         # blocks (chunked prefills in flight, then this round's cold
@@ -392,6 +506,8 @@ class ContinuousScheduler:
         order = [r for _, r in sorted(
             enumerate(self.queue), key=lambda t: (-t[1].priority, t[0]))]
         for req in order:
+            if quota is not None and len(admitted) >= quota:
+                break
             if not (self.base_be.free_rows and self.small_be.free_rows):
                 break
             prompt = question_tokens(req.task)
@@ -496,6 +612,10 @@ class ContinuousScheduler:
             self.base_be.append_seq(a.base_seq, first)
             self.small_be.append_seq(a.small_seq, first)
             admitted.append(a)
+            if self.tracer is not None:
+                # the request's wait for admission, on its track
+                self.tracer.span(request_track(req.request_id), "queued",
+                                 req.submitted_at, req.admitted_at)
             self._emit("admit",
                        f"admit {req.request_id}: prompt={len(prompt)} "
                        f"cached={cached} first_chunk={first}"
@@ -516,8 +636,8 @@ class ContinuousScheduler:
         over mid-prefill rows, at most ``max_prefill_tokens`` prompt
         tokens per tick (unbounded when chunking is off), one
         ``prefill_rows`` call per engine.  Returns the tokens spent."""
-        acts = [a for a in self.active
-                if a.alive and a.state.phase == "prefill"]
+        acts = self._guard("prefill", [a for a in self.active
+                                       if a.state.phase == "prefill"])
         if not acts:
             return 0
         budget = tc.max_prefill_tokens if self.chunked else None
@@ -538,6 +658,9 @@ class ContinuousScheduler:
         chunks = [(a, t) for a, t in chunks if a.alive]
         if not chunks:
             return 0
+        tr, mt = self.tracer, self.metrics
+        t0 = time.perf_counter() if (tr is not None or mt is not None) \
+            else 0.0
         for be, rows in ((self.base_be, [a.base_row for a, _ in chunks]),
                          (self.small_be, [a.small_row for a, _ in chunks])):
             be.prefill_rows(rows,
@@ -546,10 +669,24 @@ class ContinuousScheduler:
                             [a.cursor for a, _ in chunks])
         self.prefill_chunks += 1
         spent = sum(t for _, t in chunks)
+        if tr is not None or mt is not None:
+            t1 = time.perf_counter()
+            if mt is not None:
+                mt.chunk_latency.observe(t1 - t0)
+                mt.prefill_tokens.inc(spent)
+            if tr is not None:
+                for a, take in chunks:       # cursors not yet advanced
+                    tr.span(request_track(a.req.request_id), "prefill",
+                            t0, t1, {"from": a.cursor,
+                                     "to": a.cursor + take,
+                                     "prompt": len(a.prompt)})
         bs = self.kv.block_size
         for a, take in chunks:
             a.cursor += take
-            if self.caches is not None:
+            # cache_insert=False is the ladder's deepest rung: stop
+            # inserting fresh prefixes (lookups still serve hits; outputs
+            # unchanged)
+            if self.caches is not None and tc.cache_insert:
                 # cache every full prompt block not cached yet: the cache
                 # retains the row's own freshly written pool blocks, so a
                 # preempted request and waiting siblings find them
@@ -599,6 +736,14 @@ class ContinuousScheduler:
                 victim = next((v for v in reversed(self.active)
                                if v is not a and v.alive), None)
                 if victim is None:
+                    if self.faults is not None \
+                            and self.faults.holding(which):
+                        # transient exhaustion (an injected hold owns the
+                        # pool): requeue this request for recompute once
+                        # the hold releases; a request too big for the
+                        # pool is refused at admission
+                        self._preempt(a)
+                        return
                     raise RuntimeError(
                         f"{which} KV pool exhausted by a single request "
                         f"({self.pools[which].num_blocks} blocks, "
@@ -628,6 +773,8 @@ class ContinuousScheduler:
         victim.req.status = "queued"
         self.queue.appendleft(victim.req)
         self.preemptions += 1
+        if self.metrics is not None:
+            self.metrics.preemptions.inc()
         mid = f" (mid-prefill at {victim.cursor}/{len(victim.prompt)})" \
             if victim.state.phase == "prefill" else ""
         self._emit("preempt",
@@ -656,23 +803,324 @@ class ContinuousScheduler:
         self.small_be.free_row(a.small_row)
         self.active = [x for x in self.active if x is not a]
 
+    # ------------------------------------------------ failure lifecycle
+    def _finalize(self, req: Request, status: str, code: str,
+                  message: str) -> None:
+        """Stamp a terminal non-ok outcome and move the request to
+        ``done`` (the caller has detached it from queue / active)."""
+        req.status = status
+        req.error = RequestError(code, message, self.ticks)
+        req.finished_at = time.perf_counter()
+        req.blocked_reason = None
+        self.done.append(req)
+        meter = self.base_be.meter
+        if status == STATUS_TIMEOUT:
+            self.timeouts += 1
+            meter.req_timeouts += 1
+        elif status == STATUS_SHED:
+            self.shed_requests += 1
+            meter.req_shed += 1
+        elif status == STATUS_FAILED:
+            self.failures += 1
+            meter.req_failed += 1
+        if self.metrics is not None:
+            self.metrics.requests.inc(status=status)
+        self._emit(status, f"{status} {req.request_id}: {message}",
+                   request=req.request_id, code=code)
+
+    def _cancel(self, a: _Active, status: str, code: str,
+                message: str) -> None:
+        """Cancel an in-flight request whatever it is doing (chunked
+        prefill, a spec-decode call between rounds, decode): release its
+        pages, tables and radix references and stamp the terminal
+        outcome.  Idempotent."""
+        if not a.alive:
+            return
+        self._release(a)
+        self._finalize(a.req, status, code, message)
+
+    def _time_out(self, a: _Active) -> None:
+        self._cancel(a, STATUS_TIMEOUT, "deadline",
+                     f"deadline {a.req.deadline_s:g}s exceeded "
+                     f"mid-flight (phase {a.state.phase})")
+
+    def _check_deadline(self, a: _Active) -> None:
+        """Mid-flight deadline check, from the spec ledger's ``alive``
+        (between rounds)."""
+        if a.alive and a.req.expired():
+            self._time_out(a)
+
+    def _expire_deadlines(self, expired: Optional[Collection[int]] = None
+                          ) -> List[int]:
+        """Time out every expired request, in flight then queued.
+        ``expired``: the arrival indices rank 0 decided (under tp; a
+        request's id is drawn per process, its arrival index is the same
+        on every rank); None reads the clock.  Returns the arrival
+        indices timed out."""
+        now = time.perf_counter()
+
+        def due(r: Request) -> bool:
+            return r.expired(now) if expired is None \
+                else r.arrival_idx in expired
+        out = []
+        for a in list(self.active):
+            if a.alive and due(a.req):
+                out.append(a.req.arrival_idx)
+                self._time_out(a)
+        for req in [r for r in self.queue if due(r)]:
+            out.append(req.arrival_idx)
+            self.queue.remove(req)
+            self._finalize(req, STATUS_TIMEOUT, "deadline",
+                           f"deadline {req.deadline_s:g}s exceeded "
+                           f"while queued")
+        return out
+
+    def _group_survivors(self, req: Request) -> int:
+        """How many OTHER members of ``req``'s best-of-N group are still
+        viable (queued, in flight, or finished ok): the shed policy keeps
+        at least ``min_group_survivors`` so the vote keeps ballots."""
+        if req.group is None:
+            return 0
+        return (sum(1 for r in self.queue
+                    if r is not req and r.group == req.group)
+                + sum(1 for a in self.active if a.req.group == req.group)
+                + sum(1 for r in self.done
+                      if r.group == req.group and r.status == STATUS_OK))
+
+    def _shed_victim(self) -> Optional[Request]:
+        """Shed order: lowest priority first; within a priority class,
+        best-of-N siblings whose group keeps enough survivors before
+        singletons (drop a ballot, not a request); youngest first breaks
+        the last tie."""
+        cfg = self.res_cfg
+        best, best_key = None, None
+        for i, r in enumerate(self.queue):
+            covered = r.group is not None \
+                and self._group_survivors(r) >= cfg.min_group_survivors
+            sort_key = (r.priority, 0 if covered else 1, -i)
+            if best_key is None or sort_key < best_key:
+                best, best_key = r, sort_key
+        return best
+
+    def _shed(self, infeasible: Optional[Collection[int]] = None
+              ) -> List[int]:
+        """The tick's shed pass (policy "priority"): drop queued requests
+        that can no longer turn capacity into goodput -- first those
+        whose remaining deadline budget is below the EWMA service time,
+        then, while the queue is deeper than ``max_queue``, the shed
+        order above.  ``infeasible``: the arrival indices rank 0 decided
+        (under tp); None reads the clock.  Returns the arrival indices
+        shed as infeasible."""
+        cfg = self.res_cfg
+        out: List[int] = []
+        if cfg.shed_policy == "none" or not self.queue:
+            return out
+        now = time.perf_counter()
+        for req in [r for r in self.queue if r.deadline_s is not None]:
+            remaining = req.deadline_s - (now - req.submitted_at)
+            if (self.res.infeasible(remaining) if infeasible is None
+                    else req.arrival_idx in infeasible):
+                out.append(req.arrival_idx)
+                self.queue.remove(req)
+                self._finalize(req, STATUS_SHED, "shed_infeasible",
+                               f"remaining deadline budget "
+                               f"{remaining:.3f}s below the estimated "
+                               f"service time")
+        while cfg.max_queue is not None \
+                and len(self.queue) > cfg.max_queue:
+            victim = self._shed_victim()
+            if victim is None:
+                break
+            self.queue.remove(victim)
+            self._finalize(victim, STATUS_SHED, "shed_overload",
+                           f"queue depth {len(self.queue) + 1} above "
+                           f"max_queue={cfg.max_queue}")
+        return out
+
+    # ------------------------------------------------------ fault guards
+    def _guard(self, phase: str, acts: List[_Active]) -> List[_Active]:
+        """Guard a phase batch against injected engine-call failures: a
+        ``raise`` fault aimed at a row of the batch fires as the phase
+        collects its rows, before any page is reserved or engine called;
+        the row is quarantined and the rest of the batch proceeds."""
+        if self.faults is None or not acts:
+            return [a for a in acts if a.alive]
+        while True:
+            try:
+                self.faults.maybe_raise(phase,
+                                        [a.req for a in acts if a.alive])
+                break
+            except InjectedEngineError as e:
+                victim = next(a for a in acts
+                              if a.req.request_id == e.request_id)
+                self._quarantine(victim, "engine_error", str(e))
+        return [a for a in acts if a.alive]
+
+    def _quarantine(self, a: _Active, code: str, message: str) -> None:
+        """The fault guard's contract: a first hit releases the row and
+        requeues the request for a recompute without speculation (from
+        its generator's state at first admission: the same tokens); a hit
+        past ``max_retries`` ends it ``failed``."""
+        if not a.alive:
+            return
+        req = a.req
+        self.quarantines += 1
+        self.base_be.meter.req_quarantines += 1
+        if req.retries >= self.res_cfg.max_retries:
+            self._cancel(a, STATUS_FAILED, code,
+                         f"{message} (retries exhausted after "
+                         f"{req.retries})")
+            return
+        req.retries += 1
+        self.retries += 1
+        self.base_be.meter.req_retries += 1
+        req.quarantined = True
+        self._release(a)
+        req.status = "queued"
+        req.blocked_reason = f"quarantined: {code}; retrying without " \
+                             f"speculation"
+        self.queue.appendleft(req)
+        self._emit("quarantine",
+                   f"quarantine {req.request_id}: {code} — requeued, "
+                   f"speculation disabled (retry {req.retries})",
+                   request=req.request_id, code=code, retry=req.retries)
+
+    def _health_scan(self) -> None:
+        """The per-tick health guard: a live row whose ``last_logits``
+        went non-finite (a corrupted engine step, or the injector's
+        ``nan_logits``) is quarantined before anything samples from it.
+        One reduction an engine over the live rows and one copy to the
+        host a tick, outside any captured graph."""
+        acts = [a for a in self.active if a.alive]
+        if not acts:
+            return
+        n = len(acts)
+        ok = torch.cat([
+            self.base_be.finite_mask([a.base_row for a in acts]),
+            self.small_be.finite_mask([a.small_row for a in acts])]).tolist()
+        for a, fb, fs in zip(acts, ok[:n], ok[n:]):
+            if not (fb and fs):
+                which = "base" if not fb else "small"
+                self._quarantine(a, "nan_logits",
+                                 f"non-finite logits in the {which} "
+                                 f"engine row")
+
+    def _audit(self) -> None:
+        """The per-tick invariant audit (``audit=True``): any divergence
+        of the pools' refcounts, the tables or the radix caches from
+        their holders raises ``AuditViolation``."""
+        viols = audit_scheduler(self)
+        if viols:
+            self.audit_violations += len(viols)
+            raise AuditViolation(f"tick {self.ticks}: " + "; ".join(viols))
+
+    # ---------------------------------------------------- overload sweep
+    def _res_state(self) -> dict:
+        return {**{k: getattr(self.res, k) for k in _RES_STATE},
+                **{k: getattr(self.res, k).value for k in _RES_EWMAS}}
+
+    def _load_res_state(self, state: dict) -> None:
+        for k in _RES_STATE:
+            setattr(self.res, k, state[k])
+        for k in _RES_EWMAS:
+            getattr(self.res, k).value = state[k]
+
+    def _reads_clock(self) -> bool:
+        """Whether this tick's sweep can take a decision from a clock: an
+        SLO (the ladder's strain and the admission throttle read the
+        latency EWMAs) or a request with a deadline (expiry, feasibility
+        shedding).  Every rank computes it from replicated state."""
+        c = self.res_cfg
+        return (c.slo_tpot_s is not None or c.slo_ttft_s is not None
+                or any(r.deadline_s is not None for r in self.queue)
+                or any(a.req.deadline_s is not None for a in self.active))
+
+    def _sweep(self) -> float:
+        """The tick's sweeps, before admission: expire deadlines, shed,
+        then fold this tick's signals into the overload controller
+        (emitting its ladder transitions).  Under tp, on a tick whose
+        sweep reads a clock, rank 0 takes the decisions and broadcasts
+        them with the controller's state (one broadcast) and the other
+        ranks apply them; on any other tick every rank computes the same
+        sweep from replicated state, with no collective.  Returns the
+        pool occupancy the controller saw."""
+        tp = self.tp if self.tp is not None and self._reads_clock() \
+            else None
+        if tp is not None and tp.rank != 0:
+            got = tp.broadcast(None)
+            self._expire_deadlines(got["expired"])
+            self._shed(got["infeasible"])
+            self._load_res_state(got["res"])
+            events = got["events"]
+            occ = got["occupancy"]
+        else:
+            expired = self._expire_deadlines()
+            infeasible = self._shed()
+            occ = max(p.num_used / p.num_blocks for p in self.pools.values())
+            # row pressure is demand (busy rows plus waiting arrivals)
+            # against capacity: this sweep runs before admission, so a
+            # row freed by last tick's finish must not read as idle
+            busy = self.base_be.batch - min(self.base_be.free_rows,
+                                            self.small_be.free_rows)
+            rows_busy = min(1.0, (busy + len(self.queue))
+                            / self.base_be.batch)
+            events = self.res.observe_tick(self.ticks, occ, rows_busy,
+                                           len(self.queue))
+            if tp is not None:
+                tp.broadcast({"expired": expired, "infeasible": infeasible,
+                              "res": self._res_state(), "events": events,
+                              "occupancy": occ})
+        for ev in events:
+            # ladder transitions, rendered by the controller
+            self._emit("degrade", ev, tick=self.ticks,
+                       level=self.res.level,
+                       pressure=round(self.res.pressure, 4))
+        return occ
+
     # -------------------------------------------------------------- tick
     def tick(self) -> bool:
-        """One continuous-batching turn: admit, run the bounded
-        chunked-prefill batch, then every running request's current phase
-        as per-phase batched calls.  Returns True while there is work
+        """One continuous-batching turn: arm the tick's faults, run the
+        deadline / shed / overload sweeps (also on a stalled tick), admit,
+        run the bounded chunked-prefill batch, then every running
+        request's current phase as per-phase batched calls; then the
+        health scan and the audit.  Returns True while there is work
         left."""
         self.ticks += 1
+        tr, mt = self.tracer, self.metrics
+        t_tick0 = time.perf_counter() if tr is not None else 0.0
+        # faults first: pool holds claim / release and stall windows open
+        # before the rest of the tick; a stalled tick skips admission,
+        # prefill and the phases but still runs the failure lifecycle
+        stalled = False
+        if self.faults is not None:
+            stalled = self.faults.begin_tick(self.ticks, self)
+            if stalled:
+                self.stalled_ticks += 1
+        occ = self._sweep()
         tc = self.res.tick_config()
-        self._admit(tc)
-        self._prefill_tick(tc)
-        self._phase_acts("speculate", self._speculate_batch)
-        self._phase_acts("verify", self._verify_batch)
-        self._flush_close_batch()
-        fall = [a for a in self.active if a.state.phase == "fallback"]
-        ans = [a for a in self.active if a.state.phase == "answer"]
-        if fall or ans:
-            self._base_decode_batch(fall, ans, tc)
+        spent = 0
+        comp: Dict[str, int] = {}
+        if not stalled:
+            self._admit(tc, quota=self.res.admit_quota(len(self.active)))
+            if tr is not None:
+                for a in self.active:
+                    comp[a.state.phase] = comp.get(a.state.phase, 0) + 1
+            spent = self._prefill_tick(tc)
+            self._phase_acts("speculate", self._speculate_batch)
+            self._phase_acts("verify", self._verify_batch)
+            self._flush_close_batch()
+            fall = self._guard("fallback", [a for a in self.active
+                                            if a.state.phase == "fallback"])
+            ans = self._guard("answer", [a for a in self.active
+                                         if a.state.phase == "answer"])
+            if fall or ans:
+                self._base_decode_batch(fall, ans, tc)
+        # the health guard: injected NaNs land here (this tick's engine
+        # step corrupting a row), then the scan quarantines every
+        # non-finite row before the finish or the next tick reads it
+        if self.faults is not None:
+            self.faults.poison(self)
+        self._health_scan()
         # TTFT: the first tick that left output tokens in a request's
         # trace stamps its first-token time (tick-granular)
         now = time.perf_counter()
@@ -681,12 +1129,53 @@ class ContinuousScheduler:
                                                  a.state.answer_ids):
                 a.req.first_token_at = now
         self._finish()
-        return bool(self.active or self.queue)
+        if self.audit_enabled:
+            self._audit()
+        if mt is not None:
+            mt.ticks.inc()
+            mt.queue_depth.set(len(self.queue))
+            mt.pressure.set(self.res.pressure)
+            mt.degrade_level.set(self.res.level)
+            for w, p in self.pools.items():
+                mt.pool_occupancy.set(p.num_used / p.num_blocks, pool=w)
+        if tr is not None:
+            t_tick1 = time.perf_counter()
+            tr.span(TRACK_SCHED, "tick", t_tick0, t_tick1, {
+                "tick": self.ticks, "queue": len(self.queue),
+                "active": len(self.active), "batch": comp,
+                "occupancy": round(occ, 4),
+                "pressure": round(self.res.pressure, 4),
+                "level": self.res.level, "prefill_tokens": spent})
+            tr.counter("kv_occupancy",
+                       {w: round(p.num_used / p.num_blocks, 4)
+                        for w, p in self.pools.items()}, t=t_tick1)
+            tr.counter("pressure",
+                       {"pressure": round(self.res.pressure, 4),
+                        "level": float(self.res.level)}, t=t_tick1)
+            tr.counter("queue_depth",
+                       {"queued": float(len(self.queue)),
+                        "active": float(len(self.active))}, t=t_tick1)
+        working = bool(self.active or self.queue)
+        if not working and self.faults is not None:
+            # end of run: drop holds whose expiry the workload never
+            # reached, so drained pools reconcile to zero
+            self.faults.release_all(self)
+        return working
 
     def _phase_acts(self, phase: str, fn) -> None:
-        acts = [a for a in self.active if a.state.phase == phase]
-        if acts:
+        acts = self._guard(phase, [a for a in self.active
+                                   if a.state.phase == phase])
+        if not acts:
+            return
+        tr = self.tracer
+        if tr is None:
             fn(acts)
+            return
+        t0 = time.perf_counter()
+        fn(acts)
+        t1 = time.perf_counter()
+        for a in acts:
+            tr.span(request_track(a.req.request_id), phase, t0, t1)
 
     def drain(self) -> List[Request]:
         """Tick until queue and batch are empty; returns the requests
@@ -699,28 +1188,52 @@ class ContinuousScheduler:
 
     def check_lockstep(self, requests: List[Request]) -> None:
         """Under tp: raise unless every rank finished ``requests`` with the
-        same tokens (the ranks run on replicated state, so a difference
-        means they drifted apart)."""
+        same statuses, error codes and tokens (the ranks run on
+        replicated state, so a difference means they drifted apart)."""
         if self.tp is None:
             return
-        mine = [None if r.result is None else
-                (list(r.result.thinking_ids), list(r.result.answer_ids))
+        mine = [(r.status, r.error.code if r.error is not None else None,
+                 None if r.result is None else
+                 (list(r.result.thinking_ids), list(r.result.answer_ids)))
                 for r in requests]
         ranks = self.tp.all_objects(mine)
         bad = [i for i, t in enumerate(ranks) if t != ranks[0]]
         if bad:
             raise RuntimeError(f"tensor-parallel ranks {bad} finished "
-                               f"{len(requests)} requests with other tokens "
-                               "than rank 0")
+                               f"{len(requests)} requests with other "
+                               "statuses or tokens than rank 0")
 
     def _finish(self) -> None:
         meters = {"base": self.base_be.meter.as_dict(),
                   "small": self.small_be.meter.as_dict()}
         for a in [x for x in self.active if x.state.phase == "done"]:
-            a.req.result = self.controller.result(a.state, meters=meters)
-            a.req.status = STATUS_OK
-            a.req.finished_at = time.perf_counter()
-            self.done.append(a.req)
+            req = a.req
+            req.result = self.controller.result(a.state, meters=meters)
+            req.status = STATUS_OK
+            req.finished_at = time.perf_counter()
+            n_out = len(req.result.thinking_ids) + len(req.result.answer_ids)
+            # the service estimate is admission -> finish (execution, not
+            # e2e): feasibility shedding compares a queued request's
+            # remaining budget with it, and queue wait in it would feed
+            # back on itself under overload
+            service = req.finished_at - req.admitted_at \
+                if req.admitted_at is not None else req.e2e_latency
+            self.res.observe_finish(req.ttft, req.tpot(n_out), service)
+            if self.tracer is not None:
+                self.tracer.instant(request_track(req.request_id), "done",
+                                    {"status": STATUS_OK, "tokens": n_out,
+                                     "steps": len(a.state.steps)},
+                                    t=req.finished_at)
+            if self.metrics is not None:
+                mt = self.metrics
+                mt.requests.inc(status=STATUS_OK)
+                mt.output_tokens.inc(n_out)
+                if req.ttft is not None:
+                    mt.ttft.observe(req.ttft)
+                tpot = req.tpot(n_out)
+                if tpot is not None:
+                    mt.tpot.observe(tpot)
+            self.done.append(req)
             self._release(a)
 
     # ------------------------------------------------------ phase batches
@@ -790,6 +1303,11 @@ class ContinuousScheduler:
                 a.small_seq.discard_snapshot(a.s_seq_snap)
                 a.b_seq_snap = a.s_seq_snap = None
                 a.pending_base.append(delim)
+                if self.tracer is not None:
+                    self.tracer.instant(
+                        request_track(a.req.request_id), "accept",
+                        {"utility": round(utility, 4),
+                         "tokens": len(a.body)})
             else:
                 self._reject(a, utility)
 
@@ -802,41 +1320,72 @@ class ContinuousScheduler:
         a.small_seq.restore(a.s_seq_snap)
         a.b_seq_snap = a.s_seq_snap = None
         self.controller.note_reject(a.state, a.body, utility)
+        if self.tracer is not None:
+            self.tracer.instant(request_track(a.req.request_id), "reject",
+                                {"utility": round(utility, 4),
+                                 "tokens": len(a.body)})
 
     def _base_decode_batch(self, fall: List[_Active], ans: List[_Active],
                            tc: TickConfig) -> None:
         """The tick's base-model decode: fallback regenerations (stop at
         step boundaries) and final answers (stop at eos) in one call with
         per-row stop sets and budgets, or in spec mode through batched
-        token-level speculative decoding."""
+        token-level speculative decoding at the rung's gamma.  Quarantined
+        rows (retrying after a fault) always take the plain path, and the
+        ladder can turn the spec path off for every row: greedy tokens
+        are the same either way."""
         ctrl, cfg = self.controller, self.controller.cfg
         fall = [a for a in fall if a.alive]
         ans = [a for a in ans if a.alive]
         acts = fall + ans
         if not acts:
             return
+        tr, mt = self.tracer, self.metrics
+        t_dec0 = time.perf_counter() if tr is not None else 0.0
         budgets = [ctrl.max_step_tokens(a.state) for a in fall] \
             + [cfg.answer_max_tokens] * len(ans)
         stops = [ctrl.segmenter.stop_ids] * len(fall) + [[tk.EOS]] * len(ans)
         outs: List[Optional[List[int]]] = [None] * len(acts)
 
-        if self.spec_be is not None and tc.spec_decode:
+        use_spec = self.spec_be is not None and tc.spec_decode
+        spec_idx = [i for i, a in enumerate(acts)
+                    if use_spec and not a.req.quarantined]
+        if spec_idx:
+            sub = [acts[i] for i in spec_idx]
             items = [SpecRow(a.base_row, a.small_row, budgets[i], stops[i],
                              a.state.generator)
-                     for i, a in enumerate(acts)]
+                     for i, a in zip(spec_idx, sub)]
+            on_round = None
+            if tr is not None or mt is not None:
+                # one span a judged row a round on its request's track,
+                # one accepted-length observation a row a round
+                def on_round(rnd, rt0, rt1, infos, _sub=sub):
+                    for j, proposed, accepted in infos:
+                        if tr is not None:
+                            tr.span(request_track(_sub[j].req.request_id),
+                                    "spec_round", rt0, rt1,
+                                    {"round": rnd, "proposed": proposed,
+                                     "accepted": accepted})
+                        if mt is not None:
+                            mt.accepted_length.observe(accepted)
+                            mt.spec_rounds.inc()
             s_outs, round_stats = self.spec_be.decode_rows(
-                items, cfg.sampling, _SchedulerLedger(self, acts))
-            for i, (ids, s) in enumerate(zip(s_outs, round_stats)):
+                items, cfg.sampling, _SchedulerLedger(self, sub),
+                gamma=tc.gamma, on_round=on_round)
+            for i, ids, st in zip(spec_idx, s_outs, round_stats):
                 if acts[i].alive:
                     outs[i] = ids
-                    acts[i].state.spec_stats.merge(s)
+                    acts[i].state.spec_stats.merge(st)
                     self._settle(acts[i], "base")
                     self._settle(acts[i], "small")
-        else:
-            for a, b in zip(acts, budgets):
-                self._reserve(a, "base",
-                              int(self.base_be.pos[a.base_row]) + b)
-            plain = [i for i in range(len(acts)) if acts[i].alive]
+        spec_set = set(spec_idx)
+        rest = [i for i in range(len(acts)) if i not in spec_set]
+        if rest:
+            for i in rest:
+                self._reserve(acts[i], "base",
+                              int(self.base_be.pos[acts[i].base_row])
+                              + budgets[i])
+            plain = [i for i in rest if acts[i].alive]
             p_outs = self.base_be.generate_rows(
                 [acts[i].base_row for i in plain],
                 [budgets[i] for i in plain], [], cfg.sampling,
@@ -863,6 +1412,14 @@ class ContinuousScheduler:
             if a.alive and ids is not None:
                 a.state.answer_ids = ids
                 a.state.phase = "done"
+        if tr is not None:
+            t_dec1 = time.perf_counter()
+            for a in fall:
+                tr.span(request_track(a.req.request_id), "fallback",
+                        t_dec0, t_dec1)
+            for a in ans:
+                tr.span(request_track(a.req.request_id), "answer",
+                        t_dec0, t_dec1)
 
     def _flush_close_batch(self) -> None:
         """Move closing requests to the answer phase and flush every owed
@@ -884,8 +1441,15 @@ class ContinuousScheduler:
         items = [a for a in items if a.alive]
         if not items:
             return
+        tr = self.tracer
+        t0 = time.perf_counter() if tr is not None else 0.0
         self.base_be.extend_rows([a.base_row for a in items],
                                  [a.pending_base for a in items])
+        if tr is not None:
+            t1 = time.perf_counter()
+            for a in items:
+                tr.span(request_track(a.req.request_id), "close", t0, t1,
+                        {"tokens": len(a.pending_base)})
         for a in items:
             a.pending_base = []
 
@@ -895,6 +1459,24 @@ class ContinuousScheduler:
         KVManager's 2-byte accounting of the same blocks, plus the
         store's scratch page)."""
         return {w: be.store.nbytes for w, be in self.engines.items()}
+
+    def resilience_stats(self) -> Dict[str, object]:
+        """The run's failure-lifecycle and overload-control counters (the
+        serve CLI's ``[resilience]`` line)."""
+        out: Dict[str, object] = {
+            "timeouts": self.timeouts,
+            "shed": self.shed_requests,
+            "quarantines": self.quarantines,
+            "retries": self.retries,
+            "failed": self.failures,
+            "preemptions": self.preemptions,
+            "stalled_ticks": self.stalled_ticks,
+            "audit_violations": self.audit_violations,
+        }
+        out.update(self.res.as_dict())
+        if self.faults is not None:
+            out["faults"] = self.faults.as_dict()
+        return out
 
     def pool_utilization(self) -> Dict[str, float]:
         """Fraction of each engine's block pool claimed (live sequences,

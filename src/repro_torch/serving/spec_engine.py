@@ -26,19 +26,30 @@ the ledger *reserves* each call's worst case before the call (``reserve``
 may preempt rows, which the engine observes through ``alive``) and
 shrinks the tables to the real length after it (``truncate``).  The
 default ledger does nothing: standalone engines own their pools and grow
-their tables themselves.
+their tables themselves.  The ledger's ``alive`` is also where the
+scheduler cancels a row whose deadline passed: between rounds, never
+inside a call.
+
+``decode_rows(gamma=)`` shrinks the draft length for one call (the
+degradation ladder's first rung); ``on_round`` receives each round's
+``(round, t0, t1, [(item, proposed, accepted), ...])`` for the
+scheduler's ``spec_round`` spans and metrics; with the base engine's
+tracer on, the acceptance is an ``accept_prog`` span on its
+``engine:<name>`` track.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+import time
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..core.spec_decode import SpecDecodeStats, acceptance_step
 from ..sampling.sample import SamplingParams
 from .batch_engine import BatchEngine
+from .telemetry import engine_track
 
 
 @dataclasses.dataclass
@@ -95,13 +106,31 @@ class BatchSpecEngine:
         return 1 if self.base_be.tp is None else self.base_be.tp.tp_size
 
     def decode_rows(self, items: Sequence[SpecRow], params: SamplingParams,
-                    ledger: Optional[SpecLedger] = None
+                    ledger: Optional[SpecLedger] = None,
+                    gamma: Optional[int] = None,
+                    on_round: Optional[
+                        Callable[[int, float, float,
+                                  List[Tuple[int, int, int]]], None]] = None
                     ) -> Tuple[List[List[int]], List[SpecDecodeStats]]:
         """Run rounds until every row hits its stop or budget.  Returns
         (emitted ids per row, per-row SpecDecodeStats).  Rows the ledger
-        preempts keep their partial output (the caller requeues them)."""
+        preempts keep their partial output (the caller requeues them).
+        ``gamma`` overrides the configured draft length for this call (at
+        most it: the admission headroom covers the configured one;
+        greedy tokens do not depend on it).  ``on_round`` observes each
+        round that judged rows: ``(round, t0, t1, infos)`` with one
+        ``(item, proposed, accepted)`` per judged row (perf_counter
+        seconds; it must not touch engine state)."""
         ledger = ledger or SpecLedger()
+        gam = self.gamma if gamma is None else gamma
+        if gam < 1:
+            raise ValueError("gamma must be >= 1")
+        if gam > self.gamma:
+            raise ValueError("per-call gamma above the configured gamma "
+                             "would exceed the admission headroom")
+        rounds = 0
         base, draft = self.base_be, self.draft_be
+        tr = base.tracer
         n = len(items)
         assert n <= base.batch
         out: List[List[int]] = [[] for _ in items]
@@ -112,6 +141,8 @@ class BatchSpecEngine:
         pending: List[Optional[int]] = [None] * n
 
         while True:
+            t_round0 = time.perf_counter() if on_round is not None else 0.0
+            round_info: List[Tuple[int, int, int]] = []
             active = [i for i in range(n)
                       if not done[i] and ledger.alive(i)
                       and items[i].budget > len(out[i])]
@@ -119,7 +150,7 @@ class BatchSpecEngine:
                     pending[i] is not None and ledger.alive(i)
                     for i in range(n)):
                 break
-            g_want = {i: min(self.gamma, items[i].budget - len(out[i]))
+            g_want = {i: min(gam, items[i].budget - len(out[i]))
                       for i in active}
             b_pos = {i: int(base.pos[items[i].base_row]) for i in active}
             d_pos = {i: int(draft.pos[items[i].draft_row]) for i in active}
@@ -165,10 +196,17 @@ class BatchSpecEngine:
                     logits.append(torch.cat([prev[i][None],
                                              chunk_l[i][:ga - 1]]))
                 bonus.append(chunk_l[i][len(ext[i]) - 1])
+            t_a0 = time.perf_counter() if tr is not None else 0.0
             verdicts = acceptance_step(
                 [chunks[i] for i in verify], [probs[i] for i in verify],
                 logits, bonus, [items[i].stop_ids for i in verify], params,
                 [items[i].generator for i in verify])
+            if tr is not None and verify:
+                # acceptance_step returns host verdicts: the span holds
+                # its launches and the wait for them
+                tr.span(engine_track(base.name), "accept_prog", t_a0,
+                        time.perf_counter(), {"rows": len(verify),
+                                              "gamma": gam})
 
             # -- 4) reconcile: truncate both rows and their tables; the
             # final suffix token becomes the base's pending token and is
@@ -183,6 +221,8 @@ class BatchSpecEngine:
                 stats[i].proposed += ga
                 stats[i].accepted += n_acc
                 stats[i].rounds += 1
+                if on_round is not None:
+                    round_info.append((i, ga, n_acc))
                 base.meter.spec_rounds += 1
                 base.meter.spec_proposed += ga
                 base.meter.spec_accepted += n_acc
@@ -214,4 +254,7 @@ class BatchSpecEngine:
                                [pending[i] for i in fin])
                 for i in fin:
                     pending[i] = None
+            if on_round is not None and round_info:
+                on_round(rounds, t_round0, time.perf_counter(), round_info)
+            rounds += 1
         return out, stats

@@ -58,6 +58,7 @@ class TPContext:
     group: Optional[Any] = None
     gathers: int = 0            # all-gathers run
     gather_s: float = 0.0       # host seconds inside them (see _gather)
+    broadcasts: int = 0         # rank 0's host decisions sent (broadcast)
 
     @classmethod
     def build(cls, tp_size: int, rank: int, init_method: str,
@@ -154,6 +155,7 @@ class TPContext:
         is taken on rank 0)."""
         box = [obj]
         dist.broadcast_object_list(box, src=0, group=self.group)
+        self.broadcasts += 1
         return box[0]
 
     def all_objects(self, obj) -> List:

@@ -37,14 +37,19 @@ def poisson_arrivals(n: int, rate: float, rng: random.Random) -> List[float]:
 
 def run_workload(sched: ContinuousScheduler,
                  pairs: Sequence[Tuple[Task, Optional[torch.Generator]]],
-                 arrivals: Sequence[float]) -> List[Request]:
+                 arrivals: Sequence[float],
+                 opts: Optional[Sequence[dict]] = None) -> List[Request]:
     """Submit ``pairs`` at their arrival offsets and tick ``sched`` until
-    every request is terminal.  Returns the handles in submission order;
-    a queue that stays admission-blocked with nothing in flight raises
-    with the head requests' reasons.  Under tensor parallelism rank 0
-    reads the clock and broadcasts how many requests have arrived each
-    tick, and the ranks' tokens are compared at the end."""
+    every request is terminal (ok, timeout, shed or failed).  Returns the
+    handles in submission order; a queue that stays admission-blocked
+    with nothing in flight raises with the head requests' reasons (an
+    injected pool hold or stall is waited out).  ``opts[i]`` are extra
+    submit arguments of request i (``deadline_s``, ``priority``,
+    ``group``).  Under tensor parallelism rank 0 reads the clock and
+    broadcasts how many requests have arrived each tick, and the ranks'
+    statuses and tokens are compared at the end."""
     assert len(pairs) == len(arrivals)
+    assert opts is None or len(opts) == len(pairs)
     t0 = time.perf_counter()
     handles: List[Request] = []
     i = 0
@@ -57,7 +62,8 @@ def run_workload(sched: ContinuousScheduler,
             due = sched.tp.broadcast(due)
         while i < due:
             task, gen = pairs[i]
-            handles.append(sched.submit(task, generator=gen))
+            handles.append(sched.submit(
+                task, generator=gen, **(opts[i] if opts is not None else {})))
             i += 1
         if i >= len(pairs) and all(h.terminal for h in handles):
             sched.check_lockstep(handles)
@@ -65,6 +71,10 @@ def run_workload(sched: ContinuousScheduler,
         done_before = len(sched.done)
         sched.tick()
         if sched.active or len(sched.done) > done_before:
+            continue
+        if sched.faults is not None and sched.faults.busy(sched.ticks):
+            # injected backpressure (a pool hold, a stall window) that a
+            # later tick releases on its own
             continue
         if i < len(pairs):
             # idle until the next arrival
@@ -167,11 +177,16 @@ def percentile(sorted_vals: List[float], p: float) -> float:
     return sorted_vals[idx]
 
 
-def summarize(handles: Sequence[Request], wall_s: float) -> Dict[str, float]:
+def summarize(handles: Sequence[Request], wall_s: float,
+              slo_tpot_s: Optional[float] = None) -> Dict[str, float]:
     """Aggregate one workload run: throughput (req/s, tok/s), end-to-end
     latency percentiles, TTFT / TPOT / prefill-stall percentiles, and
     spec-decode acceptance when the run used it.  Latency aggregates
-    cover the completed (status ok) requests."""
+    cover the completed (status ok) requests; the failure counters
+    (timeouts / shed / failed / retries) and ``goodput_req_s`` --
+    completions that also met their own deadline and ``slo_tpot_s``
+    (when given), per second -- keep a run that sheds half its load from
+    claiming the throughput of the half it kept."""
     ok = [h for h in handles if h.status == "ok"]
     lats = sorted(h.e2e_latency for h in ok if h.e2e_latency is not None)
     toks = sum(len(h.result.thinking_ids) + len(h.result.answer_ids)
@@ -186,15 +201,28 @@ def summarize(handles: Sequence[Request], wall_s: float) -> Dict[str, float]:
         "p95_latency_s": round(percentile(lats, 0.95), 4),
         "mean_latency_s": round(sum(lats) / n, 4) if n else 0.0,
     }
-    # failure outcomes and goodput, as the JAX package reports them (no
-    # deadline or SLO is ported, so every completion meets its SLO)
+    # failure outcomes and goodput: a request counts toward goodput iff
+    # it completed, beat its own deadline (when it carried one) and kept
+    # TPOT within ``slo_tpot_s`` (when given)
     statuses = Counter(h.status for h in handles)
     out["timeouts"] = statuses.get("timeout", 0)
     out["shed"] = statuses.get("shed", 0)
     out["failed"] = statuses.get("failed", 0)
-    out["retries"] = 0
-    out["slo_met"] = n
-    out["goodput_req_s"] = out["req_s"]
+    out["retries"] = sum(h.retries for h in handles)
+    good = 0
+    for h in ok:
+        if h.result is None:
+            continue
+        if h.deadline_s is not None and (
+                h.e2e_latency is None or h.e2e_latency > h.deadline_s):
+            continue
+        if slo_tpot_s is not None:
+            tp = h.tpot(len(h.result.thinking_ids) + len(h.result.answer_ids))
+            if tp is not None and tp > slo_tpot_s:
+                continue
+        good += 1
+    out["slo_met"] = good
+    out["goodput_req_s"] = round(good / wall_s, 3) if wall_s > 0 else 0.0
     ttfts = sorted(h.ttft for h in handles if h.ttft is not None)
     if ttfts:
         out["p50_ttft_s"] = round(percentile(ttfts, 0.50), 4)

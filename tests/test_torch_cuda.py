@@ -1353,6 +1353,64 @@ def test_fused_rows_capture_once_per_key_on_card(dev):
     assert be.meter.decode_calls == 5
 
 
+def test_rows_finite_and_annotated_replays_on_card(dev):
+    """The health scan's ``rows_finite`` on the card's logits after fused
+    rows calls: a row poisoned in place (as the ``nan_logits`` fault
+    writes it, into the tensor the graphs read) reads False, the others
+    True; an annotating tracer wraps each
+    call in ``record_function("<engine>.<op>")``, which a profiler trace
+    shows around the graph replays, one range a call, and the launch
+    counts equal an untraced engine's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.telemetry import Tracer
+    plain = _rows_engine(dev)
+    traced = _rows_engine(dev, plain.params)
+    traced.tracer = Tracer(annotate=True)
+    traced.name = "probe"
+    counts = []
+    for be, prof in ((plain, False), (traced, True)):
+        paged_decode_attention.launches = 0
+        paged_append_attention.launches = 0
+        rows = [be.alloc_row() for _ in range(3)]
+        be.extend_rows(rows, [list(range(10, 31)), [5, 6, 7], [9, 8]])
+        sp = SamplingParams(0.0)
+        be.generate_rows(rows, [20, 9, 14], [], sp,
+                         [torch.Generator(device="cuda") for _ in rows])
+        if prof:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as p:
+                out = be.generate_rows(
+                    rows, [16, 16, 16], [], sp,
+                    [torch.Generator(device="cuda") for _ in rows])
+                torch.cuda.synchronize()
+        else:
+            out = be.generate_rows(
+                rows, [16, 16, 16], [], sp,
+                [torch.Generator(device="cuda") for _ in rows])
+        torch.cuda.synchronize()
+        counts.append((paged_decode_attention.launches,
+                       paged_append_attention.launches, out,
+                       be.meter.decode_steps, be.captures))
+        assert be.rows_finite(rows) == [True, True, True]
+        be.last_logits[rows[1]] = float("nan")
+        assert be.rows_finite(rows) == [True, False, True]
+        assert be.finite_mask([rows[2], rows[1]]).device.type == "cuda"
+    assert counts[0] == counts[1]
+    assert counts[0][0] == plain.model.cfg.n_layers * \
+        plain.meter.decode_steps > 0
+    # one host range, and its annotation on the card's timeline around
+    # the replays' kernels
+    ranges = [e for e in p.events() if e.name == "probe.decode"]
+    assert sum(e.device_type == torch.autograd.DeviceType.CPU
+               for e in ranges) == 1
+    assert sum(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in ranges) == 1
+    spans = [e for e in traced.tracer.entries()
+             if e[1] == "engine:probe" and e[2] == "decode"]
+    assert len(spans) == 2                     # one a call, not a step
+
+
 _ROWS_CAPTURE_FAILS = """
 import sys, torch
 from repro_torch.configs import testbed

@@ -28,7 +28,7 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.serving." + m for m in (
         "kv_manager", "paged_kv", "batch_engine", "spec_engine",
         "resilience", "telemetry", "scheduler", "workload",
-        "prefix_cache")} \
+        "prefix_cache", "faults")} \
         | {"repro_torch.core.spec_decode",
            "repro_torch.kernels.paged_decode_attention",
            "repro_torch.kernels.paged_append_attention",

@@ -207,3 +207,65 @@ def run(tp, payload) -> Dict:
         out["describe"] = tp.describe()
         out["threads"] = torch.get_num_threads()
     return out
+
+
+# the tp resilience scenario: a stall of STALL_S at tick 2 outlasts the
+# short deadline, so requests 1 (in flight) and 2 (queued) time out at
+# tick 2's sweep, and a feasibility factor this large sheds request 4
+# (queued behind higher priorities, long deadline) at the first sweep
+# after a finish gave the service estimate
+SHORT_DEADLINE_S = 1.0
+STALL_S = 1.5
+RESILIENCE_OPTS = [
+    dict(priority=1), dict(priority=1, deadline_s=SHORT_DEADLINE_S),
+    dict(priority=1, deadline_s=SHORT_DEADLINE_S), dict(priority=1),
+    dict(priority=0, deadline_s=600.0), dict(priority=1)]
+
+
+def resilience(tp, payload) -> Dict:
+    """One greedy workload with deadlines that fire mid-flight and
+    queued, a feasibility shed, the ladder forced to step down every
+    tick and a stall fault (``tests/test_torch_resilience.py``):
+    statuses, error codes, where each timeout struck, tokens and the
+    scheduler's counters, at this rank (``tp`` None: tp=1 here), and a
+    rank's count of broadcasts."""
+    from repro_torch.serving.faults import Fault, FaultInjector, FaultPlan
+    from repro_torch.serving.resilience import ResilienceConfig
+    from repro_torch.serving.workload import run_workload
+    base, small = engines(payload)
+    cfg = SpecReasonConfig(policy=StaticThreshold(4.5), token_budget=32,
+                           max_steps=4, use_spec_decode=True, spec_gamma=3,
+                           fused_decode=False,
+                           sampling=SamplingParams(temperature=0.0))
+    kv = KVManager(base.model.cfg, small.model.cfg,
+                   KVBudget(total_bytes=1 << 22))
+    cs = ContinuousScheduler(
+        SpecReason(base, small, cfg), kv, max_batch=2,
+        context_capacity=128, tp=tp, audit=True,
+        resilience=ResilienceConfig(degrade=True, high_water=0.0,
+                                    low_water=0.0, patience=1,
+                                    shed_policy="priority",
+                                    feasibility_factor=1e6),
+        faults=FaultInjector(FaultPlan([Fault(tick=2, kind="stall",
+                                              duration=1,
+                                              stall_s=STALL_S)])))
+    rng = random.Random(8)
+    reqs = [tasks.sample_task(rng) for _ in RESILIENCE_OPTS]
+    handles = run_workload(
+        cs, [(t, torch.Generator().manual_seed(i))
+             for i, t in enumerate(reqs)], [0.0] * len(reqs),
+        opts=RESILIENCE_OPTS)
+    out = {} if tp is None else {"broadcasts": tp.broadcasts}
+    return dict(
+        out,
+        statuses=[h.status for h in handles],
+        codes=[h.error.code if h.error else None for h in handles],
+        where=[next((w for w in ("mid-flight", "queued")
+                     if h.error and w in h.error.message), None)
+               for h in handles],
+        tokens=[(h.result.thinking_ids, [int(t) for t in h.result.answer_ids])
+                if h.result else None for h in handles],
+        ticks=cs.ticks, stalled_ticks=cs.stalled_ticks,
+        level=cs.res.level, transitions=len(cs.res.transitions),
+        timeouts=cs.timeouts, shed=cs.shed_requests,
+        audit_violations=cs.audit_violations)
